@@ -1,0 +1,137 @@
+"""Triangle rasterizer (counterpart of rtsdm_tpu/ops/raster.py).
+
+Homogeneous 2-D edge functions (no near-plane clipping stage; vertices
+behind the camera are handled by sign logic) rasterized to a visibility
+buffer (tri_id + perspective-correct barycentrics); attributes are fetched
+afterwards. The raster itself is the sort-middle algorithm of
+ops/raster_cuda.py at every triangle count: its CUDA kernel for CUDA
+tensors, its plain version for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..utils.math import cross, dot3, transform_point
+from . import raster_cuda
+
+CULL_NONE = 0
+CULL_BACK = 1
+CULL_FRONT = 2
+
+CULL_MODES = {"none": CULL_NONE, "back": CULL_BACK, "front": CULL_FRONT}
+
+
+def _setup_triangles(view_proj, positions, width: int, height: int,
+                     jitter_x, jitter_y, cull: int):
+    """Per-triangle homogeneous setup.
+
+    Returns (coef [T,5,3], bbox [T,4], valid [T]); coef rows are the edge
+    functions c0, c1, c2 (E_i(p) = c_i . (px, py, 1)), the clip-z
+    interpolant zc and the clip-w interpolant wc: z_ndc(p) = (zc.p)/(wc.p).
+    """
+    clip = transform_point(view_proj, positions)           # [T,3,4]
+    x, y, z, w = clip.unbind(-1)
+    # homogeneous pixel coords; jitter shifts the image by (+jitterX,
+    # -jitterY) pixels * dim, matching computeRayPinhole (Camera.slang:72-74)
+    px = (x + w) * (0.5 * width) + (jitter_x * width) * w
+    py = (w - y) * (0.5 * height) - (jitter_y * height) * w
+    v = torch.stack([px, py, w], -1)                       # [T,3(vert),3]
+
+    c0 = cross(v[:, 1], v[:, 2])
+    c1 = cross(v[:, 2], v[:, 0])
+    c2 = cross(v[:, 0], v[:, 1])
+    det = dot3(c0, v[:, 0])
+    # front face = world-CCW winding facing the camera, CW in y-down screen
+    # space => det < 0
+    if cull == CULL_BACK:
+        valid = det < 0.0
+        sgn = -torch.ones_like(det)
+    elif cull == CULL_FRONT:
+        valid = det > 0.0
+        sgn = torch.ones_like(det)
+    else:
+        valid = det != 0.0
+        sgn = torch.sign(det)
+    # orient the edge functions so "inside" is all-positive
+    c0, c1, c2 = c0 * sgn[:, None], c1 * sgn[:, None], c2 * sgn[:, None]
+    zc = c0 * z[:, 0:1] + c1 * z[:, 1:2] + c2 * z[:, 2:3]
+    wc = c0 * w[:, 0:1] + c1 * w[:, 1:2] + c2 * w[:, 2:3]
+    coef = torch.stack([c0, c1, c2, zc, wc], 1)             # [T,5,3]
+
+    # conservative pixel bbox; triangles with a vertex behind the eye get
+    # the full viewport
+    safe_w = torch.clamp(w, min=1e-9)
+    sx, sy = px / safe_w, py / safe_w
+    behind = (w <= 1e-9).any(-1)
+    x0 = torch.where(behind, 0.0, torch.clamp(
+        torch.floor(sx.amin(-1)), 0, width))
+    x1 = torch.where(behind, float(width), torch.clamp(
+        torch.ceil(sx.amax(-1)) + 1, 0, width))
+    y0 = torch.where(behind, 0.0, torch.clamp(
+        torch.floor(sy.amin(-1)), 0, height))
+    y1 = torch.where(behind, float(height), torch.clamp(
+        torch.ceil(sy.amax(-1)) + 1, 0, height))
+    bbox = torch.stack([x0, y0, x1, y1], -1)
+    valid = valid & (x1 > x0) & (y1 > y0)
+    return coef, bbox, valid
+
+
+def rasterize(view_proj, positions, *, width: int, height: int,
+              jitter_x=0.0, jitter_y=0.0, cull: str = "back"):
+    """Rasterize a triangle soup [T,3,3] to a visibility buffer.
+
+    Returns dict: tri_id [H,W] int32 (-1 = background), bary [H,W,2]
+    (b1, b2), depth [H,W] NDC z in [0,1] (1.0 at background), overflow
+    (tiles whose chunk list hit its width and streamed every chunk — a
+    diagnostic, never a correctness loss)."""
+    coef, bbox, valid = _setup_triangles(view_proj, positions, width, height,
+                                         jitter_x, jitter_y, CULL_MODES[cull])
+    order = raster_cuda.screen_morton_order(bbox, valid, width, height)
+    coef, bbox, valid = coef[order], bbox[order], valid[order]
+    chunks = raster_cuda.pack_coef_chunks(coef, valid, order)
+    cbox = raster_cuda.chunk_screen_bboxes(bbox, valid)
+    nby = -(-height // raster_cuda.TILE_RH)
+    nbx = -(-width // raster_cuda.TILE_RW)
+    lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
+    z, tid, b1, b2 = raster_cuda.raster_blocks(chunks, lists, counts,
+                                               nby, nbx)
+    crop = (slice(0, height), slice(0, width))
+    return {"tri_id": tid[crop], "bary": torch.stack([b1[crop], b2[crop]], -1),
+            "depth": z[crop],
+            "overflow": torch.clamp(counts - lists.shape[1], min=0).sum()}
+
+
+def interpolate(tri_id, bary, vertex_attr):
+    """Perspective-correct attribute fetch: vertex_attr [T,3,C] ->
+    [H,W,C], 0 at background."""
+    a = vertex_attr[torch.clamp(tri_id, min=0).long()]      # [H,W,3,C]
+    b1, b2 = bary[..., 0:1], bary[..., 1:2]
+    b0 = 1.0 - b1 - b2
+    out = b0 * a[..., 0, :] + b1 * a[..., 1, :] + b2 * a[..., 2, :]
+    return torch.where((tri_id >= 0)[..., None], out, 0.0)
+
+
+def flat_fetch(tri_id, per_tri):
+    """Per-triangle attribute at each pixel's winner (background rows hold
+    triangle 0's value; callers mask on tri_id < 0)."""
+    return per_tri[torch.clamp(tri_id, min=0).long()]
+
+
+def fetch_vertex_attributes(tri_id, bary, interp=(), flats=()):
+    """Materialize interpolated ([T,3,C] tables) and flat ([T] / [T,C])
+    attributes for a winner image in one pass (K2). Returns the channels in
+    order; every channel is 0 at background pixels; integer flats keep
+    their dtype."""
+    table, nci, nflat = raster_cuda.pack_attr_rows(interp, flats)
+    out = raster_cuda.fetch_attributes(tri_id.contiguous(),
+                                       bary.contiguous(), table, nci, nflat)
+    res, k = [], 0
+    for a in interp:
+        res.append(out[..., k:k + a.shape[2]])
+        k += a.shape[2]
+    for f in flats:
+        c = 1 if f.ndim == 1 else f.shape[1]
+        o = out[..., k] if f.ndim == 1 else out[..., k:k + c]
+        res.append(o if f.is_floating_point() else o.to(f.dtype))
+        k += c
+    return res
