@@ -7,8 +7,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
 
 1. refuse to run without a CUDA device, or outside a checkout of the repo;
 2. print the card's name and power limit (nvidia-smi);
-3. build the CUDA kernels (csrc/*.cu, nvcc, sm_90a) and the scene helper;
-4. drive the main path once, as bench.py does, at SunTemple@full 1920x1080:
+3. build the CUDA kernels (csrc/*.cu, one nvcc per source, sm_90a) and the
+   scene helper;
+4. drive the SVAO path once, as bench.py does, at SunTemple@full 1920x1080:
    G-buffer -> linearize -> packed view normals -> SVAO.execute (phase 1,
    nested SD ray-trace graph, phase 2). Every kernel's launch count is
    zeroed just before and read just after; each of the five must have
@@ -21,14 +22,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    device time by kernel, and the device's idle share of the frame);
 7. render CornellBox 64x64 on the card and on the CPU (the plain versions,
    which tests/test_torch_*.py hold against the JAX package) and compare
-   the AO with the bound those tests use.
+   the AO with the bound those tests use;
+8. the graph path: scripts/SVAO_small.py (the README's four outputs) through
+   rtsdm_tpu_torch.mogwai at SunTemple@full 1920x1080 with the script's own
+   properties, 3 frames on a paused clock. Counts are zeroed before and read
+   after every frame: per frame K10 (warp_resample) launches at least 6
+   times, K8 (any_hit) once per light, K1 and K2 twice (ForwardLighting
+   re-rasters), K3-K5 as on the SVAO path; no plain version runs. The four
+   marked outputs are cropped to 1080x1920 and finite, and AO lies in [0, 1];
+9. hold K8 and K10 against their plain versions on the inputs of the graph's
+   last frame (K8 on a spread subset of whole 8x32 tiles), and K10 also on a
+   synthetic motion field at the TAA shape; time the kernels, their plain
+   versions and K10's library yardstick (grid_sample);
+10. time the graph frame: host-clock median over 7 frames after a warm-up,
+   per-pass CUDA events, and one profiled frame (device busy, idle share).
 
-The last three lines are JSON: the frame's times, one entry per kernel
-({"kernels": [...]}), and {"ok": true, "device": {...}}.
+The last three lines are JSON: the frames' times, one entry per kernel
+({"kernels": [...]}, with its bound and library yardstick), and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
+import inspect
 import json
 import math
 import subprocess
@@ -38,6 +55,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WIDTH, HEIGHT = 1920, 1080
+GRAPH_SCRIPT = ROOT / "scripts" / "SVAO_small.py"
+GRAPH_SCENE = "SunTemple@full"
+GRAPH_FRAMES = 3
+# the H100's published peaks (NVIDIA's data sheet, SXM part, at 700 W): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# fp32 operations over the fp32 rate
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
 SVAO_PROPS = {"secondaryDepthMode": "StochasticDepth",
               "stochasticDepthImpl": "Ray", "radius": 0.2,
               "stochMapDivisor": 4, "stochMapGuardBand": 512,
@@ -82,70 +107,97 @@ def gpu_identity() -> str:
 # ---------------------------------------------------------------------------
 
 class Kernel:
-    """One CUDA kernel of the main path: its C entry point (whose launches
-    the wrapper counts), its wrapper, the name the main path looks the
-    wrapper up under, its plain version, and the TPU kernel it replaces."""
+    """One CUDA kernel of a path: the keys its launches are counted under
+    (rtsdm_tpu_torch._build.LAUNCHES), its wrapper, the (module, name)
+    places the path looks the wrapper up under, its plain version(s), and
+    the TPU kernel it replaces."""
 
-    def __init__(self, name, entry, wrapper, lookup, plain_owner,
-                 plain_name, source, replaces):
-        self.name, self.entry = name, entry
-        self.wrapper, self.lookup = wrapper, lookup
-        self.plain_owner, self.plain_name = plain_owner, plain_name
+    def __init__(self, name, entries, wrapper, lookups, plains, source,
+                 replaces):
+        self.name, self.entries = name, tuple(entries)
+        self.wrapper, self.lookups = wrapper, list(lookups)
+        self.plains = list(plains)
         self.source, self.replaces = source, replaces
-        self.calls = []          # (args, kwargs) of the main path's calls
+        self.calls = []          # (args, kwargs) of the path's calls
         self.result = {}
 
     @property
     def launches(self) -> int:
-        """Launches of the kernel's C entry point, counted by the wrapper
-        where it launches the kernel (rtsdm_tpu_torch._build.launch)."""
+        """Launches of the kernel, counted by the wrapper where it launches
+        it (rtsdm_tpu_torch._build.launch)."""
         from rtsdm_tpu_torch._build import LAUNCHES
-        return LAUNCHES[self.entry]
+        return sum(LAUNCHES[e] for e in self.entries)
 
 
 def kernels_of_path():
     from rtsdm_tpu_torch.ops import fetch_cuda, raster_cuda, rt_cuda
     from rtsdm_tpu_torch.passes import svao_shift
     return [
-        Kernel("raster", "rtsdm_raster_blocks",
-               raster_cuda.raster_blocks,
-               (raster_cuda, "raster_blocks"), raster_cuda,
-               "raster_blocks_plain", "rtsdm_tpu_torch/csrc/raster.cu",
+        Kernel("raster", ["rtsdm_raster_blocks"],
+               raster_cuda.raster_blocks, [(raster_cuda, "raster_blocks")],
+               [(raster_cuda, "raster_blocks_plain")],
+               "rtsdm_tpu_torch/csrc/raster.cu",
                "rtsdm_tpu/ops/raster_pallas.py:394"),
-        Kernel("fetch_attributes", "rtsdm_fetch_attributes",
+        Kernel("fetch_attributes", ["rtsdm_fetch_attributes"],
                raster_cuda.fetch_attributes,
-               (raster_cuda, "fetch_attributes"), raster_cuda,
-               "fetch_attributes_plain", "rtsdm_tpu_torch/csrc/raster.cu",
+               [(raster_cuda, "fetch_attributes")],
+               [(raster_cuda, "fetch_attributes_plain")],
+               "rtsdm_tpu_torch/csrc/raster.cu",
                "rtsdm_tpu/ops/raster_pallas.py:584"),
-        Kernel("fetch_all_directions", "rtsdm_fetch_directions",
+        Kernel("fetch_all_directions", ["rtsdm_fetch_directions"],
                fetch_cuda.fetch_all_directions,
-               (svao_shift, "fetch_all_directions"), fetch_cuda,
-               "fetch_all_directions_plain", "rtsdm_tpu_torch/csrc/fetch.cu",
+               [(svao_shift, "fetch_all_directions")],
+               [(fetch_cuda, "fetch_all_directions_plain")],
+               "rtsdm_tpu_torch/csrc/fetch.cu",
                "rtsdm_tpu/ops/fetch_pallas.py:221"),
-        Kernel("fetch_sd_packed", "rtsdm_fetch_sd_packed",
+        Kernel("fetch_sd_packed", ["rtsdm_fetch_sd_packed"],
                fetch_cuda.fetch_sd_packed,
-               (svao_shift, "fetch_sd_packed"), fetch_cuda,
-               "fetch_sd_packed_plain", "rtsdm_tpu_torch/csrc/fetch.cu",
+               [(svao_shift, "fetch_sd_packed")],
+               [(fetch_cuda, "fetch_sd_packed_plain")],
+               "rtsdm_tpu_torch/csrc/fetch.cu",
                "rtsdm_tpu/ops/fetch_pallas.py:432"),
-        Kernel("sd_trace", "rtsdm_sd_trace",
-               rt_cuda.sd_trace_blocks,
-               (rt_cuda, "sd_trace_blocks"), rt_cuda,
-               "sd_trace_blocks_plain", "rtsdm_tpu_torch/csrc/sd_trace.cu",
+        Kernel("sd_trace", ["rtsdm_sd_trace"],
+               rt_cuda.sd_trace_blocks, [(rt_cuda, "sd_trace_blocks")],
+               [(rt_cuda, "sd_trace_blocks_plain")],
+               "rtsdm_tpu_torch/csrc/sd_trace.cu",
                "rtsdm_tpu/ops/rt_pallas.py:791"),
+    ]
+
+
+def kernels_of_graph():
+    """The SVAO path's five kernels plus K8 and K10, which the graph's
+    RayShadow, EnvMapPass, ForwardLighting and TAA passes launch."""
+    from rtsdm_tpu_torch.ops import rt_cuda, warp_cuda
+    from rtsdm_tpu_torch.passes import temporal
+    from rtsdm_tpu_torch.scene import textures
+    return kernels_of_path() + [
+        Kernel("any_hit", ["rtsdm_any_hit"], rt_cuda.any_hit_blocks,
+               [(rt_cuda, "any_hit_blocks")],
+               [(rt_cuda, "any_hit_blocks_plain")],
+               "rtsdm_tpu_torch/csrc/any_hit.cu",
+               "rtsdm_tpu/ops/rt_pallas.py:1068"),
+        Kernel("warp_resample",
+               [warp_cuda.launch_key(m) for m in warp_cuda.MODES],
+               warp_cuda.warp_resample,
+               [(textures, "warp_resample"), (temporal, "warp_resample")],
+               [(warp_cuda, "warp_resample_plain"),
+                (temporal, "warp_resample_plain")],
+               "rtsdm_tpu_torch/csrc/warp.cu",
+               "rtsdm_tpu/ops/warp_pallas.py:198"),
     ]
 
 
 @contextlib.contextmanager
 def record_main_path(kernels):
-    """Keep the arguments of every kernel call the main path makes, and
-    fail any call of a plain version while the main path runs."""
+    """Keep the arguments of every kernel call the path makes, and fail
+    any call of a plain version while the path runs."""
     saved = []
     plain_calls = []
     for k in kernels:
-        owner, attr = k.lookup
-        check(getattr(owner, attr) is k.wrapper,
-              f"{k.name}: the main path does not look up its wrapper as "
-              f"{owner.__name__}.{attr}")
+        for owner, attr in k.lookups:
+            check(getattr(owner, attr) is k.wrapper,
+                  f"{k.name}: the path does not look up its wrapper as "
+                  f"{owner.__name__}.{attr}")
 
         def rec(*args, _k=k, **kwargs):
             _k.calls.append((args, kwargs))
@@ -154,13 +206,14 @@ def record_main_path(kernels):
         def plain_guard(*args, _k=k, **kwargs):
             plain_calls.append(_k.name)
             raise SmokeFailure(f"{_k.name}: the plain version ran on the "
-                               "main path")
+                               "path")
 
-        saved.append((owner, attr, getattr(owner, attr)))
-        saved.append((k.plain_owner, k.plain_name,
-                      getattr(k.plain_owner, k.plain_name)))
-        setattr(owner, attr, rec)
-        setattr(k.plain_owner, k.plain_name, plain_guard)
+        for owner, attr in k.lookups:
+            saved.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, rec)
+        for owner, attr in k.plains:
+            saved.append((owner, attr, getattr(owner, attr)))
+            setattr(owner, attr, plain_guard)
     try:
         yield plain_calls
     finally:
@@ -277,11 +330,53 @@ def _max_abs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
-def chunk_visits(lists, counts, n_chunks: int) -> str:
-    """The work of a tile walk: chunks visited per tile (a tile whose list
-    overflowed visits every chunk)."""
-    visits = counts.clamp(max=lists.shape[1]).where(
+# fp32 operations per unit of work, counted from the kernels' sources
+RASTER_FLOPS_PER_TEST = 24    # raster.cu: five plane equations (4 each),
+                              # the edge tolerance (3), the depth divide (1)
+TRACE_FLOPS_PER_TEST = 18     # sd_trace.cu: det, u*det, v*det (5 each),
+                              # u+v, the two interval products
+ANY_HIT_FLOPS_PER_PAIR = 47   # any_hit.cu: d x e2 (9), det (5), o - v0 (3),
+                              # u*det (5), tv x e1 (9), v*det (5), t*det (5),
+                              # the sign products (4), the interval (2)
+
+
+def nbytes(*objs) -> int:
+    """Bytes of every tensor among objs (lists and tuples searched)."""
+    total = 0
+    for o in objs:
+        if isinstance(o, (list, tuple)):
+            total += nbytes(*o)
+        elif hasattr(o, "element_size"):
+            total += o.numel() * o.element_size()
+    return total
+
+
+def bound(n_bytes: float, flops: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the memory rate (each input read once, each output
+    written once) and the operations over the fp32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def with_bound(result: dict, n_bytes: float, flops: float,
+               library_ms=None) -> dict:
+    b_ms, b_by = bound(n_bytes, flops)
+    return dict(result, bound_ms=b_ms, bound_by=b_by, bound_bytes=n_bytes,
+                bound_flops=flops, library_ms=library_ms)
+
+
+def walk_visits(lists, counts, n_chunks: int):
+    """Chunks each tile's walk visits (a tile whose list overflowed visits
+    every chunk), as float64."""
+    return counts.clamp(max=lists.shape[1]).where(
         counts <= lists.shape[1], n_chunks).double()
+
+
+def chunk_visits(lists, counts, n_chunks: int) -> str:
+    """The work of a tile walk: chunks visited per tile."""
+    visits = walk_visits(lists, counts, n_chunks)
     return (f"{counts.numel()} tiles visit {float(visits.mean()):.1f} chunks "
             f"on average (max {int(visits.max())}, {int(visits.sum())} in "
             f"all); {int((counts > lists.shape[1]).sum())} tiles overflow "
@@ -310,11 +405,16 @@ def compare_raster(k):
     check(mism <= 1e-4 * n and err <= 1e-6, "K1 disagrees with its plain "
                                             "version")
     exact = all(torch.equal(a, b) for a, b in zip(got, want))
-    return dict(max_abs_err=err, mismatches=mism, exact=exact,
-                ms=cuda_ms(lambda: RC.raster_blocks(*args, **kwargs), 20, 2),
-                plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(*args,
-                                                                **kwargs),
-                                 1, 1))
+    tests = float(walk_visits(args[1], args[2], args[0].shape[0]).sum()) \
+        * RC.TC * 256
+    # no PyTorch call rasterizes triangles: no library yardstick
+    return with_bound(
+        dict(max_abs_err=err, mismatches=mism, exact=exact,
+             ms=cuda_ms(lambda: RC.raster_blocks(*args, **kwargs), 20, 2),
+             plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(*args,
+                                                             **kwargs),
+                              1, 1)),
+        nbytes(args[:3], got), tests * RASTER_FLOPS_PER_TEST)
 
 
 def compare_fetch_attributes(k):
@@ -328,11 +428,16 @@ def compare_fetch_attributes(k):
     log(f"K2 fetch_attributes {tuple(got.shape)}: max |diff| {err:.3g} "
         "(bound: bit-exact)")
     check(torch.equal(got, want), "K2 is not bit-exact")
-    return dict(max_abs_err=err, mismatches=0, exact=True,
-                ms=cuda_ms(lambda: RC.fetch_attributes(*args, **kwargs), 50,
-                           3),
-                plain_ms=cuda_ms(lambda: RC.fetch_attributes_plain(
-                    *args, **kwargs), 10, 2))
+    tri_id, nci = args[0], args[3]
+    # b0 (2), then 3 products and 2 sums per interpolated component; no
+    # single PyTorch call gathers and interpolates: no library yardstick
+    flops = float((tri_id >= 0).sum()) * (2 + 5 * nci)
+    return with_bound(
+        dict(max_abs_err=err, mismatches=0, exact=True,
+             ms=cuda_ms(lambda: RC.fetch_attributes(*args, **kwargs), 50, 3),
+             plain_ms=cuda_ms(lambda: RC.fetch_attributes_plain(
+                 *args, **kwargs), 10, 2)),
+        nbytes(args[:3], got), flops)
 
 
 def compare_fetch_directions(k):
@@ -354,10 +459,14 @@ def compare_fetch_directions(k):
     log(f"K3 fetch_all_directions {tuple(got.shape)}: {mism} mismatches, "
         f"max |diff| {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K3 is not bit-exact")
-    return dict(max_abs_err=err, mismatches=mism, exact=True,
-                ms=cuda_ms(lambda: F.fetch_all_directions(*args, **kwargs),
-                           50, 3),
-                plain_ms=cuda_ms(plain, 5, 1))
+    # a copy per output after one product radius * radii[d]; no single
+    # PyTorch call selects the level and shifts: no library yardstick
+    return with_bound(
+        dict(max_abs_err=err, mismatches=mism, exact=True,
+             ms=cuda_ms(lambda: F.fetch_all_directions(*args, **kwargs),
+                        50, 3),
+             plain_ms=cuda_ms(plain, 5, 1)),
+        nbytes(planes, radius, got), float(got.numel()))
 
 
 def compare_fetch_sd_packed(k):
@@ -382,9 +491,12 @@ def compare_fetch_sd_packed(k):
     log(f"K4 fetch_sd_packed {tuple(got.shape)}: {mism} mismatches, max "
         f"|diff| of the unpacked depths {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K4 is not bit-exact")
-    return dict(max_abs_err=err, mismatches=mism, exact=True,
-                ms=cuda_ms(lambda: F.fetch_sd_packed(*args, **kwargs), 50, 3),
-                plain_ms=cuda_ms(plain, 5, 1))
+    # as K3, on the 16-bit packed SD map: no library yardstick
+    return with_bound(
+        dict(max_abs_err=err, mismatches=mism, exact=True,
+             ms=cuda_ms(lambda: F.fetch_sd_packed(*args, **kwargs), 50, 3),
+             plain_ms=cuda_ms(plain, 5, 1)),
+        nbytes(sd_map, radius, got), float(got.numel()))
 
 
 def compare_sd_trace(k):
@@ -425,12 +537,16 @@ def compare_sd_trace(k):
           "the trace kernel's key function disagrees with the plain one")
     log(f"K5 key function: INT_MIN -> {int(key_hb[0])}, 4096 (u, v) keys "
         "bit-exact")
-    return dict(max_abs_err=err, mismatches=mism,
-                exact=bool(torch.equal(got, want)),
-                ms=cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10,
-                           2),
-                plain_ms=cuda_ms(lambda: RT.sd_trace_blocks_plain(
-                    *args, **kwargs), 1, 1))
+    tests = float(walk_visits(args[1], args[2], args[0].shape[0]).sum()) \
+        * RT.TC * RT.RB
+    # no PyTorch call traces rays: no library yardstick
+    return with_bound(
+        dict(max_abs_err=err, mismatches=mism,
+             exact=bool(torch.equal(got, want)),
+             ms=cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10, 2),
+             plain_ms=cuda_ms(lambda: RT.sd_trace_blocks_plain(
+                 *args, **kwargs), 1, 1)),
+        nbytes(args[:4], got), tests * TRACE_FLOPS_PER_TEST)
 
 
 COMPARE = {"raster": compare_raster,
@@ -498,21 +614,28 @@ KERNEL_SYMBOLS = {"raster": "raster_blocks_kernel",
                   "fetch_attributes": "fetch_attributes_kernel",
                   "fetch_all_directions": "fetch_directions_kernel",
                   "fetch_sd_packed": "fetch_sd_packed_kernel",
-                  "sd_trace": "sd_trace_kernel"}
+                  "sd_trace": "sd_trace_kernel",
+                  "any_hit": "any_hit_kernel",
+                  "warp_resample": "warp_resample_kernel"}
 
 
 def profiled_frame(scene, pass_, ctx):
     """Device activity of one steady-state frame under torch.profiler:
     {name: (ms, count)} over every kernel, copy and fill the card ran.
     Empty where the profiler saw no device activity."""
+    return profiled(lambda: frame(scene, pass_, ctx, WIDTH, HEIGHT))
+
+
+def profiled(run_frame):
+    """Device activity of run_frame() (after one warm-up call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    frame(scene, pass_, ctx, WIDTH, HEIGHT)
+    run_frame()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        frame(scene, pass_, ctx, WIDTH, HEIGHT)
+        run_frame()
         torch.cuda.synchronize()
     acts = {}
     for e in prof.events():
@@ -572,6 +695,299 @@ def small_frame_against_cpu():
           "AO on the card differs from the CPU tier")
     check(bool(torch.isfinite(res["cuda"][1]).all()), "AO not finite")
 
+
+
+# ---------------------------------------------------------------------------
+# the graph path: scripts/SVAO_small.py through the port's Mogwai harness
+# ---------------------------------------------------------------------------
+
+GRAPH_OUTPUTS = ("ShadedTAA.colorOut", "AmbientOcclusionTAA.colorOut",
+                 "Shaded.out", "AmbientOcclusion.out")
+ANY_HIT_TILES = 128   # whole 8x32 tiles of K8's plain comparison
+
+
+def graph_renderer():
+    """The `m` of a Mogwai run of the script: Renderer, script, scene,
+    paused clock (the script's own properties, nothing overridden)."""
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    m = Renderer(WIDTH, HEIGHT, device="cuda")
+    run_script(str(GRAPH_SCRIPT), m)
+    m.loadScene(GRAPH_SCENE)
+    m.clock.pause()
+    return m
+
+
+def check_graph_outputs(out):
+    import torch
+    check(set(out) == set(GRAPH_OUTPUTS), f"marked outputs {sorted(out)}")
+    for name in GRAPH_OUTPUTS:
+        v = out[name]
+        check(v.shape[:2] == (HEIGHT, WIDTH), f"{name}: shape "
+                                              f"{tuple(v.shape)}")
+        check(bool(torch.isfinite(v).all()), f"{name}: non-finite values")
+    ao = out["AmbientOcclusion.out"][..., 0]
+    lo, hi = float(ao.min()), float(ao.max())
+    check(0.0 <= lo and hi <= 1.0, f"AO outside [0, 1]: [{lo}, {hi}]")
+    check(lo < 0.9, f"AO shows no occlusion anywhere (min {lo})")
+    shaded = out["Shaded.out"][..., :3]
+    check(float(shaded.max()) > 0.0, "the shaded image is black")
+    return lo, hi
+
+
+def drive_graph(kernels, path_counts):
+    """Run the graph for GRAPH_FRAMES frames; counts are zeroed just before
+    and read just after every frame. Returns (renderer, launches summed over
+    the frames, K10's launches by mode)."""
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    from rtsdm_tpu_torch.ops import warp_cuda
+    t0 = time.perf_counter()
+    m = graph_renderer()
+    n_lights = min(int(m.scene.num_lights), int(
+        m.active_graph.get_pass("RayShadow").cfg["maxLights"]))
+    log(f"graph: {GRAPH_SCRIPT.relative_to(ROOT)} on {GRAPH_SCENE} "
+        f"({m.scene.num_triangles} triangles, {n_lights} light(s)) at "
+        f"{WIDTH}x{HEIGHT}, set up in {time.perf_counter() - t0:.2f} s")
+    want = {"raster": 2 * path_counts["raster"],
+            "fetch_attributes": 2 * path_counts["fetch_attributes"],
+            "fetch_all_directions": path_counts["fetch_all_directions"],
+            "fetch_sd_packed": path_counts["fetch_sd_packed"],
+            "sd_trace": path_counts["sd_trace"],
+            "any_hit": n_lights}
+    totals = collections.Counter()
+    modes = collections.Counter()
+    with record_main_path(kernels) as plain_calls:
+        for f in range(GRAPH_FRAMES):
+            m.clock.frame = f
+            for k in kernels:
+                k.calls.clear()        # keep the last frame's inputs
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            out = m.renderFrame()
+            counts = {k.name: k.launches for k in kernels}
+            by_mode = {md: LAUNCHES[warp_cuda.launch_key(md)]
+                       for md in warp_cuda.MODES}
+            lo, hi = check_graph_outputs(out)
+            log(f"graph frame {f}: {m.last_frame_ms:.3f} ms host clock; "
+                f"launches {counts}; K10 by mode {by_mode}; AO in "
+                f"[{lo:.4f}, {hi:.4f}]")
+            check(not plain_calls, f"plain versions ran: {plain_calls}")
+            for name, n in want.items():
+                check(counts[name] == n, f"{name}: {counts[name]} launches "
+                                         f"in a graph frame, expected {n}")
+            check(counts["warp_resample"] >= 6, "K10 launched fewer than 6 "
+                                                "times in a graph frame")
+            check(by_mode["catmull_rom"] == 2, "K10: TAA x2 expected")
+            totals.update(counts)
+            modes.update(by_mode)
+    return m, dict(totals), dict(modes)
+
+
+def compare_any_hit(k):
+    """K8: bit-exact, hits and the pairs each ray tested, on ANY_HIT_TILES
+    whole 8x32 tiles spread evenly over the tiles of the graph's last frame
+    that hold a live ray (the plain version over all 2.47M rays would take
+    too long); the kernel's launch over every tile must give the same
+    answers on those tiles as its launch on the subset. The bound counts
+    the ray-triangle pairs this run needed: each ray's pairs up to and
+    including its first hit, as the kernel reports them for every ray."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    check(len(k.calls) >= 1, "K8: no recorded call")
+    (tri, lists, counts, rays), kwargs = k.calls[-1]
+    nb = counts.shape[0]
+    hit, pairs = RT.any_hit_blocks(tri, lists, counts, rays)
+    live = (rays[7] > rays[6]).reshape(nb, RT.RB)
+    live_tiles = torch.nonzero(live.any(1)).squeeze(1)
+    check(live_tiles.numel() > 0, "K8: no live ray")
+    pick = torch.linspace(0, live_tiles.numel() - 1,
+                          min(ANY_HIT_TILES, live_tiles.numel()),
+                          device=live.device).round().long().unique()
+    sel = live_tiles[pick]
+    sub = (tri, lists[sel].contiguous(), counts[sel].contiguous(),
+           rays.reshape(8, nb, RT.RB)[:, sel].reshape(8, -1).contiguous())
+    hit_s, pairs_s = RT.any_hit_blocks(*sub)
+    hit_p, pairs_p = RT.any_hit_blocks_plain(*sub)
+    mism = int((hit_s != hit_p).sum()) + int((pairs_s != pairs_p).sum())
+    err = float((hit_s.double() - hit_p.double()).abs().max())
+    n_live = int(live.sum())
+    hit_share = float(hit.reshape(nb, RT.RB)[live].double().mean())
+    # the chunks a tile walked: the most of its rays' pairs over 128
+    vis = torch.div(pairs.reshape(nb, RT.RB).amax(1) + RT.TC - 1, RT.TC,
+                    rounding_mode="floor").double()
+    n_pairs = float(pairs.double().sum())
+    walk_pairs = float((vis * live.sum(1).double()).sum()) * RT.TC
+    log(f"K8 any_hit {nb * RT.RB} rays ({n_live} live) x {tri.shape[0]} "
+        f"chunks: {hit_share:.4f} of live rays occluded; tiles walk "
+        f"{float(vis.mean()):.1f} chunks on average (max {int(vis.max())}, "
+        f"{int(vis.sum())} in all); {n_pairs:.6g} ray-triangle pairs tested "
+        f"({walk_pairs:.6g} if every live ray tested its tile's whole walk)")
+    log(f"K8 against its plain version on {sel.numel()} tiles "
+        f"({int(live[sel].sum())} live rays): {mism} mismatches of hits "
+        "and tested pairs (bound: bit-exact)")
+    check(mism == 0, "K8 disagrees with its plain version")
+    check(torch.equal(hit.reshape(nb, RT.RB)[sel].reshape(-1), hit_s)
+          and torch.equal(pairs.reshape(nb, RT.RB)[sel].reshape(-1),
+                          pairs_s),
+          "K8 over every tile disagrees with K8 over the subset")
+    check(0.0 < hit_share < 1.0, f"K8: occluded share {hit_share}")
+    ms = cuda_ms(lambda: RT.any_hit_blocks(tri, lists, counts, rays), 10, 2)
+    ms_sub = cuda_ms(lambda: RT.any_hit_blocks(*sub), 10, 2)
+    plain_ms = cuda_ms(lambda: RT.any_hit_blocks_plain(*sub), 1, 0)
+    log(f"K8 times: kernel {ms:.4f} ms over every tile; on the "
+        f"{sel.numel()} tiles kernel {ms_sub:.4f} ms, plain {plain_ms:.2f} "
+        "ms")
+    # no PyTorch call traces rays: no library yardstick
+    return [dict(with_bound(
+        dict(max_abs_err=err, mismatches=mism, exact=True, ms=ms,
+             plain_ms=plain_ms, ms_on_plain_tiles=ms_sub,
+             plain_on=f"{sel.numel()} of {nb} tiles",
+             pairs=n_pairs, walk_pairs=walk_pairs,
+             chunk_visits=int(vis.sum())),
+        nbytes(tri, lists, counts, rays, hit, pairs),
+        n_pairs * ANY_HIT_FLOPS_PER_PAIR), name="any_hit")]
+
+
+# fp32 operations of K10 per output pixel and per output value, counted
+# from warp.cu (bilinear: the tap position and fractions, then three lerps
+# per channel; Catmull-Rom: both axes' weights, nine tap positions through
+# the uv round trip, then nine weighted blends per channel)
+WARP_FLOPS = {"bilinear": (4, 12), "catmull_rom": (131, 126)}
+
+
+def _warp_args(args, kwargs):
+    from rtsdm_tpu_torch.ops import warp_cuda as W
+    b = inspect.signature(W.warp_resample).bind(*args, **kwargs)
+    b.apply_defaults()
+    return b.arguments
+
+
+def warp_bound(tex, sx, sy, out, mode):
+    per_px, per_val = WARP_FLOPS[mode]
+    flops = sx.numel() * per_px + out.numel() * per_val
+    return nbytes(tex, sx, sy, out), float(flops)
+
+
+def compare_warp(k, launches_by_mode):
+    """K10: bit-exact on every call of the graph's last frame (TAA x2
+    Catmull-Rom, env map x3 bilinear wrapped in x, texture pages x1
+    bilinear), and on a synthetic motion field at the TAA shape (the real
+    history texture, +-6 px of sin/cos motion, then the same field shifted
+    far out of bounds by (+500, -300) px, as tests/test_pallas_interpret.py
+    builds it). The timed rows use the smooth field at the TAA shape;
+    bilinear's library yardstick is grid_sample (border, align_corners
+    False), which no part of the port calls."""
+    import torch
+    from rtsdm_tpu_torch.ops import warp_cuda as W
+    check(k.calls, "K10: no recorded call")
+    taa = None
+    worst = 0.0
+    for args, kwargs in k.calls:
+        a = _warp_args(args, kwargs)
+        got = W.warp_resample(**a)
+        want = W.warp_resample_plain(**a)
+        err = _max_abs(got, want)
+        worst = max(worst, err)
+        log(f"K10 {a['mode']}{' wrap_x' if a['wrap_x'] else ''} "
+            f"{tuple(a['tex'].shape)} -> {tuple(got.shape)}: max |diff| "
+            f"{err:.3g} (bound: bit-exact); kernel "
+            f"{cuda_ms(lambda: W.warp_resample(**a), 20, 2):.4f} ms")
+        check(torch.equal(got, want), "K10 is not bit-exact on the path")
+        if a["mode"] == "catmull_rom":
+            taa = a["tex"]
+    check(taa is not None, "K10: no TAA call recorded")
+    c, h, w = taa.shape
+    dev = taa.device
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev)
+                            + 0.5,
+                            torch.arange(w, dtype=torch.float32, device=dev)
+                            + 0.5, indexing="ij")
+    mx = 6.0 * torch.sin(torch.linspace(0.0, 3.0, w, device=dev))[None, :]
+    my = 6.0 * torch.cos(torch.linspace(0.0, 2.0, h, device=dev))[:, None]
+    sx, sy = (xs + mx).contiguous(), (ys + my).contiguous()
+    fields = {"smooth": (sx, sy),
+              "far": ((sx + 500.0).contiguous(), (sy - 300.0).contiguous())}
+    rows = []
+    for mode in ("catmull_rom", "bilinear"):
+        for fname, (fx, fy) in fields.items():
+            got = W.warp_resample(taa, fx, fy, mode)
+            want = W.warp_resample_plain(taa, fx, fy, mode)
+            err = _max_abs(got, want)
+            worst = max(worst, err)
+            log(f"K10 {mode} on the {fname} synthetic field "
+                f"{tuple(taa.shape)}: max |diff| {err:.3g} (bound: "
+                "bit-exact)")
+            check(torch.equal(got, want),
+                  f"K10 {mode} is not bit-exact on the {fname} field")
+        out = W.warp_resample(taa, sx, sy, mode)
+        ms = cuda_ms(lambda: W.warp_resample(taa, sx, sy, mode), 50, 3)
+        plain_ms = cuda_ms(lambda: W.warp_resample_plain(taa, sx, sy, mode),
+                           5, 1)
+        library_ms = None
+        if mode == "bilinear":
+            grid = torch.stack([sx / w * 2.0 - 1.0, sy / h * 2.0 - 1.0],
+                               -1)[None]
+            tex4 = taa[None]
+
+            def library():
+                return torch.nn.functional.grid_sample(
+                    tex4, grid, mode="bilinear", padding_mode="border",
+                    align_corners=False)
+            lib_err = _max_abs(library()[0], out)
+            library_ms = cuda_ms(library, 50, 3)
+            log(f"K10 bilinear yardstick grid_sample: {library_ms:.4f} ms; "
+                f"max |diff| from K10 {lib_err:.3g} (not used by the port)")
+        n_bytes, flops = warp_bound(taa, sx, sy, out, mode)
+        rows.append(dict(with_bound(
+            dict(max_abs_err=worst, mismatches=0, exact=True, ms=ms,
+                 plain_ms=plain_ms, timed_at=f"{tuple(taa.shape)}, "
+                 "synthetic motion"), n_bytes, flops, library_ms),
+            name=f"warp_resample:{mode}",
+            launches=launches_by_mode.get(mode, 0)))
+        log(f"K10 {mode} at the TAA shape: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+    return rows
+
+
+def graph_timing(m, reps: int = 7):
+    """Host-clock median of `reps` steady frames (after a warm-up), the
+    per-pass CUDA-event spans of one more frame, and one profiled frame."""
+    import statistics
+
+    import torch
+    graph = m.active_graph
+    m.renderFrame()
+    host = []
+    for _ in range(reps):
+        m.renderFrame()
+        host.append(m.last_frame_ms)
+    graph.time_passes = True
+    m.renderFrame()
+    passes = graph.pass_times_ms()
+    graph.time_passes = False
+    acts = profiled(m.renderFrame)
+    torch.cuda.synchronize()
+    median = statistics.median(host)
+    busy = sum(ms for ms, _ in acts.values()) if acts else None
+    log(f"graph frame, host clock over {reps} frames (ms): "
+        + ", ".join(f"{t:.3f}" for t in host) + f"; median {median:.3f}")
+    log("graph frame, per pass (CUDA events, ms): " + ", ".join(
+        f"{n} {t:.3f}" for n, t in passes.items()))
+    if acts:
+        log(f"graph profiled frame: {sum(n for _, n in acts.values())} "
+            f"device activities, {busy:.3f} ms busy; device idle share of "
+            f"the median host-clock frame {1.0 - busy / median:.4f}")
+        for name, (ms, n) in sorted(acts.items(),
+                                    key=lambda kv: -kv[1][0])[:12]:
+            log(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
+    else:
+        log("graph profiled frame: the profiler saw no device activity; "
+            "device busy time not measured")
+    return dict(host_ms=host, host_median_ms=median, passes_ms=passes,
+                device_busy_ms=busy,
+                idle_share=None if busy is None else 1.0 - busy / median,
+                kernel_device_ms={n: kernel_device_ms(acts, n)
+                                  for n in KERNEL_SYMBOLS}), acts
 
 # ---------------------------------------------------------------------------
 
@@ -640,17 +1056,47 @@ def main() -> int:
 
     small_frame_against_cpu()
 
+    # the graph path (phases 8-10)
+    graph_kernels = kernels_of_graph()
+    m, graph_counts, warp_modes = drive_graph(graph_kernels, counts)
+    by_name = kernels_by_name(graph_kernels)
+    rows = [dict(k.result, name=k.name, launches=counts[k.name],
+                 source=k.source, replaces=k.replaces) for k in kernels]
+    rows += [dict(r, launches=graph_counts["any_hit"],
+                  source=by_name["any_hit"].source,
+                  replaces=by_name["any_hit"].replaces)
+             for r in compare_any_hit(by_name["any_hit"])]
+    rows += [dict(r, source=by_name["warp_resample"].source,
+                  replaces=by_name["warp_resample"].replaces)
+             for r in compare_warp(by_name["warp_resample"], warp_modes)]
+    for r in rows:
+        base = r["name"].split(":")[0]
+        r["graph_launches"] = (warp_modes.get(r["name"].split(":")[1], 0)
+                               if ":" in r["name"]
+                               else graph_counts.get(base, 0))
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library "
+            + ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms"))
+    graph_times, _ = graph_timing(m)
+
     print(json.dumps({"frame": {
         "gpu": ident, "stages_ms": stages, "host_ms": host_ms,
         "device_busy_ms": busy_ms if acts else None,
         "kernel_device_ms": {k.name: kernel_device_ms(acts, k.name)
                              for k in kernels},
-        "peak_device_gib": peak_gib}}))
+        "peak_device_gib": peak_gib,
+        "graph": dict(graph_times, script=str(GRAPH_SCRIPT.relative_to(ROOT)),
+                      scene=GRAPH_SCENE, launches=graph_counts,
+                      warp_launches_by_mode=warp_modes)}}))
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
-        {"name": k.name, "route": "cuda", "source": k.source,
-         "replaces": k.replaces, "launches": counts[k.name],
-         "max_abs_err": k.result["max_abs_err"], "ms": k.result["ms"],
-         "plain_ms": k.result["plain_ms"]} for k in kernels]}))
+        {**{k: dict(r, route="cuda")[k] for k in keys},
+         **{k: v for k, v in r.items() if k not in keys
+            and k not in ("exact", "mismatches")}} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

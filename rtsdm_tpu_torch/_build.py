@@ -1,10 +1,11 @@
 """Builds the package's native code on first use and loads it with ctypes.
 
-* CUDA kernels: every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
-  into one shared library with a plain C interface (no PyTorch headers, so
-  a build takes seconds). ``--fmad=false`` and no fast math keep every
-  kernel bit-compatible with its plain PyTorch version, which evaluates the
-  same expressions one rounded operation at a time.
+* CUDA kernels: each ``csrc/*.cu`` is compiled by its own ``nvcc`` for
+  ``sm_90a`` into a shared library with a plain C interface (no PyTorch
+  headers, so a build takes seconds); the ``nvcc`` processes are started
+  together. ``--fmad=false`` and no fast math keep every kernel
+  bit-compatible with its plain PyTorch version, which evaluates the same
+  expressions one rounded operation at a time.
 * ``scenekit``: the scene-build helper of the reference package
   (``rtsdm_tpu/native/scenekit.cpp``, read as a source file only — importing
   ``rtsdm_tpu`` would import jax), compiled by ``g++``.
@@ -38,25 +39,35 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
-# C entry points of the kernel library: name -> argument types. Every entry
+# C entry points of each kernel source: name -> argument types. Every entry
 # launches on the given stream (last argument) and returns cudaGetLastError().
 KERNEL_SIGNATURES = {
-    # raster.cu
-    "rtsdm_raster_blocks": [_P, _P, _P, _I, _I, _I, _I, _F, _F,
-                            _P, _P, _P, _P, _P],
-    "rtsdm_fetch_attributes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
-    # fetch.cu
-    "rtsdm_fetch_directions": [_P] * 5 + [_I] * 7 + [_P, _P],
-    "rtsdm_fetch_sd_packed": [_P] * 5 + [_I] * 7 + [_P, _P],
-    # sd_trace.cu
-    "rtsdm_sd_trace": [_P] * 4 + [_I] * 6 + [_P, _P],
-    "rtsdm_sd_keys": [_P, _P, _P, _I, _P, _P, _P],
+    "raster.cu": {
+        "rtsdm_raster_blocks": [_P, _P, _P, _I, _I, _I, _I, _F, _F,
+                                _P, _P, _P, _P, _P],
+        "rtsdm_fetch_attributes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+    },
+    "fetch.cu": {
+        "rtsdm_fetch_directions": [_P] * 5 + [_I] * 7 + [_P, _P],
+        "rtsdm_fetch_sd_packed": [_P] * 5 + [_I] * 7 + [_P, _P],
+    },
+    "sd_trace.cu": {
+        "rtsdm_sd_trace": [_P] * 4 + [_I] * 6 + [_P, _P],
+        "rtsdm_sd_keys": [_P, _P, _P, _I, _P, _P, _P],
+    },
+    "warp.cu": {
+        "rtsdm_warp_resample": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+    },
+    "any_hit.cu": {
+        "rtsdm_any_hit": [_P] * 4 + [_I] * 3 + [_P, _P, _P],
+    },
 }
 
-_kernel_lib = None
+_kernel_fns = None
 _scenekit_lib = None
 BUILD_SECONDS = {}
-# launches of each C entry point since the last LAUNCHES.clear()
+# launches of each C entry point (or mode of one) since the last
+# LAUNCHES.clear()
 LAUNCHES = collections.Counter()
 
 
@@ -69,18 +80,30 @@ def _digest(paths, flags) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(cmd_head, flags, sources, out: Path) -> float:
-    """Compile into `out` unless it already exists; returns build seconds."""
-    if out.exists():
+def _compile(jobs) -> float:
+    """Run each (command, out) job whose `out` does not exist yet, all side
+    by side, each writing a temporary file that is renamed to `out`;
+    returns the build seconds."""
+    jobs = [(cmd, out) for cmd, out in jobs if not out.exists()]
+    if not jobs:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    cmd = [*cmd_head, *flags, *map(str, sources), "-o", str(tmp)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"build failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, out)
+    running = []
+    for cmd, out in jobs:
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [*cmd, "-o", str(tmp)]
+        running.append((cmd, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    errors = []
+    for cmd, tmp, out, proc in running:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"build failed ({' '.join(cmd)}):\n{err}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0
 
 
@@ -95,21 +118,28 @@ def nvcc_path() -> str:
                        "machine with the CUDA toolkit")
 
 
-def kernel_library():
-    """The loaded CUDA kernel library (built from csrc/*.cu on first use)."""
-    global _kernel_lib
-    if _kernel_lib is None:
-        sources = sorted(CSRC_DIR.glob("*.cu"))
-        out = BUILD_DIR / f"librtsdm_kernels_{_digest(sources, NVCC_FLAGS)}.so"
-        BUILD_SECONDS["kernels"] = _compile([nvcc_path()], NVCC_FLAGS,
-                                            sources, out)
-        lib = ctypes.CDLL(str(out))
-        for name, argtypes in KERNEL_SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _kernel_lib = lib
-    return _kernel_lib
+def kernel_library() -> dict:
+    """The C entry points of the CUDA kernels, by name (each csrc/*.cu is
+    built on first use)."""
+    global _kernel_fns
+    if _kernel_fns is None:
+        outs = {src: BUILD_DIR / (f"librtsdm_{src.stem}_"
+                                  f"{_digest([src], NVCC_FLAGS)}.so")
+                for src in sorted(CSRC_DIR.glob("*.cu"))}
+        nvcc = nvcc_path()
+        BUILD_SECONDS["kernels"] = _compile(
+            [([nvcc, *NVCC_FLAGS, str(src)], out)
+             for src, out in outs.items()])
+        fns = {}
+        for src, out in outs.items():
+            lib = ctypes.CDLL(str(out))
+            for name, argtypes in KERNEL_SIGNATURES[src.name].items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                fns[name] = fn
+        _kernel_fns = fns
+    return _kernel_fns
 
 
 def scenekit_library():
@@ -118,8 +148,8 @@ def scenekit_library():
     if _scenekit_lib is None:
         out = BUILD_DIR / (f"libscenekit_"
                            f"{_digest([SCENEKIT_SRC], GXX_FLAGS)}.so")
-        BUILD_SECONDS["scenekit"] = _compile(["g++"], GXX_FLAGS,
-                                             [SCENEKIT_SRC], out)
+        BUILD_SECONDS["scenekit"] = _compile(
+            [(["g++", *GXX_FLAGS, str(SCENEKIT_SRC)], out)])
         lib = ctypes.CDLL(str(out))
         lib.scenekit_morton_codes.argtypes = [_P, ctypes.c_int64, _P, _P, _P]
         lib.scenekit_morton_codes.restype = None
@@ -127,13 +157,14 @@ def scenekit_library():
     return _scenekit_lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, key: str | None = None) -> None:
     """Call C entry point `name`, raise on a CUDA error code, and count the
-    launch in LAUNCHES[name] (the one place a kernel launch is counted)."""
-    err = getattr(kernel_library(), name)(*args)
+    launch in LAUNCHES[key or name] (the one place a kernel launch is
+    counted; `key` splits one entry point's count by mode)."""
+    err = kernel_library()[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[key or name] += 1
 
 
 def ptr(t) -> int:

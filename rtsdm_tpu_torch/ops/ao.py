@@ -80,8 +80,24 @@ def shift_level_index(levels, r_px):
     return idx
 
 
-def dither_noise_for(height: int, width: int, device="cpu"):
+def dither_noise_for(height: int, width: int, *, device):
     """The 4x4 wrap-sampled rotation noise (SVAO.cpp:663-688), tiled."""
     reps = (-(-height // 4), -(-width // 4))
     return torch.as_tensor(np.tile(DITHER_4X4, reps)[:height, :width].copy(),
                            device=device)
+
+
+def shift_axis_clamped(a, axis: int, off: int, lo: int | None = None,
+                       hi: int | None = None):
+    """out[..i..] = a[..clip(i + off, lo, hi)..] along `axis` (lo/hi
+    default to the array bounds)."""
+    n = a.shape[axis]
+    lo = 0 if lo is None else lo
+    hi = n - 1 if hi is None else hi
+    idx = torch.clamp(torch.arange(n, device=a.device) + off, lo, hi)
+    return a.index_select(axis, idx)
+
+
+def shift2d_clamped(a, dy: int, dx: int):
+    """out[y, x] = a[clamp(y + dy), clamp(x + dx)] for [H, W(, C)]."""
+    return shift_axis_clamped(shift_axis_clamped(a, 0, dy), 1, dx)

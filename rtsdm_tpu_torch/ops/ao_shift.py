@@ -153,7 +153,7 @@ def fetch_sd_direction(sd_map, lvl_planes, offs_i, guard: int, qh: int,
     return torch.stack(out)
 
 
-def tiled_jitter(qh: int, qw: int, enabled: bool = True, device="cpu"):
+def tiled_jitter(qh: int, qw: int, enabled: bool = True, *, device):
     """The 4x4 SD-map sub-texel jitter tiled over quarter coordinates."""
     if not enabled:
         return torch.full((qh, qw, 2), 0.5, device=device)

@@ -9,6 +9,11 @@ ray tile gets the ascending list of chunks whose world AABB overlaps its
 segment bundle and whose pinhole screen footprint and distance range
 overlap its texels. Only the default/reservoir and k-buffer insertions are
 ported; coverage and MaxCount stay with the reference (ROADMAP queue 1).
+
+The shadow-ray any-hit (K8, counterpart of rt_pallas.py:any_hit_pallas)
+shares the chunking and the tile lists: its rays have their own origins, so
+chunks hold raw [n_chunks, 12, 128] rows (v0, e1, e2, flags) and the tile
+segment boxes are built from per-ray origins.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ TC = 128                  # triangles per chunk
 TILE_RH, TILE_RW = 8, 32  # tile shape (TILE_RH * TILE_RW == RB)
 LIST_CAP = 512            # chunk-list width once n_chunks > 2 * LIST_CAP
 PACK_ROWS = 13            # nt(3) bt(3) ct(3) tp(1) + acc-back, reject, mask
+PACK_ROWS_CLASSIC = 12    # v0(3) e1(3) e2(3) + acc-back, reject, mask
 INVALID = 2**31 - 1       # empty reservoir slot
 EPS_DET = 1e-9
 MODES = ("default", "kbuffer")
@@ -152,6 +158,16 @@ def prep_triangles_packed(scene, alpha_test: bool = True, origin=None):
     return tri_packed, chunk_aabbs(v0t, e1t, e2t, flags)
 
 
+def pack_for_stream_classic(v0t, e1t, e2t, flags):
+    """Raw-row chunks for rays with their own origins (any-hit):
+    (tri_packed [n_chunks, PACK_ROWS_CLASSIC, TC], chunk AABBs [8, n])."""
+    n_chunks = v0t.shape[1] // TC
+    packed = torch.cat([v0t, e1t, e2t, flags], 0)
+    tri_packed = packed.reshape(PACK_ROWS_CLASSIC, n_chunks, TC) \
+        .permute(1, 0, 2).contiguous()
+    return tri_packed, chunk_aabbs(v0t, e1t, e2t, flags)
+
+
 def chunk_screen_rows(aabb, origin, cam_u, cam_v, cam_w, dim_w: int,
                       dim_h: int):
     """Pinhole-fan cull rows [6, n_chunks]: (x0, y0, dmin, x1, y1, dmax) —
@@ -203,6 +219,7 @@ def build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx=None, ry=None):
     """Per-ray-tile ascending lists of chunks that overlap the tile's
     segment bundle (world AABB test, plus the screen rows 6-11 of `aabb`
     when rx/ry — the rays' signed SD-texel coordinates — are given).
+    `origin` is the rays' shared origin [3] or their own origins [R, 3].
     Returns (lists [nb, width] int32, counts [nb] int32 unclamped)."""
     r = dirs.shape[0]
     rp = r + (-r) % RB
@@ -219,8 +236,9 @@ def build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx=None, ry=None):
                          device=dirs.device)
     for c in range(3):
         d = blk(dirs[:, c])
-        a = origin[c] + d * tmin_b
-        b = origin[c] + d * tmax_b
+        o = blk(origin[:, c]) if origin.dim() == 2 else origin[c]
+        a = o + d * tmin_b
+        b = o + d * tmax_b
         lo = torch.where(valid, torch.minimum(a, b), inf).amin(1)
         hi = torch.where(valid, torch.maximum(a, b), -inf).amax(1)
         overlap &= (aabb[c][None, :] <= hi[:, None]) \
@@ -425,3 +443,161 @@ def decode_packed(packed, near, far, normalize: bool = True,
     if normalize:
         return d
     return torch.where(packed == INVALID, far, d * (far - near) + near)
+
+
+# ---------------------------------------------------------------------------
+# the shadow-ray any-hit (K8)
+# ---------------------------------------------------------------------------
+
+def _check_any_hit_args(tri_packed, lists, counts, rays):
+    for t, dt, name in ((tri_packed, torch.float32, "tri_packed"),
+                        (lists, torch.int32, "lists"),
+                        (counts, torch.int32, "counts"),
+                        (rays, torch.float32, "rays")):
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"any_hit_blocks: {name} must be contiguous "
+                             f"{dt}")
+    nb = counts.shape[0]
+    if tri_packed.shape[1:] != (PACK_ROWS_CLASSIC, TC) \
+            or lists.shape[0] != nb or rays.shape != (8, nb * RB):
+        raise ValueError("any_hit_blocks: inconsistent shapes")
+
+
+def any_hit_blocks(tri_packed, lists, counts, rays):
+    """K8: (hit [nb*256] bool, pairs [nb*256] int32) for rays [8, nb*256]
+    = (ox, oy, oz, dx, dy, dz, tmin, tmax) in 8x32-tile order against
+    classic chunks; pairs counts the ray-triangle pairs each ray tested, up
+    to and including the one that hit. A tile walks its list until all of
+    its live rays (tmax > tmin) have hit."""
+    _check_any_hit_args(tri_packed, lists, counts, rays)
+    if tri_packed.is_cuda:
+        nb = counts.shape[0]
+        hit = torch.empty((nb * RB,), dtype=torch.uint8,
+                          device=tri_packed.device)
+        pairs = torch.empty((nb * RB,), dtype=torch.int32,
+                            device=tri_packed.device)
+        launch("rtsdm_any_hit", ptr(tri_packed), ptr(lists), ptr(counts),
+               ptr(rays), nb, tri_packed.shape[0], lists.shape[1], ptr(hit),
+               ptr(pairs), stream_of(tri_packed))
+        return hit.bool(), pairs
+    if tri_packed.device.type != "cpu":
+        raise RuntimeError(f"any_hit_blocks: unsupported device "
+                           f"{tri_packed.device}")
+    return any_hit_blocks_plain(tri_packed, lists, counts, rays)
+
+
+# tiles of K8's plain version evaluated at once
+ANY_HIT_PLAIN_BATCH = 64
+
+
+def any_hit_blocks_plain(tri_packed, lists, counts, rays):
+    """Plain PyTorch version of K8: tiles advance through their chunk
+    lists together (ANY_HIT_PLAIN_BATCH tiles at a time); a tile stops once
+    every live ray in it has hit."""
+    dev = tri_packed.device
+    nb, list_w = lists.shape
+    n_chunks = tri_packed.shape[0]
+    full = counts > list_w
+    cnt = torch.where(full, n_chunks, counts)
+    ray = rays.reshape(8, nb, RB)
+    live = ray[7] > ray[6]
+    hit = torch.zeros((nb, RB), dtype=torch.bool, device=dev)
+    pairs = torch.zeros((nb, RB), dtype=torch.int32, device=dev)
+    for j in range(int(cnt.max()) if nb else 0):
+        act = (cnt > j) & (live & ~hit).any(1)
+        if not bool(act.any()):
+            break
+        act_rows = torch.nonzero(act).squeeze(1)
+        for s in range(0, act_rows.shape[0], ANY_HIT_PLAIN_BATCH):
+            rows = act_rows[s:s + ANY_HIT_PLAIN_BATCH]
+            ci = torch.where(full[rows], j,
+                             lists[rows, min(j, list_w - 1)]).long()
+            tri = tri_packed[ci][:, :, None, :]           # [na, 12, 1, TC]
+            ox, oy, oz, dx, dy, dz, tmin, tmax = (ray[i, rows][:, :, None]
+                                                  for i in range(8))
+            e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
+            e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
+            px = dy * e2z - dz * e2y
+            py = dz * e2x - dx * e2z
+            pz = dx * e2y - dy * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            tvx = ox - tri[:, 0]
+            tvy = oy - tri[:, 1]
+            tvz = oz - tri[:, 2]
+            pu = tvx * px + tvy * py + tvz * pz
+            qx = tvy * e1z - tvz * e1y
+            qy = tvz * e1x - tvx * e1z
+            qz = tvx * e1y - tvy * e1x
+            pv = dx * qx + dy * qy + dz * qz
+            tp = e2x * qx + e2y * qy + e2z * qz
+            ok = (torch.abs(det) > EPS_DET) \
+                & ((det > 0.0) | (tri[:, 9] > 0.0))
+            sg = torch.where(det >= 0.0, 1.0, -1.0)
+            adet, spu, spv, stp = det * sg, pu * sg, pv * sg, tp * sg
+            ok = ok & (tri[:, 10] == 0.0)
+            ok_face = ok & (spu >= 0.0) & (spv >= 0.0) \
+                & (spu + spv <= adet) & (stp > tmin * adet) \
+                & (stp < tmax * adet)
+            inv = 1.0 / torch.where(torch.abs(det) < EPS_DET, 1.0, det)
+            # lanes that fail the face test are zeroed before the integer
+            # conversion (their values are discarded anyway)
+            u = torch.where(ok_face, pu * inv, 0.0)
+            v = torch.where(ok_face, pv * inv, 0.0)
+            cell = (torch.clamp(u * 4.0, 0.0, 3.0).to(torch.int32)
+                    + 4 * torch.clamp(v * 4.0, 0.0, 3.0).to(torch.int32))
+            abit = torch.bitwise_right_shift(tri[:, 11].to(torch.int32),
+                                             cell) & 1
+            okh = ok_face & (abit > 0)
+            # a ray tests the chunk's triangles in order up to its first hit
+            tested = live[rows] & ~hit[rows]
+            got = okh.any(-1)
+            first = torch.argmax(okh.to(torch.int32), -1).to(torch.int32)
+            pairs[rows] += torch.where(tested, torch.where(got, first + 1, TC),
+                                       0).to(torch.int32)
+            hit[rows] |= tested & got
+    return hit.reshape(nb * RB), pairs.reshape(nb * RB)
+
+
+def any_hit_rays(origins, dirs, tmin, tmax):
+    """Rays [8, nb*256] for K8 from [R, 3] origins and directions and [R]
+    intervals (already in 8x32-tile order); padding rays are dead."""
+    r = dirs.shape[0]
+    rp = r + (-r) % RB
+
+    def col(a, fill=0.0):
+        return torch.nn.functional.pad(a, (0, rp - r), value=fill)
+
+    return torch.stack([col(origins[:, 0]), col(origins[:, 1]),
+                        col(origins[:, 2]), col(dirs[:, 0]), col(dirs[:, 1]),
+                        col(dirs[:, 2]), col(tmin),
+                        col(tmax, fill=-1.0)]).contiguous()
+
+
+def any_hit_inputs(scene, origins, dirs, tmin, tmax):
+    """K8's arguments (tri_packed, lists, counts, rays) for rays [R, 3] /
+    [R] against `scene`: classic chunks with every face accepted (back
+    faces block shadow rays), ordered near to far along the mean ray
+    direction so tiles reach their occluders early, and the tiles' lists."""
+    v0t, e1t, e2t, flags = prep_triangles(scene, True)
+    flags = flags.clone()
+    flags[0] = 1.0
+    tri_packed, aabb = pack_for_stream_classic(v0t, e1t, e2t, flags)
+    md = dirs.mean(0)
+    cent = (aabb[0:3] + aabb[3:6]) * 0.5
+    order = torch.argsort(cent[0] * md[0] + cent[1] * md[1]
+                          + cent[2] * md[2], stable=True)
+    tri_packed = tri_packed[order].contiguous()
+    lists, counts = build_chunk_lists(aabb[:, order], origins, dirs, tmin,
+                                      tmax)
+    return tri_packed, lists, counts, any_hit_rays(origins, dirs, tmin, tmax)
+
+
+def any_hit(scene, origins, dirs, tmin, tmax):
+    """Entry point (counterpart of any_hit_pallas): bool [R], some accepted
+    triangle of `scene` lies on each ray in (tmin, tmax). Both faces block;
+    alpha-masked triangles are tested against their baked 4x4 masks. Rays
+    should come in 8x32-tile order (tile_flatten) so that a tile's segment
+    box stays tight."""
+    hit, _ = any_hit_blocks(*any_hit_inputs(scene, origins, dirs, tmin,
+                                            tmax))
+    return hit[:dirs.shape[0]]

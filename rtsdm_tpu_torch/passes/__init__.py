@@ -1,2 +1,3 @@
-"""Render passes of the SVAO slice; importing the package registers them."""
-from . import depth_chain, gbuffer, stochastic_depth, svao  # noqa: F401
+"""Render passes of the port; importing the package registers them."""
+from . import (blur, depth_chain, gbuffer, image_equation,  # noqa: F401
+               lighting, stochastic_depth, svao, temporal, tonemap)

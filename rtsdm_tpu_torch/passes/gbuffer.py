@@ -56,11 +56,23 @@ def raster_gbuffer(scene, width: int, height: int, cull: str = "back",
 
 @register_pass("GBufferRaster")
 class GBufferRaster(RenderPass):
-    """reference Source/RenderPasses/GBuffer/GBufferRaster.cpp. Only the
-    Center sample pattern is ported (ROADMAP queue 1: sample patterns come
-    with TAA)."""
+    """reference Source/RenderPasses/GBuffer/GBufferRaster.cpp, with the
+    reference package's keys and their meaning there:
 
-    SCHEMA = dict(samplePattern="Center", cull="Back")
+    * samplePattern: only "Center" is ported (other patterns raise);
+      sampleCount then has no effect, as in the reference package;
+    * useAlphaTest, adjustShadingNormals, forceCullMode: accepted; the
+      reference package's raster honours neither value either (its
+      G-buffer raster never alpha-tests and never adjusts normals), so both
+      values give the reference's result;
+    * outputSize: only "Default" (others raise);
+    * maxPerTile: accepted and without effect: the CUDA raster keeps no
+      per-tile list cap, so no triangle is ever dropped (ROADMAP hazard f).
+    """
+
+    SCHEMA = dict(outputSize="Default", samplePattern="Center", sampleCount=8,
+                  useAlphaTest=True, adjustShadingNormals=True,
+                  forceCullMode=False, cull="Back", maxPerTile=256)
     CHANNELS = ("depth", "posW", "normW", "faceNormalW", "texC", "mvec",
                 "mtlData", "tri_id", "bary")
 
@@ -74,6 +86,9 @@ class GBufferRaster(RenderPass):
         if self.cfg["samplePattern"] not in ("Center", None, ""):
             raise NotImplementedError(
                 "GBufferRaster: only samplePattern='Center' is ported "
-                "(ROADMAP queue 1, item 10)")
+                "(ROADMAP queue 1)")
+        if self.cfg["outputSize"] != "Default":
+            raise NotImplementedError(
+                "GBufferRaster: only outputSize='Default' is ported")
         return raster_gbuffer(ctx.scene, ctx.width, ctx.height,
                               cull=self.cfg["cull"].lower()), None

@@ -101,7 +101,7 @@ class SVAO(RenderPass):
     SCHEMA = dict(
         radius=0.5, primaryDepthMode=DEPTH_MODE_SINGLE,
         secondaryDepthMode=DEPTH_MODE_STOCHASTIC, exponent=2.0,
-        thickness=0.0, stochMapDivisor=4, dualAO=False, alphaTest=True,
+        rayPipeline=True, thickness=0.0, stochMapDivisor=4, dualAO=False, alphaTest=True,
         sampleCount=8, kernel="VAO", stochSamples=4, stochMaxCount=0,
         useRayInterval=True, stochMapJitter=True, stochMapGuardBand=512,
         stochasticDepthImpl="Ray", cullMode=None, ssRadiusCutoff=6.0,

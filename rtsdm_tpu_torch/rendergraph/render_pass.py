@@ -103,6 +103,10 @@ class RenderPass:
     def set_scene(self, scene):
         self.scene = scene
 
+    def init_state(self, ctx: RenderContext):
+        """Initial temporal state (None for stateless passes)."""
+        return None
+
     def execute(self, ctx: RenderContext, inputs: dict, state=None):
         """Returns (outputs: dict, new_state)."""
         raise NotImplementedError

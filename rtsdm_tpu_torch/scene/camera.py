@@ -10,6 +10,7 @@ import dataclasses
 
 import torch
 
+from ..utils.device import resolve_device
 from ..utils.math import cross, look_at, normalize, perspective
 
 CAMERA_FIELDS = ("view_mat", "prev_view_mat", "proj_mat", "view_proj_mat",
@@ -47,9 +48,12 @@ class Camera:
     def create(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
                up=(0.0, 1.0, 0.0), focal_length=21.0, frame_height=24.0,
                aspect=1.0, near_z=0.1, far_z=1000.0, jitter=(0.0, 0.0),
-               device="cpu") -> "Camera":
+               device="cuda") -> "Camera":
         """Camera::calculateCameraParameters: fovY = 2 atan(frameHeight /
-        (2 focalLength)); cameraU/V/W are the computeRayPinhole basis."""
+        (2 focalLength)); cameraU/V/W are the computeRayPinhole basis. On
+        the GPU unless device="cpu" (utils/device.py)."""
+        device = resolve_device(device)
+
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device)
 

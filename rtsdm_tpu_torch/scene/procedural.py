@@ -5,13 +5,14 @@ part of the repository; these deterministic numpy builders stand in for them
 under the same names, with two detail tiers: "small" (box towns) and "full"
 (reference-scale triangle counts dominated by alpha-masked foliage). The
 builders are the reference package's, so both packages build identical
-triangle soups; only the textures, lights and environment the port's Scene
-does not carry are left out.
+scenes: triangle soups, materials, textures, environment map and lights.
+Every scene function runs on the GPU unless it is given device="cpu".
 """
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils.device import resolve_device
 from .camera import Camera
 from .scene import Scene, make_scene
 
@@ -53,8 +54,9 @@ def _rot_y(tris, angle, center):
     return (tris - center) @ r.T + center
 
 
-def cornell_box(aspect=1.0, device="cpu") -> Scene:
+def cornell_box(aspect=1.0, device="cuda") -> Scene:
     """Procedural Cornell box (BASELINE.json config 1). 2m room, two blocks."""
+    device = resolve_device(device)
     tris = []
     mats = []
     mat_ids = []
@@ -100,8 +102,12 @@ def cornell_box(aspect=1.0, device="cpu") -> Scene:
     cam = Camera.create(position=(1.0, 1.0, 4.4), target=(1.0, 1.0, 0.0),
                         up=(0.0, 1.0, 0.0), focal_length=35.0, aspect=aspect,
                         near_z=0.1, far_z=100.0, device=device)
+    lights = [dict(type="point", position=(1.0, 1.9, 1.0),
+                   intensity=(2.5, 2.5, 2.5))]
     return make_scene("CornellBox", positions, material_id=material_id,
-                      materials=mats, camera=cam, device=device)
+                      materials=mats, lights=lights,
+                      env_radiance=(0.05, 0.05, 0.08), camera=cam,
+                      device=device)
 
 
 def _tree_patch(rng, n_trees, leaves_per_tree, extent):
@@ -191,13 +197,14 @@ def _box_map_uv(positions, scale=0.25):
 
 
 def _town(name, seed, n_buildings, n_props, extent, aspect, cam_height=1.7,
-          columns=0, trees=0, leaves_per_tree=0, device="cpu") -> Scene:
+          columns=0, trees=0, leaves_per_tree=0, device="cuda") -> Scene:
     """Deterministic box-town generator: ground plane + buildings + props
     (+ alpha-masked foliage at the reference-scale detail tier).
 
     Stand-in for the packman media scenes; complexity scales with the
     building/prop/tree counts so perf behaves like the staged eval configs.
     """
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     tris = [np.array(_quad((-extent, 0, -extent), (-extent, 0, extent),
                            (extent, 0, extent), (extent, 0, -extent)), np.float32)]
@@ -259,15 +266,26 @@ def _town(name, seed, n_buildings, n_props, extent, aspect, cam_height=1.7,
             np.full(n_before + trunks.shape[0], 0xFFFF, np.int32),
             leaf_masks])
 
+    # textured materials + analytic-sky env map (exercises the texture
+    # system the way the packman media would; scene/textures.py)
+    from .textures import checkerboard, latlong_sky, noise_texture
+    mats[0]["texture"] = checkerboard((0.9, 0.88, 0.85), (0.55, 0.52, 0.5), 16)
+    for i in range(1, 7):  # the building palette gets facade noise
+        mats[i]["texture"] = noise_texture(seed=seed + i, amp=0.35)
+    env = latlong_sky()
+
     positions = np.concatenate(tris, axis=0)
     material_id = np.concatenate(mat_ids, axis=0)
 
     cam = Camera.create(position=(-extent * 0.7, cam_height + 2.0, extent * 0.9),
                         target=(0.0, 1.0, 0.0), focal_length=21.0, aspect=aspect,
                         near_z=0.1, far_z=500.0, device=device)
+    lights = [dict(type="directional", direction=(0.4, -1.0, -0.3),
+                   intensity=(3.0, 2.9, 2.7))]
     return make_scene(name, positions, material_id=material_id, materials=mats,
-                      texcoords=_box_map_uv(positions), camera=cam,
-                      tri_alpha_mask=alpha_masks, device=device)
+                      texcoords=_box_map_uv(positions),
+                      lights=lights, env_radiance=(0.4, 0.5, 0.7), camera=cam,
+                      tri_alpha_mask=alpha_masks, env_map=env, device=device)
 
 
 # Two detail tiers per scene: "small" (the round-1 box-towns; what the CPU
@@ -275,25 +293,25 @@ def _town(name, seed, n_buildings, n_props, extent, aspect, cam_height=1.7,
 # of the packman media (Sun Temple ~600k, Bistro ~3M per dependencies.xml
 # provenance), dominated by alpha-masked foliage like the originals.
 
-def arcade(aspect=16 / 9, detail="small", device="cpu"):
+def arcade(aspect=16 / 9, detail="small", device="cuda"):
     t = dict(trees=180, leaves_per_tree=96) if detail == "full" else {}
     return _town("Arcade", seed=101, n_buildings=24, n_props=60, extent=18.0,
                  aspect=aspect, columns=10, device=device, **t)
 
 
-def sun_temple(aspect=16 / 9, detail="small", device="cpu"):
+def sun_temple(aspect=16 / 9, detail="small", device="cuda"):
     t = dict(trees=900, leaves_per_tree=170) if detail == "full" else {}
     return _town("SunTemple", seed=202, n_buildings=40, n_props=140, extent=30.0,
                  aspect=aspect, columns=40, device=device, **t)
 
 
-def bistro(aspect=16 / 9, detail="small", device="cpu"):
+def bistro(aspect=16 / 9, detail="small", device="cuda"):
     t = dict(trees=1800, leaves_per_tree=180) if detail == "full" else {}
     return _town("Bistro", seed=303, n_buildings=70, n_props=260, extent=45.0,
                  aspect=aspect, columns=50, device=device, **t)
 
 
-def emerald_square(aspect=16 / 9, detail="small", device="cpu"):
+def emerald_square(aspect=16 / 9, detail="small", device="cuda"):
     t = dict(trees=2600, leaves_per_tree=190) if detail == "full" else {}
     return _town("EmeraldSquare", seed=404, n_buildings=110, n_props=420,
                  extent=65.0, aspect=aspect, columns=60, device=device,
@@ -310,7 +328,7 @@ SCENES = {
 
 
 def load_scene(name: str, aspect=1.0, detail: str = "small",
-               device="cpu") -> Scene:
+               device="cuda") -> Scene:
     """Scene factory by name (reference Mogwai m.loadScene). Suffix '@full'
     requests the reference-scale detail tier (e.g. 'SunTemple@full')."""
     base = name.split("/")[-1].split(".")[0]

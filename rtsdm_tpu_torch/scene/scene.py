@@ -1,7 +1,7 @@
 """Scene (counterpart of rtsdm_tpu/scene/scene.py): a flat triangle soup
-plus the per-material tables the ray-traced SD pass reads. Only the fields
-the SVAO + SD slice reads are carried; lights, textures and animation stay
-with the reference package until their passes are ported.
+plus the material, light, texture and environment tables the passes read.
+Animation (node ids, previous positions, skinning) stays with the reference
+package until a camera path or animated scene is ported.
 """
 from __future__ import annotations
 
@@ -11,14 +11,24 @@ import numpy as np
 import torch
 
 from .._build import scenekit_library
+from ..utils.device import resolve_device
 from ..utils.math import cross, normalize
 from .camera import CAMERA_FIELDS, Camera
 
 ALPHA_MODE_OPAQUE = 0
 ALPHA_MODE_MASK = 1
 
+# light types (reference Scene/Lights LightType)
+LIGHT_POINT = 0
+LIGHT_DIRECTIONAL = 1
+
 SCENE_FIELDS = ("positions", "normals", "texcoords", "material_id",
-                "tri_alpha_mask", "mat_double_sided", "mat_alpha_mode")
+                "tri_alpha_mask", "mat_base_color", "mat_roughness",
+                "mat_metallic", "mat_ior", "mat_emissive", "mat_double_sided",
+                "mat_alpha_mode", "mat_opacity", "mat_tex", "light_type",
+                "light_pos", "light_dir", "light_intensity", "env_radiance",
+                "tex_pages", "env_map")
+OPTIONAL_FIELDS = ("tex_pages", "env_map")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,8 +42,24 @@ class Scene:
     # floor(u*4) + 4*floor(v*4); 0xFFFF = opaque (the baked stand-in for
     # hashed-alpha testing inside traversal, StochasticDepthMapRT.rt.slang)
     tri_alpha_mask: torch.Tensor    # [T] int32
+    # materials [M, ...] (StandardMaterial metallic workflow)
+    mat_base_color: torch.Tensor    # [M,3]
+    mat_roughness: torch.Tensor     # [M]
+    mat_metallic: torch.Tensor      # [M]
+    mat_ior: torch.Tensor           # [M]
+    mat_emissive: torch.Tensor      # [M,3]
     mat_double_sided: torch.Tensor  # [M] bool
     mat_alpha_mode: torch.Tensor    # [M] int32
+    mat_opacity: torch.Tensor       # [M] constant opacity (alpha-mask mode)
+    mat_tex: torch.Tensor           # [M] int32 page index, -1 = none
+    # analytic lights [L, ...]
+    light_type: torch.Tensor        # [L] int32
+    light_pos: torch.Tensor         # [L,3]
+    light_dir: torch.Tensor         # [L,3] (directional)
+    light_intensity: torch.Tensor   # [L,3]
+    env_radiance: torch.Tensor      # [3] constant radiance (a tint with a map)
+    tex_pages: torch.Tensor | None  # [N, PAGE, PAGE, 3]; None = untextured
+    env_map: torch.Tensor | None    # [He, We, 3] lat-long; None = constant
     camera: Camera
 
     @property
@@ -41,8 +67,15 @@ class Scene:
         return self.positions.shape[0]
 
     @property
+    def num_lights(self) -> int:
+        return self.light_type.shape[0]
+
+    @property
     def device(self):
         return self.positions.device
+
+    def with_camera(self, camera: Camera) -> "Scene":
+        return dataclasses.replace(self, camera=camera)
 
     def face_normals(self):
         """Geometric normals [T,3] (ref VertexData.faceNormalW)."""
@@ -63,14 +96,25 @@ def morton_codes(centroids, bmin, bmax) -> np.ndarray:
     return out
 
 
+def _normalize_np(v) -> np.ndarray:
+    v = np.asarray(v, np.float32)
+    return v / np.sqrt(np.maximum((v * v).sum(), np.float32(1e-20)))
+
+
 def make_scene(name, positions, normals=None, texcoords=None,
-               material_id=None, materials=None, camera: Camera | None = None,
-               morton_sort: bool = True, tri_alpha_mask=None,
-               device="cpu") -> Scene:
+               material_id=None, materials=None, lights=None,
+               env_radiance=(0.0, 0.0, 0.0), camera: Camera | None = None,
+               morton_sort: bool = True, tri_alpha_mask=None, env_map=None,
+               device="cuda") -> Scene:
     """Assemble a Scene from host data (the SceneBuilder equivalent). With
     morton_sort, triangles are ordered along a morton curve of their
     centroids (the BLAS-build analogue: ray-trace chunks become spatially
-    tight)."""
+    tight). Materials are dicts (base_color, roughness, metallic, ior,
+    emissive, double_sided, alpha_mode, opacity, texture: a host image baked
+    into the page stack); lights are dicts (type "point" or "directional",
+    position, direction, intensity). On the GPU unless device="cpu"."""
+    from .textures import build_texture_pages
+    device = resolve_device(device)
     positions = np.asarray(positions, np.float32)
     t = positions.shape[0]
     material_id = (np.zeros((t,), np.int32) if material_id is None
@@ -88,10 +132,47 @@ def make_scene(name, positions, normals=None, texcoords=None,
             tri_alpha_mask = np.asarray(tri_alpha_mask, np.int32)[order]
 
     materials = materials or [dict(base_color=(0.8, 0.8, 0.8))]
-    dbl = np.asarray([bool(m.get("double_sided", False)) for m in materials])
-    amode = np.asarray([m.get("alpha_mode", ALPHA_MODE_OPAQUE)
-                        for m in materials], np.int32)
-    opac = np.asarray([m.get("opacity", 1.0) for m in materials], np.float32)
+    m = len(materials)
+    base = np.zeros((m, 3), np.float32)
+    rough = np.full((m,), 0.7, np.float32)
+    metal = np.zeros((m,), np.float32)
+    ior = np.full((m,), 1.5, np.float32)
+    emis = np.zeros((m, 3), np.float32)
+    dbl = np.zeros((m,), bool)
+    amode = np.zeros((m,), np.int32)
+    opac = np.ones((m,), np.float32)
+    mtex = np.full((m,), -1, np.int32)
+    tex_images = []
+    for i, md in enumerate(materials):
+        base[i] = md.get("base_color", (0.8, 0.8, 0.8))
+        rough[i] = md.get("roughness", 0.7)
+        metal[i] = md.get("metallic", 0.0)
+        ior[i] = md.get("ior", 1.5)
+        emis[i] = md.get("emissive", (0.0, 0.0, 0.0))
+        dbl[i] = md.get("double_sided", False)
+        amode[i] = md.get("alpha_mode", ALPHA_MODE_OPAQUE)
+        opac[i] = md.get("opacity", 1.0)
+        if md.get("texture") is not None:
+            mtex[i] = len(tex_images)
+            tex_images.append(md["texture"])
+    tex_pages = build_texture_pages(tex_images)
+
+    lights = lights if lights is not None else []
+    nl = max(len(lights), 1)
+    ltype = np.zeros((nl,), np.int32)
+    lpos = np.zeros((nl, 3), np.float32)
+    ldir = np.tile(np.array([0.0, -1.0, 0.0], np.float32), (nl, 1))
+    lint = np.zeros((nl, 3), np.float32)
+    for i, ld in enumerate(lights):
+        ltype[i] = (LIGHT_DIRECTIONAL if ld.get("type", "point")
+                    == "directional" else LIGHT_POINT)
+        lpos[i] = ld.get("position", (0.0, 0.0, 0.0))
+        ldir[i] = _normalize_np(ld.get("direction", (0.0, -1.0, 0.0)))
+        lint[i] = ld.get("intensity", (1.0, 1.0, 1.0))
+    if env_map is not None and tuple(np.asarray(env_radiance)) == \
+            (0.0, 0.0, 0.0):
+        env_radiance = (1.0, 1.0, 1.0)  # the tint is identity with a map
+
     if tri_alpha_mask is None:
         # constant-opacity materials: all-ones when opacity >= 0.5 (opaque or
         # surviving hashed-alpha), all-zeros otherwise
@@ -99,35 +180,48 @@ def make_scene(name, positions, normals=None, texcoords=None,
             | (opac[material_id] >= 0.5)
         tri_alpha_mask = np.where(keep, 0xFFFF, 0).astype(np.int32)
 
-    pos = torch.as_tensor(positions, device=device)
+    def dev(a, dtype=None):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+    pos = dev(positions)
     if normals is None:
         fn = normalize(cross(pos[:, 1] - pos[:, 0], pos[:, 2] - pos[:, 0]))
         nrm = fn[:, None, :].expand(t, 3, 3).contiguous()
     else:
-        nrm = torch.as_tensor(np.asarray(normals, np.float32), device=device)
+        nrm = dev(normals, np.float32)
     tex = (torch.zeros((t, 3, 2), device=device) if texcoords is None
-           else torch.as_tensor(np.asarray(texcoords, np.float32),
-                                device=device))
+           else dev(texcoords, np.float32))
     return Scene(
         name=name, positions=pos, normals=nrm, texcoords=tex,
-        material_id=torch.as_tensor(material_id, device=device),
-        tri_alpha_mask=torch.as_tensor(
-            np.asarray(tri_alpha_mask, np.int32), device=device),
-        mat_double_sided=torch.as_tensor(dbl, device=device),
-        mat_alpha_mode=torch.as_tensor(amode, device=device),
+        material_id=dev(material_id),
+        tri_alpha_mask=dev(tri_alpha_mask, np.int32),
+        mat_base_color=dev(base), mat_roughness=dev(rough),
+        mat_metallic=dev(metal), mat_ior=dev(ior), mat_emissive=dev(emis),
+        mat_double_sided=dev(dbl), mat_alpha_mode=dev(amode),
+        mat_opacity=dev(opac), mat_tex=dev(mtex),
+        light_type=dev(ltype), light_pos=dev(lpos), light_dir=dev(ldir),
+        light_intensity=dev(lint),
+        env_radiance=dev(env_radiance, np.float32),
+        tex_pages=None if tex_pages is None else dev(tex_pages, np.float32),
+        env_map=None if env_map is None else dev(env_map, np.float32),
         camera=camera if camera is not None else Camera.create(device=device))
 
 
-def scene_from_numpy(arrays: dict, camera: dict, device="cpu",
+def scene_from_numpy(arrays: dict, camera: dict, device="cuda",
                      name: str = "scene") -> Scene:
     """Carry a scene across from the reference package: `arrays` holds the
     SCENE_FIELDS and `camera` the CAMERA_FIELDS of an rtsdm_tpu Scene /
-    Camera as numpy arrays (np.asarray of each field). Both packages then
-    render bit-identical geometry from bit-identical camera matrices."""
+    Camera as numpy arrays (np.asarray of each field; None for an absent
+    OPTIONAL_FIELDS entry). Both packages then render bit-identical
+    geometry from bit-identical camera matrices. On the GPU unless
+    device="cpu"."""
+    device = resolve_device(device)
+
     def t(a):
-        return torch.as_tensor(np.array(a), device=device)
+        return None if a is None else torch.as_tensor(np.array(a),
+                                                      device=device)
 
     cam = Camera(**{f: t(np.asarray(camera[f], np.float32))
                     for f in CAMERA_FIELDS})
     return Scene(name=name, camera=cam,
-                 **{f: t(arrays[f]) for f in SCENE_FIELDS})
+                 **{f: t(arrays.get(f)) for f in SCENE_FIELDS})

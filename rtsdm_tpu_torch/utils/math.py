@@ -25,6 +25,10 @@ def true_div(a, b: float):
     return a / torch.full((), b, dtype=a.dtype, device=a.device)
 
 
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
 def normalize(v, eps=1e-20):
     """v / |v| over the last axis (length 3)."""
     return v / torch.sqrt(torch.clamp(dot3(v, v), min=eps))[..., None]
@@ -112,6 +116,23 @@ def decode_normal_2x16(packed):
     x = (packed & 0xFFFF).to(torch.float32) / 65535.0 * 2.0 - 1.0
     y = ((packed >> 16) & 0xFFFF).to(torch.float32) / 65535.0 * 2.0 - 1.0
     return oct_snorm_to_ndir(torch.stack([x, y], -1))
+
+
+# ---------------------------------------------------------------------------
+# YCgCo colour transform (reference ColorHelpers.slang; TAA's variance clip)
+# ---------------------------------------------------------------------------
+
+def rgb_to_ycgco(c):
+    r, g, b = c[..., 0], c[..., 1], c[..., 2]
+    return torch.stack([0.25 * r + 0.5 * g + 0.25 * b,
+                        -0.25 * r + 0.5 * g - 0.25 * b,
+                        0.5 * r - 0.5 * b], -1)
+
+
+def ycgco_to_rgb(c):
+    y, cg, co = c[..., 0], c[..., 1], c[..., 2]
+    tmp = y - cg
+    return torch.stack([tmp + co, y + cg, tmp - co], -1)
 
 
 # ---------------------------------------------------------------------------

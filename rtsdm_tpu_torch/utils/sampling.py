@@ -80,7 +80,7 @@ def random_jitter(px, py, enabled: bool = True):
 
 
 def jitter_grid(h: int, w: int, enabled: bool = True, x0: int = 0,
-                y0: int = 0, device="cpu"):
+                y0: int = 0, *, device):
     """[h, w, 2] sub-texel jitter for the contiguous grid starting at
     (x0, y0): the 4x4 table tiled."""
     if not enabled:

@@ -1,0 +1,172 @@
+"""The port's Mogwai harness (rtsdm_tpu_torch.mogwai) against the JAX
+package's, on the CPU.
+
+* scripts/SVAO_small.py, the graph of the README's four outputs, run through
+  the port's Renderer at the settings of
+  tests/image_tests/renderpasses/test_SVAO_small.py (CornellBox 96x96,
+  guard band 8, its pass overrides, a paused clock, frames 0 and 1) and held
+  against the committed goldens, which are the JAX package's own output of
+  this graph, by the golden runner's MSE bound (2e-4,
+  rtsdm_tpu/testing/image_tests.py:96-100). The refs are only read.
+* Both packages' run_script in one process, in both orders: each builds its
+  own package's RenderGraph although scripts/_graphlib.py binds
+  `from falcor import RenderGraph` once per process.
+"""
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rtsdm_tpu_torch import _build
+from rtsdm_tpu_torch.mogwai import Renderer, run_script
+from rtsdm_tpu_torch.rendergraph.graph import RenderGraph
+
+ROOT = Path(__file__).resolve().parents[1]
+SCRIPT = ROOT / "scripts" / "SVAO_small.py"
+REFS = ROOT / "tests" / "image_refs"
+GOLDEN = ROOT / "tests" / "image_tests" / "renderpasses" / "test_SVAO_small.py"
+MSE_BOUND = 2e-4
+
+
+def _golden_settings():
+    ns = {}
+    exec(GOLDEN.read_text(), ns)
+    return ns["IMAGE_TEST"], ns["OUTPUTS"]
+
+
+@pytest.fixture(scope="module")
+def svao_small_frames():
+    cfg, outputs = _golden_settings()
+    m = Renderer(cfg["width"], cfg["height"], device="cpu")
+    run_script(str(SCRIPT), m)
+    assert isinstance(m.active_graph, RenderGraph)
+    m.active_graph.get_pass("GuardBand").cfg["guardBand"] = cfg["guard_band"]
+    for name, props in cfg["pass_overrides"].items():
+        m.active_graph.get_pass(name).cfg.update(props)
+    m.loadScene(cfg["scene"])
+    m.clock.pause()
+    _build.LAUNCHES.clear()
+    frames = {}
+    for f in range(max(cfg["frames"]) + 1):
+        m.clock.frame = f
+        frames[f] = m.renderFrame()
+    assert sum(_build.LAUNCHES.values()) == 0   # CPU tensors: plain versions
+    return cfg, outputs, frames
+
+
+def test_svao_small_outputs_are_cropped_and_finite(svao_small_frames):
+    cfg, _, frames = svao_small_frames
+    for out in frames.values():
+        assert set(out) == {"ShadedTAA.colorOut", "AmbientOcclusionTAA.colorOut",
+                            "Shaded.out", "AmbientOcclusion.out"}
+        for v in out.values():
+            assert v.shape[:2] == (cfg["height"], cfg["width"])
+            assert bool(torch.isfinite(v).all())
+        ao = out["AmbientOcclusion.out"][..., 0]
+        assert float(ao.min()) >= 0.0 and float(ao.max()) <= 1.0
+
+
+@pytest.mark.parametrize("output", ["AmbientOcclusion.out", "Shaded.out"])
+def test_svao_small_matches_goldens(svao_small_frames, output):
+    cfg, outputs, frames = svao_small_frames
+    assert output in outputs
+    for f in cfg["frames"]:
+        path = REFS / f"test_SVAO_small.{output}.{f}.npy"
+        before = hashlib.sha256(path.read_bytes()).hexdigest()
+        ref = np.load(path).astype(np.float32)
+        img = frames[f][output].numpy().astype(np.float32)
+        assert img.shape == ref.shape
+        mse = float(((img - ref) ** 2).mean())
+        assert mse <= MSE_BOUND, (output, f, mse)
+        assert hashlib.sha256(path.read_bytes()).hexdigest() == before
+
+
+HARNESS_ORDERS = """
+import sys
+sys.path.insert(0, {root!r})
+import rtsdm_tpu_torch.mogwai as TM
+import rtsdm_tpu_torch.rendergraph.graph as TG
+script = {script!r}
+
+def port():
+    m, _ = TM.run_script(script, TM.Renderer(64, 64, device="cpu"))
+    return type(m.active_graph) is TG.RenderGraph
+
+def reference():
+    import rtsdm_tpu.mogwai as JM
+    import rtsdm_tpu.rendergraph.graph as JG
+    m, _ = JM.run_script(script, JM.Renderer(64, 64, use_jit=False))
+    return type(m.active_graph) is JG.RenderGraph
+
+steps = {steps!r}
+print(" ".join(str(globals()[s]()) for s in steps))
+"""
+
+
+@pytest.mark.parametrize("steps", [("reference", "port", "reference"),
+                                   ("port", "reference", "port")])
+def test_both_harnesses_in_one_process(steps):
+    """Each run_script builds its own package's graph, whichever package
+    ran a script first in the process (the `falcor` / `_graphlib` trap)."""
+    code = HARNESS_ORDERS.format(root=str(ROOT), script=str(SCRIPT),
+                                 steps=list(steps))
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split() == ["True"] * len(steps), res.stdout
+
+
+PLUGIN = '''
+from rtsdm_tpu_torch.rendergraph.render_pass import (PassReflection,
+                                                     RenderPass, register_pass)
+
+
+@register_pass("TestHalfAO")
+class TestHalfAO(RenderPass):
+    def reflect(self, ctx):
+        return PassReflection().add_input("src").add_output("dst")
+
+    def execute(self, ctx, inputs, state=None):
+        return {"dst": inputs["src"] * 0.5}, None
+'''
+
+SCRIPT_WITH_PLUGIN = '''
+from falcor import *
+
+g = RenderGraph("PluginGraph")
+g.addPass(createPass("GBufferRaster", {}), "GBufferRaster")
+g.addPass(createPass("LinearizeDepth", {}), "LinearizeDepth")
+g.addPass(createPass("TestHalfAO", {}), "Half")
+g.addEdge("GBufferRaster.depth", "LinearizeDepth.depth")
+g.addEdge("LinearizeDepth.linearDepth", "Half.src")
+g.markOutput("Half.dst")
+m.addGraph(g)
+'''
+
+
+def test_mogwai_main_runs_a_script_with_a_plugin(tmp_path, capsys):
+    """The command line of the harness (the reference's flags): a plugin
+    registers a pass type, the script wires it, two frames render on the
+    CPU and their marked output is captured."""
+    from rtsdm_tpu_torch import mogwai
+    from rtsdm_tpu_torch.rendergraph.render_pass import PASS_REGISTRY
+    plugin = tmp_path / "half_plugin.py"
+    plugin.write_text(PLUGIN)
+    script = tmp_path / "plugin_graph.py"
+    script.write_text(SCRIPT_WITH_PLUGIN)
+    try:
+        rc = mogwai.main([str(script), "--scene", "CornellBox", "--width",
+                          "40", "--height", "24", "--frames", "2",
+                          "--device", "cpu", "--plugin", str(plugin),
+                          "--capture", str(tmp_path / "out")])
+    finally:
+        PASS_REGISTRY.pop("TestHalfAO", None)
+    assert rc == 0
+    assert "outputs: {'Half.dst': (24, 40)}" in capsys.readouterr().out
+    for f in (0, 1):
+        img = np.load(tmp_path / "out" / f"Half.dst.{f}.npy")
+        assert img.shape == (24, 40) and np.isfinite(img).all()

@@ -19,11 +19,13 @@ from rtsdm_tpu_torch.ops import ao_shift as S
 from rtsdm_tpu_torch.ops import fetch_cuda as F
 from rtsdm_tpu_torch.ops import raster_cuda as RC
 from rtsdm_tpu_torch.ops import rt_cuda as RT
+from rtsdm_tpu_torch.ops import warp_cuda as W
 
 ROOT = Path(__file__).resolve().parents[1]
 
 WRAPPERS = (RC.raster_blocks, RC.fetch_attributes, F.fetch_all_directions,
-            F.fetch_sd_packed, RT.sd_trace_blocks)
+            F.fetch_sd_packed, RT.sd_trace_blocks, W.warp_resample,
+            RT.any_hit_blocks)
 
 
 def test_port_never_imports_jax():
@@ -60,14 +62,14 @@ def test_build_targets_hopper_without_fma():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build.BUILD_DIR == ROOT / "build" / "rtsdm_tpu_torch"
     assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
-        "raster.cu", "fetch.cu", "sd_trace.cu"}
+        "raster.cu", "fetch.cu", "sd_trace.cu", "warp.cu", "any_hit.cu"}
     # the scene helper is built by the port's own loader, into build/
     lib = _build.scenekit_library()
     assert Path(lib._name).parent == _build.BUILD_DIR
 
 
 def _tiny_inputs():
-    """Minimal valid CPU arguments for each of the five wrappers."""
+    """Minimal valid CPU arguments for each of the seven wrappers."""
     rng = np.random.default_rng(11)
     chunks = torch.zeros((1, RC.COEF_ROWS, RC.TC))
     lists = torch.zeros((1, 1), dtype=torch.int32)
@@ -97,6 +99,10 @@ def _tiny_inputs():
         "fetch_all_directions": ([planes], pad, radius, levels, offs, radii),
         "fetch_sd_packed": (sd, pad, radius, levels, offs, radii, pad),
         "sd_trace_blocks": (tri, lists, counts, rays, 2),
+        "warp_resample": (torch.ones((1, 2, 2)), torch.ones((1, 2)),
+                          torch.ones((1, 2)), "bilinear"),
+        "any_hit_blocks": (torch.zeros((1, RT.PACK_ROWS_CLASSIC, RT.TC)),
+                           lists, counts, torch.zeros((8, RT.RB))),
     }
 
 
@@ -108,7 +114,9 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
                       (RC, "fetch_attributes_plain"),
                       (F, "fetch_all_directions_plain"),
                       (F, "fetch_sd_packed_plain"),
-                      (RT, "sd_trace_blocks_plain")):
+                      (RT, "sd_trace_blocks_plain"),
+                      (W, "warp_resample_plain"),
+                      (RT, "any_hit_blocks_plain")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _name=name, **kw):
@@ -139,3 +147,67 @@ def test_other_devices_raise_instead_of_falling_back(wrapper):
     fn = {w.__name__: w for w in WRAPPERS}[wrapper]
     with pytest.raises(RuntimeError, match="unsupported device"):
         fn(*map(meta, args))
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke.py imports the port only: no jax and no module of the
+    reference package, at top level or inside a function."""
+    import ast
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.add(node.module)
+    tops = {n.split(".")[0] for n in names}
+    assert "rtsdm_tpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "rtsdm_tpu"}, sorted(tops)
+
+
+def _entry_points():
+    from rtsdm_tpu_torch.mogwai import Renderer
+    from rtsdm_tpu_torch.scene import procedural as P
+    from rtsdm_tpu_torch.scene.camera import CAMERA_FIELDS, Camera
+    from rtsdm_tpu_torch.scene.scene import (SCENE_FIELDS, make_scene,
+                                             scene_from_numpy)
+    tri = np.asarray([[[0, 0, 0], [1, 0, 0], [0, 1, 0]]], np.float32)
+
+    def from_numpy(**kw):
+        st = P.cornell_box(device="cpu")
+        arrays = {f: (None if getattr(st, f) is None
+                      else getattr(st, f).numpy()) for f in SCENE_FIELDS}
+        cam = {f: getattr(st.camera, f).numpy() for f in CAMERA_FIELDS}
+        return scene_from_numpy(arrays, cam, **kw)
+
+    return {
+        "cornell_box": P.cornell_box,
+        "arcade": P.arcade,
+        "sun_temple": P.sun_temple,
+        "bistro": P.bistro,
+        "emerald_square": P.emerald_square,
+        "load_scene": lambda **kw: P.load_scene("CornellBox", **kw),
+        "make_scene": lambda **kw: make_scene("tri", tri, **kw),
+        "scene_from_numpy": from_numpy,
+        "Camera.create": Camera.create,
+        "Renderer": lambda **kw: Renderer(64, 64, **kw),
+    }
+
+
+ENTRY_POINTS = ("cornell_box", "arcade", "sun_temple", "bistro",
+                "emerald_square", "load_scene", "make_scene",
+                "scene_from_numpy", "Camera.create", "Renderer")
+
+
+@pytest.mark.parametrize("entry", ENTRY_POINTS)
+def test_entry_points_default_to_the_gpu(entry, monkeypatch):
+    """Every public entry point runs on the card unless it is asked for the
+    CPU: without a CUDA device, a call that names no device raises, and the
+    same call with device="cpu" builds on the CPU."""
+    fn = _entry_points()[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn()
+    out = fn(device="cpu")
+    dev = getattr(out, "device", None) or out.view_mat.device
+    assert torch.device(dev).type == "cpu"

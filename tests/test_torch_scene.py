@@ -26,9 +26,14 @@ ATOL = 1e-6
 
 
 def carry(scene_j, device="cpu"):
-    """The reference scene's arrays and camera handed to the port."""
+    """The reference scene's arrays and camera handed to the port (an
+    absent optional field, e.g. no env map, arrives as None)."""
+    def arr(f):
+        a = getattr(scene_j, f)
+        return None if a is None else np.asarray(a)
+
     return scene_from_numpy(
-        {f: np.asarray(getattr(scene_j, f)) for f in SCENE_FIELDS},
+        {f: arr(f) for f in SCENE_FIELDS},
         {f: np.asarray(getattr(scene_j.camera, f)) for f in CAMERA_FIELDS},
         device=device, name=scene_j.name)
 
@@ -41,12 +46,17 @@ def t(a):
                                      "emerald_square"])
 def test_scene_arrays_match_reference(builder):
     sj = getattr(PJ, builder)()
-    st = getattr(PT, builder)()
+    st = getattr(PT, builder)(device="cpu")
     assert st.num_triangles == sj.num_triangles
-    for f in ("positions", "texcoords", "material_id", "tri_alpha_mask",
-              "mat_double_sided", "mat_alpha_mode"):
-        np.testing.assert_array_equal(getattr(st, f).numpy(),
-                                      np.asarray(getattr(sj, f)), err_msg=f)
+    assert st.num_lights == sj.num_lights
+    for f in SCENE_FIELDS:
+        if f == "normals":
+            continue
+        a, b = getattr(st, f), getattr(sj, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f)
     np.testing.assert_allclose(st.normals.numpy(), np.asarray(sj.normals),
                                atol=ATOL, rtol=0)
     np.testing.assert_allclose(st.face_normals().numpy(),
@@ -58,7 +68,7 @@ def test_sun_temple_small_morton_order():
     """make_scene's morton sort (the shared scenekit source, compiled by
     the port's own loader) orders SunTemple@small exactly like rtsdm_tpu."""
     sj = PJ.sun_temple(detail="small")
-    st = PT.load_scene("SunTemple", aspect=16 / 9)
+    st = PT.load_scene("SunTemple", aspect=16 / 9, device="cpu")
     np.testing.assert_array_equal(st.positions.numpy(),
                                   np.asarray(sj.positions))
     np.testing.assert_array_equal(st.tri_alpha_mask.numpy(),
@@ -74,7 +84,7 @@ def test_sun_temple_small_morton_order():
 ])
 def test_camera_create_matches_reference(kw):
     from rtsdm_tpu.scene.camera import Camera as CJ
-    cj, ct = CJ.create(**kw), Camera.create(**kw)
+    cj, ct = CJ.create(**kw), Camera.create(**kw, device="cpu")
     for f in CAMERA_FIELDS:
         np.testing.assert_allclose(getattr(ct, f).numpy(),
                                    np.asarray(getattr(cj, f)), atol=ATOL,
@@ -106,11 +116,13 @@ def test_camera_math_matches_reference():
 
 
 def test_scene_from_numpy_carries_fields_exactly():
-    sj = PJ.arcade()
-    st = carry(sj)
-    for f in SCENE_FIELDS:
-        np.testing.assert_array_equal(getattr(st, f).numpy(),
-                                      np.asarray(getattr(sj, f)))
+    for sj in (PJ.arcade(), PJ.cornell_box()):
+        st = carry(sj)
+        for f in SCENE_FIELDS:
+            a, b = getattr(st, f), getattr(sj, f)
+            assert (a is None) == (b is None), f
+            if a is not None:
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
     for f in CAMERA_FIELDS:
         np.testing.assert_array_equal(getattr(st.camera, f).numpy(),
                                       np.asarray(getattr(sj.camera, f)))
@@ -163,10 +175,30 @@ def test_sampling_tables_match_reference():
     np.testing.assert_array_equal(ST.JITTER_4X4, SJ.JITTER_4X4)
     for x0, y0, en in ((0, 0, True), (3, 2, True), (0, 0, False)):
         np.testing.assert_array_equal(
-            ST.jitter_grid(18, 37, en, x0, y0).numpy(),
+            ST.jitter_grid(18, 37, en, x0, y0, device="cpu").numpy(),
             np.asarray(SJ.jitter_grid(18, 37, en, x0, y0)))
     px = np.arange(40, dtype=np.int32) * 7
     py = np.arange(40, dtype=np.int32) * 3
     np.testing.assert_array_equal(
         ST.random_jitter(t(px), t(py)).numpy(),
         np.asarray(SJ.random_jitter(jnp.asarray(px), jnp.asarray(py))))
+
+
+@pytest.mark.parametrize("name,aspect", [("CornellBox", 1.0),
+                                         ("Arcade", 16 / 9)])
+def test_load_scene_matches_reference(name, aspect):
+    """load_scene builds the reference's arrays: geometry, materials, the
+    texture pages, the env map and the lights."""
+    sj = PJ.load_scene(name, aspect=aspect)
+    st = PT.load_scene(name, aspect=aspect, device="cpu")
+    for f in SCENE_FIELDS:
+        a, b = getattr(st, f), getattr(sj, f)
+        assert (a is None) == (b is None), f
+        if a is not None and f != "normals":
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=f)
+    for f in CAMERA_FIELDS:
+        np.testing.assert_allclose(getattr(st.camera, f).numpy(),
+                                   np.asarray(getattr(sj.camera, f)),
+                                   atol=ATOL, rtol=0, err_msg=f)
+    assert (st.tex_pages is not None) == (name == "Arcade")
