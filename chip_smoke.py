@@ -35,7 +35,27 @@ Phases, each of which raises on failure (the script then exits non-zero):
    synthetic motion field at the TAA shape; time the kernels, their plain
    versions and K10's library yardstick (grid_sample);
 10. time the graph frame: host-clock median over 7 frames after a warm-up,
-   per-pass CUDA events, and one profiled frame (device busy, idle share).
+   per-pass CUDA events, and one profiled frame (device busy, idle share);
+11. BASELINE config 2 (bench_configs.py:20-23): scripts/SVAO_small.py with
+   SVAO's stochasticDepthImpl set to 'Raster' after the graph was built,
+   Arcade@full 1280x720, 3 frames. Per frame K9 (raster_stochastic)
+   launches once and K5 never; K1-K4 and K8 as the graph gives them. Every
+   call of the last frame of K1-K4, K8 and K10 is held bit-exact against its
+   plain version at the config's shapes (K4 with no SD guard band; K8 on a
+   spread subset of tiles), and so is K9, at the path's alpha and at 1.0,
+   and timed; then the frame is timed as in 10;
+12. BASELINE config 1: scripts/HBAO.py on CornellBox 256x256, 3 frames. Per
+   frame K6 (fetch_taps_same_class) launches once and K1 once with its
+   depth floor (DepthPeeling) besides its two plain launches; the last
+   frame's calls held as in 11; then one frame with HBAO's depthMode set to
+   DualDepth (K6 on two plane sets); timed as in 10;
+13. config 1's graph again on SunTemple@full 1920x1080, where K6 and the
+   floored K1 do real work: the last frame's calls held as in 11, K6 held
+   bit-exact on every call kept (also the CornellBox and DualDepth calls),
+   K6 and the floored K1 timed; the frame timed as in 10;
+14. both configs' graphs at their golden settings on the card
+   (tests/image_tests/renderpasses/test_HBAO.py, test_SVAO_rasterSD.py),
+   held against the committed goldens by the golden runner's MSE bound.
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound and library yardstick), and
@@ -616,7 +636,9 @@ KERNEL_SYMBOLS = {"raster": "raster_blocks_kernel",
                   "fetch_sd_packed": "fetch_sd_packed_kernel",
                   "sd_trace": "sd_trace_kernel",
                   "any_hit": "any_hit_kernel",
-                  "warp_resample": "warp_resample_kernel"}
+                  "warp_resample": "warp_resample_kernel",
+                  "fetch_taps_same_class": "fetch_taps_same_class_kernel",
+                  "raster_stochastic": "raster_sd_kernel"}
 
 
 def profiled_frame(scene, pass_, ctx):
@@ -783,6 +805,24 @@ def drive_graph(kernels, path_counts):
     return m, dict(totals), dict(modes)
 
 
+def any_hit_subset(tri, lists, counts, rays):
+    """(sel, inputs): up to ANY_HIT_TILES whole 8x32 tiles spread evenly
+    over the tiles that hold a live ray, and K8's inputs cut to them."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    nb = counts.shape[0]
+    live = (rays[7] > rays[6]).reshape(nb, RT.RB)
+    live_tiles = torch.nonzero(live.any(1)).squeeze(1)
+    check(live_tiles.numel() > 0, "K8: no live ray")
+    pick = torch.linspace(0, live_tiles.numel() - 1,
+                          min(ANY_HIT_TILES, live_tiles.numel()),
+                          device=live.device).round().long().unique()
+    sel = live_tiles[pick]
+    return sel, (tri, lists[sel].contiguous(), counts[sel].contiguous(),
+                 rays.reshape(8, nb, RT.RB)[:, sel].reshape(8, -1)
+                 .contiguous())
+
+
 def compare_any_hit(k):
     """K8: bit-exact, hits and the pairs each ray tested, on ANY_HIT_TILES
     whole 8x32 tiles spread evenly over the tiles of the graph's last frame
@@ -798,14 +838,7 @@ def compare_any_hit(k):
     nb = counts.shape[0]
     hit, pairs = RT.any_hit_blocks(tri, lists, counts, rays)
     live = (rays[7] > rays[6]).reshape(nb, RT.RB)
-    live_tiles = torch.nonzero(live.any(1)).squeeze(1)
-    check(live_tiles.numel() > 0, "K8: no live ray")
-    pick = torch.linspace(0, live_tiles.numel() - 1,
-                          min(ANY_HIT_TILES, live_tiles.numel()),
-                          device=live.device).round().long().unique()
-    sel = live_tiles[pick]
-    sub = (tri, lists[sel].contiguous(), counts[sel].contiguous(),
-           rays.reshape(8, nb, RT.RB)[:, sel].reshape(8, -1).contiguous())
+    sel, sub = any_hit_subset(tri, lists, counts, rays)
     hit_s, pairs_s = RT.any_hit_blocks(*sub)
     hit_p, pairs_p = RT.any_hit_blocks_plain(*sub)
     mism = int((hit_s != hit_p).sum()) + int((pairs_s != pairs_p).sum())
@@ -989,6 +1022,444 @@ def graph_timing(m, reps: int = 7):
                 kernel_device_ms={n: kernel_device_ms(acts, n)
                                   for n in KERNEL_SYMBOLS}), acts
 
+
+# ---------------------------------------------------------------------------
+# BASELINE configs 1 and 2 (bench_configs.py:17-23) through the harness
+# ---------------------------------------------------------------------------
+
+HBAO_SCRIPT = ROOT / "scripts" / "HBAO.py"
+CONFIG_FRAMES = 3
+RASTER_SD = {"SVAO": {"stochasticDepthImpl": "Raster"}}
+# label: (script, scene, width, height, pass overrides, marked outputs)
+CONFIGS = {
+    "config2": (GRAPH_SCRIPT, "Arcade@full", 1280, 720, RASTER_SD,
+                GRAPH_OUTPUTS),
+    "config1": (HBAO_SCRIPT, "CornellBox", 256, 256, {},
+                ("Ambient.out", "Diffuse.out")),
+    "config1_suntemple": (HBAO_SCRIPT, "SunTemple@full", 1920, 1080, {},
+                          ("Ambient.out", "Diffuse.out")),
+}
+FLOOR = "raster:floor"          # K1 launched with its depth floor
+RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
+                                # and the w plane (4 each), evaluated for
+                                # every pixel-triangle pair; the tail of
+                                # fragments inside is not counted
+
+
+def kernels_of_configs():
+    """Every kernel of the graph path plus K6 (HBAO's same-class fetch) and
+    K9 (the raster stochastic depth map)."""
+    from rtsdm_tpu_torch.ops import fetch_cuda, raster_cuda
+    from rtsdm_tpu_torch.passes import hbao
+    return kernels_of_graph() + [
+        Kernel("fetch_taps_same_class", ["rtsdm_fetch_taps_same_class"],
+               fetch_cuda.fetch_taps_same_class,
+               [(hbao, "fetch_taps_same_class")],
+               [(fetch_cuda, "fetch_taps_same_class_plain")],
+               "rtsdm_tpu_torch/csrc/fetch.cu",
+               "rtsdm_tpu/ops/fetch_pallas.py:264"),
+        Kernel("raster_stochastic", ["rtsdm_raster_stochastic"],
+               raster_cuda.raster_stochastic_blocks,
+               [(raster_cuda, "raster_stochastic_blocks")],
+               [(raster_cuda, "raster_stochastic_blocks_plain")],
+               "rtsdm_tpu_torch/csrc/raster_sd.cu",
+               "rtsdm_tpu/ops/raster_pallas.py:319"),
+    ]
+
+
+def config_renderer(label):
+    """The `m` of a Mogwai run of the config: Renderer, script, the
+    config's pass overrides (as bench_configs.py sets them, after the graph
+    was built), scene, paused clock."""
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    script, scene, width, height, overrides, _ = CONFIGS[label]
+    m = Renderer(width, height, device="cuda")
+    run_script(str(script), m)
+    for pname, props in overrides.items():
+        m.active_graph.get_pass(pname).cfg.update(props)
+    m.loadScene(scene)
+    m.clock.pause()
+    return m
+
+
+def check_config_outputs(label, out):
+    import torch
+    _, _, width, height, _, names = CONFIGS[label]
+    check(set(out) == set(names), f"{label}: marked outputs {sorted(out)}")
+    for name in names:
+        v = out[name]
+        check(v.shape[:2] == (height, width),
+              f"{label} {name}: shape {tuple(v.shape)}")
+        check(bool(torch.isfinite(v).all()), f"{label} {name}: non-finite")
+    ao = out[names[-1] if label == "config2" else "Ambient.out"][..., 0]
+    lo, hi = float(ao.min()), float(ao.max())
+    check(0.0 <= lo and hi <= 1.0, f"{label}: AO outside [0, 1]: "
+                                   f"[{lo}, {hi}]")
+    check(lo < 0.9, f"{label}: AO shows no occlusion anywhere (min {lo})")
+    return lo, hi
+
+
+def config_want(label, n_lights):
+    """Launches per frame that each config's graph must make."""
+    if label == "config2":
+        # G-buffer and ForwardLighting raster; SVAO phase 1 fetches both
+        # ring halves, phase 2 reads the packed SD map; K9 once, K5 never
+        return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
+                "fetch_all_directions": 2, "fetch_sd_packed": 1,
+                "sd_trace": 0, "raster_stochastic": 1,
+                "fetch_taps_same_class": 0, "any_hit": n_lights}
+    # HBAO.py: G-buffer and ForwardLighting raster, DepthPeeling's floored
+    # raster (live: HBAO reads depth2), one K6 call for the whole ring
+    return {"raster": 2, FLOOR: 1, "fetch_attributes": 2,
+            "fetch_all_directions": 0, "fetch_sd_packed": 0, "sd_trace": 0,
+            "raster_stochastic": 0, "fetch_taps_same_class": 1,
+            "any_hit": n_lights}
+
+
+def drive_config(label, kernels):
+    """Run a config for CONFIG_FRAMES frames; counts are zeroed just before
+    and read just after every frame, and no plain version may run. Returns
+    (renderer, launches summed over the frames, K10's by mode)."""
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
+    script, scene, width, height, overrides, _ = CONFIGS[label]
+    t0 = time.perf_counter()
+    m = config_renderer(label)
+    n_lights = min(int(m.scene.num_lights), int(
+        m.active_graph.get_pass("RayShadow").cfg["maxLights"]))
+    log(f"{label}: {script.relative_to(ROOT)} {overrides or ''} on {scene} "
+        f"({m.scene.num_triangles} triangles, {n_lights} light(s)) at "
+        f"{width}x{height}, set up in {time.perf_counter() - t0:.2f} s")
+    want = config_want(label, n_lights)
+    totals = collections.Counter()
+    modes = collections.Counter()
+    with record_main_path(kernels) as plain_calls:
+        for f in range(CONFIG_FRAMES):
+            m.clock.frame = f
+            for k in kernels:
+                k.calls.clear()        # keep the last frame's inputs
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            out = m.renderFrame()
+            counts = {k.name: k.launches for k in kernels}
+            counts[FLOOR] = LAUNCHES[raster_cuda.RASTER_FLOOR_KEY]
+            by_mode = {md: LAUNCHES[warp_cuda.launch_key(md)]
+                       for md in warp_cuda.MODES}
+            lo, hi = check_config_outputs(label, out)
+            log(f"{label} frame {f}: {m.last_frame_ms:.3f} ms host clock; "
+                f"launches {counts}; K10 by mode {by_mode}; AO in "
+                f"[{lo:.4f}, {hi:.4f}]")
+            check(not plain_calls, f"plain versions ran: {plain_calls}")
+            for name, n in want.items():
+                check(counts[name] == n, f"{label}: {name} launched "
+                                         f"{counts[name]} times in a frame, "
+                                         f"expected {n}")
+            if label == "config2":
+                check(by_mode["catmull_rom"] == 2, "K10: TAA x2 expected")
+            else:
+                check(by_mode["catmull_rom"] == 0, "K10: HBAO.py has no TAA")
+            totals.update(counts)
+            modes.update(by_mode)
+    return m, dict(totals), dict(modes)
+
+
+def _pair_raster(args, kwargs):
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    return (RC.raster_blocks(*args, **kwargs),
+            RC.raster_blocks_plain(*args, **kwargs))
+
+
+def _pair_fetch_attributes(args, kwargs):
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    return ((RC.fetch_attributes(*args, **kwargs),),
+            (RC.fetch_attributes_plain(*args, **kwargs),))
+
+
+def _pair_fetch_directions(args, kwargs):
+    import torch
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    sets, pad, radius, levels, offs, radii = args
+    planes = torch.stack(list(sets)).contiguous()
+    return ((torch.stack(F.fetch_all_directions(*args, **kwargs)),),
+            (torch.stack(F.fetch_all_directions_plain(
+                planes, pad, radius.contiguous(), levels, offs, radii)),))
+
+
+def _pair_fetch_sd_packed(args, kwargs):
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    sd_map, guard, radius, levels, offs, radii, pad = args
+    got = F.fetch_sd_packed(*args, **kwargs)
+    check(got is not None, f"K4: the SD tables do not fit (guard {guard})")
+    return (got,), (F.fetch_sd_packed_plain(
+        F.pack_sd16(sd_map), guard, radius.contiguous(), levels, offs,
+        radii),)
+
+
+def _pair_any_hit(args, kwargs):
+    """On the spread tile subset (any_hit_subset): the plain version there,
+    and the launch over every tile cut to the subset."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    tri, lists, counts, rays = args
+    nb = counts.shape[0]
+    full = RT.any_hit_blocks(*args, **kwargs)
+    sel, sub = any_hit_subset(tri, lists, counts, rays)
+    got = RT.any_hit_blocks(*sub)
+    return (got + tuple(a.reshape(nb, RT.RB)[sel].reshape(-1)
+                        for a in full),
+            RT.any_hit_blocks_plain(*sub) + got)
+
+
+def _pair_warp(args, kwargs):
+    from rtsdm_tpu_torch.ops import warp_cuda as W
+    a = _warp_args(args, kwargs)
+    return (W.warp_resample(**a),), (W.warp_resample_plain(**a),)
+
+
+# kernel -> (args, kwargs) -> (kernel outputs, plain outputs), for the
+# configs' last-frame check; K6 and K9 are held by their own phases
+CONFIG_PAIRS = {"raster": _pair_raster,
+                "fetch_attributes": _pair_fetch_attributes,
+                "fetch_all_directions": _pair_fetch_directions,
+                "fetch_sd_packed": _pair_fetch_sd_packed,
+                "any_hit": _pair_any_hit,
+                "warp_resample": _pair_warp}
+
+
+def check_config_calls(label, kernels):
+    """Every call of the config's last frame, at the config's own shapes
+    and settings (K1 with and without its floor, K4 at guard 0 in config 2),
+    against its plain version on the card: bit-exact (--fmad=false, the
+    plain versions' operation order; K8 on a spread subset of whole tiles,
+    as in compare_any_hit). Returns {kernel: calls held}."""
+    import torch
+    by_name = kernels_by_name(kernels)
+    held = {}
+    for name, pair in CONFIG_PAIRS.items():
+        calls = by_name[name].calls
+        for args, kwargs in calls:
+            got, want = pair(args, kwargs)
+            for g, w in zip(got, want):
+                check(g.shape == w.shape, f"{label}: {name} output shape "
+                                          f"{tuple(g.shape)} vs plain "
+                                          f"{tuple(w.shape)}")
+                mism = int((g != w).sum())
+                check(torch.equal(g, w), f"{label}: {name} at "
+                                         f"{tuple(g.shape)} is not "
+                                         f"bit-exact ({mism} mismatches)")
+        held[name] = len(calls)
+    log(f"{label}: the last frame's calls held bit-exact against their plain "
+        f"versions: {held}")
+    return held
+
+
+def compare_raster_floor(calls):
+    """K1 with its depth floor (DepthPeeling) on the last floored call:
+    times, bound, the share of pixels holding a second layer. Every floored
+    call was held bit-exact by check_config_calls (--fmad=false; the floor
+    test is a true division and a comparison)."""
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    floored = [(a, kw) for a, kw in calls if kw.get("floor") is not None]
+    check(floored, "K1: no floored call recorded")
+    args, kwargs = floored[-1]
+    got = RC.raster_blocks(*args, **kwargs)
+    peeled = float((got[1] >= 0).double().mean())
+    log(f"K1 with floor {tuple(got[1].shape)}, {args[0].shape[0]} chunks, "
+        f"min_separation {kwargs.get('min_separation')}: second-layer "
+        f"coverage {peeled:.4f}")
+    tests = float(walk_visits(args[1], args[2], args[0].shape[0]).sum()) \
+        * RC.TC * 256
+    # no PyTorch call rasterizes triangles: no library yardstick
+    return with_bound(
+        dict(max_abs_err=0.0, mismatches=0, exact=True,
+             ms=cuda_ms(lambda: RC.raster_blocks(*args, **kwargs), 20, 2),
+             plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(*args,
+                                                             **kwargs), 1, 1),
+             timed_at=f"{tuple(got[1].shape)}", second_layer=peeled),
+        nbytes(args[:3], kwargs["floor"], got),
+        tests * RASTER_FLOPS_PER_TEST)
+
+
+def compare_taps_same_class(calls, timed_label):
+    """K6: bit-exact (a copy chosen by a table lookup) on every call kept
+    from the configs' last frames; the timed row is the largest call."""
+    import torch
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    check(calls, "K6: no recorded call")
+    worst = None
+    for args, kwargs in calls:
+        got = F.fetch_taps_same_class(*args, **kwargs)
+        want = F.fetch_taps_same_class_plain(*args, **kwargs)
+        mism = int((got != want).sum())
+        log(f"K6 fetch_taps_same_class {tuple(args[0].shape)} -> "
+            f"{tuple(got.shape)}: {mism} mismatches (bound: bit-exact)")
+        check(torch.equal(got, want), "K6 is not bit-exact")
+        if worst is None or got.numel() > worst[2].numel():
+            worst = (args, kwargs, got)
+    args, kwargs, got = worst
+    planes, lvl, pad, offs = args
+    tab = F._same_class_table_on(offs, pad, planes.device)
+    # a copy per output; no single PyTorch call looks the offset up and
+    # gathers (torch.gather needs the flat index this kernel computes): no
+    # library yardstick
+    return with_bound(
+        dict(max_abs_err=0.0, mismatches=0, exact=True,
+             ms=cuda_ms(lambda: F.fetch_taps_same_class(*args, **kwargs),
+                        50, 3),
+             plain_ms=cuda_ms(lambda: F.fetch_taps_same_class_plain(
+                 *args, **kwargs), 5, 1),
+             timed_at=f"{timed_label} {tuple(got.shape)}"),
+        nbytes(planes, lvl, tab, got), 0.0)
+
+
+def compare_raster_stochastic(k):
+    """K9: bit-exact at the path's inputs (the last frame's call), at the
+    path's alpha and at alpha 1.0 (every fragment writes floor(k + rng)
+    slots), and on the same tiles with short lists that stream every
+    chunk. The bound counts the pixel-triangle pairs of this run's walk."""
+    import torch
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    check(k.calls, "K9: no recorded call")
+    args, kwargs = k.calls[-1]
+    chunks, lists, counts, nby, nbx, first, rmin, rmax, kk, alpha = args
+    got = RC.raster_stochastic_blocks(*args, **kwargs)
+    hit = float((got < RC.SD_EMPTY).double().mean())
+    log(f"K9 raster_stochastic {tuple(got.shape)}, {chunks.shape[0]} chunks, "
+        f"k={kk}, alpha={alpha}: slots with a depth {hit:.4f}")
+    log(f"K9 walk: {chunk_visits(lists, counts, chunks.shape[0])}")
+    check(0.0 < hit < 1.0, f"K9: share of filled slots {hit}")
+    for a in (alpha, 1.0):
+        run = (chunks, lists, counts, nby, nbx, first, rmin, rmax, kk, a)
+        g = RC.raster_stochastic_blocks(*run)
+        w = RC.raster_stochastic_blocks_plain(*run)
+        mism = int((g != w).sum())
+        log(f"K9 at alpha {a}: {mism} slot mismatches of {g.numel()} "
+            "(bound: bit-exact)")
+        check(torch.equal(g, w), f"K9 is not bit-exact at alpha {a}")
+    short = lists[:, :2].contiguous()
+    g = RC.raster_stochastic_blocks(chunks, short, counts, nby, nbx, first,
+                                    rmin, rmax, kk, alpha)
+    check(torch.equal(g, got), "K9 streaming every chunk disagrees with "
+                               "its walk of the lists")
+    pairs = float(walk_visits(lists, counts, chunks.shape[0]).sum()) \
+        * RC.TC * 256
+    # no PyTorch call rasterizes triangles: no library yardstick
+    return with_bound(
+        dict(max_abs_err=0.0, mismatches=0, exact=True,
+             ms=cuda_ms(lambda: RC.raster_stochastic_blocks(*args, **kwargs),
+                        10, 2),
+             plain_ms=cuda_ms(lambda: RC.raster_stochastic_blocks_plain(
+                 *args, **kwargs), 1, 0),
+             pairs=pairs, filled_share=hit),
+        nbytes(chunks, lists, counts, first, rmin, rmax, got),
+        pairs * RASTER_SD_FLOPS_PER_PAIR)
+
+
+def dual_depth_frame(m, kernels):
+    """One config-1 frame with HBAO's depthMode set to DualDepth after the
+    graph was built: K6 runs once on two plane sets. Returns K6's call."""
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    k6 = kernels_by_name(kernels)["fetch_taps_same_class"]
+    m.active_graph.get_pass("HBAO").cfg.update(depthMode="DualDepth")
+    with record_main_path(kernels) as plain_calls:
+        for k in kernels:
+            k.calls.clear()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        out = m.renderFrame()
+        check(not plain_calls, f"plain versions ran: {plain_calls}")
+    m.active_graph.get_pass("HBAO").cfg.update(depthMode="SingleDepth")
+    check_config_outputs("config1", out)
+    check(k6.launches == 1 and len(k6.calls) == 1
+          and k6.calls[0][0][0].shape[0] == 2,
+          "DualDepth: K6 did not run once on two plane sets")
+    log("config1 DualDepth frame: K6 launched once on 2 plane sets")
+    return k6.calls[0]
+
+
+def small_configs_against_references():
+    """The configs' graphs at their golden settings on the card, held
+    against the committed goldens (tests/image_refs; the JAX package's
+    output) by the golden runner's MSE bound, 2e-4
+    (rtsdm_tpu/testing/image_tests.py:96-100)."""
+    import numpy as np
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    res = {}
+    for test, script in (("test_HBAO", HBAO_SCRIPT),
+                         ("test_SVAO_rasterSD", GRAPH_SCRIPT)):
+        ns = {}
+        exec((ROOT / "tests" / "image_tests" / "renderpasses"
+              / f"{test}.py").read_text(), ns)
+        cfg = ns["IMAGE_TEST"]
+        m = Renderer(cfg["width"], cfg["height"], device="cuda")
+        run_script(str(script), m)
+        m.active_graph.get_pass("GuardBand").cfg["guardBand"] = \
+            cfg["guard_band"]
+        for name, props in cfg["pass_overrides"].items():
+            m.active_graph.get_pass(name).cfg.update(props)
+        m.loadScene(cfg["scene"])
+        m.clock.pause()
+        for f in range(max(cfg["frames"]) + 1):
+            m.clock.frame = f
+            out = m.renderFrame()
+        for name in ns["OUTPUTS"]:
+            ref = np.load(ROOT / "tests" / "image_refs"
+                          / f"{test}.{name}.{max(cfg['frames'])}.npy")
+            img = out[name].float().cpu().numpy()
+            check(img.shape == ref.shape, f"{test} {name}: shape")
+            mse = float(((img - ref.astype(np.float32)) ** 2).mean())
+            res[f"{test}.{name}"] = mse
+            log(f"{test} {name} on the card vs the committed golden: MSE "
+                f"{mse:.4g} (bound 2e-4)")
+            check(mse <= 2e-4, f"{test} {name}: MSE {mse} above 2e-4")
+    return res
+
+
+def run_configs():
+    """Phases 11-14: configs 2 and 1 through the harness, their kernels
+    against their plain versions, their frame times; then the golden
+    settings on the card. Returns (kernel rows, per-config report)."""
+    report = {}
+    rows = []
+    k6_calls = []
+    for label in ("config2", "config1", "config1_suntemple"):
+        kernels = kernels_of_configs()
+        by_name = kernels_by_name(kernels)
+        m, totals, modes = drive_config(label, kernels)
+        held = check_config_calls(label, kernels)
+        if label == "config2":
+            rows.append(dict(compare_raster_stochastic(
+                by_name["raster_stochastic"]),
+                name="raster_stochastic",
+                launches=totals["raster_stochastic"]))
+        else:
+            k6_calls += by_name["fetch_taps_same_class"].calls
+        if label == "config1":
+            k6_calls.append(dual_depth_frame(m, kernels))
+        if label == "config1_suntemple":
+            rows.append(dict(compare_raster_floor(by_name["raster"].calls),
+                             name=FLOOR, launches=totals[FLOOR]))
+            rows.append(dict(compare_taps_same_class(k6_calls, label),
+                             name="fetch_taps_same_class",
+                             launches=totals["fetch_taps_same_class"]))
+        times, _ = graph_timing(m)
+        script, scene, width, height, overrides, _ = CONFIGS[label]
+        report[label] = dict(times, script=str(script.relative_to(ROOT)),
+                             scene=scene, width=width, height=height,
+                             overrides=overrides, launches=totals,
+                             warp_launches_by_mode=modes,
+                             frames=CONFIG_FRAMES, bit_exact_calls=held)
+        del m
+    report["goldens_mse"] = small_configs_against_references()
+    src = kernels_by_name(kernels_of_configs())
+    for r in rows:
+        k = src[r["name"].split(":")[0]]
+        r.update(source=k.source, replaces=k.replaces,
+                 config_launches={lb: report[lb]["launches"].get(r["name"], 0)
+                                  for lb in CONFIGS})
+    return rows, report
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1080,6 +1551,15 @@ def main() -> int:
             + ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms"))
     graph_times, _ = graph_timing(m)
+    del m
+
+    # BASELINE configs 1 and 2 (phases 11-14)
+    config_rows, configs = run_configs()
+    rows += config_rows
+    for r in config_rows:
+        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library none; launches {r['launches']}")
 
     print(json.dumps({"frame": {
         "gpu": ident, "stages_ms": stages, "host_ms": host_ms,
@@ -1089,7 +1569,8 @@ def main() -> int:
         "peak_device_gib": peak_gib,
         "graph": dict(graph_times, script=str(GRAPH_SCRIPT.relative_to(ROOT)),
                       scene=GRAPH_SCENE, launches=graph_counts,
-                      warp_launches_by_mode=warp_modes)}}))
+                      warp_launches_by_mode=warp_modes),
+        "configs": configs}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,6 +1,7 @@
 """Builds the package's native code on first use and loads it with ctypes.
 
-* CUDA kernels: each ``csrc/*.cu`` is compiled by its own ``nvcc`` for
+* CUDA kernels: each ``csrc/*.cu`` (with the ``csrc/*.cuh`` headers it
+  may include) is compiled by its own ``nvcc`` for
   ``sm_90a`` into a shared library with a plain C interface (no PyTorch
   headers, so a build takes seconds); the ``nvcc`` processes are started
   together. ``--fmad=false`` and no fast math keep every kernel
@@ -44,12 +45,13 @@ _F = ctypes.c_float
 KERNEL_SIGNATURES = {
     "raster.cu": {
         "rtsdm_raster_blocks": [_P, _P, _P, _I, _I, _I, _I, _F, _F,
-                                _P, _P, _P, _P, _P],
+                                _P, _F, _P, _P, _P, _P, _P],
         "rtsdm_fetch_attributes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     },
     "fetch.cu": {
         "rtsdm_fetch_directions": [_P] * 5 + [_I] * 7 + [_P, _P],
         "rtsdm_fetch_sd_packed": [_P] * 5 + [_I] * 7 + [_P, _P],
+        "rtsdm_fetch_taps_same_class": [_P] * 3 + [_I] * 8 + [_P, _P],
     },
     "sd_trace.cu": {
         "rtsdm_sd_trace": [_P] * 4 + [_I] * 6 + [_P, _P],
@@ -60,6 +62,10 @@ KERNEL_SIGNATURES = {
     },
     "any_hit.cu": {
         "rtsdm_any_hit": [_P] * 4 + [_I] * 3 + [_P, _P, _P],
+    },
+    "raster_sd.cu": {
+        "rtsdm_raster_stochastic": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P,
+                                                          _P, _P],
     },
 }
 
@@ -123,8 +129,10 @@ def kernel_library() -> dict:
     built on first use)."""
     global _kernel_fns
     if _kernel_fns is None:
+        headers = sorted(CSRC_DIR.glob("*.cuh"))
         outs = {src: BUILD_DIR / (f"librtsdm_{src.stem}_"
-                                  f"{_digest([src], NVCC_FLAGS)}.so")
+                                  f"{_digest([src, *headers], NVCC_FLAGS)}"
+                                  ".so")
                 for src in sorted(CSRC_DIR.glob("*.cu"))}
         nvcc = nvcc_path()
         BUILD_SECONDS["kernels"] = _compile(

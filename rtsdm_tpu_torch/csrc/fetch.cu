@@ -18,6 +18,16 @@
 // is a stride-1 shift), reading sd[kk, y0 + qy, x0 + qx] for every packed
 // plane kk with the clamped global origin (y0, x0) of the table.
 //
+// K6 replaces fetch_pallas.py:fetch_taps_same_class (the HBAO ring, driven
+// from rtsdm_tpu/passes/hbao.py): tap t = d * taps + k of direction d and
+// step k reads, for class c and quarter texel q, the class's OWN padded
+// plane (no cross-class remap: HBAO samples within one deinterleave slice)
+// at the static offset tab[d, c, lvl[k, c, q]], a level given per step.
+// The TPU's select chain over every level, its per-tile halo DMA and its
+// dedup of equal consecutive offsets were workarounds for the missing
+// gather; here it is one thread per output texel doing one table lookup
+// and one load per plane set. Bounded by memory, as K3.
+//
 // The level is computed exactly as rtsdm_tpu/ops/ao.py:shift_level_index:
 // a float32 product compared with float32 bounds (the float64 geometric
 // midpoints rounded to float32). Built with --fmad=false.
@@ -78,6 +88,35 @@ __global__ void fetch_sd_packed_kernel(
         sd[((size_t)kk * sd_h + y) * sd_w + x];
 }
 
+__global__ void fetch_taps_same_class_kernel(
+    const float* __restrict__ planes, const int* __restrict__ lvl,
+    const int* __restrict__ tab, int n_src, int nd, int taps, int n_levels,
+    int qh, int qw, int ph, int pw, float* __restrict__ out) {
+  const long long total = (long long)nd * taps * 16 * qh * qw;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int qx = (int)(i % qw);
+  long long rem = i / qw;
+  const int qy = (int)(rem % qh);
+  rem /= qh;
+  const int c = (int)(rem % 16);
+  const int t = (int)(rem / 16);
+  const int d = t / taps, k = t - d * taps;
+  const int l = lvl[(((size_t)k * 16 + c) * qh + qy) * qw + qx];
+  const int nt = nd * taps;
+  const size_t o = (((size_t)t * 16 + c) * qh + qy) * qw + qx;
+  if (l < 0 || l >= n_levels) {  // no level selected: the chain's 0
+    for (int s = 0; s < n_src; ++s)
+      out[(size_t)s * nt * 16 * qh * qw + o] = 0.0f;
+    return;
+  }
+  const int* e = tab + (((size_t)d * 16 + c) * n_levels + l) * 2;
+  const int y = e[0] + qy, x = e[1] + qx;
+  for (int s = 0; s < n_src; ++s)
+    out[(size_t)s * nt * 16 * qh * qw + o] =
+        planes[(((size_t)s * 16 + c) * ph + y) * pw + x];
+}
+
 }  // namespace
 
 // planes [n_src, 16, ph, pw]; radius [16, qh, qw]; bounds [n_levels - 1];
@@ -112,5 +151,23 @@ extern "C" int rtsdm_fetch_sd_packed(const int* sd, const float* radius,
     fetch_sd_packed_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
                              stream>>>(sd, radius, bounds, radii, tab, kp, nd,
                                        n_levels, qh, qw, sd_h, sd_w, out);
+  return (int)cudaGetLastError();
+}
+
+// planes [n_src, 16, ph, pw]; lvl [taps, 16, qh, qw]; tab
+// [nd, 16, n_levels, 2] = padded-plane (y, x); out [n_src, nd * taps, 16,
+// qh, qw].
+extern "C" int rtsdm_fetch_taps_same_class(const float* planes,
+                                           const int* lvl, const int* tab,
+                                           int n_src, int nd, int taps,
+                                           int n_levels, int qh, int qw,
+                                           int ph, int pw, float* out,
+                                           cudaStream_t stream) {
+  const long long total = (long long)nd * taps * 16 * qh * qw;
+  if (total > 0)
+    fetch_taps_same_class_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                                   stream>>>(planes, lvl, tab, n_src, nd,
+                                             taps, n_levels, qh, qw, ph, pw,
+                                             out);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,11 @@
 // z = zn / wd; within a chunk the lowest lane among equal minimal z wins;
 // a later chunk replaces the running hit only when strictly closer. A tile
 // whose chunk count exceeds the list width streams every chunk in order.
+// With a depth floor (depth peeling, raster_pallas.py:139-141, :172-174) a
+// fragment is kept only if its linear view depth wd / esum (esum = e0 + e1
+// + e2, 1 where it is 0) exceeds floor + min_separation at its pixel; the
+// floor is a pointer that is null for the plain raster, so one kernel
+// serves both.
 //
 // K2 replaces rtsdm_tpu/ops/raster_pallas.py:_fetch_kernel (driver
 // fetch_attributes_pallas). On the TPU it was a one-hot matrix product per
@@ -56,6 +61,8 @@ __global__ void raster_blocks_kernel(const float* __restrict__ coef,
                                      const int* __restrict__ counts,
                                      int n_chunks, int list_w, int nbx,
                                      int img_w, float px0, float py0,
+                                     const float* __restrict__ floor_img,
+                                     float min_sep,
                                      float* __restrict__ z_out,
                                      int* __restrict__ id_out,
                                      float* __restrict__ b1_out,
@@ -69,6 +76,9 @@ __global__ void raster_blocks_kernel(const float* __restrict__ coef,
   const int x = bx * kTileW + t % kTileW;
   const float px = (float)x + px0;
   const float py = (float)y + py0;
+  const size_t o = (size_t)y * img_w + x;
+  const bool use_floor = floor_img != nullptr;
+  const float fl = use_floor ? floor_img[o] + min_sep : 0.0f;
 
   const int raw = counts[b];
   const bool full = raw > list_w;
@@ -92,6 +102,11 @@ __global__ void raster_blocks_kernel(const float* __restrict__ coef,
                     (e.wd > 0.0f) && (tri[15 * kTC + l] > 0.0f);
       const float z = e.zn / (e.wd == 0.0f ? 1.0f : e.wd);
       inside = inside && (z >= 0.0f) && (z <= 1.0f);
+      if (use_floor && inside) {
+        float esum = e.e0 + e.e1 + e.e2;
+        esum = esum == 0.0f ? 1.0f : esum;
+        inside = e.wd / esum > fl;
+      }
       if (inside && z < zmin) {  // strict: the lowest lane keeps a tie
         zmin = z;
         lane = l;
@@ -107,7 +122,6 @@ __global__ void raster_blocks_kernel(const float* __restrict__ coef,
       best_id = (int)tri[16 * kTC + lane];
     }
   }
-  const size_t o = (size_t)y * img_w + x;
   z_out[o] = best_z;
   id_out[o] = best_id;
   b1_out[o] = best_b1;
@@ -139,17 +153,20 @@ __global__ void fetch_attributes_kernel(const int* __restrict__ tri_id,
 
 }  // namespace
 
+// floor_img: null, or the [nby*8, nbx*32] linear-depth floor (padding
+// pixels hold 3e38).
 extern "C" int rtsdm_raster_blocks(const float* coef, const int* lists,
                                    const int* counts, int n_chunks,
                                    int list_w, int nby, int nbx, float px0,
-                                   float py0, float* z_out, int* id_out,
+                                   float py0, const float* floor_img,
+                                   float min_sep, float* z_out, int* id_out,
                                    float* b1_out, float* b2_out,
                                    cudaStream_t stream) {
   const int nb = nby * nbx;
   if (nb > 0)
     raster_blocks_kernel<<<nb, kBlock, 0, stream>>>(
         coef, lists, counts, n_chunks, list_w, nbx, nbx * kTileW, px0, py0,
-        z_out, id_out, b1_out, b2_out);
+        floor_img, min_sep, z_out, id_out, b1_out, b2_out);
   return (int)cudaGetLastError();
 }
 

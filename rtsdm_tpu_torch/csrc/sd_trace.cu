@@ -24,6 +24,8 @@
 // PyTorch version in ops/rt_cuda.py.
 #include <cuda_runtime.h>
 
+#include "int_hash.cuh"
+
 namespace {
 
 constexpr int kTileRays = 256;   // 8x32 ray tile
@@ -31,12 +33,6 @@ constexpr int kTC = 128;         // triangles per chunk
 constexpr int kRows = 13;        // nt(3) bt(3) ct(3) tp, acc-back, reject, mask
 constexpr int kInvalid = 2147483647;
 constexpr float kEpsDet = 1e-9f;
-
-__device__ __forceinline__ int key15_of(int hb) {
-  const int a = hb < 0 ? (int)(0u - (unsigned)hb) : hb;  // |INT_MIN| wraps
-  const int r = a % 32767;
-  return r < 0 ? r + 32767 : r;  // floor mod, as jnp's % on int32
-}
 
 __device__ __forceinline__ int hash_uv(float u, float v) {
   int hb = __float2int_rz(u * 8388593.0f) ^

@@ -1,12 +1,14 @@
-"""All-direction shifted fetches of the SVAO phases: the wrappers of
-csrc/fetch.cu (K3 direction fetch, K4 packed SD fetch), their plain PyTorch
-versions, and the 16-bit SD unpack (counterpart of
-rtsdm_tpu/ops/fetch_pallas.py, fetch_all_directions and fetch_sd_packed).
+"""Shifted fetches of deinterleaved planes: the wrappers of csrc/fetch.cu
+(K3 SVAO direction fetch, K4 packed SD fetch, K6 HBAO same-class taps),
+their plain PyTorch versions, and the 16-bit SD unpack (counterpart of
+rtsdm_tpu/ops/fetch_pallas.py: fetch_all_directions, fetch_sd_packed,
+fetch_taps_same_class).
 
-Both kernels read a static per-configuration table: for every direction,
+Every kernel reads a static per-configuration table: for every direction,
 class and radius level the source (class and) offset of the shifted read.
-The tables are built from ao_shift.offset_tables once per configuration and
-kept on the device (a small bounded cache).
+The tables are built once per configuration (K3/K4 from
+ao_shift.offset_tables, K6 from the HBAO ring's offsets) and kept on the
+device (a small bounded cache).
 """
 from __future__ import annotations
 
@@ -55,6 +57,19 @@ def sd_table(offs, guard: int, pad: int, sd_h: int, sd_w: int, qh: int,
     return np.ascontiguousarray(tab, np.int32), ok
 
 
+def same_class_table(offs, pad: int) -> np.ndarray:
+    """[nd, 16, L, 2] int32: padded-plane (y, x) of the read for direction
+    d, class c, level l from offs[d][c][l] = (dy, dx) in quarter texels,
+    each clamped to +-pad (passes/hbao._fetch_slices's mapping)."""
+    tab = np.zeros((len(offs), 16, len(offs[0][0]), 2), np.int32)
+    for d, per_c in enumerate(offs):
+        for c in range(16):
+            for l, (dy, dx) in enumerate(per_c[c]):
+                tab[d, c, l] = (pad + max(-pad, min(pad, int(dy))),
+                                pad + max(-pad, min(pad, int(dx))))
+    return tab
+
+
 @functools.lru_cache(maxsize=8)
 def _host_table(kind, key):
     """(table, ok) of one configuration (see direction_table, sd_table)."""
@@ -62,6 +77,11 @@ def _host_table(kind, key):
     if kind == "dir":
         return direction_table(offs, *extra), True
     return sd_table(offs, *extra)
+
+
+@functools.lru_cache(maxsize=8)
+def _same_class_device_table(offs_key, pad: int, device):
+    return torch.as_tensor(same_class_table(offs_key, pad), device=device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -119,6 +139,76 @@ def fetch_all_directions_plain(planes, pad, radius_px_q, levels, offs,
             for r in radii]
     return [torch.stack([S.fetch_direction(p, pad, lv, o, qh, qw)
                          for lv, o in zip(lvls, offs)]) for p in planes]
+
+
+def _same_class_table_on(offs, pad: int, device):
+    """same_class_table of offs on `device`, cached. A tuple
+    (passes/hbao.shift_tables) is its own cache key: converting it would
+    cost a millisecond of host time per call."""
+    key = offs if isinstance(offs, tuple) else _offs_key(offs)
+    return _same_class_device_table(key, pad, device)
+
+
+def _check_taps_inputs(planes, lvl_taps, pad: int):
+    if planes.dtype != torch.float32 or lvl_taps.dtype != torch.int32:
+        raise TypeError("fetch_taps_same_class: float32 planes, int32 "
+                        "levels")
+    if planes.ndim != 4 or planes.shape[1] != 16 or lvl_taps.ndim != 4 \
+            or lvl_taps.shape[1] != 16 \
+            or planes.shape[2:] != (lvl_taps.shape[2] + 2 * pad,
+                                    lvl_taps.shape[3] + 2 * pad) \
+            or lvl_taps.device != planes.device:
+        raise ValueError("fetch_taps_same_class: planes [n_src, 16, "
+                         "qh+2p, qw+2p] padded by pad, levels [taps, 16, "
+                         "qh, qw] on the same device")
+
+
+def fetch_taps_same_class(planes, lvl_taps, pad: int, offs):
+    """K6: nd * taps same-class taps from each plane set. planes [n_src,
+    16, qh+2p, qw+2p] (ao_shift.pad_planes of the stacked sets); lvl_taps
+    [taps, 16, qh, qw] int32 per-step level planes (shared by every
+    direction); offs [nd][16][L] static (dy, dx) per level, quarter
+    texels. Returns [n_src, nd * taps, 16, qh, qw]: entry [s, d * taps + k]
+    reads class c's own plane at offs[d][c][lvl_taps[k, c, q]] (0 where the
+    level is out of range)."""
+    _check_taps_inputs(planes, lvl_taps, pad)
+    if planes.is_cuda:
+        planes, lvl = planes.contiguous(), lvl_taps.contiguous()
+        tab = _same_class_table_on(offs, pad, planes.device)
+        n_src, _, ph, pw = planes.shape
+        taps, _, qh, qw = lvl.shape
+        nd, _, n_levels, _ = tab.shape
+        out = torch.empty((n_src, nd * taps, 16, qh, qw),
+                          dtype=torch.float32, device=planes.device)
+        launch("rtsdm_fetch_taps_same_class", ptr(planes), ptr(lvl),
+               ptr(tab), n_src, nd, taps, n_levels, qh, qw, ph, pw, ptr(out),
+               stream_of(planes))
+        return out
+    if planes.device.type != "cpu":
+        raise RuntimeError(f"fetch_taps_same_class: unsupported device "
+                           f"{planes.device}")
+    return fetch_taps_same_class_plain(planes, lvl_taps, pad, offs)
+
+
+def fetch_taps_same_class_plain(planes, lvl_taps, pad: int, offs):
+    """Plain PyTorch version of K6, with its arguments: the table lookup
+    (same_class_table) and the gather."""
+    _check_taps_inputs(planes, lvl_taps, pad)
+    tab = _same_class_table_on(offs, pad, planes.device)
+    taps, _, qh, qw = lvl_taps.shape
+    n_levels = tab.shape[2]
+    dev = planes.device
+    ok = (lvl_taps >= 0) & (lvl_taps < n_levels)
+    lvl = lvl_taps.clamp(0, n_levels - 1).long()
+    c = torch.arange(16, device=dev)[None, :, None, None]
+    qy = torch.arange(qh, device=dev)[:, None]
+    qx = torch.arange(qw, device=dev)
+    out = []
+    for tab_d in tab.long():
+        e = tab_d[c, lvl]                          # [taps, 16, qh, qw, 2]
+        v = planes[:, c, e[..., 0] + qy, e[..., 1] + qx]
+        out.append(torch.where(ok, v, 0.0))
+    return torch.cat(out, 1)
 
 
 def pack_sd16(sd_map):

@@ -19,3 +19,9 @@ def fetch_shading_materials(scene, mid):
                 metallic=scene.mat_metallic[mid],
                 ior=scene.mat_ior[mid],
                 tex=scene.mat_tex[mid])
+
+
+def fetch_material_scalar(table_1d, mid):
+    """One per-material scalar (e.g. the double-sided flag) for an id field
+    `mid` of any shape, in the table's dtype."""
+    return table_1d[mid.long()]

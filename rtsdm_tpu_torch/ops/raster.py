@@ -5,7 +5,8 @@ behind the camera are handled by sign logic) rasterized to a visibility
 buffer (tri_id + perspective-correct barycentrics); attributes are fetched
 afterwards. The raster itself is the sort-middle algorithm of
 ops/raster_cuda.py at every triangle count: its CUDA kernel for CUDA
-tensors, its plain version for CPU tensors.
+tensors, its plain version for CPU tensors; raster_stochastic, the k-slot
+stochastic-depth raster, walks the same chunk lists.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from ..utils.math import cross, dot3, transform_point
 from . import raster_cuda
+from .rt_cuda import pad_tile
 
 CULL_NONE = 0
 CULL_BACK = 1
@@ -76,14 +78,10 @@ def _setup_triangles(view_proj, positions, width: int, height: int,
     return coef, bbox, valid
 
 
-def rasterize(view_proj, positions, *, width: int, height: int,
-              jitter_x=0.0, jitter_y=0.0, cull: str = "back"):
-    """Rasterize a triangle soup [T,3,3] to a visibility buffer.
-
-    Returns dict: tri_id [H,W] int32 (-1 = background), bary [H,W,2]
-    (b1, b2), depth [H,W] NDC z in [0,1] (1.0 at background), overflow
-    (tiles whose chunk list hit its width and streamed every chunk — a
-    diagnostic, never a correctness loss)."""
+def _binned_chunks(view_proj, positions, width: int, height: int,
+                   jitter_x, jitter_y, cull: str):
+    """Triangles set up, morton-sorted, packed into coefficient chunks and
+    binned to 8x32 tiles: (chunks, lists, counts, nby, nbx)."""
     coef, bbox, valid = _setup_triangles(view_proj, positions, width, height,
                                          jitter_x, jitter_y, CULL_MODES[cull])
     order = raster_cuda.screen_morton_order(bbox, valid, width, height)
@@ -93,12 +91,58 @@ def rasterize(view_proj, positions, *, width: int, height: int,
     nby = -(-height // raster_cuda.TILE_RH)
     nbx = -(-width // raster_cuda.TILE_RW)
     lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
+    return chunks, lists, counts, nby, nbx
+
+
+def rasterize(view_proj, positions, *, width: int, height: int,
+              jitter_x=0.0, jitter_y=0.0, cull: str = "back",
+              depth_floor=None, min_separation: float = 0.0):
+    """Rasterize a triangle soup [T,3,3] to a visibility buffer.
+
+    depth_floor: optional [H,W] linear view depth; fragments with view
+    depth <= floor + min_separation are discarded (depth peeling).
+    Returns dict: tri_id [H,W] int32 (-1 = background), bary [H,W,2]
+    (b1, b2), depth [H,W] NDC z in [0,1] (1.0 at background), overflow
+    (tiles whose chunk list hit its width and streamed every chunk — a
+    diagnostic, never a correctness loss)."""
+    chunks, lists, counts, nby, nbx = _binned_chunks(
+        view_proj, positions, width, height, jitter_x, jitter_y, cull)
+    floor = None
+    if depth_floor is not None:   # padding pixels take no fragment
+        floor = pad_tile(depth_floor.to(torch.float32), 3e38)[0].contiguous()
     z, tid, b1, b2 = raster_cuda.raster_blocks(chunks, lists, counts,
-                                               nby, nbx)
+                                               nby, nbx, floor=floor,
+                                               min_separation=min_separation)
     crop = (slice(0, height), slice(0, width))
     return {"tri_id": tid[crop], "bary": torch.stack([b1[crop], b2[crop]], -1),
             "depth": z[crop],
             "overflow": torch.clamp(counts - lists.shape[1], min=0).sum()}
+
+
+def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
+                      k: int, alpha: float, first_depth=None, ray_min=None,
+                      ray_max=None, cull: str = "back"):
+    """k-slot stochastic raster (K9; counterpart of raster_pallas.
+    raster_stochastic_pallas). first_depth / ray_min / ray_max: optional
+    [H,W] linear first-layer depth and ray interval (None: no floor, no
+    interval). Returns LINEAR view depths [H, W, k], `far` where a slot
+    stayed empty."""
+    chunks, lists, counts, nby, nbx = _binned_chunks(
+        view_proj, positions, width, height, 0.0, 0.0, cull)
+    dev = chunks.device
+    hp, wp = nby * raster_cuda.TILE_RH, nbx * raster_cuda.TILE_RW
+
+    def per_pixel(a, fill, default):
+        if a is None:
+            return torch.full((hp, wp), default, device=dev)
+        return pad_tile(a.to(torch.float32), fill)[0].contiguous()
+
+    slots = raster_cuda.raster_stochastic_blocks(
+        chunks, lists, counts, nby, nbx,
+        per_pixel(first_depth, 3e38, -3e38), per_pixel(ray_min, 0.0, 0.0),
+        per_pixel(ray_max, 0.0, 3e38), k, alpha)
+    t = slots[:, :height, :width].permute(1, 2, 0)
+    return torch.where(t >= 3e37, far, t)
 
 
 def interpolate(tri_id, bary, vertex_attr):

@@ -1,20 +1,27 @@
-"""Sort-middle visibility raster (K1) and attribute fetch (K2): the wrappers
-of csrc/raster.cu, their plain PyTorch versions, and the tensor code around
-them (counterpart of rtsdm_tpu/ops/raster_pallas.py).
+"""Sort-middle visibility raster (K1) and attribute fetch (K2), the wrappers
+of csrc/raster.cu, and the k-slot stochastic-depth raster (K9), the wrapper
+of csrc/raster_sd.cu: with their plain PyTorch versions and the tensor code
+around them (counterpart of rtsdm_tpu/ops/raster_pallas.py).
 
 Per frame: triangles are re-sorted by the screen-space morton code of their
 bbox centre (so 128-triangle chunks are screen-compact), packed into
 [n_chunks, 17, 128] coefficient chunks, and every 8x32-pixel tile gets the
 ascending list of chunks whose screen bbox overlaps it. K1 walks each
-tile's list. A wrapper launches its kernel for CUDA tensors and runs the
-plain version for CPU tensors; it never falls back from one to the other.
+tile's list, and so does K9. A wrapper launches its kernel for CUDA
+tensors and runs the plain version for CPU tensors; it never falls back
+from one to the other.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from .._build import launch, ptr, stream_of
-from .rt_cuda import (LIST_CAP, RB, TC, TILE_RH, TILE_RW, compact_lists,
+from ..utils.sampling import coverage_mask_select, stratified_coverage_tables
+from .rt_cuda import (LIST_CAP, RB, TC, TILE_RH, TILE_RW, _wrap32,
+                      compact_lists, key15_of_hash, tile_flatten,
                       tile_unflatten)
 
 COEF_ROWS = 17  # c0(3) c1(3) c2(3) zc(3) wc(3) valid(1) orig_id(1)
@@ -88,10 +95,17 @@ def _check(t, dtype, name):
         raise ValueError(f"{name} must be contiguous")
 
 
+RASTER_FLOOR_KEY = "rtsdm_raster_blocks:floor"   # K1 with a depth floor
+
+
 def raster_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
-                  px0: float = 0.5, py0: float = 0.5):
+                  px0: float = 0.5, py0: float = 0.5, floor=None,
+                  min_separation: float = 0.0):
     """K1: closest hit per pixel of an [nby*8, nbx*32] image. Pixel (y, x)
-    is evaluated at (x + px0, y + py0). Returns (z, tri_id, b1, b2)."""
+    is evaluated at (x + px0, y + py0). With `floor` ([nby*8, nbx*32]
+    linear view depth) a fragment counts only where its view depth exceeds
+    floor + min_separation (depth peeling). Returns (z, tri_id, b1, b2).
+    Launches with a floor are counted apart, under RASTER_FLOOR_KEY."""
     for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
                      (lists, torch.int32, "lists"),
                      (counts, torch.int32, "counts")):
@@ -99,6 +113,11 @@ def raster_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
     if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
             or lists.shape[0] != nby * nbx or counts.shape != (nby * nbx,):
         raise ValueError("raster_blocks: inconsistent shapes")
+    if floor is not None:
+        _check(floor, torch.float32, "floor")
+        if floor.shape != (nby * TILE_RH, nbx * TILE_RW) \
+                or floor.device != coef_chunks.device:
+            raise ValueError("raster_blocks: floor must be the padded image")
     if coef_chunks.is_cuda:
         dev = coef_chunks.device
         shape = (nby * TILE_RH, nbx * TILE_RW)
@@ -108,22 +127,27 @@ def raster_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
         b2 = torch.empty(shape, dtype=torch.float32, device=dev)
         launch("rtsdm_raster_blocks", ptr(coef_chunks), ptr(lists),
                ptr(counts), coef_chunks.shape[0], lists.shape[1], nby, nbx,
-               px0, py0, ptr(z), ptr(tid), ptr(b1), ptr(b2),
-               stream_of(coef_chunks))
+               px0, py0, 0 if floor is None else ptr(floor),
+               min_separation, ptr(z), ptr(tid), ptr(b1), ptr(b2),
+               stream_of(coef_chunks),
+               key=None if floor is None else RASTER_FLOOR_KEY)
         return z, tid, b1, b2
     if coef_chunks.device.type != "cpu":
         raise RuntimeError(f"raster_blocks: unsupported device "
                            f"{coef_chunks.device}")
-    return raster_blocks_plain(coef_chunks, lists, counts, nby, nbx, px0, py0)
+    return raster_blocks_plain(coef_chunks, lists, counts, nby, nbx, px0, py0,
+                               floor, min_separation)
 
 
 def raster_blocks_plain(coef_chunks, lists, counts, nby: int, nbx: int,
-                        px0: float = 0.5, py0: float = 0.5,
-                        batch: int = 1024):
+                        px0: float = 0.5, py0: float = 0.5, floor=None,
+                        min_separation: float = 0.0, batch: int = 1024):
     """Plain PyTorch version of K1 (same expressions, same tie-breaks):
     all tiles advance through their lists together, `batch` tiles at a
     time to bound the [batch, 256, 128] temporaries."""
     dev = coef_chunks.device
+    fl = None if floor is None else \
+        (tile_flatten(floor) + min_separation).reshape(-1, RB)
     nb, list_w = lists.shape
     n_chunks = coef_chunks.shape[0]
     full = counts > list_w
@@ -161,6 +185,10 @@ def raster_blocks_plain(coef_chunks, lists, counts, nby: int, nbx: int,
                       & (tri[:, 15] > 0.0))
             z = zn / torch.where(wd == 0.0, 1.0, wd)
             inside = inside & (z >= 0.0) & (z <= 1.0)
+            if fl is not None:
+                es = e0 + e1 + e2
+                es = torch.where(es == 0.0, 1.0, es)
+                inside = inside & (wd / es > fl[rows][:, :, None])
             zm = torch.where(inside, z, 2.0)
             zmin = zm.amin(-1)
             lane = torch.where(zm == zmin[..., None], lane_ids, TC) \
@@ -179,6 +207,135 @@ def raster_blocks_plain(coef_chunks, lists, counts, nby: int, nbx: int,
     hp, wp = nby * TILE_RH, nbx * TILE_RW
     return tuple(tile_unflatten(a.reshape(-1), hp, wp)
                  for a in (best_z, best_id, best_b1, best_b2))
+
+
+SD_EMPTY = 3e38   # K9's empty slot
+
+
+@functools.lru_cache(maxsize=8)
+def _coverage_tables(k: int, device):
+    idx, lut = stratified_coverage_tables(k)
+    return (torch.as_tensor(lut.astype(np.int32), device=device),
+            torch.as_tensor(idx.astype(np.int32), device=device))
+
+
+def raster_stochastic_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
+                             first, ray_min, ray_max, k: int, alpha: float):
+    """K9: k-slot stochastic depth over an [nby*8, nbx*32] image (pixel
+    centres at +0.5). first / ray_min / ray_max: [nby*8, nbx*32] float32
+    per-pixel first-layer depth and ray interval. Returns [k, nby*8,
+    nbx*32] slot minima of linear view depth, SD_EMPTY where empty."""
+    for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
+                     (lists, torch.int32, "lists"),
+                     (counts, torch.int32, "counts"),
+                     (first, torch.float32, "first"),
+                     (ray_min, torch.float32, "ray_min"),
+                     (ray_max, torch.float32, "ray_max")):
+        _check(t, dt, n)
+        if t.device != coef_chunks.device:
+            raise ValueError(f"raster_stochastic_blocks: {n} on {t.device}")
+    shape = (nby * TILE_RH, nbx * TILE_RW)
+    if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
+            or lists.shape[0] != nby * nbx or counts.shape != (nby * nbx,) \
+            or any(a.shape != shape for a in (first, ray_min, ray_max)):
+        raise ValueError("raster_stochastic_blocks: inconsistent shapes")
+    if not 1 <= k <= 8:
+        raise ValueError(f"raster_stochastic_blocks: k={k} not in 1..8")
+    if coef_chunks.is_cuda:
+        lut, idx = _coverage_tables(k, coef_chunks.device)
+        out = torch.empty((k,) + shape, dtype=torch.float32,
+                          device=coef_chunks.device)
+        launch("rtsdm_raster_stochastic", ptr(coef_chunks), ptr(lists),
+               ptr(counts), ptr(first), ptr(ray_min), ptr(ray_max),
+               coef_chunks.shape[0], lists.shape[1], nby, nbx, k,
+               alpha * k, ptr(lut), lut.numel(), ptr(idx), ptr(out),
+               stream_of(coef_chunks))
+        return out
+    if coef_chunks.device.type != "cpu":
+        raise RuntimeError(f"raster_stochastic_blocks: unsupported device "
+                           f"{coef_chunks.device}")
+    return raster_stochastic_blocks_plain(coef_chunks, lists, counts, nby,
+                                          nbx, first, ray_min, ray_max, k,
+                                          alpha)
+
+
+def fragment_draws(px, py, oid):
+    """K9's two uniform draws of a fragment (raster_pallas.py:272-283):
+    the int32 hash of the truncated pixel centre and the triangle's
+    original id, evaluated in int64 with explicit 32-bit wrapping. px, py,
+    oid: float32 tensors of one shape. Returns float32 (rng, rng2)."""
+    oid_i = oid.to(torch.int64)
+    hb = _wrap32(_wrap32(px.to(torch.int64) * 374761393)
+                 ^ _wrap32(py.to(torch.int64) * 668265263)
+                 ^ _wrap32(oid_i << 7))
+    hb = _wrap32((hb ^ (hb >> 13)) * 0x9E3779B1)
+    hb = hb ^ (hb >> 16)
+    rng = key15_of_hash(hb).to(torch.float32) * (1.0 / 32767.0)
+    h2 = (hb ^ _wrap32(oid_i * 0x9E3779B1)) ^ (hb >> 5)
+    rng2 = key15_of_hash(h2).to(torch.float32) * (1.0 / 32767.0)
+    return rng, rng2
+
+
+SD_PLAIN_BATCH = 256   # tiles per step of K9's plain version
+
+
+def raster_stochastic_blocks_plain(coef_chunks, lists, counts, nby: int,
+                                   nbx: int, first, ray_min, ray_max, k: int,
+                                   alpha: float):
+    """Plain PyTorch version of K9 (same expressions): all tiles advance
+    through their lists together, SD_PLAIN_BATCH tiles at a time."""
+    dev = coef_chunks.device
+    nb, list_w = lists.shape
+    n_chunks = coef_chunks.shape[0]
+    full = counts > list_w
+    cnt = torch.where(full, n_chunks, counts)
+    t = torch.arange(RB, device=dev)
+    blk = torch.arange(nb, device=dev)
+    px = ((blk % nbx)[:, None] * TILE_RW + t % TILE_RW).to(torch.float32) \
+        + 0.5
+    py = ((blk // nbx)[:, None] * TILE_RH + t // TILE_RW).to(torch.float32) \
+        + 0.5
+    fi = (tile_flatten(first) + 0.01).reshape(nb, RB)
+    rmn = tile_flatten(ray_min).reshape(nb, RB)
+    rmx = tile_flatten(ray_max).reshape(nb, RB)
+    slots = torch.full((k, nb, RB), SD_EMPTY, device=dev)
+    for j in range(int(cnt.max()) if nb else 0):
+        for s in range(0, nb, SD_PLAIN_BATCH):
+            sl = slice(s, min(s + SD_PLAIN_BATCH, nb))
+            act = cnt[sl] > j
+            if not bool(act.any()):
+                continue
+            rows = torch.nonzero(act).squeeze(1) + s
+            ci = torch.where(full[rows], j,
+                             lists[rows, min(j, list_w - 1)]).long()
+            tri = coef_chunks[ci][:, :, None, :]          # [na,17,1,TC]
+            x, y = px[rows][:, :, None], py[rows][:, :, None]
+
+            def edge(r):
+                return tri[:, r] * x + tri[:, r + 1] * y + tri[:, r + 2]
+
+            e0, e1, e2, zn, wd = (edge(0), edge(3), edge(6), edge(9),
+                                  edge(12))
+            inside = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (wd > 0.0)
+                      & (tri[:, 15] > 0.0))
+            z = zn / torch.where(wd == 0.0, 1.0, wd)
+            inside = inside & (z >= 0.0) & (z <= 1.0)
+            esum = e0 + e1 + e2
+            vd = wd / torch.where(esum == 0.0, 1.0, esum)
+            rn, rx = rmn[rows][:, :, None], rmx[rows][:, :, None]
+            inside = (inside & (vd > fi[rows][:, :, None])
+                      & ((rn == 0.0) | (vd >= rn)) & (rx != 0.0) & (vd <= rx))
+            rng, rng2 = fragment_draws(x.expand_as(vd), y.expand_as(vd),
+                                       tri[:, 16].expand_as(vd))
+            mask = coverage_mask_select(alpha, rng, rng2, k)
+            vd = torch.where(inside, vd, SD_EMPTY)
+            for q in range(k):
+                m = torch.where(((mask >> q) & 1) > 0, vd, SD_EMPTY) \
+                    .amin(-1)
+                slots[q, rows] = torch.minimum(slots[q, rows], m)
+    hp, wp = nby * TILE_RH, nbx * TILE_RW
+    return torch.stack([tile_unflatten(a.reshape(-1), hp, wp)
+                        for a in slots])
 
 
 def pack_attr_rows(interp, flats):

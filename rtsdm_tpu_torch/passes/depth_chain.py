@@ -1,11 +1,13 @@
 """Depth-chain passes (counterpart of rtsdm_tpu/passes/depth_chain.py):
-LinearizeDepth (Linearize.ps.slang), GuardBand (GuardBand.cpp:58-100) and
-CompressNormals (CompressNormals.cpp:77-78). DepthPeeling is registered so
-graphs that wire it build, but it raises if it runs: it needs the raster's
-depth floor, which the CUDA raster does not have yet. SingleDepth SVAO
-never runs it (depth2 is an unused input, so the graph prunes the pass)."""
+LinearizeDepth (Linearize.ps.slang), DepthPeeling (DepthPeeling.3d.slang:
+43-55), GuardBand (GuardBand.cpp:58-100), CompressNormals
+(CompressNormals.cpp:77-78) and MaterialDoubleSided."""
 from __future__ import annotations
 
+import torch
+
+from ..ops.materials import fetch_material_scalar
+from ..ops.raster import rasterize
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
 from ..utils.math import encode_normal_2x16, normalize, transform_vector
 
@@ -24,6 +26,12 @@ class LinearizeDepth(RenderPass):
 
 @register_pass("DepthPeeling")
 class DepthPeeling(RenderPass):
+    """Second depth layer: re-raster the scene, discarding fragments whose
+    view depth is at most the first layer's linearZ + minSeparation (K1
+    with its depth floor). depth2 is NON-linear NDC depth, like the
+    G-buffer's. maxPerTile is accepted and without effect, as in
+    GBufferRaster: the CUDA raster keeps no per-tile list cap."""
+
     SCHEMA = dict(cullMode="Back", depthFormat="D32Float",
                   minSeparationDistance=0.01, maxPerTile=256)
 
@@ -31,9 +39,15 @@ class DepthPeeling(RenderPass):
         return PassReflection().add_input("linearZ").add_output("depth2")
 
     def execute(self, ctx, inputs, state=None):
-        raise NotImplementedError(
-            "DepthPeeling: the second depth layer needs the raster's depth "
-            "floor, which is not ported yet (ROADMAP queue 1, item 5)")
+        cam = ctx.scene.camera
+        vis = rasterize(cam.view_proj_no_jitter, ctx.scene.positions,
+                        width=ctx.width, height=ctx.height,
+                        jitter_x=cam.jitter_x, jitter_y=cam.jitter_y,
+                        cull=self.cfg["cullMode"].lower(),
+                        depth_floor=inputs["linearZ"],
+                        min_separation=float(
+                            self.cfg["minSeparationDistance"]))
+        return {"depth2": vis["depth"]}, None
 
 
 @register_pass("GuardBand")
@@ -74,3 +88,21 @@ class CompressNormals(RenderPass):
         if self.cfg["viewSpace"]:
             n = transform_vector(ctx.scene.camera.view_mat, n)
         return {"normalOut": encode_normal_2x16(normalize(n))}, None
+
+
+@register_pass("MaterialDoubleSided")
+class MaterialDoubleSided(RenderPass):
+    """The double-sided material flag per pixel (reference
+    Source/RenderPasses/MaterialDoubleSided/; the HBAO graph wires it):
+    False at background pixels (mtlData < 0)."""
+
+    SCHEMA = dict()
+
+    def reflect(self, ctx):
+        return PassReflection().add_input("mtlData").add_output("doubleSided")
+
+    def execute(self, ctx, inputs, state=None):
+        mid = inputs["mtlData"]
+        ds = fetch_material_scalar(ctx.scene.mat_double_sided,
+                                   torch.clamp(mid, min=0))
+        return {"doubleSided": torch.where(mid >= 0, ds, False)}, None

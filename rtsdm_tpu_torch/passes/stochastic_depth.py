@@ -1,14 +1,23 @@
-"""StochasticDepthMapRT — the paper's k-layer stochastic depth map from ONE
-ray per SD texel with reservoir insertion (counterpart of
-rtsdm_tpu/passes/stochastic_depth.py; reference StochasticDepthMapRT:
+"""Stochastic depth-map passes (counterpart of
+rtsdm_tpu/passes/stochastic_depth.py).
+
+StochasticDepthMapRT — the paper's k-layer stochastic depth map from ONE
+ray per SD texel with reservoir insertion (reference StochasticDepthMapRT:
 rayGen .rt.slang:63-105, ray setup Common.slangh:65-92, insertion
 Common.slangh:102-254). The trace is K5 (ops/rt_cuda.py).
+
+StochasticDepthMap — the raster baseline (reference StochasticDepthMap/
+StochasticDepth.ps.slang): a k-slot raster over the SD grid in which each
+fragment behind the first depth layer writes into a hash-chosen
+stratified subset of the slots. The raster is K9
+(ops/raster.raster_stochastic), at every triangle count.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import rt_cuda as rt
+from ..ops.raster import raster_stochastic
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
 from ..utils.math import dot3
 from ..utils.sampling import jitter_grid
@@ -140,4 +149,65 @@ class StochasticDepthMapRT(RenderPass):
         packed = rt.tile_unflatten(packed, ph, pw)[:sd_h, :sd_w]
         depths = rt.decode_packed(packed, cam.near_z, cam.far_z,
                                   bool(self.cfg["normalize"]), mode=impl)
+        return {"stochasticDepth": depths}, None
+
+
+def _uv_grid(h: int, w: int, *, device):
+    """[h, w, 2] texel-centre uv of an h x w grid."""
+    xs = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+    ys = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    return torch.stack([gx, gy], -1)
+
+
+@register_pass("StochasticDepthMap")
+class StochasticDepthMap(RenderPass):
+    """Output 'stochasticDepth': [sdH, sdW, SampleCount] view depths,
+    linearized to [0, 1] with `linearize` (else linear, far where empty).
+    The SD grid is rayMax's shape, else the render size over `divisor`.
+    maxPerTile is accepted and without effect: K9 keeps no per-tile cap.
+    Implementation and AlphaTest are accepted and without effect, as in
+    the reference package's raster."""
+
+    SCHEMA = dict(SampleCount=4, CullMode="Back", AlphaTest=True,
+                  Implementation="default", Alpha=0.375, RayInterval=True,
+                  linearize=True, depthFormat=None, maxPerTile=256,
+                  divisor=1)
+
+    def reflect(self, ctx):
+        return (PassReflection().add_input("depthMap")
+                .add_input("rayMin", optional=True)
+                .add_input("rayMax", optional=True)
+                .add_output("stochasticDepth"))
+
+    def execute(self, ctx, inputs, state=None):
+        cam = ctx.scene.camera
+        ray_max = inputs.get("rayMax")
+        if ray_max is not None:
+            sd_h, sd_w = ray_max.shape
+        else:
+            d = int(self.cfg["divisor"])
+            sd_h, sd_w = -(-ctx.height // d), -(-ctx.width // d)
+        k = int(self.cfg["SampleCount"])
+
+        lin_full = cam.linearize_depth(inputs["depthMap"])
+        div0 = lin_full.shape[1] // max(sd_w, 1)
+        if div0 in (1, 2, 4) and lin_full.shape[1] == sd_w * div0 \
+                and lin_full.shape[0] == sd_h * div0:
+            first_lin = _downsample_linear(lin_full, div0, sd_w, sd_h)
+        else:
+            first_lin = _bilinear_sample(
+                lin_full, _uv_grid(sd_h, sd_w, device=lin_full.device))
+
+        interval = bool(self.cfg["RayInterval"])
+        depths = raster_stochastic(
+            cam.view_proj_no_jitter, ctx.scene.positions, cam.far_z,
+            width=sd_w, height=sd_h, k=k, alpha=float(self.cfg["Alpha"]),
+            first_depth=first_lin,
+            ray_min=inputs.get("rayMin") if interval else None,
+            ray_max=ray_max if interval else None,
+            cull=self.cfg["CullMode"].lower())
+        if self.cfg["linearize"]:
+            depths = torch.clamp((depths - cam.near_z)
+                                 / (cam.far_z - cam.near_z), 0.0, 1.0)
         return {"stochasticDepth": depths}, None

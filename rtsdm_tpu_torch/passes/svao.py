@@ -3,9 +3,11 @@
 phase 1 -> nested SD graph -> phase 2).
 
 Ported configuration: samplingMode 'shift', primaryDepthMode 'SingleDepth',
-secondaryDepthMode 'StochasticDepth' with stochasticDepthImpl 'Ray', kernel
+secondaryDepthMode 'StochasticDepth' with stochasticDepthImpl 'Ray'
+(StochasticDepthMapRT, K5) or 'Raster' (StochasticDepthMap, K9), kernel
 'VAO'. Every other mode raises NotImplementedError until its ROADMAP item
-(queue 1, item 12) ports it.
+(queue 1, item 12) ports it — checked wherever the configuration is read,
+since a graph script may change it after the pass was built.
 """
 from __future__ import annotations
 
@@ -23,9 +25,12 @@ from . import stochastic_depth  # noqa: F401  (registers the nested SD pass)
 DEPTH_MODE_SINGLE = "SingleDepth"
 DEPTH_MODE_STOCHASTIC = "StochasticDepth"
 
-_SUPPORTED = dict(samplingMode="shift", primaryDepthMode=DEPTH_MODE_SINGLE,
-                  secondaryDepthMode=DEPTH_MODE_STOCHASTIC,
-                  stochasticDepthImpl="Ray", kernel="VAO", dualAO=False)
+# the values of each mode key that the port runs
+_SUPPORTED = dict(samplingMode=("shift",),
+                  primaryDepthMode=(DEPTH_MODE_SINGLE,),
+                  secondaryDepthMode=(DEPTH_MODE_STOCHASTIC,),
+                  stochasticDepthImpl=("Ray", "Raster"), kernel=("VAO",),
+                  dualAO=(False,), stochMapDivisor=(1, 2, 4))
 
 
 def _normals_to_view(ctx, normals):
@@ -109,18 +114,24 @@ class SVAO(RenderPass):
 
     def __init__(self, props=None):
         super().__init__(props)
-        for key, want in _SUPPORTED.items():
-            if self.cfg[key] != want:
+        self._check_supported()
+        self._sd_graph: RenderGraph | None = None
+        self._sd_key = None
+
+    def _check_supported(self):
+        """Raise NotImplementedError for a mode the port does not run."""
+        for key, allowed in _SUPPORTED.items():
+            if self.cfg[key] not in allowed:
                 raise NotImplementedError(
                     f"SVAO: {key}={self.cfg[key]!r} is not ported (only "
-                    f"{want!r}; ROADMAP queue 1, item 12)")
-        if int(self.cfg["stochMapDivisor"]) not in (1, 2, 4):
-            raise NotImplementedError("SVAO: stochMapDivisor must be 1, 2 "
-                                      "or 4 in shift mode")
-        self._sd_graph: RenderGraph | None = None
+                    f"{' or '.join(map(repr, allowed))}; ROADMAP queue 1, "
+                    "item 12)")
 
     # --- sizing (SVAO.cpp:700-723) -----------------------------------------
     def _extra_guard(self) -> int:
+        """The SD map's guard band in SD texels (Ray SD only)."""
+        if self.cfg["stochasticDepthImpl"] != "Ray":
+            return 0
         return int(self.cfg["stochMapGuardBand"]) \
             // int(self.cfg["stochMapDivisor"])
 
@@ -145,22 +156,46 @@ class SVAO(RenderPass):
         return ("depth2",)
 
     # --- nested SD graph (SVAO.cpp:157-190) --------------------------------
-    def _build_sd_graph(self):
+    def _sd_pass(self):
+        """(pass type, properties) of the nested graph's SD pass."""
+        props = {"SampleCount": int(self.cfg["stochSamples"]),
+                 "CullMode": self.cfg["cullMode"] or "Back",
+                 "AlphaTest": bool(self.cfg["alphaTest"]),
+                 "RayInterval": bool(self.cfg["useRayInterval"])}
+        if self.cfg["stochasticDepthImpl"] == "Raster":
+            props.update(Alpha=1.5 / int(self.cfg["stochSamples"]),
+                         linearize=True,
+                         divisor=int(self.cfg["stochMapDivisor"]))
+            return "StochasticDepthMap", props
+        props.update(normalize=True, Jitter=bool(self.cfg["stochMapJitter"]),
+                     GuardBand=self._extra_guard(),
+                     MaxCount=int(self.cfg["stochMaxCount"]))
+        return "StochasticDepthMapRT", props
+
+    def _build_sd_graph(self, spec=None):
+        """The nested SD graph of `spec` = (pass type, properties); without
+        one, the modes are checked and _sd_pass gives it."""
+        if spec is None:
+            self._check_supported()
+            spec = self._sd_pass()
+        pass_type, props = spec
         g = RenderGraph("Stochastic Depth")
-        g.create_pass("StochasticDepthMap", "StochasticDepthMapRT", {
-            "SampleCount": int(self.cfg["stochSamples"]),
-            "CullMode": self.cfg["cullMode"] or "Back",
-            "AlphaTest": bool(self.cfg["alphaTest"]),
-            "RayInterval": bool(self.cfg["useRayInterval"]),
-            "normalize": True,
-            "Jitter": bool(self.cfg["stochMapJitter"]),
-            "GuardBand": self._extra_guard(),
-            "MaxCount": int(self.cfg["stochMaxCount"]),
-        })
+        g.create_pass("StochasticDepthMap", pass_type, props)
         g.mark_output("StochasticDepthMap.stochasticDepth")
         if self.scene is not None:
             g.set_scene(self.scene)
         return g
+
+    def _nested_graph(self, scene):
+        """The nested SD graph, rebuilt when the properties it was built
+        from have changed since (execute has checked the modes)."""
+        spec = self._sd_pass()
+        key = (spec[0], tuple(sorted(spec[1].items())))
+        if self._sd_graph is None or self._sd_key != key:
+            self._sd_graph = self._build_sd_graph(spec)
+            self._sd_key = key
+        self._sd_graph.set_scene(scene)
+        return self._sd_graph
 
     def set_scene(self, scene):
         super().set_scene(scene)
@@ -182,6 +217,7 @@ class SVAO(RenderPass):
 
     def execute(self, ctx, inputs, state=None):
         from .svao_shift import svao_phase1_shift, svao_phase2_shift
+        self._check_supported()
         cam = ctx.scene.camera
         depth = inputs["depth"]
         h, w = depth.shape
@@ -193,14 +229,12 @@ class SVAO(RenderPass):
                                 bool(self.cfg["useRayInterval"]))
         ao_raw, stencil = out["ao_raw"], out["stencil"]
 
-        if self._sd_graph is None:
-            self._sd_graph = self._build_sd_graph()
-            self._sd_graph.set_scene(ctx.scene)
+        sd_graph = self._nested_graph(ctx.scene)
         sd_w, sd_h = self._stoch_map_size((w, h))
         sd_ctx = RenderContext(width=sd_w, height=sd_h, scene=ctx.scene,
                                frame_index=ctx.frame_index, time=ctx.time,
                                dictionary=ctx.dictionary)
-        marked, _, _ = self._sd_graph.execute(
+        marked, _, _ = sd_graph.execute(
             sd_ctx, {},
             external_inputs={"StochasticDepthMap.linearZ": depth,
                              "StochasticDepthMap.depthMap":

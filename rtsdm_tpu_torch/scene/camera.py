@@ -95,6 +95,12 @@ class Camera:
         xy = ndc * view_depth[..., None] * self.image_scale()
         return torch.cat([xy, -view_depth[..., None]], -1)
 
+    def view_space_radius_to_uv_radius(self, z, r: float):
+        """Positive view depth z [...], world radius r -> uv radius
+        [..., 2] (SVAO/Common.slang:247-253)."""
+        fw = torch.stack([self.frame_width, self.frame_height])
+        return (r * self.focal_length)[..., None] / (fw * z[..., None])
+
     def compute_ray_pinhole(self, pixel_xy, frame_dim, jitter=None):
         """Camera rays (Camera.slang:46-90). pixel_xy [..., 2] pixel coords
         (origin top-left); frame_dim (W, H); jitter None -> the camera

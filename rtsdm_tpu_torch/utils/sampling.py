@@ -90,3 +90,39 @@ def jitter_grid(h: int, w: int, enabled: bool = True, x0: int = 0,
     tile = np.tile(tab, ((h + 7) // 4, (w + 3) // 4, 1))
     o = int(y0) % 4
     return torch.as_tensor(tile[o:o + h, :w].copy(), device=device)
+
+
+def stratified_coverage_tables(num_samples: int) -> tuple[np.ndarray,
+                                                          np.ndarray]:
+    """Stratified coverage-mask tables (StochasticDepthMapRT.cpp:79-124):
+    lookup lists every num_samples-bit mask grouped by popcount, and
+    indices[R] is the offset of the group with R bits set."""
+    masks_by_count = [[] for _ in range(num_samples + 1)]
+    for m in range(1 << num_samples):
+        masks_by_count[bin(m).count("1")].append(m)
+    lookup = []
+    indices = [0]
+    for group in masks_by_count:
+        lookup.extend(group)
+        indices.append(len(lookup))
+    return (np.asarray(indices, np.uint32), np.asarray(lookup, np.uint32))
+
+
+def coverage_mask_select(alpha: float, rng, rng2, k: int):
+    """Stratified alpha-to-coverage mask (Common.slangh:117-131): r_cnt =
+    floor(alpha*k + rng) set bits (a float32 add), the mask picked from the
+    popcount-r_cnt group of stratified_coverage_tables by rng2 (truncated
+    float32 product). rng, rng2: float32 in [0, 1). Returns int32 k-bit
+    masks."""
+    idx_np, lut_np = stratified_coverage_tables(k)
+    r_cnt = torch.clamp(torch.floor(alpha * k + rng).to(torch.int32), 0, k)
+    sel = torch.zeros_like(r_cnt)
+    for rr in range(1, k):
+        lo, hi = int(idx_np[rr]), int(idx_np[rr + 1])
+        sel = torch.where(r_cnt == rr,
+                          lo + (rng2 * (hi - lo)).to(torch.int32), sel)
+    lut = torch.as_tensor(lut_np.astype(np.int32), device=sel.device)
+    mask = torch.where((sel >= 0) & (sel < lut.numel()),
+                       lut[sel.clamp(0, lut.numel() - 1).long()], 0)
+    mask = torch.where(r_cnt >= k, (1 << k) - 1, mask)
+    return torch.where(r_cnt == 0, 0, mask).to(torch.int32)

@@ -205,6 +205,94 @@ def test_any_hit_kernel_matches_plain_on_gpu(cuda_device):
     assert hit.any() and not hit.all()
 
 
+def _raster_inputs(st, w, h):
+    """K1/K9 inputs of a view: chunks, lists, counts, tile grid."""
+    return R._binned_chunks(st.camera.view_proj_no_jitter, st.positions, w,
+                            h, 0.0, 0.0, "back")
+
+
+@pytest.mark.cuda
+def test_raster_floor_kernel_matches_plain_on_gpu(cuda_device):
+    """K1 with its depth floor (depth peeling) against its plain version:
+    the first layer's linear depth as the floor, min_separation 0.5, with
+    full and short lists."""
+    st = arcade(aspect=1.5, device=cuda_device)
+    w, h = 96, 64
+    chunks, lists, counts, nby, nbx = _raster_inputs(st, w, h)
+    z = RC.raster_blocks(chunks, lists, counts, nby, nbx)[0]
+    floor = st.camera.linearize_depth(z).contiguous()
+    for lw in (lists.shape[1], 2):
+        ls = lists[:, :lw].contiguous()
+        got = RC.raster_blocks(chunks, ls, counts, nby, nbx, floor=floor,
+                               min_separation=0.5)
+        want = RC.raster_blocks_plain(chunks, ls, counts, nby, nbx,
+                                      floor=floor, min_separation=0.5)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    # the floor peeled the first layer and left a second one
+    first_id = RC.raster_blocks(chunks, lists, counts, nby, nbx)[1]
+    assert bool((got[1] >= 0).any())
+    assert float((got[1] != first_id).float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alpha", [0.375, 1.0])
+def test_raster_stochastic_kernel_matches_plain_on_gpu(cuda_device, alpha):
+    """K9 against its plain version for k of 1, 4 and 8, with a first layer
+    and a ray interval that exclude some fragments, and with full and
+    short lists."""
+    st = arcade(aspect=1.5, device=cuda_device)
+    w, h = 96, 64
+    chunks, lists, counts, nby, nbx = _raster_inputs(st, w, h)
+    z = RC.raster_blocks(chunks, lists, counts, nby, nbx)[0]
+    lin = st.camera.linearize_depth(z)
+    rng = np.random.default_rng(29)
+    first = torch.where(torch.as_tensor(rng.random(lin.shape) < 0.3,
+                                        device=cuda_device), -3e38, lin)
+    rmin = lin * torch.as_tensor(rng.uniform(0.5, 1.0, lin.shape)
+                                 .astype(np.float32), device=cuda_device)
+    rmin[::3] = 0.0
+    rmax = lin + torch.as_tensor(rng.uniform(0.5, 20.0, lin.shape)
+                                 .astype(np.float32), device=cuda_device)
+    rmax[:, ::7] = 0.0
+    planes = [a.contiguous() for a in (first, rmin, rmax)]
+    for k in (1, 4, 8):
+        for lw in (lists.shape[1], 2):
+            ls = lists[:, :lw].contiguous()
+            got = RC.raster_stochastic_blocks(chunks, ls, counts, nby, nbx,
+                                              *planes, k, alpha)
+            want = RC.raster_stochastic_blocks_plain(chunks, ls, counts, nby,
+                                                     nbx, *planes, k, alpha)
+            assert torch.equal(got, want), (k, lw)
+        hit = got < RC.SD_EMPTY
+        assert bool(hit.any()) and not bool(hit.all())
+
+
+@pytest.mark.cuda
+def test_same_class_fetch_kernel_matches_plain_on_gpu(cuda_device):
+    """K6 (HBAO's 8 directions x 4 steps) against its plain version for one
+    and two plane sets, with level planes that include out-of-range
+    levels."""
+    from rtsdm_tpu_torch.ops import ao as A
+    from rtsdm_tpu_torch.passes import hbao as H
+    rng = np.random.default_rng(31)
+    qh, qw, dev = 24, 40, cuda_device
+    levels = A.shift_radius_levels(float(H.MAX_SHIFT_REACH))
+    pad = int(np.ceil(levels[-1]))
+    offs = H.shift_offsets(levels, H.direction_tables())
+    planes = S.pad_planes(torch.as_tensor(
+        rng.uniform(1.0, 30.0, (2, 16, qh, qw)).astype(np.float32),
+        device=dev), pad)
+    lvl = torch.as_tensor(rng.integers(-1, len(levels) + 1,
+                                       (H.NUM_STEPS, 16, qh, qw))
+                          .astype(np.int32), device=dev)
+    for n_src in (1, 2):
+        got = F.fetch_taps_same_class(planes[:n_src], lvl, pad, offs)
+        want = F.fetch_taps_same_class_plain(planes[:n_src], lvl, pad, offs)
+        assert got.shape == (n_src, 32, 16, qh, qw)
+        assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_svao_small_graph_on_gpu(cuda_device):
     """scripts/SVAO_small.py through the port's harness on the card

@@ -25,7 +25,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 WRAPPERS = (RC.raster_blocks, RC.fetch_attributes, F.fetch_all_directions,
             F.fetch_sd_packed, RT.sd_trace_blocks, W.warp_resample,
-            RT.any_hit_blocks)
+            RT.any_hit_blocks, F.fetch_taps_same_class,
+            RC.raster_stochastic_blocks)
 
 
 def test_port_never_imports_jax():
@@ -62,14 +63,15 @@ def test_build_targets_hopper_without_fma():
     assert "fast_math" not in flags and "fast-math" not in flags
     assert _build.BUILD_DIR == ROOT / "build" / "rtsdm_tpu_torch"
     assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
-        "raster.cu", "fetch.cu", "sd_trace.cu", "warp.cu", "any_hit.cu"}
+        "raster.cu", "fetch.cu", "sd_trace.cu", "warp.cu", "any_hit.cu",
+        "raster_sd.cu"}
     # the scene helper is built by the port's own loader, into build/
     lib = _build.scenekit_library()
     assert Path(lib._name).parent == _build.BUILD_DIR
 
 
 def _tiny_inputs():
-    """Minimal valid CPU arguments for each of the seven wrappers."""
+    """Minimal valid CPU arguments for each of the nine wrappers."""
     rng = np.random.default_rng(11)
     chunks = torch.zeros((1, RC.COEF_ROWS, RC.TC))
     lists = torch.zeros((1, 1), dtype=torch.int32)
@@ -103,6 +105,14 @@ def _tiny_inputs():
                           torch.ones((1, 2)), "bilinear"),
         "any_hit_blocks": (torch.zeros((1, RT.PACK_ROWS_CLASSIC, RT.TC)),
                            lists, counts, torch.zeros((8, RT.RB))),
+        "fetch_taps_same_class": (planes[None],
+                                  torch.zeros((4, 16, 2, 2),
+                                              dtype=torch.int32),
+                                  pad, [[[(1, -1)]] * 16] * 8),
+        "raster_stochastic_blocks": (chunks, lists, counts, 1, 1,
+                                     torch.zeros((8, 32)),
+                                     torch.zeros((8, 32)),
+                                     torch.ones((8, 32)), 4, 0.375),
     }
 
 
@@ -116,7 +126,9 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
                       (F, "fetch_sd_packed_plain"),
                       (RT, "sd_trace_blocks_plain"),
                       (W, "warp_resample_plain"),
-                      (RT, "any_hit_blocks_plain")):
+                      (RT, "any_hit_blocks_plain"),
+                      (F, "fetch_taps_same_class_plain"),
+                      (RC, "raster_stochastic_blocks_plain")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _name=name, **kw):

@@ -241,3 +241,62 @@ def test_gbuffer_schema_matches_reference(caplog):
         with pytest.raises(NotImplementedError):
             GT.GBufferRaster(bad).execute(
                 RenderContext(width=32, height=32, scene=st), {})
+
+
+def _svao_small_renderer(w=32, h=32):
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    m = Renderer(w, h, device="cpu")
+    run_script(str(Path(__file__).resolve().parents[1] / "scripts"
+                   / "SVAO_small.py"), m)
+    m.active_graph.get_pass("GuardBand").cfg["guardBand"] = 0
+    m.loadScene("CornellBox")
+    m.clock.pause()
+    return m
+
+
+@pytest.mark.parametrize("props", [{"kernel": "HBAO"}, {"dualAO": True},
+                                   {"samplingMode": "gather"},
+                                   {"stochasticDepthImpl": "Coverage"}])
+def test_svao_mode_set_after_construction_raises(props):
+    """A graph script may change SVAO's modes after the pass was built
+    (bench_configs.py:48-49 does so through cfg.update): a mode the port
+    does not run raises NotImplementedError at render time instead of
+    rendering another one."""
+    m = _svao_small_renderer()
+    m.renderFrame()
+    m.active_graph.get_pass("SVAO").cfg.update(props)
+    with pytest.raises(NotImplementedError):
+        m.renderFrame()
+
+
+def test_svao_raster_set_after_construction_renders_raster_sd():
+    """stochasticDepthImpl 'Raster' set after the first frame: the nested
+    graph is rebuilt around StochasticDepthMap (K9's path), with the
+    un-guarded SD grid, and the ray-traced SD no longer runs."""
+    from rtsdm_tpu_torch.ops import rt_cuda
+    from rtsdm_tpu_torch.passes import stochastic_depth as SDT
+    m = _svao_small_renderer()
+    svao = m.active_graph.get_pass("SVAO")
+    m.renderFrame()
+    assert svao._sd_graph.passes["StochasticDepthMap"].pass_type == \
+        "StochasticDepthMapRT"
+    svao.cfg.update({"stochasticDepthImpl": "Raster"})
+    calls = []
+
+    def rec(*a, **kw):
+        calls.append((kw["width"], kw["height"]))
+        return real(*a, **kw)
+
+    def no_trace(*a, **kw):
+        raise AssertionError("the ray-traced SD ran")
+
+    real = SDT.raster_stochastic
+    with mock.patch.object(SDT, "raster_stochastic", rec), \
+            mock.patch.object(rt_cuda, "sd_trace_blocks", no_trace):
+        out = m.renderFrame()
+    assert svao._sd_graph.passes["StochasticDepthMap"].pass_type == \
+        "StochasticDepthMap"
+    assert calls == [(8, 8)]           # ceil(32 / 4), no guard band
+    assert svao._stoch_map_size((32, 32)) == (8, 8)
+    ao = out["AmbientOcclusion.out"][..., 0]
+    assert bool(torch.isfinite(ao).all()) and float(ao.max()) <= 1.0

@@ -290,7 +290,7 @@ def test_render_graph_runs_slice_and_prunes(case):
 
 @pytest.mark.parametrize("props", [
     {"primaryDepthMode": "DualDepth"}, {"secondaryDepthMode": "Raytraced"},
-    {"stochasticDepthImpl": "Raster"}, {"kernel": "HBAO"},
+    {"stochMapDivisor": 3}, {"kernel": "HBAO"},
     {"samplingMode": "gather"}, {"dualAO": True}])
 def test_unported_svao_modes_raise(props):
     with pytest.raises(NotImplementedError):
