@@ -53,9 +53,21 @@ Phases, each of which raises on failure (the script then exits non-zero):
    floored K1 do real work: the last frame's calls held as in 11, K6 held
    bit-exact on every call kept (also the CornellBox and DualDepth calls),
    K6 and the floored K1 timed; the frame timed as in 10;
-14. both configs' graphs at their golden settings on the card
-   (tests/image_tests/renderpasses/test_HBAO.py, test_SVAO_rasterSD.py),
-   held against the committed goldens by the golden runner's MSE bound.
+14. both configs' graphs and scripts/SVAO.py at their golden settings on
+   the card (tests/image_tests/renderpasses/test_HBAO.py,
+   test_SVAO_rasterSD.py, test_SVAO_full.py; SVAO.py traces with K7), held
+   against the committed goldens by the golden runner's MSE bound;
+15. scripts/SVAO.py (the reference's shipped SVAO graph) at Arcade@full
+   1280x720 through Renderer.renderFrame, 3 frames: per frame K7
+   (sd_trace_resident: 38,610 triangles, at most 65,536) launches once and
+   K5 never; the last frame's calls of K1-K4, K7, K8 and K10 held
+   bit-exact against their plain versions; one frame with SVAO's
+   stochMaxCount 8 (K7 with the cap, held); StochasticDepthMapRT at that
+   frame's SD inputs in the default, kbuffer, coverage (alpha 0.375) and
+   MaxCount 8 settings on both tiers, each call held and K7 equal to K5
+   bit for bit; K7 and K5 timed on the same rays; the frame timed as in
+   10. (Phase 5 also runs the SVAO path once with stochMaxCount 8: K5 with
+   the cap, held and timed.)
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound and library yardstick), and
@@ -638,7 +650,8 @@ KERNEL_SYMBOLS = {"raster": "raster_blocks_kernel",
                   "any_hit": "any_hit_kernel",
                   "warp_resample": "warp_resample_kernel",
                   "fetch_taps_same_class": "fetch_taps_same_class_kernel",
-                  "raster_stochastic": "raster_sd_kernel"}
+                  "raster_stochastic": "raster_sd_kernel",
+                  "sd_trace_resident": "sd_trace_resident_kernel"}
 
 
 def profiled_frame(scene, pass_, ctx):
@@ -1028,6 +1041,9 @@ def graph_timing(m, reps: int = 7):
 # ---------------------------------------------------------------------------
 
 HBAO_SCRIPT = ROOT / "scripts" / "HBAO.py"
+SVAO_FULL_SCRIPT = ROOT / "scripts" / "SVAO.py"
+SVAO_FULL_OUTPUTS = ("AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
+                     "DiffuseTAA.colorOut", "DiffuseDLSS.output")
 CONFIG_FRAMES = 3
 RASTER_SD = {"SVAO": {"stochasticDepthImpl": "Raster"}}
 # label: (script, scene, width, height, pass overrides, marked outputs)
@@ -1038,7 +1054,12 @@ CONFIGS = {
                 ("Ambient.out", "Diffuse.out")),
     "config1_suntemple": (HBAO_SCRIPT, "SunTemple@full", 1920, 1080, {},
                           ("Ambient.out", "Diffuse.out")),
+    "svao_full": (SVAO_FULL_SCRIPT, "Arcade@full", 1280, 720, {},
+                  SVAO_FULL_OUTPUTS),
 }
+# each graph's AO output (its first channel is checked to lie in [0, 1])
+AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
+             "config1_suntemple": "Ambient.out", "svao_full": "AmbientRef.out"}
 FLOOR = "raster:floor"          # K1 launched with its depth floor
 RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
                                 # and the w plane (4 each), evaluated for
@@ -1047,9 +1068,9 @@ RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
 
 
 def kernels_of_configs():
-    """Every kernel of the graph path plus K6 (HBAO's same-class fetch) and
-    K9 (the raster stochastic depth map)."""
-    from rtsdm_tpu_torch.ops import fetch_cuda, raster_cuda
+    """Every kernel of the graph path plus K6 (HBAO's same-class fetch), K9
+    (the raster stochastic depth map) and K7 (the resident SD trace)."""
+    from rtsdm_tpu_torch.ops import fetch_cuda, raster_cuda, rt_cuda
     from rtsdm_tpu_torch.passes import hbao
     return kernels_of_graph() + [
         Kernel("fetch_taps_same_class", ["rtsdm_fetch_taps_same_class"],
@@ -1064,6 +1085,12 @@ def kernels_of_configs():
                [(raster_cuda, "raster_stochastic_blocks_plain")],
                "rtsdm_tpu_torch/csrc/raster_sd.cu",
                "rtsdm_tpu/ops/raster_pallas.py:319"),
+        Kernel("sd_trace_resident", ["rtsdm_sd_trace_resident"],
+               rt_cuda.sd_trace_resident_blocks,
+               [(rt_cuda, "sd_trace_resident_blocks")],
+               [(rt_cuda, "sd_trace_resident_blocks_plain")],
+               "rtsdm_tpu_torch/csrc/sd_trace.cu",
+               "rtsdm_tpu/ops/rt_pallas.py:371"),
     ]
 
 
@@ -1091,7 +1118,7 @@ def check_config_outputs(label, out):
         check(v.shape[:2] == (height, width),
               f"{label} {name}: shape {tuple(v.shape)}")
         check(bool(torch.isfinite(v).all()), f"{label} {name}: non-finite")
-    ao = out[names[-1] if label == "config2" else "Ambient.out"][..., 0]
+    ao = out[AO_OUTPUT[label]][..., 0]
     lo, hi = float(ao.min()), float(ao.max())
     check(0.0 <= lo and hi <= 1.0, f"{label}: AO outside [0, 1]: "
                                    f"[{lo}, {hi}]")
@@ -1101,19 +1128,23 @@ def check_config_outputs(label, out):
 
 def config_want(label, n_lights):
     """Launches per frame that each config's graph must make."""
-    if label == "config2":
+    if label in ("config2", "svao_full"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 fetches both
-        # ring halves, phase 2 reads the packed SD map; K9 once, K5 never
+        # ring halves, phase 2 reads the packed SD map; config 2 rasters
+        # its SD map (K9), SVAO.py traces it resident (K7: Arcade's 38,610
+        # triangles are at most 65,536); K5 never
+        sd9 = int(label == "config2")
         return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
                 "fetch_all_directions": 2, "fetch_sd_packed": 1,
-                "sd_trace": 0, "raster_stochastic": 1,
+                "sd_trace": 0, "raster_stochastic": sd9,
+                "sd_trace_resident": 1 - sd9,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
     # HBAO.py: G-buffer and ForwardLighting raster, DepthPeeling's floored
     # raster (live: HBAO reads depth2), one K6 call for the whole ring
     return {"raster": 2, FLOOR: 1, "fetch_attributes": 2,
             "fetch_all_directions": 0, "fetch_sd_packed": 0, "sd_trace": 0,
-            "raster_stochastic": 0, "fetch_taps_same_class": 1,
-            "any_hit": n_lights}
+            "raster_stochastic": 0, "sd_trace_resident": 0,
+            "fetch_taps_same_class": 1, "any_hit": n_lights}
 
 
 def drive_config(label, kernels):
@@ -1155,7 +1186,7 @@ def drive_config(label, kernels):
                 check(counts[name] == n, f"{label}: {name} launched "
                                          f"{counts[name]} times in a frame, "
                                          f"expected {n}")
-            if label == "config2":
+            if label in ("config2", "svao_full"):
                 check(by_mode["catmull_rom"] == 2, "K10: TAA x2 expected")
             else:
                 check(by_mode["catmull_rom"] == 0, "K10: HBAO.py has no TAA")
@@ -1210,6 +1241,12 @@ def _pair_any_hit(args, kwargs):
             RT.any_hit_blocks_plain(*sub) + got)
 
 
+def _pair_sd_trace_resident(args, kwargs):
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    return ((RT.sd_trace_resident_blocks(*args, **kwargs),),
+            (RT.sd_trace_resident_blocks_plain(*args, **kwargs),))
+
+
 def _pair_warp(args, kwargs):
     from rtsdm_tpu_torch.ops import warp_cuda as W
     a = _warp_args(args, kwargs)
@@ -1217,18 +1254,21 @@ def _pair_warp(args, kwargs):
 
 
 # kernel -> (args, kwargs) -> (kernel outputs, plain outputs), for the
-# configs' last-frame check; K6 and K9 are held by their own phases
+# configs' last-frame check; K6 and K9 are held by their own phases, K5 by
+# the SD phases of SVAO.py
 CONFIG_PAIRS = {"raster": _pair_raster,
                 "fetch_attributes": _pair_fetch_attributes,
                 "fetch_all_directions": _pair_fetch_directions,
                 "fetch_sd_packed": _pair_fetch_sd_packed,
                 "any_hit": _pair_any_hit,
-                "warp_resample": _pair_warp}
+                "warp_resample": _pair_warp,
+                "sd_trace_resident": _pair_sd_trace_resident}
 
 
 def check_config_calls(label, kernels):
     """Every call of the config's last frame, at the config's own shapes
-    and settings (K1 with and without its floor, K4 at guard 0 in config 2),
+    and settings (K1 with and without its floor, K4 at guard 0 in config 2,
+    K7 in SVAO.py),
     against its plain version on the card: bit-exact (--fmad=false, the
     plain versions' operation order; K8 on a spread subset of whole tiles,
     as in compare_any_hit). Returns {kernel: calls held}."""
@@ -1379,30 +1419,41 @@ def dual_depth_frame(m, kernels):
 
 
 def small_configs_against_references():
-    """The configs' graphs at their golden settings on the card, held
-    against the committed goldens (tests/image_refs; the JAX package's
-    output) by the golden runner's MSE bound, 2e-4
-    (rtsdm_tpu/testing/image_tests.py:96-100)."""
+    """The configs' graphs and SVAO.py at their golden settings on the
+    card, held against the committed goldens (tests/image_refs; the JAX
+    package's output) by the golden runner's MSE bound, 2e-4
+    (rtsdm_tpu/testing/image_tests.py:96-100). SVAO.py's golden traces its
+    SD map with K7 (CornellBox: one chunk), every frame."""
     import numpy as np
+    from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
     res = {}
     for test, script in (("test_HBAO", HBAO_SCRIPT),
-                         ("test_SVAO_rasterSD", GRAPH_SCRIPT)):
+                         ("test_SVAO_rasterSD", GRAPH_SCRIPT),
+                         ("test_SVAO_full", SVAO_FULL_SCRIPT)):
         ns = {}
         exec((ROOT / "tests" / "image_tests" / "renderpasses"
               / f"{test}.py").read_text(), ns)
         cfg = ns["IMAGE_TEST"]
         m = Renderer(cfg["width"], cfg["height"], device="cuda")
         run_script(str(script), m)
-        m.active_graph.get_pass("GuardBand").cfg["guardBand"] = \
-            cfg["guard_band"]
-        for name, props in cfg["pass_overrides"].items():
+        if "guard_band" in cfg:
+            m.active_graph.get_pass("GuardBand").cfg["guardBand"] = \
+                cfg["guard_band"]
+        for name, props in cfg.get("pass_overrides", {}).items():
             m.active_graph.get_pass(name).cfg.update(props)
         m.loadScene(cfg["scene"])
         m.clock.pause()
+        LAUNCHES.clear()
         for f in range(max(cfg["frames"]) + 1):
             m.clock.frame = f
             out = m.renderFrame()
+        if test == "test_SVAO_full":
+            n = LAUNCHES["rtsdm_sd_trace_resident"]
+            check(n == max(cfg["frames"]) + 1
+                  and LAUNCHES["rtsdm_sd_trace"] == 0,
+                  f"{test}: K7 launched {n} times, K5 "
+                  f"{LAUNCHES['rtsdm_sd_trace']}")
         for name in ns["OUTPUTS"]:
             ref = np.load(ROOT / "tests" / "image_refs"
                           / f"{test}.{name}.{max(cfg['frames'])}.npy")
@@ -1457,8 +1508,246 @@ def run_configs():
         k = src[r["name"].split(":")[0]]
         r.update(source=k.source, replaces=k.replaces,
                  config_launches={lb: report[lb]["launches"].get(r["name"], 0)
-                                  for lb in CONFIGS})
+                                  for lb in CONFIGS if lb in report})
     return rows, report
+
+# ---------------------------------------------------------------------------
+# scripts/SVAO.py, the reference's shipped SVAO graph, with the resident SD
+# tier (K7) and the SD trace's MaxCount and coverage insertion
+# ---------------------------------------------------------------------------
+
+# StochasticDepthMapRT settings held on both tiers at the Arcade rays
+SD_SETTINGS = {"default": {"Implementation": "default"},
+               "kbuffer": {"Implementation": "kbuffer"},
+               "coverage": {"Implementation": "coverage", "Alpha": 0.375},
+               "maxcount8": {"Implementation": "default", "MaxCount": 8}}
+
+
+@contextlib.contextmanager
+def sd_trace_calls():
+    """Record (wrapper name, args, kwargs, output) of every K5 and K7 call."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    names = ("sd_trace_blocks", "sd_trace_resident_blocks")
+    real = {n: getattr(RT, n) for n in names}
+    calls = []
+
+    def rec(name):
+        def f(*args, **kwargs):
+            out = real[name](*args, **kwargs)
+            calls.append((name, args, kwargs, out))
+            return out
+        return f
+
+    for n in names:
+        setattr(RT, n, rec(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in real.items():
+            setattr(RT, n, fn)
+
+
+def hold_sd_call(call, what: str):
+    """A K5 or K7 call against its plain version: bit-exact."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    name, args, kwargs, out = call
+    plain = getattr(RT, name + "_plain")(*args, **kwargs)
+    mism = int((out != plain).any(1).sum())
+    check(torch.equal(out, plain), f"{what}: {name} is not bit-exact "
+                                   f"({mism} rays differ)")
+    return mism
+
+
+def resident_visits(args):
+    """Chunks each K7 block visits: its world-box overlaps (the plain
+    version's lists), as float64."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    tri, aabb, origin, rays = args[:4]
+    _, counts = RT.build_chunk_lists(aabb, origin, rays[0:3].T, rays[3],
+                                     rays[4])
+    return counts.double()
+
+
+def sd_tiers_at(scene, sd_ctx, sd_inputs, base):
+    """StochasticDepthMapRT at the Arcade frame's SD inputs in each of
+    SD_SETTINGS on both tiers (pallasStream False: K7, True: K5): each call
+    bit-exact against its plain version, and the two tiers' packed slots
+    equal bit for bit (K7's row-major rays against K5's 8x32 tiles).
+    Returns {setting: {tier: (wrapper name, args, kwargs, out)}}."""
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    from rtsdm_tpu_torch.passes.stochastic_depth import StochasticDepthMapRT
+    sd_h, sd_w = sd_inputs["rayMax"].shape
+    ph = sd_h + (-sd_h) % RT.TILE_RH
+    pw = sd_w + (-sd_w) % RT.TILE_RW
+    res = {}
+    for setting, props in SD_SETTINGS.items():
+        res[setting] = {}
+        depths = {}
+        for stream in (False, True):
+            p = StochasticDepthMapRT({**base, **props,
+                                      "pallasStream": stream})
+            p.set_scene(scene)
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            with sd_trace_calls() as calls:
+                out, _ = p.execute(sd_ctx, sd_inputs)
+            torch.cuda.synchronize()
+            k7, k5 = (LAUNCHES["rtsdm_sd_trace_resident"],
+                      LAUNCHES["rtsdm_sd_trace"])
+            check((k5, k7) == ((1, 0) if stream else (0, 1)) and
+                  len(calls) == 1, f"SD {setting} pallasStream={stream}: "
+                                   f"K7 {k7}, K5 {k5} launches")
+            hold_sd_call(calls[0], f"SD {setting}")
+            res[setting]["stream" if stream else "resident"] = calls[0]
+            depths[stream] = out["stochasticDepth"]
+        k = depths[False].shape[-1]
+        resident = res[setting]["resident"][3][:sd_h * sd_w] \
+            .reshape(sd_h, sd_w, k)
+        stream = RT.tile_unflatten(res[setting]["stream"][3][:ph * pw], ph,
+                                   pw)[:sd_h, :sd_w]
+        mism = int((resident != stream).any(-1).sum())
+        filled = float((resident != RT.INVALID).any(-1).double().mean())
+        log(f"SD {setting} at {sd_w}x{sd_h} rays: K7 and K5 each bit-exact "
+            f"with their plain versions; K7 vs K5 {mism} rays differ "
+            f"(bound: bit-exact); rays with a hit {filled:.4f}")
+        check(mism == 0, f"SD {setting}: K7 and K5 disagree on {mism} rays")
+        check(torch.equal(depths[False], depths[True]),
+              f"SD {setting}: the two tiers' depths differ")
+        check(filled > 0.0, f"SD {setting}: no hit")
+    return res
+
+
+def svao_full_sd_phases(m):
+    """After SVAO.py's frames: one frame with SVAO's stochMaxCount 8 (K7
+    with the cap, held), then the SD pass at the next frame's inputs in
+    every SD_SETTINGS entry on both tiers (sd_tiers_at). Returns (tiers,
+    filled slots per ray under the cap)."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    from rtsdm_tpu_torch.passes.stochastic_depth import StochasticDepthMapRT
+    svao = m.active_graph.get_pass("SVAO")
+    svao.cfg["stochMaxCount"] = 8
+    with sd_trace_calls() as calls:
+        m.renderFrame()
+    svao.cfg["stochMaxCount"] = 0
+    check(len(calls) == 1 and calls[0][0] == "sd_trace_resident_blocks"
+          and calls[0][1][7] == 8,
+          "SVAO.py with stochMaxCount 8: not one K7 call with MaxCount 8")
+    hold_sd_call(calls[0], "SVAO.py stochMaxCount 8")
+    capped = float((calls[0][3] != RT.INVALID).sum(1).double().mean())
+    log(f"svao_full stochMaxCount 8: K7 bit-exact with its plain version; "
+        f"{capped:.4f} filled slots per ray")
+
+    # the nested SD graph is rebuilt with the restored properties, so the
+    # capture goes on the class
+    seen = []
+    real_exec = StochasticDepthMapRT.execute
+
+    def capture(self, ctx, inputs, state=None):
+        seen.append((self.cfg, ctx, dict(inputs)))
+        return real_exec(self, ctx, inputs, state)
+
+    StochasticDepthMapRT.execute = capture
+    try:
+        m.renderFrame()
+    finally:
+        StochasticDepthMapRT.execute = real_exec
+    check(len(seen) == 1, "the SD pass did not run once")
+    cfg, sd_ctx, sd_inputs = seen[0]
+    base = {k: v for k, v in cfg.items()
+            if k not in ("Implementation", "MaxCount", "pallasStream")}
+    return sd_tiers_at(m._scene_comp, sd_ctx, sd_inputs, base), capped
+
+
+def resident_row(tiers):
+    """K7's kernel row from the default setting's call: bit-exact error,
+    kernel and plain times, its bound; and K5's time on the same rays."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    _, args, kwargs, out = tiers["default"]["resident"]
+    plain = RT.sd_trace_resident_blocks_plain(*args, **kwargs)
+    err = _max_abs(RT.decode_packed(out, 0.0, 1.0),
+                   RT.decode_packed(plain, 0.0, 1.0))
+    visits = resident_visits(args)
+    n_chunks = args[0].shape[0]
+    log(f"K7 sd_trace_resident {out.shape[0]} rays x {out.shape[1]} slots, "
+        f"{n_chunks} chunks: {visits.numel()} blocks visit "
+        f"{float(visits.mean()):.1f} chunks on average (max "
+        f"{int(visits.max())}, {int(visits.sum())} in all)")
+    ms = cuda_ms(lambda: RT.sd_trace_resident_blocks(*args, **kwargs), 10, 2)
+    plain_ms = cuda_ms(lambda: RT.sd_trace_resident_blocks_plain(
+        *args, **kwargs), 1, 1)
+    _, a5, kw5, _ = tiers["default"]["stream"]
+    ms5 = cuda_ms(lambda: RT.sd_trace_blocks(*a5, **kw5), 10, 2)
+    v5 = walk_visits(a5[1], a5[2], a5[0].shape[0])
+    log(f"K7 {ms:.4f} ms (plain {plain_ms:.2f} ms); K5 on the same rays in "
+        f"8x32 tiles with its lists {ms5:.4f} ms "
+        f"({chunk_visits(a5[1], a5[2], a5[0].shape[0])})")
+    return with_bound(
+        dict(max_abs_err=err, mismatches=0, exact=True, ms=ms,
+             plain_ms=plain_ms, timed_at=f"{tuple(out.shape)} rays x slots, "
+             f"{n_chunks} chunks", chunk_visits=int(visits.sum()),
+             k5_same_rays_ms=ms5, k5_chunk_visits=int(v5.sum())),
+        nbytes(args[:4], out),
+        float(visits.sum()) * RT.TC * RT.RB * TRACE_FLOPS_PER_TEST)
+
+
+def run_svao_full():
+    """scripts/SVAO.py at Arcade@full 1280x720 through Renderer.renderFrame
+    (the script's own properties): CONFIG_FRAMES frames with K7 once and
+    K5 never per frame, the last frame's calls bit-exact against their
+    plain versions (K1-K4, K7, K8, K10); svao_full_sd_phases; K7's row; the
+    frame timed as in 10. Returns (K7's kernel row, report)."""
+    label = "svao_full"
+    kernels = kernels_of_configs()
+    by_name = kernels_by_name(kernels)
+    m, totals, modes = drive_config(label, kernels)
+    held = check_config_calls(label, kernels)
+    tiers, capped = svao_full_sd_phases(m)
+    row = resident_row(tiers)
+    times, _ = graph_timing(m)
+    row = dict(row, name="sd_trace_resident",
+               launches=totals["sd_trace_resident"],
+               device_ms_profiled_frame=times["kernel_device_ms"].get(
+                   "sd_trace_resident"),
+               source=by_name["sd_trace_resident"].source,
+               replaces=by_name["sd_trace_resident"].replaces)
+    script, scene, width, height, overrides, _ = CONFIGS[label]
+    report = dict(times, script=str(script.relative_to(ROOT)), scene=scene,
+                  width=width, height=height, launches=totals,
+                  warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
+                  bit_exact_calls=held, maxcount8_filled_slots=capped,
+                  sd_tiers_bit_exact=sorted(tiers))
+    del m
+    return row, report
+
+
+def maxcount_on_main_path(scene):
+    """One SVAO-path frame at SunTemple@full with stochMaxCount 8: K5 (the
+    streamed tier, 323,202 triangles) held bit-exact against its plain
+    version with the cap, and timed beside the uncapped trace."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    pass_, ctx = make_svao(scene, WIDTH, HEIGHT,
+                           {**SVAO_PROPS, "stochMaxCount": 8})
+    with sd_trace_calls() as calls:
+        frame(scene, pass_, ctx, WIDTH, HEIGHT)
+        torch.cuda.synchronize()
+    check(len(calls) == 1 and calls[0][0] == "sd_trace_blocks",
+          "SVAO path with stochMaxCount 8: not one K5 call")
+    hold_sd_call(calls[0], "SVAO path stochMaxCount 8")
+    _, args, kwargs, out = calls[0]
+    check(args[7] == 8, f"K5 took max_count {args[7]}")
+    ms = cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10, 2)
+    free = args[:7] + (0,) + args[8:]     # the same call uncapped
+    ms_free = cuda_ms(lambda: RT.sd_trace_blocks(*free, **kwargs), 10, 2)
+    filled = float((out != RT.INVALID).sum(1).double().mean())
+    log(f"SVAO path stochMaxCount 8: K5 bit-exact with its plain version; "
+        f"{filled:.4f} filled slots per ray; K5 {ms:.4f} ms with the cap, "
+        f"{ms_free:.4f} ms without")
+    return dict(k5_ms_maxcount8=ms, k5_ms_uncapped=ms_free,
+                filled_slots_per_ray=filled)
 
 # ---------------------------------------------------------------------------
 
@@ -1497,6 +1786,7 @@ def main() -> int:
         k.result = COMPARE[k.name](k)
         log(f"  {k.name}: kernel {k.result['ms']:.4f} ms, plain "
             f"{k.result['plain_ms']:.4f} ms")
+    maxcount = maxcount_on_main_path(scene)
 
     torch.cuda.reset_peak_memory_stats()
     stages = staged_frame_ms(scene, pass_, ctx)
@@ -1555,6 +1845,8 @@ def main() -> int:
 
     # BASELINE configs 1 and 2 (phases 11-14)
     config_rows, configs = run_configs()
+    k7_row, svao_full = run_svao_full()
+    config_rows.append(k7_row)
     rows += config_rows
     for r in config_rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
@@ -1570,7 +1862,8 @@ def main() -> int:
         "graph": dict(graph_times, script=str(GRAPH_SCRIPT.relative_to(ROOT)),
                       scene=GRAPH_SCENE, launches=graph_counts,
                       warp_launches_by_mode=warp_modes),
-        "configs": configs}}))
+        "configs": configs, "svao_full": svao_full,
+        "svao_path_maxcount8": maxcount}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

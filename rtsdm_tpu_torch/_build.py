@@ -54,7 +54,9 @@ KERNEL_SIGNATURES = {
         "rtsdm_fetch_taps_same_class": [_P] * 3 + [_I] * 8 + [_P, _P],
     },
     "sd_trace.cu": {
-        "rtsdm_sd_trace": [_P] * 4 + [_I] * 6 + [_P, _P],
+        "rtsdm_sd_trace": [_P] * 4 + [_I] * 7 + [_F, _P, _I, _P, _P, _P],
+        "rtsdm_sd_trace_resident": [_P] * 4 + [_I] * 6 + [_F, _P, _I, _P,
+                                                          _P, _P],
         "rtsdm_sd_keys": [_P, _P, _P, _I, _P, _P, _P],
     },
     "warp.cu": {

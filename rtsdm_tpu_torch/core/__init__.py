@@ -1,1 +1,2 @@
-"""Harness services the renderer reads: the clock and the settings."""
+"""Harness services the renderer reads: the clock, the settings and the
+profiler."""

@@ -40,7 +40,6 @@ constexpr int kTC = 128;                 // triangles per chunk
 constexpr int kRows = 17;                // c0 c1 c2 zc wc (3 each), valid, id
 constexpr int kMaxLut = 256;             // 2^k masks for k <= 8
 constexpr float kEmpty = 3e38f;
-constexpr float kInv32767 = (float)(1.0 / 32767.0);
 constexpr unsigned kGolden = 0x9E3779B1u;
 
 template <int K>
@@ -119,19 +118,7 @@ __global__ void raster_sd_kernel(
       const float rng = (float)key15_of(hb) * kInv32767;
       const int h2 = (hb ^ (int)((unsigned)oid * kGolden)) ^ (hb >> 5);
       const float rng2 = (float)key15_of(h2) * kInv32767;
-
-      int r_cnt = __float2int_rz(floorf(ak + rng));
-      r_cnt = min(max(r_cnt, 0), K);
-      int mask;
-      if (r_cnt == 0) {
-        mask = 0;
-      } else if (r_cnt >= K) {
-        mask = (1 << K) - 1;
-      } else {
-        const int lo = idx[r_cnt], hi = idx[r_cnt + 1];
-        const int sel = lo + __float2int_rz(rng2 * (float)(hi - lo));
-        mask = (sel >= 0 && sel < lut_n) ? lut[sel] : 0;
-      }
+      const int mask = coverage_mask<K>(ak, rng, rng2, lut, lut_n, idx);
 #pragma unroll
       for (int s = 0; s < K; ++s)
         if ((mask >> s) & 1) slots[s] = fminf(slots[s], vd);

@@ -6,7 +6,8 @@ rtsdm_tpu/mogwai.py; reference Source/Mogwai, MogwaiScripting.cpp:127-179).
 
 A graph script sees the renderer as `m` (m.addGraph, m.loadScene, ...).
 renderFrame runs the active graph eagerly, pass by pass, and ends with
-torch.cuda.synchronize(). A GuardBand pass in the graph grows the render
+torch.cuda.synchronize(); `m.profiler` (off by default) times the frame
+and each pass on the host clock. A GuardBand pass in the graph grows the render
 target by 2 * guardBand on each axis and widens the camera's field of view
 so the interior keeps the requested one (GuardBand.cpp:74-100); marked
 outputs are cropped back to the requested size. Runs on the GPU unless
@@ -26,6 +27,7 @@ import torch
 
 from . import falcor
 from .core.clock import Clock
+from .core.profiler import Profiler
 from .core.settings import Settings
 from .rendergraph.graph import RenderGraph
 from .rendergraph.render_pass import RenderContext
@@ -44,6 +46,7 @@ class Renderer:
         self.height = height
         self.clock = Clock()
         self.settings = Settings()
+        self.profiler = Profiler(enabled=False)
         self.graphs: list[RenderGraph] = []
         self.active_graph: RenderGraph | None = None
         self.scene = None
@@ -162,7 +165,8 @@ class Renderer:
         ctx = RenderContext(width=rw, height=rh, scene=scene,
                             dictionary={"guardBand": gb})
         self._state = graph.init_state(ctx)
-        self._frame_fn = graph.frame_fn(rw, rh, dictionary={"guardBand": gb})
+        self._frame_fn = graph.frame_fn(rw, rh, dictionary={"guardBand": gb},
+                                        profiler=self.profiler)
         self._scene_comp = scene
 
     def renderFrame(self):
@@ -173,11 +177,12 @@ class Renderer:
         if self._frame_fn is None:
             self._build_frame_fn()
         t0 = time.perf_counter()
-        marked, self._state = self._frame_fn(
-            self._scene_comp, self._state, frame_index=self.clock.frame,
-            time=self.clock.time)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with self.profiler.event("renderFrame"):
+            marked, self._state = self._frame_fn(
+                self._scene_comp, self._state, frame_index=self.clock.frame,
+                time=self.clock.time)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         self.last_frame_ms = (time.perf_counter() - t0) * 1e3
         _, _, gb = self._render_res()
         if gb:
@@ -227,7 +232,8 @@ def main(argv=None) -> int:
     ap.add_argument("--capture", default=None,
                     help="directory for each frame's marked outputs (.npy)")
     ap.add_argument("--profile", action="store_true",
-                    help="print each pass's time (CUDA events) per frame")
+                    help="print each pass's time (CUDA events) per frame and "
+                         "the profiler's capture at the end")
     ap.add_argument("--plugin", action="append", default=[],
                     help="pass-plugin .py file or directory (repeatable)")
     ap.add_argument("--device", default="cuda")
@@ -240,6 +246,7 @@ def main(argv=None) -> int:
     m.loadScene(args.scene)
     m.clock.pause()
     m.active_graph.time_passes = args.profile and m.device.type == "cuda"
+    m.profiler.enabled = args.profile
     for f in range(args.frames):
         m.clock.frame = f
         out = m.renderFrame()
@@ -255,6 +262,8 @@ def main(argv=None) -> int:
                 np.save(os.path.join(args.capture, f"{k}.{f}.npy"),
                         v.float().cpu().numpy())
     print("outputs:", {k: tuple(v.shape) for k, v in m._last_outputs.items()})
+    if args.profile:
+        print(m.profiler.capture_json())
     return 0
 
 

@@ -13,13 +13,10 @@ from one to the other.
 """
 from __future__ import annotations
 
-import functools
-
-import numpy as np
 import torch
 
 from .._build import launch, ptr, stream_of
-from ..utils.sampling import coverage_mask_select, stratified_coverage_tables
+from ..utils.sampling import coverage_mask_select, coverage_table_tensors
 from .rt_cuda import (LIST_CAP, RB, TC, TILE_RH, TILE_RW, _wrap32,
                       compact_lists, key15_of_hash, tile_flatten,
                       tile_unflatten)
@@ -212,13 +209,6 @@ def raster_blocks_plain(coef_chunks, lists, counts, nby: int, nbx: int,
 SD_EMPTY = 3e38   # K9's empty slot
 
 
-@functools.lru_cache(maxsize=8)
-def _coverage_tables(k: int, device):
-    idx, lut = stratified_coverage_tables(k)
-    return (torch.as_tensor(lut.astype(np.int32), device=device),
-            torch.as_tensor(idx.astype(np.int32), device=device))
-
-
 def raster_stochastic_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
                              first, ray_min, ray_max, k: int, alpha: float):
     """K9: k-slot stochastic depth over an [nby*8, nbx*32] image (pixel
@@ -242,7 +232,7 @@ def raster_stochastic_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
     if not 1 <= k <= 8:
         raise ValueError(f"raster_stochastic_blocks: k={k} not in 1..8")
     if coef_chunks.is_cuda:
-        lut, idx = _coverage_tables(k, coef_chunks.device)
+        lut, idx = coverage_table_tensors(k, coef_chunks.device)
         out = torch.empty((k,) + shape, dtype=torch.float32,
                           device=coef_chunks.device)
         launch("rtsdm_raster_stochastic", ptr(coef_chunks), ptr(lists),

@@ -1,14 +1,17 @@
-"""Stochastic-depth ray trace (K5): the wrapper of csrc/sd_trace.cu, its
-plain PyTorch version, and the tensor code around it (counterpart of
-rtsdm_tpu/ops/rt_pallas.py, streaming shared-origin tier).
+"""Stochastic-depth ray trace (K5 streamed, K7 resident): the wrappers of
+csrc/sd_trace.cu, their plain PyTorch versions, and the tensor code around
+them (counterpart of rtsdm_tpu/ops/rt_pallas.py, shared-origin tiers).
 
 One ray per SD texel, all from the pinhole origin. Triangles are packed per
 frame into [n_chunks, 13, 128] chunks of shared-origin rows (the
-origin-dependent Möller-Trumbore cross products folded in once); each 8x32
-ray tile gets the ascending list of chunks whose world AABB overlaps its
-segment bundle and whose pinhole screen footprint and distance range
-overlap its texels. Only the default/reservoir and k-buffer insertions are
-ported; coverage and MaxCount stay with the reference (ROADMAP queue 1).
+origin-dependent Möller-Trumbore cross products folded in once). K5 takes
+rays in 8x32-tile order and gives each tile the ascending list of chunks
+whose world AABB overlaps its segment bundle and whose pinhole screen
+footprint and distance range overlap its texels; K7 takes rays in
+row-major order and culls every chunk against each block's segment box
+inside the kernel, with no lists. Both insert hits in the reference's
+three modes (default/reservoir, k-buffer, coverage) with an optional
+MaxCount cap.
 
 The shadow-ray any-hit (K8, counterpart of rt_pallas.py:any_hit_pallas)
 shares the chunking and the tile lists: its rays have their own origins, so
@@ -21,6 +24,7 @@ import torch
 
 from .._build import launch, ptr, stream_of
 from ..utils.math import true_div
+from ..utils.sampling import coverage_mask_select, coverage_table_tensors
 
 RB = 256                  # rays (or pixels) per tile
 TC = 128                  # triangles per chunk
@@ -30,7 +34,9 @@ PACK_ROWS = 13            # nt(3) bt(3) ct(3) tp(1) + acc-back, reject, mask
 PACK_ROWS_CLASSIC = 12    # v0(3) e1(3) e2(3) + acc-back, reject, mask
 INVALID = 2**31 - 1       # empty reservoir slot
 EPS_DET = 1e-9
-MODES = ("default", "kbuffer")
+MODES = ("default", "kbuffer", "coverage")   # insertion modes, by kernel id
+COVERAGE_MAX_K = 5        # the reference's coverage bound (rt_pallas.py:34)
+COUNT_CAP = 2**30         # MaxCount's face-accepted counter saturates here
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +269,7 @@ def build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx=None, ry=None):
 
 
 # ---------------------------------------------------------------------------
-# the trace (K5)
+# the streamed trace (K5)
 # ---------------------------------------------------------------------------
 
 def _wrap32(x):
@@ -303,51 +309,75 @@ def sd_keys(u, v, hb):
             key15_of_hash(hb.to(torch.int64)).to(torch.int32))
 
 
-def _check_trace_args(tri_packed, lists, counts, rays, k, mode):
-    for t, dt, name in ((tri_packed, torch.float32, "tri_packed"),
-                        (lists, torch.int32, "lists"),
-                        (counts, torch.int32, "counts"),
-                        (rays, torch.float32, "rays")):
+def _check_trace_args(fn, tensors, rays, nb, k, mode):
+    for t, dt, name in (*tensors, (rays, torch.float32, "rays")):
         if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"sd_trace_blocks: {name} must be contiguous "
-                             f"{dt}")
-    nb = counts.shape[0]
-    if tri_packed.shape[1:] != (PACK_ROWS, TC) or lists.shape[0] != nb \
-            or rays.shape != (7, nb * RB):
-        raise ValueError("sd_trace_blocks: inconsistent shapes")
+            raise ValueError(f"{fn}: {name} must be contiguous {dt}")
+    if tensors[0][0].shape[1:] != (PACK_ROWS, TC) or rays.shape != (7,
+                                                                    nb * RB):
+        raise ValueError(f"{fn}: inconsistent shapes")
     if not 1 <= k <= 8 or mode not in MODES:
-        raise ValueError(f"sd_trace_blocks: unsupported k={k} mode={mode}")
+        raise ValueError(f"{fn}: unsupported k={k} mode={mode}")
+
+
+def _tail_args(k: int, cull_back: bool, mode: str, max_count: int,
+               alpha: float, device):
+    """The insertion arguments K5 and K7 share: cull flag, mode id, cap,
+    alpha * k (rounded to float32 by ctypes, as the jnp weak scalar
+    rounds), and the coverage tables."""
+    lut, idx = coverage_table_tensors(k, device)
+    return (int(cull_back), MODES.index(mode), int(max_count), alpha * k,
+            ptr(lut), lut.numel(), ptr(idx))
 
 
 def sd_trace_blocks(tri_packed, lists, counts, rays, k: int,
-                    cull_back: bool = True, mode: str = "default"):
-    """K5: packed int32 reservoir [nb*256, k] (ascending, INVALID = empty)
-    for rays [7, nb*256] = (dx, dy, dz, tmin, tmax, za, zb) in 8x32-tile
-    order, where depth_norm = clip(t*za - zb, 0, 1)."""
-    _check_trace_args(tri_packed, lists, counts, rays, k, mode)
+                    cull_back: bool = True, mode: str = "default",
+                    max_count: int = 0, alpha: float = 0.2):
+    """K5: packed int32 slots [nb*256, k] (INVALID = empty) for rays
+    [7, nb*256] = (dx, dy, dz, tmin, tmax, za, zb) in 8x32-tile order, where
+    depth_norm = clip(t*za - zb, 0, 1). Default and kbuffer slots ascend;
+    coverage slots are per-slot minima of depth16. max_count > 0 caps the
+    face-accepted hits that take part (MaxCount); alpha is the coverage
+    insertion's."""
+    nb = counts.shape[0]
+    _check_trace_args("sd_trace_blocks",
+                      ((tri_packed, torch.float32, "tri_packed"),
+                       (lists, torch.int32, "lists"),
+                       (counts, torch.int32, "counts")), rays, nb, k, mode)
+    if lists.shape[0] != nb:
+        raise ValueError("sd_trace_blocks: inconsistent shapes")
     if tri_packed.is_cuda:
-        nb = counts.shape[0]
         out = torch.empty((nb * RB, k), dtype=torch.int32,
                           device=tri_packed.device)
         launch("rtsdm_sd_trace", ptr(tri_packed), ptr(lists), ptr(counts),
                ptr(rays), nb, tri_packed.shape[0], lists.shape[1], k,
-               int(cull_back), int(mode == "kbuffer"), ptr(out),
-               stream_of(tri_packed))
+               *_tail_args(k, cull_back, mode, max_count, alpha,
+                           tri_packed.device),
+               ptr(out), stream_of(tri_packed))
         return out
     if tri_packed.device.type != "cpu":
         raise RuntimeError(f"sd_trace_blocks: unsupported device "
                            f"{tri_packed.device}")
     return sd_trace_blocks_plain(tri_packed, lists, counts, rays, k,
-                                 cull_back, mode)
+                                 cull_back, mode, max_count, alpha)
 
 
 def sd_trace_blocks_plain(tri_packed, lists, counts, rays, k: int,
                           cull_back: bool = True, mode: str = "default",
-                          batch: int = 256):
-    """Plain PyTorch version of K5: all tiles advance through their chunk
-    lists together (`batch` tiles at a time); each visit folds the chunk's
-    accepted hits into the reservoir as the k smallest distinct values of
-    slots + candidates."""
+                          max_count: int = 0, alpha: float = 0.2):
+    """Plain PyTorch version of K5."""
+    return _trace_lists_plain(tri_packed, lists, counts, rays, k, cull_back,
+                              mode, max_count, alpha)
+
+
+def _trace_lists_plain(tri_packed, lists, counts, rays, k: int,
+                       cull_back: bool, mode: str, max_count: int,
+                       alpha: float, batch: int = 256):
+    """The plain trace of K5 and K7: all blocks advance through their chunk
+    lists together (`batch` blocks at a time); each visit folds the chunk's
+    accepted hits into the slots (the k smallest distinct values of slots
+    + candidates, or per-slot minima for coverage) after the MaxCount cap
+    (exclusive ordinal of face-accepted hits in chunk order)."""
     dev = tri_packed.device
     nb, list_w = lists.shape
     n_chunks = tri_packed.shape[0]
@@ -355,6 +385,7 @@ def sd_trace_blocks_plain(tri_packed, lists, counts, rays, k: int,
     cnt = torch.where(full, n_chunks, counts)
     ray = rays.reshape(7, nb, RB)
     slots = torch.full((nb, RB, k), INVALID, dtype=torch.int64, device=dev)
+    count = torch.zeros((nb, RB), dtype=torch.int64, device=dev)
     for j in range(int(cnt.max()) if nb else 0):
         for s in range(0, nb, batch):
             sl = slice(s, min(s + batch, nb))
@@ -394,9 +425,28 @@ def sd_trace_blocks_plain(tri_packed, lists, counts, rays, k: int,
             amask = tri[:, 12].to(torch.int32)
             abit = torch.bitwise_right_shift(amask, cell) & 1
             okh = ok_face & (abit > 0)
+            if max_count:
+                okf = ok_face.to(torch.int64)
+                ordinal = torch.cumsum(okf, -1) - okf   # exclusive
+                okh = okh & (count[rows][..., None] + ordinal < max_count)
+                count[rows] = torch.clamp(count[rows] + okf.sum(-1),
+                                          max=COUNT_CAP)
             d_norm = torch.clamp(t * za - zb, 0.0, 1.0)
             d16 = torch.clamp((d_norm * 65535.0).to(torch.int64), 0, 65535)
-            k15 = key15_of_hash(sd_hash(u, v))
+            hb = sd_hash(u, v)
+            k15 = key15_of_hash(hb)
+            if mode == "coverage":
+                rng = k15.to(torch.float32) * (1.0 / 32767.0)
+                h2 = (hb ^ _wrap32(d16 * 0x9E3779B1)) ^ (hb >> 5)
+                h2 = h2 ^ (h2 >> 11)
+                rng2 = key15_of_hash(h2).to(torch.float32) * (1.0 / 32767.0)
+                mask = coverage_mask_select(alpha, rng, rng2, k)
+                pk = torch.where(okh, d16, INVALID)
+                new = torch.stack(
+                    [torch.where(((mask >> q) & 1) > 0, pk, INVALID).amin(-1)
+                     for q in range(k)], -1)
+                slots[rows] = torch.minimum(slots[rows], new)
+                continue
             if mode == "kbuffer":
                 packed = d16 * 32768 + torch.clamp(k15, max=32766)
             else:
@@ -410,16 +460,12 @@ def sd_trace_blocks_plain(tri_packed, lists, counts, rays, k: int,
     return slots.reshape(nb * RB, k).to(torch.int32)
 
 
-def sd_trace_stream(tri_packed, aabb, origin, dirs, tmin, tmax, vz_scale,
-                    near, far, *, num_samples: int = 4,
-                    cull_back: bool = True, mode: str = "default",
-                    rx=None, ry=None):
-    """Driver (counterpart of sd_trace_pallas_stream): dirs [R,3], tmin/
-    tmax/vz_scale [R] in 8x32-tile order; returns the packed reservoir
-    [R, num_samples] int32."""
+def _ray_rows(dirs, tmin, tmax, vz_scale, near, far):
+    """K5's and K7's rays [7, nb*256] = (dx, dy, dz, tmin, tmax, za, zb)
+    from [R, 3] directions and [R] intervals and view-depth scales; the
+    padding rays are dead (tmax = -1)."""
     r = dirs.shape[0]
     rp = r + (-r) % RB
-    lists, counts = build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx, ry)
     inv_range = 1.0 / (far - near)
     za = vz_scale * inv_range
     zb = (near * inv_range).expand(r)
@@ -427,17 +473,96 @@ def sd_trace_stream(tri_packed, aabb, origin, dirs, tmin, tmax, vz_scale,
     def col(a, fill=0.0):
         return torch.nn.functional.pad(a, (0, rp - r), value=fill)
 
-    rays = torch.stack([col(dirs[:, 0]), col(dirs[:, 1]), col(dirs[:, 2]),
-                        col(tmin), col(tmax, fill=-1.0), col(za), col(zb)])
-    return sd_trace_blocks(tri_packed, lists, counts, rays.contiguous(),
-                           num_samples, cull_back, mode)[:r]
+    return torch.stack([col(dirs[:, 0]), col(dirs[:, 1]), col(dirs[:, 2]),
+                        col(tmin), col(tmax, fill=-1.0), col(za),
+                        col(zb)]).contiguous()
+
+
+def sd_trace_stream(tri_packed, aabb, origin, dirs, tmin, tmax, vz_scale,
+                    near, far, *, num_samples: int = 4,
+                    cull_back: bool = True, mode: str = "default",
+                    max_count: int = 0, alpha: float = 0.2, rx=None,
+                    ry=None):
+    """Streamed tier (counterpart of sd_trace_pallas_stream): dirs [R,3],
+    tmin/tmax/vz_scale [R] in 8x32-tile order; returns the packed slots
+    [R, num_samples] int32 (K5)."""
+    lists, counts = build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx, ry)
+    rays = _ray_rows(dirs, tmin, tmax, vz_scale, near, far)
+    return sd_trace_blocks(tri_packed, lists, counts, rays, num_samples,
+                           cull_back, mode, max_count,
+                           alpha)[:dirs.shape[0]]
+
+
+# ---------------------------------------------------------------------------
+# the resident trace (K7)
+# ---------------------------------------------------------------------------
+
+def sd_trace_resident_blocks(tri_packed, aabb, origin, rays, k: int,
+                             cull_back: bool = True, mode: str = "default",
+                             max_count: int = 0, alpha: float = 0.2):
+    """K7: K5's function for rays [7, nb*256] in row-major order, with no
+    host-built lists: each block of 256 consecutive rays walks every chunk
+    in order and skips those whose AABB (aabb [6+, n_chunks], rows 0-2
+    min, 3-5 max) misses the box of its valid segments from `origin` [3]."""
+    nb = rays.shape[1] // RB
+    _check_trace_args("sd_trace_resident_blocks",
+                      ((tri_packed, torch.float32, "tri_packed"),
+                       (aabb, torch.float32, "aabb"),
+                       (origin, torch.float32, "origin")), rays, nb, k, mode)
+    if aabb.shape != (6, tri_packed.shape[0]) or origin.shape != (3,):
+        raise ValueError("sd_trace_resident_blocks: aabb [6, n_chunks] and "
+                         "origin [3]")
+    if tri_packed.is_cuda:
+        out = torch.empty((nb * RB, k), dtype=torch.int32,
+                          device=tri_packed.device)
+        launch("rtsdm_sd_trace_resident", ptr(tri_packed), ptr(aabb),
+               ptr(origin), ptr(rays), nb, tri_packed.shape[0], k,
+               *_tail_args(k, cull_back, mode, max_count, alpha,
+                           tri_packed.device),
+               ptr(out), stream_of(tri_packed))
+        return out
+    if tri_packed.device.type != "cpu":
+        raise RuntimeError(f"sd_trace_resident_blocks: unsupported device "
+                           f"{tri_packed.device}")
+    return sd_trace_resident_blocks_plain(tri_packed, aabb, origin, rays, k,
+                                          cull_back, mode, max_count, alpha)
+
+
+def sd_trace_resident_blocks_plain(tri_packed, aabb, origin, rays, k: int,
+                                   cull_back: bool = True,
+                                   mode: str = "default", max_count: int = 0,
+                                   alpha: float = 0.2):
+    """Plain PyTorch version of K7: each block's ascending list of the
+    chunks that overlap its segment box (build_chunk_lists' world test,
+    never capped for up to 2 * LIST_CAP chunks) walked as K5's plain
+    version walks its lists."""
+    lists, counts = build_chunk_lists(aabb, origin, rays[0:3].T, rays[3],
+                                      rays[4])
+    return _trace_lists_plain(tri_packed, lists, counts, rays, k, cull_back,
+                              mode, max_count, alpha)
+
+
+def sd_trace_resident(tri_packed, aabb, origin, dirs, tmin, tmax, vz_scale,
+                      near, far, *, num_samples: int = 4,
+                      cull_back: bool = True, mode: str = "default",
+                      max_count: int = 0, alpha: float = 0.2):
+    """Resident tier (counterpart of sd_trace_pallas): dirs [R,3], tmin/
+    tmax/vz_scale [R] in any order (row-major for an SD grid); returns the
+    packed slots [R, num_samples] int32 (K7)."""
+    rays = _ray_rows(dirs, tmin, tmax, vz_scale, near, far)
+    return sd_trace_resident_blocks(
+        tri_packed, aabb[:6].contiguous(), origin.contiguous(), rays,
+        num_samples, cull_back, mode, max_count, alpha)[:dirs.shape[0]]
 
 
 def decode_packed(packed, near, far, normalize: bool = True,
                   mode: str = "default"):
     """Packed int32 reservoir -> depths (normalized to [0, 1], 1.0 where
     empty; or linear view depth, far where empty)."""
-    d16 = packed // 32768 if mode == "kbuffer" else packed % 65536
+    if mode == "coverage":
+        d16 = packed
+    else:
+        d16 = packed // 32768 if mode == "kbuffer" else packed % 65536
     d = torch.where(packed == INVALID, 1.0,
                     true_div(d16.to(torch.float32), 65535.0))
     if normalize:

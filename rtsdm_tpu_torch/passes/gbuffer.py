@@ -92,3 +92,25 @@ class GBufferRaster(RenderPass):
                 "GBufferRaster: only outputSize='Default' is ported")
         return raster_gbuffer(ctx.scene, ctx.width, ctx.height,
                               cull=self.cfg["cull"].lower()), None
+
+
+@register_pass("DepthPass")
+class DepthPass(RenderPass):
+    """Depth pre-pass (reference Source/RenderPasses/DepthPass/): the NDC
+    depth of one visibility raster (K1 with no floor). useAlphaTest and
+    maxPerTile are accepted and change nothing, as in the reference
+    package's raster."""
+
+    SCHEMA = dict(depthFormat="D32Float", useAlphaTest=True, cullMode="Back",
+                  maxPerTile=256)
+
+    def reflect(self, ctx):
+        return PassReflection().add_output("depth")
+
+    def execute(self, ctx, inputs, state=None):
+        cam = ctx.scene.camera
+        vis = rasterize(cam.view_proj_no_jitter, ctx.scene.positions,
+                        width=ctx.width, height=ctx.height,
+                        jitter_x=cam.jitter_x, jitter_y=cam.jitter_y,
+                        cull=self.cfg["cullMode"].lower())
+        return {"depth": vis["depth"]}, None

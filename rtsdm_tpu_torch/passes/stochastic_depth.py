@@ -4,7 +4,8 @@ rtsdm_tpu/passes/stochastic_depth.py).
 StochasticDepthMapRT — the paper's k-layer stochastic depth map from ONE
 ray per SD texel with reservoir insertion (reference StochasticDepthMapRT:
 rayGen .rt.slang:63-105, ray setup Common.slangh:65-92, insertion
-Common.slangh:102-254). The trace is K5 (ops/rt_cuda.py).
+Common.slangh:102-254). The trace is K7 (resident) or K5 (streamed),
+ops/rt_cuda.py.
 
 StochasticDepthMap — the raster baseline (reference StochasticDepthMap/
 StochasticDepth.ps.slang): a k-slot raster over the SD grid in which each
@@ -23,6 +24,9 @@ from ..utils.math import dot3
 from ..utils.sampling import jitter_grid
 
 _IMPL_NAMES = {0: "default", 1: "coverage", 2: "reservoir", 3: "kbuffer"}
+# pallasStream="auto" keeps the trace resident (K7) up to this many
+# triangles (rtsdm_tpu/passes/stochastic_depth.py:150-151)
+RESIDENT_MAX_TRIANGLES = 65536
 
 
 def _bilinear_sample(tex, uv):
@@ -58,34 +62,62 @@ def _downsample_linear(tex, divisor: int, dim_w: int, dim_h: int):
 class StochasticDepthMapRT(RenderPass):
     """Output 'stochasticDepth': [sdH, sdW, SampleCount] normalized view
     depths, 1.0 where empty; the SD resolution (with guard band) is taken
-    from the rayMin/rayMax inputs. Implementation 'default'/'reservoir' and
-    'kbuffer' are ported; 'coverage' and MaxCount != 0 raise (ROADMAP queue
-    1, item 7: MaxCount depends on traversal order)."""
+    from the rayMin/rayMax inputs. The trace takes the reference's Pallas
+    tiers: pallasStream 'auto' streams (K5) above RESIDENT_MAX_TRIANGLES
+    and stays resident (K7) otherwise; True and False force one. Every
+    Implementation and MaxCount are ported; coverage ignores MaxCount.
+    usePallas=False (the reference's XLA tier), coverage with SampleCount
+    above rt.COVERAGE_MAX_K, StoreNormals and a depthFormat raise
+    NotImplementedError at render time. `linearize` and `chunk` are taken
+    and, as in the reference, change nothing on the ported tiers."""
 
     SCHEMA = dict(SampleCount=4, CullMode="Back", AlphaTest=True,
-                  Implementation="default", RayInterval=True, normalize=True,
-                  Jitter=True, GuardBand=0, MaxCount=0)
+                  Implementation="default", Alpha=0.2, RayInterval=True,
+                  normalize=True, StoreNormals=False, Jitter=True,
+                  GuardBand=0, MaxCount=0, linearize=False, depthFormat=None,
+                  chunk=128, usePallas=True, pallasStream="auto")
 
     def reflect(self, ctx):
         return (PassReflection().add_input("linearZ").add_input("rayMin")
                 .add_input("rayMax").add_output("stochasticDepth"))
 
-    def _impl(self):
-        impl = self.cfg["Implementation"]
-        impl = _IMPL_NAMES.get(impl, impl)
+    def _insertion(self):
+        """(mode, max_count) of the configuration; raises for what the port
+        does not run."""
+        cfg = self.cfg
+        impl = _IMPL_NAMES.get(cfg["Implementation"], cfg["Implementation"])
         impl = "default" if impl == "reservoir" else impl
         if impl not in rt.MODES:
+            raise ValueError(f"StochasticDepthMapRT: unknown Implementation "
+                             f"{impl!r}")
+        if not cfg["usePallas"]:
             raise NotImplementedError(
-                f"StochasticDepthMapRT: Implementation '{impl}' is not ported "
-                "(ROADMAP queue 1, item 7)")
-        if self.cfg["MaxCount"]:
+                "StochasticDepthMapRT: usePallas=False selects the "
+                "reference's XLA tier (rtsdm_tpu/ops/rt.py:sd_trace), which "
+                "is not ported (ROADMAP queue 1, item 7)")
+        if impl == "coverage" and int(cfg["SampleCount"]) > rt.COVERAGE_MAX_K:
             raise NotImplementedError(
-                "StochasticDepthMapRT: MaxCount != 0 is not ported (ROADMAP "
-                "queue 1, item 7; it depends on traversal order)")
-        return impl
+                f"StochasticDepthMapRT: coverage with SampleCount > "
+                f"{rt.COVERAGE_MAX_K} takes the reference's XLA tier, which "
+                "is not ported (ROADMAP queue 1, item 7)")
+        for key, default in (("StoreNormals", False), ("depthFormat", None)):
+            if cfg[key] != default:
+                raise NotImplementedError(
+                    f"StochasticDepthMapRT: {key}={cfg[key]!r} is not ported "
+                    "(ROADMAP queue 1, item 7)")
+        # 0 = uncapped; coverage ignores MaxCount (Common.slangh:117)
+        max_count = 0 if impl == "coverage" else int(cfg["MaxCount"] or 0)
+        return impl, max_count
+
+    def streams(self, scene) -> bool:
+        """Whether the trace takes the streamed tier (K5) for `scene`."""
+        stream = self.cfg["pallasStream"]
+        if stream == "auto":
+            return scene.num_triangles > RESIDENT_MAX_TRIANGLES
+        return bool(stream)
 
     def execute(self, ctx, inputs, state=None):
-        impl = self._impl()
+        impl, max_count = self._insertion()
         cam = ctx.scene.camera
         ray_min, ray_max = inputs["rayMin"], inputs["rayMax"]
         lin_z = inputs["linearZ"]
@@ -132,21 +164,30 @@ class StochasticDepthMapRT(RenderPass):
 
         tri_packed, aabb = rt.prep_triangles_packed(
             ctx.scene, bool(self.cfg["AlphaTest"]), origin)
-        scr = rt.chunk_screen_rows(aabb, origin, cam.camera_u, cam.camera_v,
-                                   cam.camera_w, dim_w, dim_h)
-        aabb = torch.cat([aabb[:6], scr], 0)
+        trace = dict(num_samples=k, cull_back=self.cfg["CullMode"] == "Back",
+                     mode=impl, max_count=max_count,
+                     alpha=float(self.cfg["Alpha"]))
+        if self.streams(ctx.scene):
+            scr = rt.chunk_screen_rows(aabb, origin, cam.camera_u,
+                                       cam.camera_v, cam.camera_w, dim_w,
+                                       dim_h)
+            aabb = torch.cat([aabb[:6], scr], 0)
 
-        def tf(x2d, fill=0.0):  # 8x32-tile ray order
-            return rt.tile_flatten(rt.pad_tile(x2d, fill)[0])
+            def tf(x2d, fill=0.0):  # 8x32-tile ray order
+                return rt.tile_flatten(rt.pad_tile(x2d, fill)[0])
 
-        ph = sd_h + (-sd_h) % rt.TILE_RH
-        pw = sd_w + (-sd_w) % rt.TILE_RW
-        packed = rt.sd_trace_stream(
-            tri_packed, aabb, origin, tf(dirs), tf(tmin), tf(tmax, -1.0),
-            tf(cos_w), cam.near_z, cam.far_z, num_samples=k,
-            cull_back=self.cfg["CullMode"] == "Back", mode=impl,
-            rx=tf(signed[..., 0]), ry=tf(signed[..., 1]))
-        packed = rt.tile_unflatten(packed, ph, pw)[:sd_h, :sd_w]
+            ph = sd_h + (-sd_h) % rt.TILE_RH
+            pw = sd_w + (-sd_w) % rt.TILE_RW
+            packed = rt.sd_trace_stream(
+                tri_packed, aabb, origin, tf(dirs), tf(tmin), tf(tmax, -1.0),
+                tf(cos_w), cam.near_z, cam.far_z, rx=tf(signed[..., 0]),
+                ry=tf(signed[..., 1]), **trace)
+            packed = rt.tile_unflatten(packed, ph, pw)[:sd_h, :sd_w]
+        else:
+            packed = rt.sd_trace_resident(
+                tri_packed, aabb, origin, dirs.reshape(-1, 3),
+                tmin.reshape(-1), tmax.reshape(-1), cos_w.reshape(-1),
+                cam.near_z, cam.far_z, **trace).reshape(sd_h, sd_w, k)
         depths = rt.decode_packed(packed, cam.near_z, cam.far_z,
                                   bool(self.cfg["normalize"]), mode=impl)
         return {"stochasticDepth": depths}, None

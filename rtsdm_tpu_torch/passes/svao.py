@@ -4,7 +4,7 @@ phase 1 -> nested SD graph -> phase 2).
 
 Ported configuration: samplingMode 'shift', primaryDepthMode 'SingleDepth',
 secondaryDepthMode 'StochasticDepth' with stochasticDepthImpl 'Ray'
-(StochasticDepthMapRT, K5) or 'Raster' (StochasticDepthMap, K9), kernel
+(StochasticDepthMapRT, K7 or K5) or 'Raster' (StochasticDepthMap, K9), kernel
 'VAO'. Every other mode raises NotImplementedError until its ROADMAP item
 (queue 1, item 12) ports it — checked wherever the configuration is read,
 since a graph script may change it after the pass was built.
@@ -30,7 +30,10 @@ _SUPPORTED = dict(samplingMode=("shift",),
                   primaryDepthMode=(DEPTH_MODE_SINGLE,),
                   secondaryDepthMode=(DEPTH_MODE_STOCHASTIC,),
                   stochasticDepthImpl=("Ray", "Raster"), kernel=("VAO",),
-                  dualAO=(False,), stochMapDivisor=(1, 2, 4))
+                  dualAO=(False,), stochMapDivisor=(1, 2, 4),
+                  # read by the reference only on the Raytraced / gather
+                  # paths, which the port does not run
+                  traceOutOfScreen=(False,), maxRayBudgetFraction=(0.5,))
 
 
 def _normals_to_view(ctx, normals):
@@ -109,8 +112,9 @@ class SVAO(RenderPass):
         rayPipeline=True, thickness=0.0, stochMapDivisor=4, dualAO=False, alphaTest=True,
         sampleCount=8, kernel="VAO", stochSamples=4, stochMaxCount=0,
         useRayInterval=True, stochMapJitter=True, stochMapGuardBand=512,
-        stochasticDepthImpl="Ray", cullMode=None, ssRadiusCutoff=6.0,
-        ssMaxRadius=512.0, samplingMode="shift")
+        traceOutOfScreen=False, stochasticDepthImpl="Ray", cullMode=None,
+        ssRadiusCutoff=6.0, ssMaxRadius=512.0, maxRayBudgetFraction=0.5,
+        rtChunk=256, samplingMode="shift", usePallas=True)
 
     def __init__(self, props=None):
         super().__init__(props)
@@ -161,15 +165,16 @@ class SVAO(RenderPass):
         props = {"SampleCount": int(self.cfg["stochSamples"]),
                  "CullMode": self.cfg["cullMode"] or "Back",
                  "AlphaTest": bool(self.cfg["alphaTest"]),
+                 "Alpha": 1.5 / int(self.cfg["stochSamples"]),
                  "RayInterval": bool(self.cfg["useRayInterval"])}
         if self.cfg["stochasticDepthImpl"] == "Raster":
-            props.update(Alpha=1.5 / int(self.cfg["stochSamples"]),
-                         linearize=True,
+            props.update(linearize=True,
                          divisor=int(self.cfg["stochMapDivisor"]))
             return "StochasticDepthMap", props
         props.update(normalize=True, Jitter=bool(self.cfg["stochMapJitter"]),
                      GuardBand=self._extra_guard(),
-                     MaxCount=int(self.cfg["stochMaxCount"]))
+                     MaxCount=int(self.cfg["stochMaxCount"]),
+                     usePallas=bool(self.cfg["usePallas"]))
         return "StochasticDepthMapRT", props
 
     def _build_sd_graph(self, spec=None):
@@ -233,7 +238,8 @@ class SVAO(RenderPass):
         sd_w, sd_h = self._stoch_map_size((w, h))
         sd_ctx = RenderContext(width=sd_w, height=sd_h, scene=ctx.scene,
                                frame_index=ctx.frame_index, time=ctx.time,
-                               dictionary=ctx.dictionary)
+                               dictionary=ctx.dictionary,
+                               profiler=ctx.profiler)
         marked, _, _ = sd_graph.execute(
             sd_ctx, {},
             external_inputs={"StochasticDepthMap.linearZ": depth,

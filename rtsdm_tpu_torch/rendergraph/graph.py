@@ -6,10 +6,13 @@ passes carry their history in a state dict that the caller threads from
 frame to frame (init_state, then each execute returns the new state).
 
 With `time_passes` set, execute brackets every pass with two CUDA events
-on the current stream; pass_times_ms() reads them after a synchronize.
+on the current stream; pass_times_ms() reads them after a synchronize. A
+context's profiler (core/profiler.py) times each pass on the host clock
+under its name.
 """
 from __future__ import annotations
 
+import contextlib
 from collections import defaultdict, deque
 
 import torch
@@ -207,7 +210,10 @@ class RenderGraph:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            outputs, ns = p.execute(ctx, inputs, state.get(name))
+            prof = ctx.profiler.event(name) if ctx.profiler \
+                else contextlib.nullcontext()
+            with prof:
+                outputs, ns = p.execute(ctx, inputs, state.get(name))
             if self.time_passes:
                 ev[1].record()
                 self.pass_events.append((name, *ev))
@@ -218,15 +224,18 @@ class RenderGraph:
         marked = {o: self.get_output(o, produced) for o in self.outputs}
         return marked, produced, new_state
 
-    def frame_fn(self, width: int, height: int, dictionary: dict | None = None):
+    def frame_fn(self, width: int, height: int, dictionary: dict | None = None,
+                 profiler=None):
         """The per-frame call f(scene, state, frame_index, time,
-        external_inputs) -> (marked_outputs, new_state)."""
+        external_inputs) -> (marked_outputs, new_state); `profiler` times
+        each pass under its name."""
         dictionary = dict(dictionary or {})
 
         def f(scene, state, frame_index=0, time=0.0, external_inputs=None):
             ctx = RenderContext(width=width, height=height, scene=scene,
                                 frame_index=frame_index, time=time,
-                                dictionary=dict(dictionary))
+                                dictionary=dict(dictionary),
+                                profiler=profiler)
             marked, _, new_state = self.execute(ctx, state, external_inputs)
             return marked, new_state
 

@@ -66,6 +66,8 @@ class RenderContext:
     frame_index: int = 0
     time: float = 0.0
     dictionary: dict = dataclasses.field(default_factory=dict)
+    # core.profiler.Profiler timing each pass (graph.execute), or None
+    profiler: Any = None
     # output channels of the running pass that something consumes; set by
     # RenderGraph.execute, None when a pass runs on its own
     consumed_outputs: Any = None

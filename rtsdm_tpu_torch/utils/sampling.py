@@ -8,6 +8,7 @@
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -106,6 +107,15 @@ def stratified_coverage_tables(num_samples: int) -> tuple[np.ndarray,
         lookup.extend(group)
         indices.append(len(lookup))
     return (np.asarray(indices, np.uint32), np.asarray(lookup, np.uint32))
+
+
+@functools.lru_cache(maxsize=16)
+def coverage_table_tensors(k: int, device):
+    """(lut, idx) of stratified_coverage_tables(k) as int32 tensors on
+    `device`, as the SD kernels take them."""
+    idx, lut = stratified_coverage_tables(k)
+    return (torch.as_tensor(lut.astype(np.int32), device=device),
+            torch.as_tensor(idx.astype(np.int32), device=device))
 
 
 def coverage_mask_select(alpha: float, rng, rng2, k: int):

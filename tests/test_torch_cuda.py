@@ -18,6 +18,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 from rtsdm_tpu_torch.ops import ao_shift as S
 from rtsdm_tpu_torch.ops import fetch_cuda as F
 from rtsdm_tpu_torch.ops import raster as R
@@ -107,8 +111,10 @@ def test_fetch_kernels_match_plain_on_gpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("cull_back", [True, False])
 def test_trace_kernel_matches_plain_on_gpu(cuda_device, cull_back):
-    """K5 against its plain version in both insertion modes and for k of
-    1, 2 and 4; and the kernel's key function on the INT_MIN hash."""
+    """K5 and K7 against their plain versions in every insertion mode, for
+    k of 1, 2 and 4, uncapped and with MaxCount 2; K7 equal to K5 on the
+    same rays (K5 given the world-box lists that K7 builds in-kernel); and
+    the kernel's key function on the INT_MIN hash."""
     st = arcade(device=cuda_device)
     cam, dev = st.camera, cuda_device
     rng = np.random.default_rng(19)
@@ -129,11 +135,16 @@ def test_trace_kernel_matches_plain_on_gpu(cuda_device, cull_back):
                         zb]).contiguous()
     for mode in RT.MODES:
         for k in (1, 2, 4):
-            got = RT.sd_trace_blocks(tri, lists, counts, rays, k, cull_back,
-                                     mode)
-            want = RT.sd_trace_blocks_plain(tri, lists, counts, rays, k,
-                                            cull_back, mode)
-            assert torch.equal(got, want), (mode, k)
+            for mc in (0, 2):
+                a = (k, cull_back, mode, mc, 0.375)
+                got = RT.sd_trace_blocks(tri, lists, counts, rays, *a)
+                want = RT.sd_trace_blocks_plain(tri, lists, counts, rays, *a)
+                assert torch.equal(got, want), (mode, k, mc)
+                res = RT.sd_trace_resident_blocks(tri, aabb[:6].contiguous(),
+                                                  origin, rays, *a)
+                assert torch.equal(res, RT.sd_trace_resident_blocks_plain(
+                    tri, aabb[:6].contiguous(), origin, rays, *a)), (mode, k)
+                assert torch.equal(res, got), (mode, k, mc)
     assert ((got != RT.INVALID).sum(1) > 1).any()
     hb = torch.tensor([INT_MIN, INT_MIN + 1, -1, 0, 7, 2**31 - 1],
                       dtype=torch.int32)
@@ -296,8 +307,8 @@ def test_same_class_fetch_kernel_matches_plain_on_gpu(cuda_device):
 @pytest.mark.cuda
 def test_svao_small_graph_on_gpu(cuda_device):
     """scripts/SVAO_small.py through the port's harness on the card
-    (CornellBox 96x96, guard band 8): K8 and K10 launch every frame and the
-    outputs are finite, cropped, with AO in [0, 1]."""
+    (CornellBox 96x96, guard band 8): K7, K8 and K10 launch every frame
+    and the outputs are finite, cropped, with AO in [0, 1]."""
     from rtsdm_tpu_torch import _build
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
     m = Renderer(96, 96, device=cuda_device)
@@ -314,6 +325,9 @@ def test_svao_small_graph_on_gpu(cuda_device):
         assert _build.LAUNCHES[W.launch_key("catmull_rom")] == 2
         assert _build.LAUNCHES[W.launch_key("bilinear")] == 0
         assert _build.LAUNCHES["rtsdm_any_hit"] == 1
+        # 36 triangles: the SD trace stays resident (K7), never streams
+        assert _build.LAUNCHES["rtsdm_sd_trace_resident"] == 1
+        assert _build.LAUNCHES["rtsdm_sd_trace"] == 0
     for v in out.values():
         assert v.shape[:2] == (96, 96) and bool(torch.isfinite(v).all())
     ao = out["AmbientOcclusion.out"][..., 0]

@@ -21,6 +21,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 from rtsdm_tpu_torch import _build
 from rtsdm_tpu_torch.mogwai import Renderer, run_script
 from rtsdm_tpu_torch.rendergraph.graph import RenderGraph

@@ -13,6 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 import rtsdm_tpu_torch
 from rtsdm_tpu_torch import _build
 from rtsdm_tpu_torch.ops import ao_shift as S
@@ -26,7 +30,7 @@ ROOT = Path(__file__).resolve().parents[1]
 WRAPPERS = (RC.raster_blocks, RC.fetch_attributes, F.fetch_all_directions,
             F.fetch_sd_packed, RT.sd_trace_blocks, W.warp_resample,
             RT.any_hit_blocks, F.fetch_taps_same_class,
-            RC.raster_stochastic_blocks)
+            RC.raster_stochastic_blocks, RT.sd_trace_resident_blocks)
 
 
 def test_port_never_imports_jax():
@@ -71,7 +75,7 @@ def test_build_targets_hopper_without_fma():
 
 
 def _tiny_inputs():
-    """Minimal valid CPU arguments for each of the nine wrappers."""
+    """Minimal valid CPU arguments for each of the ten wrappers."""
     rng = np.random.default_rng(11)
     chunks = torch.zeros((1, RC.COEF_ROWS, RC.TC))
     lists = torch.zeros((1, 1), dtype=torch.int32)
@@ -113,6 +117,8 @@ def _tiny_inputs():
                                      torch.zeros((8, 32)),
                                      torch.zeros((8, 32)),
                                      torch.ones((8, 32)), 4, 0.375),
+        "sd_trace_resident_blocks": (tri, torch.zeros((6, 1)),
+                                     torch.zeros(3), rays, 2),
     }
 
 
@@ -128,7 +134,8 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
                       (W, "warp_resample_plain"),
                       (RT, "any_hit_blocks_plain"),
                       (F, "fetch_taps_same_class_plain"),
-                      (RC, "raster_stochastic_blocks_plain")):
+                      (RC, "raster_stochastic_blocks_plain"),
+                      (RT, "sd_trace_resident_blocks_plain")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _name=name, **kw):

@@ -20,6 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -244,11 +248,15 @@ def test_gbuffer_schema_matches_reference(caplog):
 
 
 def _svao_small_renderer(w=32, h=32):
+    """SVAO_small.py at w x h with no guard band and a 16-texel SD guard
+    band (8 x 8 SD texels + 2 x 4: the script's 512 would trace 264 x 264
+    rays for a 32 x 32 frame)."""
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
     m = Renderer(w, h, device="cpu")
     run_script(str(Path(__file__).resolve().parents[1] / "scripts"
                    / "SVAO_small.py"), m)
     m.active_graph.get_pass("GuardBand").cfg["guardBand"] = 0
+    m.active_graph.get_pass("SVAO").cfg["stochMapGuardBand"] = 16
     m.loadScene("CornellBox")
     m.clock.pause()
     return m
@@ -292,7 +300,8 @@ def test_svao_raster_set_after_construction_renders_raster_sd():
 
     real = SDT.raster_stochastic
     with mock.patch.object(SDT, "raster_stochastic", rec), \
-            mock.patch.object(rt_cuda, "sd_trace_blocks", no_trace):
+            mock.patch.object(rt_cuda, "sd_trace_blocks", no_trace), \
+            mock.patch.object(rt_cuda, "sd_trace_resident_blocks", no_trace):
         out = m.renderFrame()
     assert svao._sd_graph.passes["StochasticDepthMap"].pass_type == \
         "StochasticDepthMap"

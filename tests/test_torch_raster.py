@@ -23,6 +23,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))

@@ -44,6 +44,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -264,7 +268,8 @@ def raster_sd_frame():
 
     _build.LAUNCHES.clear()
     with mock.patch.object(SDT, "raster_stochastic", rec), \
-            mock.patch.object(RT, "sd_trace_blocks", no_trace):
+            mock.patch.object(RT, "sd_trace_blocks", no_trace), \
+            mock.patch.object(RT, "sd_trace_resident_blocks", no_trace):
         for f in range(2):
             m.clock.frame = f
             out = m.renderFrame()

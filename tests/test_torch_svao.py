@@ -25,6 +25,10 @@ import numpy as np
 import pytest
 import torch
 
+# tier-1 runs six test workers side by side: one intra-op thread each keeps
+# them from oversubscribing the cores (several times the CPU time otherwise)
+torch.set_num_threads(1)
+
 import jax
 import jax.numpy as jnp
 
@@ -297,9 +301,13 @@ def test_unported_svao_modes_raise(props):
         SVAO({**PROPS, **props})
 
 
-@pytest.mark.parametrize("sd_props", [{"Implementation": "coverage"},
-                                      {"MaxCount": 8}])
+@pytest.mark.parametrize("sd_props", [
+    {"usePallas": False}, {"Implementation": "coverage", "SampleCount": 6},
+    {"StoreNormals": True}, {"depthFormat": "R16Unorm"}])
 def test_unported_sd_modes_raise(case, sd_props):
+    """The reference's XLA tier (usePallas=False, and coverage above
+    COVERAGE_MAX_K samples) and the keys it ignores on the ported tiers
+    raise at render time instead of taking another tier."""
     from rtsdm_tpu_torch.passes.stochastic_depth import StochasticDepthMapRT
     p = StochasticDepthMapRT(sd_props)
     z = torch.zeros((8, 8))
