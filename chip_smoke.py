@@ -16,7 +16,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launched, and no plain PyTorch version may run. The inputs each kernel
    got are kept for phase 5;
 5. hold each kernel against its plain PyTorch version on those inputs, on
-   the card, with the tolerance stated, and time both (CUDA events);
+   the card, with the tolerance stated (K1, which culls each chunk's
+   triangles per half tile, against the plain version without the cull),
+   and time both (CUDA events; the kernel also by torch.profiler and its
+   host enqueue); K1's walk and cull replayed on the host give its bounds
+   on the pairs it evaluates and on every lane of every visit; the host
+   time of K1's inputs and cull boxes;
 6. time a steady-state frame stage by stage (CUDA events) and through the
    public entry points (host clock), and profile one frame (torch.profiler:
    device time by kernel, and the device's idle share of the frame);
@@ -33,7 +38,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. hold K8 and K10 against their plain versions on the inputs of the graph's
    last frame (K8 on a spread subset of whole 8x32 tiles), and K10 also on a
    synthetic motion field at the TAA shape; time the kernels, their plain
-   versions and K10's library yardstick (grid_sample);
+   versions and K10's library yardstick (grid_sample), K10 in each mode by
+   CUDA events, torch.profiler and its host enqueue at TAA's shape with 3
+   channels and 1, grid_sample beside it measured the same ways; time every
+   K1 call of the graph's last frame with its walk and cull;
 10. time the graph frame: host-clock median over 7 frames after a warm-up,
    per-pass CUDA events, and one profiled frame (device busy, idle share);
 11. BASELINE config 2 (bench_configs.py:20-23): scripts/SVAO_small.py with
@@ -43,7 +51,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    call of the last frame of K1-K4, K8 and K10 is held bit-exact against its
    plain version at the config's shapes (K4 with no SD guard band; K8 on a
    spread subset of tiles), and so is K9, at the path's alpha and at 1.0,
-   and timed; then the frame is timed as in 10;
+   and timed; every K1 call timed as in 9; then the frame is timed as in
+   10;
 12. BASELINE config 1: scripts/HBAO.py on CornellBox 256x256, 3 frames. Per
    frame K6 (fetch_taps_same_class) launches once and K1 once with its
    depth floor (DepthPeeling) besides its two plain launches; the last
@@ -269,6 +278,60 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, symbol: str, reps: int):
+    """Mean device time per call of kernel `symbol` (a substring of the
+    profiler's kernel name) over `reps` calls of fn() under torch.profiler,
+    after one warm-up call; None where the profiler saw no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e.device_time_total for e in prof.events()
+            if e.device_type == DeviceType.CUDA and symbol in e.name]
+    return sum(hits) / 1e3 / reps if hits else None
+
+
+def host_us(fn, reps: int) -> float:
+    """Host time per call of fn() in microseconds, without waiting for the
+    device (the enqueue: a wrapper's checks, allocations and launch)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / reps
+
+
+def synced_ms(fn, reps: int) -> float:
+    """Host-clock time per call of fn() that ends in a synchronize (mean of
+    `reps` after one warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def timings(fn, symbol: str, reps: int) -> dict:
+    """A call's CUDA-event time (host work included), its kernel's device
+    time (profiler) and its host enqueue time, in one place."""
+    return dict(event_ms=cuda_ms(fn, reps, 3),
+                device_ms=device_ms(fn, symbol, reps),
+                host_us=host_us(fn, reps))
+
+
 # ---------------------------------------------------------------------------
 # the main path
 # ---------------------------------------------------------------------------
@@ -415,15 +478,86 @@ def chunk_visits(lists, counts, n_chunks: int) -> str:
             f"their list of {lists.shape[1]}")
 
 
+def raster_walk(chunks, tri_boxes, lists, counts, nbx: int) -> dict:
+    """K1's work at a call: chunks visited per tile, the lanes that survive
+    its per-triangle cull per visit of a warp (half a tile; replayed on the
+    host with the kernel's boxes and comparisons, raster_cuda.
+    cull_survivors), the pixel-triangle pairs it evaluates, and the
+    operation counts of both bounds: the pairs it evaluates, and every lane
+    of every visit (the count without the cull)."""
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    visits = walk_visits(lists, counts, chunks.shape[0])
+    surv = RC.cull_survivors(tri_boxes, lists, counts, nbx)
+    n_surv = float(surv.clamp(min=0).double().sum())
+    n_vis = float(visits.sum())
+    per_tile = surv.clamp(min=0).double().sum((1, 2))
+    return dict(tiles=counts.numel(), visits_mean=float(visits.mean()),
+                visits_max=int(visits.max()), visits=int(n_vis),
+                overflow_tiles=int((counts > lists.shape[1]).sum()),
+                list_width=lists.shape[1],
+                survivors_per_visit_mean=n_surv / max(2.0 * n_vis, 1.0),
+                survivors_per_visit_max=max(int(surv.max()), 0)
+                if surv.numel() else 0,
+                survivors_per_tile_mean=float(per_tile.mean()),
+                survivors_per_tile_max=float(per_tile.max()),
+                pairs=n_surv * (RC.RB // 2),
+                flops=n_surv * (RC.RB // 2) * RASTER_FLOPS_PER_TEST,
+                flops_all_lanes=n_vis * RC.TC * RC.RB
+                * RASTER_FLOPS_PER_TEST)
+
+
+def walk_line(w: dict) -> str:
+    return (f"{w['tiles']} tiles visit {w['visits_mean']:.2f} chunks on "
+            f"average (max {w['visits_max']}, {w['visits']} in all; "
+            f"{w['overflow_tiles']} overflow their list of "
+            f"{w['list_width']}); {w['survivors_per_visit_mean']:.2f} of 128 "
+            f"lanes survive a warp's cull (half a tile) per visit (max "
+            f"{w['survivors_per_visit_max']}); per tile "
+            f"{w['survivors_per_tile_mean']:.1f} survivors on average (max "
+            f"{w['survivors_per_tile_max']:.0f}); {w['pairs']:.6g} "
+            f"pixel-triangle pairs evaluated")
+
+
+def raster_timing(args, kwargs, what: str, reps: int = 10) -> dict:
+    """K1 at one call (args and kwargs of raster_cuda.raster_blocks): its
+    walk and cull (raster_walk), CUDA-event, device and host times, and
+    both bounds: on the pairs it evaluates (`bound_ms`) and on every lane
+    of every visit (`bound_ms_all_lanes`, the count without the
+    cull)."""
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    chunks, boxes, lists, counts, nby, nbx = args
+    walk = raster_walk(chunks, boxes, lists, counts, nbx)
+    t = timings(lambda: RC.raster_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["raster"], reps)
+    n_bytes = nbytes(chunks, boxes, lists, counts, kwargs.get("floor"))
+    n_bytes += 16 * RC.RB * nby * nbx   # z, id, b1, b2 written, 4 B each
+    b_new, by_new = bound(n_bytes, walk["flops"])
+    b_old, _ = bound(n_bytes - nbytes(boxes), walk["flops_all_lanes"])
+    dev = ("not measured" if t["device_ms"] is None
+           else f"{t['device_ms']:.4f} ms")
+    log(f"K1 {what} {nby * 8}x{nbx * 32}, {chunks.shape[0]} chunks: "
+        f"{walk_line(walk)}")
+    log(f"K1 {what}: CUDA events {t['event_ms']:.4f} ms, device {dev}, "
+        f"host enqueue {t['host_us']:.1f} us; bound {b_new:.4f} ms "
+        f"({by_new}) on the pairs evaluated, {b_old:.4f} ms on every lane "
+        "of every visit")
+    return dict(walk, **t, bound_ms=b_new, bound_by=by_new,
+                bound_bytes=n_bytes, bound_flops=walk["flops"],
+                bound_ms_all_lanes=b_old)
+
+
 def compare_raster(k):
-    """K1: bit-exact expected (--fmad=false and PyTorch both round every
-    operation); bounded residual: tri_id differs on at most 1e-4 of the
-    pixels, and where the ids agree depth and barycentrics agree to 1e-6."""
+    """K1 against its plain version without the per-triangle cull (the
+    contract the CPU tests hold against the JAX package): bit-exact
+    expected (--fmad=false and PyTorch both round every operation; the
+    cull drops only lanes that cannot cover a pixel of the tile); bounded
+    residual: tri_id differs on at most 1e-4 of the pixels, and where the
+    ids agree depth and barycentrics agree to 1e-6."""
     import torch
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     args, kwargs = k.calls[0]
     got = RC.raster_blocks(*args, **kwargs)
-    want = RC.raster_blocks_plain(*args, **kwargs)
+    want = RC.raster_blocks_plain(args[0], None, *args[2:], **kwargs)
     z, tid, b1, b2 = got
     same = tid == want[1]
     mism = int((~same).sum())
@@ -433,20 +567,15 @@ def compare_raster(k):
     log(f"K1 raster {tuple(tid.shape)}, {args[0].shape[0]} chunks: tri_id "
         f"mismatches {mism} of {n}; max |diff| where ids agree {err:.3g} "
         f"(bounds: {int(1e-4 * n)} pixels, 1e-6)")
-    log(f"K1 walk: {chunk_visits(args[1], args[2], args[0].shape[0])}")
     check(mism <= 1e-4 * n and err <= 1e-6, "K1 disagrees with its plain "
                                             "version")
     exact = all(torch.equal(a, b) for a, b in zip(got, want))
-    tests = float(walk_visits(args[1], args[2], args[0].shape[0]).sum()) \
-        * RC.TC * 256
+    t = raster_timing(args, kwargs, "main path")
     # no PyTorch call rasterizes triangles: no library yardstick
-    return with_bound(
-        dict(max_abs_err=err, mismatches=mism, exact=exact,
-             ms=cuda_ms(lambda: RC.raster_blocks(*args, **kwargs), 20, 2),
-             plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(*args,
-                                                             **kwargs),
-                              1, 1)),
-        nbytes(args[:3], got), tests * RASTER_FLOPS_PER_TEST)
+    return dict(t, max_abs_err=err, mismatches=mism, exact=exact,
+                ms=t["event_ms"], library_ms=None,
+                plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(
+                    args[0], None, *args[2:], **kwargs), 1, 1))
 
 
 def compare_fetch_attributes(k):
@@ -934,25 +1063,22 @@ def compare_warp(k, launches_by_mode):
         want = W.warp_resample_plain(**a)
         err = _max_abs(got, want)
         worst = max(worst, err)
+        t = timings(lambda: W.warp_resample(**a),
+                    KERNEL_SYMBOLS["warp_resample"], 20)
         log(f"K10 {a['mode']}{' wrap_x' if a['wrap_x'] else ''} "
             f"{tuple(a['tex'].shape)} -> {tuple(got.shape)}: max |diff| "
-            f"{err:.3g} (bound: bit-exact); kernel "
-            f"{cuda_ms(lambda: W.warp_resample(**a), 20, 2):.4f} ms")
+            f"{err:.3g} (bound: bit-exact); CUDA events {t['event_ms']:.4f} "
+            f"ms, device {t['device_ms']} ms, host {t['host_us']:.1f} us")
         check(torch.equal(got, want), "K10 is not bit-exact on the path")
         if a["mode"] == "catmull_rom":
             taa = a["tex"]
     check(taa is not None, "K10: no TAA call recorded")
-    c, h, w = taa.shape
-    dev = taa.device
-    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev)
-                            + 0.5,
-                            torch.arange(w, dtype=torch.float32, device=dev)
-                            + 0.5, indexing="ij")
-    mx = 6.0 * torch.sin(torch.linspace(0.0, 3.0, w, device=dev))[None, :]
-    my = 6.0 * torch.cos(torch.linspace(0.0, 2.0, h, device=dev))[:, None]
-    sx, sy = (xs + mx).contiguous(), (ys + my).contiguous()
+    _, h, w = taa.shape
+    sx, sy = synthetic_field(h, w, taa.device)
     fields = {"smooth": (sx, sy),
               "far": ((sx + 500.0).contiguous(), (sy - 300.0).contiguous())}
+    times = measure_warp(taa, sx, sy)
+    one = measure_warp(taa[:1].contiguous(), sx, sy)  # TemporalAO's width
     rows = []
     for mode in ("catmull_rom", "bilinear"):
         for fname, (fx, fy) in fields.items():
@@ -966,33 +1092,106 @@ def compare_warp(k, launches_by_mode):
             check(torch.equal(got, want),
                   f"K10 {mode} is not bit-exact on the {fname} field")
         out = W.warp_resample(taa, sx, sy, mode)
-        ms = cuda_ms(lambda: W.warp_resample(taa, sx, sy, mode), 50, 3)
         plain_ms = cuda_ms(lambda: W.warp_resample_plain(taa, sx, sy, mode),
                            5, 1)
-        library_ms = None
+        library_ms = library_device_ms = None
         if mode == "bilinear":
-            grid = torch.stack([sx / w * 2.0 - 1.0, sy / h * 2.0 - 1.0],
-                               -1)[None]
-            tex4 = taa[None]
-
-            def library():
-                return torch.nn.functional.grid_sample(
-                    tex4, grid, mode="bilinear", padding_mode="border",
-                    align_corners=False)
-            lib_err = _max_abs(library()[0], out)
-            library_ms = cuda_ms(library, 50, 3)
-            log(f"K10 bilinear yardstick grid_sample: {library_ms:.4f} ms; "
-                f"max |diff| from K10 {lib_err:.3g} (not used by the port)")
+            lib = times["grid_sample"]
+            library_ms, library_device_ms = lib["event_ms"], lib["device_ms"]
+            lib_err = _max_abs(grid_sample_yardstick(taa, sx, sy)()[0], out)
+            log(f"K10 bilinear yardstick grid_sample: max |diff| from K10 "
+                f"{lib_err:.3g} (not used by the port)")
         n_bytes, flops = warp_bound(taa, sx, sy, out, mode)
         rows.append(dict(with_bound(
-            dict(max_abs_err=worst, mismatches=0, exact=True, ms=ms,
-                 plain_ms=plain_ms, timed_at=f"{tuple(taa.shape)}, "
-                 "synthetic motion"), n_bytes, flops, library_ms),
+            dict(max_abs_err=worst, mismatches=0, exact=True,
+                 ms=times[mode]["event_ms"],
+                 device_ms=times[mode]["device_ms"],
+                 host_us=times[mode]["host_us"], one_channel=one[mode],
+                 library_device_ms=library_device_ms, plain_ms=plain_ms,
+                 timed_at=f"{tuple(taa.shape)}, synthetic motion"),
+            n_bytes, flops, library_ms),
             name=f"warp_resample:{mode}",
             launches=launches_by_mode.get(mode, 0)))
-        log(f"K10 {mode} at the TAA shape: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms")
+        log(f"K10 {mode} at the TAA shape: kernel {times[mode]['event_ms']:.4f}"
+            f" ms, plain {plain_ms:.4f} ms")
     return rows
+
+
+def synthetic_field(h: int, w: int, dev):
+    """Pixel positions of a smooth +-6 px sin/cos motion field over an
+    [h, w] target (the field of tests/test_pallas_interpret.py)."""
+    import torch
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev)
+                            + 0.5,
+                            torch.arange(w, dtype=torch.float32, device=dev)
+                            + 0.5, indexing="ij")
+    mx = 6.0 * torch.sin(torch.linspace(0.0, 3.0, w, device=dev))[None, :]
+    my = 6.0 * torch.cos(torch.linspace(0.0, 2.0, h, device=dev))[:, None]
+    return (xs + mx).contiguous(), (ys + my).contiguous()
+
+
+def grid_sample_yardstick(tex, sx, sy):
+    """One PyTorch call computing K10's bilinear mode clamped to the edge
+    (grid_sample, border, align_corners False); no part of the port calls
+    it."""
+    import torch
+    _, h, w = tex.shape
+    grid = torch.stack([sx / w * 2.0 - 1.0, sy / h * 2.0 - 1.0], -1)[None]
+    tex4 = tex[None]
+
+    def library():
+        return torch.nn.functional.grid_sample(
+            tex4, grid, mode="bilinear", padding_mode="border",
+            align_corners=False)
+    return library
+
+
+def measure_warp(tex, sx, sy, reps: int = 50) -> dict:
+    """K10's CUDA-event, device and host times in each mode at one shape,
+    and grid_sample's beside bilinear, measured the same ways."""
+    from rtsdm_tpu_torch.ops import warp_cuda as W
+    sym = KERNEL_SYMBOLS["warp_resample"]
+    res = {}
+    for mode in W.MODES:
+        res[mode] = timings(lambda: W.warp_resample(tex, sx, sy, mode), sym,
+                            reps)
+    res["grid_sample"] = timings(grid_sample_yardstick(tex, sx, sy),
+                                 "grid_sampler_2d", reps)
+    shape = f"{tuple(tex.shape)} -> {tuple(sx.shape)}"
+    for name, t in res.items():
+        dev = ("not measured" if t["device_ms"] is None
+               else f"{t['device_ms']:.4f} ms")
+        log(f"K10 timing {name} {shape}: CUDA events {t['event_ms']:.4f} ms, "
+            f"device {dev}, host enqueue {t['host_us']:.1f} us")
+    return res
+
+
+def raster_setup_ms(scene) -> dict:
+    """Host-clock time of K1's inputs at the main path's size (the binning
+    of _binned_chunks, cull boxes included) and of the cull boxes alone."""
+    from rtsdm_tpu_torch.ops import raster as R
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    coef = R._setup_triangles(scene.camera.view_proj_no_jitter,
+                              scene.positions, WIDTH, HEIGHT, 0.0, 0.0,
+                              R.CULL_BACK)[0]
+    wp = -(-WIDTH // RC.TILE_RW) * RC.TILE_RW
+    hp = -(-HEIGHT // RC.TILE_RH) * RC.TILE_RH
+    res = dict(binning_ms=synced_ms(lambda: raster_inputs(scene, WIDTH,
+                                                          HEIGHT), 5),
+               cull_boxes_ms=synced_ms(lambda: RC.cull_boxes(coef, wp, hp),
+                                       5))
+    log(f"K1 inputs at {WIDTH}x{HEIGHT} (host clock, synchronized): "
+        f"_binned_chunks {res['binning_ms']:.3f} ms, of which cull_boxes "
+        f"{res['cull_boxes_ms']:.3f} ms")
+    return res
+
+
+def raster_inputs(scene, w: int, h: int):
+    """K1's inputs for the scene's camera at w x h, as rasterize builds
+    them: (chunks, tri_boxes, lists, counts, nby, nbx)."""
+    from rtsdm_tpu_torch.ops import raster as R
+    return R._binned_chunks(scene.camera.view_proj_no_jitter,
+                            scene.positions, w, h, 0.0, 0.0, "back")
 
 
 def graph_timing(m, reps: int = 7):
@@ -1196,9 +1395,10 @@ def drive_config(label, kernels):
 
 
 def _pair_raster(args, kwargs):
+    """K1 with its per-triangle cull, the plain version without it."""
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     return (RC.raster_blocks(*args, **kwargs),
-            RC.raster_blocks_plain(*args, **kwargs))
+            RC.raster_blocks_plain(args[0], None, *args[2:], **kwargs))
 
 
 def _pair_fetch_attributes(args, kwargs):
@@ -1293,11 +1493,20 @@ def check_config_calls(label, kernels):
     return held
 
 
+def time_raster_calls(label, calls) -> list:
+    """raster_timing at every K1 call kept from a path's last frame."""
+    return [dict(raster_timing(a, kw, f"{label} call {i}"
+                               + (" (floored)" if kw.get("floor") is not None
+                                  else "")),
+                 floored=kw.get("floor") is not None)
+            for i, (a, kw) in enumerate(calls)]
+
+
 def compare_raster_floor(calls):
     """K1 with its depth floor (DepthPeeling) on the last floored call:
-    times, bound, the share of pixels holding a second layer. Every floored
-    call was held bit-exact by check_config_calls (--fmad=false; the floor
-    test is a true division and a comparison)."""
+    times, bounds, the share of pixels holding a second layer. Every
+    floored call was held bit-exact by check_config_calls (--fmad=false; the
+    floor test is a true division and a comparison)."""
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     floored = [(a, kw) for a, kw in calls if kw.get("floor") is not None]
     check(floored, "K1: no floored call recorded")
@@ -1307,17 +1516,13 @@ def compare_raster_floor(calls):
     log(f"K1 with floor {tuple(got[1].shape)}, {args[0].shape[0]} chunks, "
         f"min_separation {kwargs.get('min_separation')}: second-layer "
         f"coverage {peeled:.4f}")
-    tests = float(walk_visits(args[1], args[2], args[0].shape[0]).sum()) \
-        * RC.TC * 256
+    t = raster_timing(args, kwargs, "floored (DepthPeeling)")
     # no PyTorch call rasterizes triangles: no library yardstick
-    return with_bound(
-        dict(max_abs_err=0.0, mismatches=0, exact=True,
-             ms=cuda_ms(lambda: RC.raster_blocks(*args, **kwargs), 20, 2),
-             plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(*args,
-                                                             **kwargs), 1, 1),
-             timed_at=f"{tuple(got[1].shape)}", second_layer=peeled),
-        nbytes(args[:3], kwargs["floor"], got),
-        tests * RASTER_FLOPS_PER_TEST)
+    return dict(t, max_abs_err=0.0, mismatches=0, exact=True,
+                ms=t["event_ms"], library_ms=None,
+                plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(
+                    args[0], None, *args[2:], **kwargs), 1, 1),
+                timed_at=f"{tuple(got[1].shape)}", second_layer=peeled)
 
 
 def compare_taps_same_class(calls, timed_label):
@@ -1494,9 +1699,11 @@ def run_configs():
             rows.append(dict(compare_taps_same_class(k6_calls, label),
                              name="fetch_taps_same_class",
                              launches=totals["fetch_taps_same_class"]))
+        raster_calls = time_raster_calls(label, by_name["raster"].calls)
         times, _ = graph_timing(m)
         script, scene, width, height, overrides, _ = CONFIGS[label]
         report[label] = dict(times, script=str(script.relative_to(ROOT)),
+                             raster_calls=raster_calls,
                              scene=scene, width=width, height=height,
                              overrides=overrides, launches=totals,
                              warp_launches_by_mode=modes,
@@ -1704,6 +1911,7 @@ def run_svao_full():
     by_name = kernels_by_name(kernels)
     m, totals, modes = drive_config(label, kernels)
     held = check_config_calls(label, kernels)
+    raster_calls = time_raster_calls(label, by_name["raster"].calls)
     tiers, capped = svao_full_sd_phases(m)
     row = resident_row(tiers)
     times, _ = graph_timing(m)
@@ -1718,6 +1926,7 @@ def run_svao_full():
                   width=width, height=height, launches=totals,
                   warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
                   bit_exact_calls=held, maxcount8_filled_slots=capped,
+                  raster_calls=raster_calls,
                   sd_tiers_bit_exact=sorted(tiers))
     del m
     return row, report
@@ -1787,6 +1996,7 @@ def main() -> int:
         log(f"  {k.name}: kernel {k.result['ms']:.4f} ms, plain "
             f"{k.result['plain_ms']:.4f} ms")
     maxcount = maxcount_on_main_path(scene)
+    raster_setup = raster_setup_ms(scene)
 
     torch.cuda.reset_peak_memory_stats()
     stages = staged_frame_ms(scene, pass_, ctx)
@@ -1840,6 +2050,7 @@ def main() -> int:
             f"({r['bound_by']}), library "
             + ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms"))
+    graph_raster = time_raster_calls("graph", by_name["raster"].calls)
     graph_times, _ = graph_timing(m)
     del m
 
@@ -1861,9 +2072,10 @@ def main() -> int:
         "peak_device_gib": peak_gib,
         "graph": dict(graph_times, script=str(GRAPH_SCRIPT.relative_to(ROOT)),
                       scene=GRAPH_SCENE, launches=graph_counts,
-                      warp_launches_by_mode=warp_modes),
+                      warp_launches_by_mode=warp_modes,
+                      raster_calls=graph_raster),
         "configs": configs, "svao_full": svao_full,
-        "svao_path_maxcount8": maxcount}}))
+        "svao_path_maxcount8": maxcount, "raster_setup": raster_setup}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

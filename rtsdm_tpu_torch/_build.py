@@ -44,7 +44,7 @@ _F = ctypes.c_float
 # launches on the given stream (last argument) and returns cudaGetLastError().
 KERNEL_SIGNATURES = {
     "raster.cu": {
-        "rtsdm_raster_blocks": [_P, _P, _P, _I, _I, _I, _I, _F, _F,
+        "rtsdm_raster_blocks": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                 _P, _F, _P, _P, _P, _P, _P],
         "rtsdm_fetch_attributes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
     },
@@ -60,7 +60,7 @@ KERNEL_SIGNATURES = {
         "rtsdm_sd_keys": [_P, _P, _P, _I, _P, _P, _P],
     },
     "warp.cu": {
-        "rtsdm_warp_resample": [_P, _P, _P] + [_I] * 6 + [_P, _P],
+        "rtsdm_warp_resample": [_P, _P, _P] + [_I] * 7 + [_P, _P],
     },
     "any_hit.cu": {
         "rtsdm_any_hit": [_P] * 4 + [_I] * 3 + [_P, _P, _P],

@@ -80,8 +80,9 @@ def _setup_triangles(view_proj, positions, width: int, height: int,
 
 def _binned_chunks(view_proj, positions, width: int, height: int,
                    jitter_x, jitter_y, cull: str):
-    """Triangles set up, morton-sorted, packed into coefficient chunks and
-    binned to 8x32 tiles: (chunks, lists, counts, nby, nbx)."""
+    """Triangles set up, morton-sorted, packed into coefficient chunks with
+    their screen boxes beside them, and binned to 8x32 tiles: (chunks,
+    tri_boxes, lists, counts, nby, nbx)."""
     coef, bbox, valid = _setup_triangles(view_proj, positions, width, height,
                                          jitter_x, jitter_y, CULL_MODES[cull])
     order = raster_cuda.screen_morton_order(bbox, valid, width, height)
@@ -90,8 +91,10 @@ def _binned_chunks(view_proj, positions, width: int, height: int,
     cbox = raster_cuda.chunk_screen_bboxes(bbox, valid)
     nby = -(-height // raster_cuda.TILE_RH)
     nbx = -(-width // raster_cuda.TILE_RW)
+    tri_boxes = raster_cuda.pack_tri_boxes(raster_cuda.cull_boxes(
+        coef, nbx * raster_cuda.TILE_RW, nby * raster_cuda.TILE_RH), valid)
     lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
-    return chunks, lists, counts, nby, nbx
+    return chunks, tri_boxes, lists, counts, nby, nbx
 
 
 def rasterize(view_proj, positions, *, width: int, height: int,
@@ -105,13 +108,13 @@ def rasterize(view_proj, positions, *, width: int, height: int,
     (b1, b2), depth [H,W] NDC z in [0,1] (1.0 at background), overflow
     (tiles whose chunk list hit its width and streamed every chunk — a
     diagnostic, never a correctness loss)."""
-    chunks, lists, counts, nby, nbx = _binned_chunks(
+    chunks, tri_boxes, lists, counts, nby, nbx = _binned_chunks(
         view_proj, positions, width, height, jitter_x, jitter_y, cull)
     floor = None
     if depth_floor is not None:   # padding pixels take no fragment
         floor = pad_tile(depth_floor.to(torch.float32), 3e38)[0].contiguous()
-    z, tid, b1, b2 = raster_cuda.raster_blocks(chunks, lists, counts,
-                                               nby, nbx, floor=floor,
+    z, tid, b1, b2 = raster_cuda.raster_blocks(chunks, tri_boxes, lists,
+                                               counts, nby, nbx, floor=floor,
                                                min_separation=min_separation)
     crop = (slice(0, height), slice(0, width))
     return {"tri_id": tid[crop], "bary": torch.stack([b1[crop], b2[crop]], -1),
@@ -127,7 +130,7 @@ def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
     [H,W] linear first-layer depth and ray interval (None: no floor, no
     interval). Returns LINEAR view depths [H, W, k], `far` where a slot
     stayed empty."""
-    chunks, lists, counts, nby, nbx = _binned_chunks(
+    chunks, _, lists, counts, nby, nbx = _binned_chunks(
         view_proj, positions, width, height, 0.0, 0.0, cull)
     dev = chunks.device
     hp, wp = nby * raster_cuda.TILE_RH, nbx * raster_cuda.TILE_RW

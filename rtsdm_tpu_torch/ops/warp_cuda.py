@@ -84,12 +84,22 @@ def warp_resample_plain(tex, sx, sy, mode: str = "catmull_rom",
     return out
 
 
+def check_offsets(tex, sx) -> None:
+    """K10 computes 32-bit offsets: ValueError where the texture `tex` or
+    the target (its channels times sx's pixels) holds 2^31 values or
+    more."""
+    if tex.numel() >= 2**31 or tex.shape[0] * sx.numel() >= 2**31:
+        raise ValueError("warp_resample: the texture and the output must "
+                         "each hold fewer than 2^31 values (32-bit "
+                         "offsets)")
+
+
 def warp_resample(tex, sx, sy, mode: str = "catmull_rom",
                   wrap_x: bool = False):
     """K10: resample planar float32 `tex` [C, H, W] at sx, sy [HO, WO]
     (pixel units, texel centres at +0.5) -> [C, HO, WO]. A CUDA tensor
-    launches the kernel (counted per mode, launch_key), a CPU tensor takes
-    the plain version."""
+    launches the kernel (counted per mode, launch_key) after check_offsets,
+    a CPU tensor takes the plain version."""
     if mode not in MODES:
         raise ValueError(f"warp_resample: unknown mode {mode!r}")
     if tex.dim() != 3 or sx.shape != sy.shape or sx.dim() != 2:
@@ -99,14 +109,14 @@ def warp_resample(tex, sx, sy, mode: str = "catmull_rom",
             raise ValueError(f"warp_resample: {name} must be float32")
     if tex.is_cuda:
         tex, sx, sy = tex.contiguous(), sx.contiguous(), sy.contiguous()
+        check_offsets(tex, sx)
         c, h, w = tex.shape
         ho, wo = sx.shape
         out = torch.empty((c, ho, wo), dtype=torch.float32, device=tex.device)
         launch("rtsdm_warp_resample", ptr(tex), ptr(sx), ptr(sy), c, h, w,
-               ho * wo, MODES[mode], int(wrap_x), ptr(out), stream_of(tex),
+               ho, wo, MODES[mode], int(wrap_x), ptr(out), stream_of(tex),
                key=launch_key(mode))
         return out
     if tex.device.type != "cpu":
         raise RuntimeError(f"warp_resample: unsupported device {tex.device}")
     return warp_resample_plain(tex, sx, sy, mode, wrap_x)
-

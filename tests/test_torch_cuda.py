@@ -35,6 +35,73 @@ ROOT = Path(__file__).resolve().parents[1]
 INT_MIN = -2**31
 
 
+# the adversarial scene of the K1 cull tests (tests/test_torch_raster.py
+# too): its own projection maps a world point (X, Y, Z) to clip (X, Y,
+# A Z + B, -Z), view depth d = -Z, near 0.1, far 100
+ADV_W, ADV_H = 70, 45          # neither a multiple of the 32x8 tile
+ADV_NEAR, ADV_FAR = 0.1, 100.0
+ADV_A = ADV_FAR / (ADV_NEAR - ADV_FAR)
+ADV_B = ADV_NEAR * ADV_FAR / (ADV_NEAR - ADV_FAR)
+
+
+def adversarial_scene(w=ADV_W, h=ADV_H, seed=23):
+    """(view_proj [4,4], positions [T,3,3]) float32 numpy: triangles
+    crossing the near plane, vertices just in front of and on the eye
+    plane, triangles far larger than the screen, slivers along tile
+    borders and through pixel centres, triangles reaching into the padding
+    of the partial tiles, degenerate ones, and random small and mid-size
+    ones clustered on tile borders."""
+    vp = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, ADV_A, ADV_B],
+                   [0, 0, -1, 0]], np.float32)
+    rng = np.random.default_rng(seed)
+
+    def at(sx, sy, d):   # the world point at screen (sx, sy), view depth d
+        return [(2 * sx / w - 1) * d, (1 - 2 * sy / h) * d, -d]
+
+    tris = [[at(10, 10, 5), at(60, 30, 5), [0.3, 0.2, 1.0]],
+            [at(40, 5, 3), [-0.5, -0.1, 0.5], at(5, 40, 8)],
+            [at(12, 3, 6), at(50, 41, 6), [0.2, 0.1, 0.0]],
+            [at(-4000, -3000, 40), at(5000, -200, 60), at(20, 6000, 50)],
+            [at(-900, 700, 30), at(800, 900, 30), at(0, -2000, 30)],
+            [at(60, 40, 5), at(95, 42, 5), at(65, 60, 5)],
+            [at(10, 10, 5), at(20, 20, 5), at(30, 30, 5)]]
+    for d0 in (1e-3, 1e-5, 1e-7):
+        tris += [[at(30, 20, d0), at(50, 10, 6), at(20, 40, 7)],
+                 [at(-300, 900, d0), at(66, 44, 9), at(69, 2, 9)]]
+    for xb in (31.5, 32.0, 32.5, 63.5, 64.0, 69.5, 70.0):
+        for eps in (0.0, 1e-6, 1e-3, 0.3):
+            d = float(rng.uniform(2, 80))
+            tris += [[at(xb, 0.5, d), at(xb + eps, 44.5, d),
+                      at(xb - 0.01, 20, d + 1)],
+                     [at(xb, 3.5, d), at(xb, 12.5, d), at(xb + eps, 8, d)]]
+    for yb in (7.5, 8.0, 8.5, 15.5, 40.5, 44.5, 45.0):
+        for eps in (0.0, 1e-6, 1e-3, 0.3):
+            d = float(rng.uniform(2, 80))
+            tris += [[at(0.5, yb, d), at(69.5, yb + eps, d),
+                      at(35, yb + 0.01, d + 1)],
+                     [at(31.5, yb, d), at(32.5, yb, d), at(32, yb - eps, d)]]
+    for _ in range(300):
+        cx = rng.choice([32.0, 64.0, 70.0]) + rng.normal(0, 1.5)
+        cy = rng.choice([8.0, 16.0, 24.0, 40.0, 45.0]) + rng.normal(0, 1.5)
+        r = rng.uniform(0.05, 4.0)
+        d = rng.uniform(1.0, 90.0, 3)
+        ang = rng.uniform(0, 2 * np.pi, 3)
+        tris.append([at(cx + r * np.cos(t), cy + r * np.sin(t), dd)
+                     for t, dd in zip(ang, d)])
+    for _ in range(100):
+        c = rng.uniform([-10, -10], [80, 55])
+        v = c + rng.uniform(-20, 20, (3, 2))
+        d = rng.uniform(1.0, 90.0, 3)
+        tris.append([at(x, y, dd) for (x, y), dd in zip(v, d)])
+    return vp, np.asarray(tris, np.float32)
+
+
+def adversarial_floor(z):
+    """The view depth of a raster's NDC depth z (the floor of depth
+    peeling in the adversarial scene's projection)."""
+    return (ADV_B / (z + ADV_A)).contiguous()
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -44,21 +111,16 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_raster_kernels_match_plain_on_gpu(cuda_device):
-    """K1 and K2 against their plain versions, same inputs, with a list
+    """K1 (with its per-triangle cull) against its plain version without
+    the cull, and K2 against its plain version, same inputs, with a list
     width small enough that some tiles stream every chunk."""
     st = arcade(aspect=1.5, device=cuda_device)
     w, h = 96, 64
-    coef, bbox, valid = R._setup_triangles(st.camera.view_proj_mat,
-                                           st.positions, w, h, 0.0, 0.0,
-                                           R.CULL_BACK)
-    order = RC.screen_morton_order(bbox, valid, w, h)
-    chunks = RC.pack_coef_chunks(coef[order], valid[order], order)
-    lists, counts = RC.build_chunk_lists_2d(
-        RC.chunk_screen_bboxes(bbox[order], valid[order]), 8, 3)
+    chunks, boxes, lists, counts, nby, nbx = _raster_inputs(st, w, h)
     for lw in (lists.shape[1], 2):
         ls = lists[:, :lw].contiguous()
-        got = RC.raster_blocks(chunks, ls, counts, 8, 3)
-        want = RC.raster_blocks_plain(chunks, ls, counts, 8, 3)
+        got = RC.raster_blocks(chunks, boxes, ls, counts, nby, nbx)
+        want = RC.raster_blocks_plain(chunks, None, ls, counts, nby, nbx)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     assert bool((got[1] >= 0).any())
@@ -69,6 +131,41 @@ def test_raster_kernels_match_plain_on_gpu(cuda_device):
     assert torch.equal(
         RC.fetch_attributes(got[1], bary, table, nci, nflat),
         RC.fetch_attributes_plain(got[1], bary, table, nci, nflat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("floored", [False, True])
+@pytest.mark.parametrize("case", ["adversarial", "arcade_100x60"])
+def test_raster_cull_is_exact_on_gpu(cuda_device, case, floored):
+    """K1's per-triangle cull on the adversarial scene (70x45) and on
+    Arcade at 100x60 (widths that are not multiples of 32): bit-exact with
+    the plain version without the cull, padding pixels included, with full
+    and short lists, plain and with the first layer as a depth floor."""
+    if case == "adversarial":
+        vp, pos = adversarial_scene()
+        args = R._binned_chunks(torch.as_tensor(vp, device=cuda_device),
+                                torch.as_tensor(pos, device=cuda_device),
+                                ADV_W, ADV_H, 0.0, 0.0, "none")
+        to_floor = adversarial_floor
+    else:
+        st = arcade(aspect=100 / 60, device=cuda_device)
+        args = _raster_inputs(st, 100, 60)
+
+        def to_floor(z):
+            return st.camera.linearize_depth(z).contiguous()
+    chunks, boxes, lists, counts, nby, nbx = args
+    kw = {}
+    if floored:
+        z = RC.raster_blocks(*args)[0]
+        kw = dict(floor=to_floor(z), min_separation=0.5)
+    for lw in (lists.shape[1], 2):
+        ls = lists[:, :lw].contiguous()
+        got = RC.raster_blocks(chunks, boxes, ls, counts, nby, nbx, **kw)
+        want = RC.raster_blocks_plain(chunks, None, ls, counts, nby, nbx,
+                                      **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (case, floored, lw)
+    assert bool((got[1] >= 0).any())
 
 
 class _Cfg:
@@ -183,6 +280,32 @@ def test_warp_kernel_matches_plain_on_gpu(cuda_device, mode, wrap_x):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("mode", ["nearest", "bilinear", "catmull_rom"])
+def test_warp_kernel_channels_and_ragged_rows_on_gpu(cuda_device, mode, c):
+    """K10 with 1 and 3 channels (its unrolled instances) and 4 (its
+    generic loop), clamped and wrapped in x, at row widths that leave a
+    ragged block (70, 150, 1001, 7) or none (64), and targets of fewer
+    than 8 rows (256x1 blocks), against its plain version."""
+    rng = np.random.default_rng(41 + c)
+    dev = cuda_device
+    tex = torch.as_tensor(rng.random((c, 33, 70)).astype(np.float32),
+                          device=dev)
+    for ho, wo in ((33, 70), (16, 64), (5, 150), (1, 1001), (9, 7)):
+        ys, xs = np.meshgrid(np.arange(ho) + 0.5, np.arange(wo) + 0.5,
+                             indexing="ij")
+        for fx, fy in ((xs * 70 / wo + 3 * np.sin(ys / 5), ys * 33 / ho),
+                       tuple(rng.uniform(-40, 120, (2, ho, wo)))):
+            sx = torch.as_tensor(np.asarray(fx, np.float32), device=dev)
+            sy = torch.as_tensor(np.asarray(fy, np.float32), device=dev)
+            for wrap_x in (False, True):
+                got = W.warp_resample(tex, sx, sy, mode, wrap_x)
+                want = W.warp_resample_plain(tex, sx, sy, mode, wrap_x)
+                assert got.shape == (c, ho, wo)
+                assert torch.equal(got, want), (mode, c, ho, wo, wrap_x)
+
+
+@pytest.mark.cuda
 def test_any_hit_kernel_matches_plain_on_gpu(cuda_device):
     """K8 against its plain version: per-ray origins, random alpha masks on
     every triangle, dead rays, and a list width small enough that some
@@ -217,7 +340,8 @@ def test_any_hit_kernel_matches_plain_on_gpu(cuda_device):
 
 
 def _raster_inputs(st, w, h):
-    """K1/K9 inputs of a view: chunks, lists, counts, tile grid."""
+    """K1/K9 inputs of a view: chunks, triangle boxes, lists, counts, tile
+    grid."""
     return R._binned_chunks(st.camera.view_proj_no_jitter, st.positions, w,
                             h, 0.0, 0.0, "back")
 
@@ -229,19 +353,19 @@ def test_raster_floor_kernel_matches_plain_on_gpu(cuda_device):
     full and short lists."""
     st = arcade(aspect=1.5, device=cuda_device)
     w, h = 96, 64
-    chunks, lists, counts, nby, nbx = _raster_inputs(st, w, h)
-    z = RC.raster_blocks(chunks, lists, counts, nby, nbx)[0]
+    chunks, boxes, lists, counts, nby, nbx = _raster_inputs(st, w, h)
+    z = RC.raster_blocks(chunks, boxes, lists, counts, nby, nbx)[0]
     floor = st.camera.linearize_depth(z).contiguous()
     for lw in (lists.shape[1], 2):
         ls = lists[:, :lw].contiguous()
-        got = RC.raster_blocks(chunks, ls, counts, nby, nbx, floor=floor,
-                               min_separation=0.5)
-        want = RC.raster_blocks_plain(chunks, ls, counts, nby, nbx,
+        got = RC.raster_blocks(chunks, boxes, ls, counts, nby, nbx,
+                               floor=floor, min_separation=0.5)
+        want = RC.raster_blocks_plain(chunks, None, ls, counts, nby, nbx,
                                       floor=floor, min_separation=0.5)
         for a, b in zip(got, want):
             assert torch.equal(a, b)
     # the floor peeled the first layer and left a second one
-    first_id = RC.raster_blocks(chunks, lists, counts, nby, nbx)[1]
+    first_id = RC.raster_blocks(chunks, boxes, lists, counts, nby, nbx)[1]
     assert bool((got[1] >= 0).any())
     assert float((got[1] != first_id).float().mean()) > 0.5
 
@@ -254,8 +378,8 @@ def test_raster_stochastic_kernel_matches_plain_on_gpu(cuda_device, alpha):
     short lists."""
     st = arcade(aspect=1.5, device=cuda_device)
     w, h = 96, 64
-    chunks, lists, counts, nby, nbx = _raster_inputs(st, w, h)
-    z = RC.raster_blocks(chunks, lists, counts, nby, nbx)[0]
+    chunks, boxes, lists, counts, nby, nbx = _raster_inputs(st, w, h)
+    z = RC.raster_blocks(chunks, boxes, lists, counts, nby, nbx)[0]
     lin = st.camera.linearize_depth(z)
     rng = np.random.default_rng(29)
     first = torch.where(torch.as_tensor(rng.random(lin.shape) < 0.3,

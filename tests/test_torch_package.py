@@ -100,7 +100,8 @@ def _tiny_inputs():
     tri = torch.zeros((1, RT.PACK_ROWS, RT.TC))
     rays = torch.zeros((7, RT.RB))
     return {
-        "raster_blocks": (chunks, lists, counts, 1, 1),
+        "raster_blocks": (chunks, torch.zeros((1, 4, RC.TC)), lists, counts,
+                          1, 1),
         "fetch_attributes": (tri_id, bary, table, 2, 1),
         "fetch_all_directions": ([planes], pad, radius, levels, offs, radii),
         "fetch_sd_packed": (sd, pad, radius, levels, offs, radii, pad),

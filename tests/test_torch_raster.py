@@ -31,6 +31,8 @@ import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_pallas_interpret import interpret_mode  # noqa: E402
+from test_torch_cuda import (ADV_H, ADV_W, adversarial_floor,  # noqa: E402
+                             adversarial_scene)
 from test_torch_scene import carry  # noqa: E402
 
 from rtsdm_tpu.ops import raster_pallas as rpx  # noqa: E402
@@ -173,9 +175,11 @@ def test_list_overflow_streams_every_chunk():
     chunks = RC.pack_coef_chunks(coef[order], valid[order], order)
     lists, counts = RC.build_chunk_lists_2d(
         RC.chunk_screen_bboxes(bbox[order], valid[order]), 4, 2)
+    boxes = RC.pack_tri_boxes(bbox[order], valid[order])
     assert int(counts.max()) > 2
-    full = RC.raster_blocks(chunks, lists, counts, 4, 2)
-    short = RC.raster_blocks(chunks, lists[:, :2].contiguous(), counts, 4, 2)
+    full = RC.raster_blocks(chunks, boxes, lists, counts, 4, 2)
+    short = RC.raster_blocks(chunks, boxes, lists[:, :2].contiguous(),
+                             counts, 4, 2)
     for a, b in zip(full, short):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
@@ -197,3 +201,115 @@ def test_gbuffer_matches_reference():
     for k in ("posW", "normW", "texC", "mvec"):
         np.testing.assert_allclose(got[k][same], ref[k][same], atol=2e-4,
                                    err_msg=k)
+
+
+# --- K1's per-triangle cull (csrc/raster.cu) ------------------------------
+
+@pytest.fixture(scope="module", params=["CornellBox 64x64", "Arcade 96x64",
+                                        "adversarial 70x45"])
+def cull_case(request):
+    """K1's inputs (chunks, boxes, lists, counts, nby, nbx) and the first
+    layer's view depth as a depth floor, on a scene of the package and on
+    the adversarial scene (tests/test_torch_cuda.py: adversarial_scene)."""
+    from rtsdm_tpu_torch.scene.procedural import load_scene
+    name = request.param.split()[0]
+    if name == "adversarial":
+        vp, pos = adversarial_scene()
+        args = R._binned_chunks(torch.as_tensor(vp), torch.as_tensor(pos),
+                                ADV_W, ADV_H, 0.0, 0.0, "none")
+        to_floor = adversarial_floor
+    else:
+        w, h = map(int, request.param.split()[1].split("x"))
+        st = load_scene(name, aspect=w / h, device="cpu")
+        args = R._binned_chunks(st.camera.view_proj_no_jitter, st.positions,
+                                w, h, 0.0, 0.0, "back")
+
+        def to_floor(z):
+            return st.camera.linearize_depth(z).contiguous()
+    z = RC.raster_blocks_plain(args[0], None, *args[2:])[0]
+    return args, to_floor(z)
+
+
+def test_cull_keeps_every_accepted_pair(cull_case):
+    """At every visit of every tile's walk, each lane whose triangle the
+    fragment test accepts at some pixel of a half tile (padding pixels
+    included, without and with the floor) survives K1's cull for that
+    half; the cull drops lanes; and cull_survivors counts the survivors of
+    the walk."""
+    (chunks, boxes, lists, counts, nby, nbx), floor = cull_case
+    nb = nby * nbx
+    px, py = RC.tile_centres(nb, nbx, 0.5, 0.5, chunks.device)
+    fl = (RC.tile_flatten(floor) + 0.5).reshape(nb, RC.RB)
+    survivors = valid = 0
+    counted = RC.cull_survivors(boxes, lists, counts, nbx)
+    for j, rows, ci in RC.tile_walk(lists, counts, chunks.shape[0], 64):
+        keep = RC.lane_survivors(boxes, ci, rows, nbx)
+        tri = chunks[ci][:, :, None, :]
+        x, y = px[rows][:, :, None], py[rows][:, :, None]
+        for f in (None, fl[rows][:, :, None]):
+            inside = RC.fragments(tri, x, y, f)[0]      # pixels 0-127: rows 0-3
+            inside = inside.reshape(len(rows), 2, RC.RB // 2, RC.TC).any(2)
+            assert not bool((inside & ~keep).any()), j
+        assert torch.equal(counted[rows, j],
+                           keep.sum(-1, dtype=torch.int32))
+        survivors += int(keep.sum())
+        valid += 2 * int((chunks[ci, 15] > 0).sum())
+    assert 0 < survivors < valid
+    assert int(counted.clamp(min=0).sum()) == survivors
+
+
+@pytest.mark.parametrize("floored", [False, True])
+def test_culled_plain_raster_equals_unrestricted(cull_case, floored):
+    """The plain raster restricted to the cull's survivors equals the
+    unrestricted one bit for bit, padding pixels included, plain and with
+    the first layer as a depth floor (min_separation 0.5), with complete
+    lists and with lists of width 2 that stream every chunk."""
+    (chunks, boxes, lists, counts, nby, nbx), floor = cull_case
+    kw = dict(floor=floor, min_separation=0.5) if floored else {}
+    for ls in (lists, lists[:, :2].contiguous()):
+        want = RC.raster_blocks_plain(chunks, None, ls, counts, nby, nbx,
+                                      **kw)
+        got = RC.raster_blocks_plain(chunks, boxes, ls, counts, nby, nbx,
+                                     **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert bool((want[1] >= 0).any())
+
+
+def test_pack_tri_boxes_layout():
+    """pack_tri_boxes puts triangle t's box at [t // 128, :, t % 128] and
+    an empty box, which overlaps no tile, on invalid and padding lanes."""
+    bbox = torch.tensor([[0.0, 0.0, 5.0, 3.0], [2.0, 1.0, 40.0, 9.0],
+                         [1.0, 1.0, 2.0, 2.0]])
+    boxes = RC.pack_tri_boxes(bbox, torch.tensor([True, True, False]))
+    assert boxes.shape == (1, 4, RC.TC) and boxes.is_contiguous()
+    np.testing.assert_array_equal(boxes[0, :, :2].T.numpy(), bbox[:2])
+    keep = RC.lane_survivors(boxes, torch.zeros(2, dtype=torch.long),
+                             torch.tensor([0, 1]), 2)
+    assert keep.shape == (2, 2, RC.TC) and keep[..., 2:].sum() == 0
+    # tile 0 (x in [0, 32)): rows 0-3 and rows 4-7; tile 1 (x in [32, 64))
+    assert keep[0, :, :2].tolist() == [[True, True], [False, True]]
+    assert keep[1, :, :2].tolist() == [[False, True], [False, True]]
+
+
+def test_raster_blocks_checks_tri_boxes():
+    """K1's wrapper refuses triangle boxes of another shape, type or
+    device than the chunks' (ValueError, TypeError), and pixel centres
+    outside the unit offsets the boxes bound, before any dispatch."""
+    chunks = torch.zeros((2, RC.COEF_ROWS, RC.TC))
+    lists = torch.zeros((1, 1), dtype=torch.int32)
+    counts = torch.ones((1,), dtype=torch.int32)
+    good = torch.zeros((2, 4, RC.TC))
+    assert RC.raster_blocks(chunks, good, lists, counts, 1, 1)[1].shape \
+        == (8, 32)
+    for bad in (torch.zeros((1, 4, RC.TC)), torch.zeros((2, 5, RC.TC)),
+                torch.zeros((2, 4, 64)), good.to("meta")):
+        with pytest.raises(ValueError, match="tri_boxes"):
+            RC.raster_blocks(chunks, bad, lists, counts, 1, 1)
+    with pytest.raises(ValueError, match="px0 and py0"):
+        RC.raster_blocks(chunks, good, lists, counts, 1, 1, px0=1.5)
+    with pytest.raises(TypeError, match="tri_boxes"):
+        RC.raster_blocks(chunks, good.double(), lists, counts, 1, 1)
+    with pytest.raises(ValueError, match="tri_boxes must be contiguous"):
+        RC.raster_blocks(chunks, good.transpose(1, 2).contiguous()
+                         .transpose(1, 2), lists, counts, 1, 1)

@@ -162,3 +162,22 @@ def test_matches_warp_pallas_in_interpret_mode(field, mode):
     got = W.warp_resample_plain(_planar(tex), torch.as_tensor(sp[..., 0]),
                                 torch.as_tensor(sp[..., 1]), mode).numpy()
     assert np.abs(got - want).max() < 1e-4
+
+
+def test_check_offsets_refuses_what_32_bit_offsets_cannot_address():
+    """K10's launch check (the wrapper runs it before every launch): a
+    texture or a target of 2^31 values or more raises ValueError; one
+    value fewer passes."""
+    tex = torch.zeros((3, 8, 8))
+    sx = torch.zeros((4, 8))
+    W.check_offsets(tex, sx)
+    big_tex = torch.empty((2, 2**15, 2**15), device="meta")
+    big_out = torch.empty((2**16, 2**15), device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        W.check_offsets(big_tex, sx)
+    with pytest.raises(ValueError, match="2\\^31"):
+        W.check_offsets(tex[:1], big_out)
+    with pytest.raises(ValueError, match="2\\^31"):
+        W.check_offsets(tex[:2], big_out[:, :2**14])
+    W.check_offsets(big_tex[:, :, :-1], sx)
+    W.check_offsets(tex[:1], big_out.reshape(-1)[:-1].reshape(1, -1))
