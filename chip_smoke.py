@@ -21,7 +21,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    and time both (CUDA events; the kernel also by torch.profiler and its
    host enqueue); K1's walk and cull replayed on the host give its bounds
    on the pairs it evaluates and on every lane of every visit; the host
-   time of K1's inputs and cull boxes;
+   time of K1's inputs and cull boxes; K3's and K4's wrappers' host time
+   piece by piece (fetch_host_split);
 6. time a steady-state frame stage by stage (CUDA events) and through the
    public entry points (host clock), and profile one frame (torch.profiler:
    device time by kernel, and the device's idle share of the frame);
@@ -36,7 +37,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    re-rasters), K3-K5 as on the SVAO path; no plain version runs. The four
    marked outputs are cropped to 1080x1920 and finite, and AO lies in [0, 1];
 9. hold K8 and K10 against their plain versions on the inputs of the graph's
-   last frame (K8 on a spread subset of whole 8x32 tiles), and K10 also on a
+   last frame (K8 on a spread subset of whole 8x32 tiles: its hits against
+   the plain version without its per-ray cull, its pairs against the
+   cull's replay; over every tile, its hits against K8 with boxes that cull
+   nothing), K8's cull replayed over the walk (k8_walk: its yield, the
+   boxes warps stage, the operations its bound counts) and timed without
+   the cull and on the per-pair path; K10 also on a
    synthetic motion field at the TAA shape; time the kernels, their plain
    versions and K10's library yardstick (grid_sample), K10 in each mode by
    CUDA events, torch.profiler and its host enqueue at TAA's shape with 3
@@ -62,10 +68,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    floored K1 do real work: the last frame's calls held as in 11, K6 held
    bit-exact on every call kept (also the CornellBox and DualDepth calls),
    K6 and the floored K1 timed; the frame timed as in 10;
-14. both configs' graphs and scripts/SVAO.py at their golden settings on
-   the card (tests/image_tests/renderpasses/test_HBAO.py,
-   test_SVAO_rasterSD.py, test_SVAO_full.py; SVAO.py traces with K7), held
-   against the committed goldens by the golden runner's MSE bound;
+14. both configs' graphs, scripts/SVAO.py, scripts/Forward.py (three
+   goldens, K8 once a frame) and SVAO_small.py with a guard band at their
+   golden settings on the card (tests/image_tests/renderpasses/
+   test_HBAO.py, test_SVAO_rasterSD.py, test_SVAO_full.py, test_Forward.py,
+   test_Forward_arcade.py, test_SVAO_guardband.py, renderscripts/
+   test_TAA_sweep.py; SVAO.py traces with K7), held against the committed
+   goldens by the golden runner's MSE bound;
 15. scripts/SVAO.py (the reference's shipped SVAO graph) at Arcade@full
    1280x720 through Renderer.renderFrame, 3 frames: per frame K7
    (sd_trace_resident: 38,610 triangles, at most 65,536) launches once and
@@ -433,6 +442,8 @@ TRACE_FLOPS_PER_TEST = 18     # sd_trace.cu: det, u*det, v*det (5 each),
 ANY_HIT_FLOPS_PER_PAIR = 47   # any_hit.cu: d x e2 (9), det (5), o - v0 (3),
                               # u*det (5), tv x e1 (9), v*det (5), t*det (5),
                               # the sign products (4), the interval (2)
+ANY_HIT_FLOPS_PER_PAIR_HOISTED = 32   # the same without d x e2, det and
+                                      # adet (a warp of one direction)
 
 
 def nbytes(*objs) -> int:
@@ -620,13 +631,16 @@ def compare_fetch_directions(k):
     log(f"K3 fetch_all_directions {tuple(got.shape)}: {mism} mismatches, "
         f"max |diff| {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K3 is not bit-exact")
+    t = timings(lambda: F.fetch_all_directions(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_all_directions"], 50)
+    log(f"K3 times: CUDA events {t['event_ms']:.4f} ms, device "
+        f"{t['device_ms']} ms, host enqueue {t['host_us']:.1f} us")
     # a copy per output after one product radius * radii[d]; no single
     # PyTorch call selects the level and shifts: no library yardstick
     return with_bound(
         dict(max_abs_err=err, mismatches=mism, exact=True,
-             ms=cuda_ms(lambda: F.fetch_all_directions(*args, **kwargs),
-                        50, 3),
-             plain_ms=cuda_ms(plain, 5, 1)),
+             ms=t["event_ms"], device_ms=t["device_ms"],
+             host_us=t["host_us"], plain_ms=cuda_ms(plain, 5, 1)),
         nbytes(planes, radius, got), float(got.numel()))
 
 
@@ -652,12 +666,62 @@ def compare_fetch_sd_packed(k):
     log(f"K4 fetch_sd_packed {tuple(got.shape)}: {mism} mismatches, max "
         f"|diff| of the unpacked depths {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K4 is not bit-exact")
+    t = timings(lambda: F.fetch_sd_packed(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_sd_packed"], 50)
+    log(f"K4 times: CUDA events {t['event_ms']:.4f} ms, device "
+        f"{t['device_ms']} ms, host enqueue {t['host_us']:.1f} us")
     # as K3, on the 16-bit packed SD map: no library yardstick
     return with_bound(
         dict(max_abs_err=err, mismatches=mism, exact=True,
-             ms=cuda_ms(lambda: F.fetch_sd_packed(*args, **kwargs), 50, 3),
-             plain_ms=cuda_ms(plain, 5, 1)),
+             ms=t["event_ms"], device_ms=t["device_ms"],
+             host_us=t["host_us"], plain_ms=cuda_ms(plain, 5, 1)),
         nbytes(sd_map, radius, got), float(got.numel()))
+
+
+def fetch_host_split(k3, k4) -> dict:
+    """Host time of K3's and K4's wrappers, piece by piece (host clock, no
+    synchronize; microseconds): the ring's tables (svao_shift._ring, twice
+    a frame), the cached table lookup, the launch alone, and each wrapper
+    whole; K4's pack_sd16 apart. Beside them what the ring and the lookup
+    cost where nothing is cached: offset_tables, the walk of its offsets
+    into a tuple key, and the hash of that key."""
+    import torch
+    from rtsdm_tpu_torch._build import launch, ptr, stream_of
+    from rtsdm_tpu_torch.ops import ao as A
+    from rtsdm_tpu_torch.ops import ao_shift as S
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    from rtsdm_tpu_torch.passes import svao_shift
+    args = k3.calls[0][0]
+    sets, pad, radius, levels, offs, radii = args
+    cfg = A.VAOConfig(radius=SVAO_PROPS["radius"], num_directions=8)
+    lv, of, ra = S.offset_tables(cfg, cfg.ss_max_radius)
+    key = (tuple(float(x) for x in lv), F.offs_tuple(of),
+           tuple(float(r) for r in ra), (pad,))
+    res = {"offset_tables_us": host_us(
+               lambda: S.offset_tables(cfg, cfg.ss_max_radius), 20),
+           "offsets_walk_us": host_us(lambda: F.offs_tuple(of), 50),
+           "key_hash_us": host_us(lambda: hash(key), 50),
+           "ring_us": host_us(lambda: svao_shift._ring(cfg), 50),
+           "k3_lookup_us": host_us(lambda: F._tables(
+               "dir", levels, offs, radii, (pad,), radius.device), 50)}
+    planes = sets[0][None]
+    bounds, radii_t, tab, _ = F._tables("dir", levels, offs, radii, (pad,),
+                                        radius.device)
+    qh, qw = radius.shape[1:]
+    out = torch.empty((1, len(offs), 16, qh, qw), device=radius.device)
+    res["k3_launch_us"] = host_us(lambda: launch(
+        "rtsdm_fetch_directions", ptr(planes), ptr(radius), ptr(bounds),
+        ptr(radii_t), ptr(tab), 1, len(offs), len(levels), qh, qw,
+        planes.shape[2], planes.shape[3], ptr(out), stream_of(planes)), 50)
+    res["k3_wrapper_us"] = host_us(lambda: F.fetch_all_directions(*args),
+                                   50)
+    sd_map = k4.calls[0][0][0]
+    res["k4_pack_us"] = host_us(lambda: F.pack_sd16(sd_map), 50)
+    res["k4_wrapper_us"] = host_us(lambda: F.fetch_sd_packed(
+        *k4.calls[0][0]), 50)
+    log("K3/K4 host split (us, host clock): " + ", ".join(
+        f"{n} {v:.1f}" for n, v in res.items()))
+    return res
 
 
 def compare_sd_trace(k):
@@ -947,7 +1011,7 @@ def drive_graph(kernels, path_counts):
     return m, dict(totals), dict(modes)
 
 
-def any_hit_subset(tri, lists, counts, rays):
+def any_hit_subset(tri, boxes, lists, counts, rays):
     """(sel, inputs): up to ANY_HIT_TILES whole 8x32 tiles spread evenly
     over the tiles that hold a live ray, and K8's inputs cut to them."""
     import torch
@@ -960,67 +1024,240 @@ def any_hit_subset(tri, lists, counts, rays):
                           min(ANY_HIT_TILES, live_tiles.numel()),
                           device=live.device).round().long().unique()
     sel = live_tiles[pick]
-    return sel, (tri, lists[sel].contiguous(), counts[sel].contiguous(),
+    return sel, (tri, boxes, lists[sel].contiguous(),
+                 counts[sel].contiguous(),
                  rays.reshape(8, nb, RT.RB)[:, sel].reshape(8, -1)
                  .contiguous())
 
 
+def hold_any_hit(args):
+    """K8 on the spread tile subset (any_hit_subset) against its plain
+    version: hits against the walk without the cull (boxes None, the
+    contract), pairs against the replay of K8's cull; and the launch over
+    every tile cut to the subset against the launch on the subset. Returns
+    (kernel outputs, plain outputs), each (hit, pairs, hit, pairs)."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    tri, boxes, lists, counts, rays = args
+    nb = counts.shape[0]
+    full = RT.any_hit_blocks(*args)
+    sel, sub = any_hit_subset(*args)
+    got = RT.any_hit_blocks(*sub)
+    hit_p, _ = RT.any_hit_blocks_plain(tri, None, *sub[2:])
+    _, pairs_p = RT.any_hit_blocks_plain(*sub)
+    return (got + tuple(a.reshape(nb, RT.RB)[sel].reshape(-1)
+                        for a in full),
+            (hit_p, pairs_p) + got)
+
+
+def warp_directions(rays):
+    """[nb, 8] bool: every live ray of the warp (a tile row of 32) has the
+    direction of its first live ray, bit for bit (K8 hoists d x e2 and det
+    there), and [nb] bool: all 256 rays of the tile share one direction."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    nb = rays.shape[1] // RT.RB
+    d = rays[3:6].contiguous().view(torch.int32).reshape(3, nb, 8, 32)
+    live = (rays[7] > rays[6]).reshape(nb, 8, 32)
+    lead = torch.argmax(live.to(torch.int32), -1)            # [nb, 8]
+    ld = torch.gather(d, 3, lead[None, ..., None].expand(3, nb, 8, 1))
+    warp = ((d == ld).all(0) | ~live).all(-1)
+    dt = d.reshape(3, nb, RT.RB)
+    tile = (dt == dt[..., :1]).all(0).all(-1)
+    return warp, tile
+
+
+def k8_walk(tri, boxes, lists, counts, rays, pairs_free, batch=1024):
+    """K8's cull replayed over the walk (its yield, and the work its bound
+    counts): a live ray walks its tile's list up to the chunk of its first
+    hit, ceil(pairs_free / 128) chunks (pairs_free from
+    the walk without the cull; the cull keeps every hit, so the walk is the
+    same). Counts the (live ray, walked chunk) pairs, those whose segment
+    meets the chunk's box (the union of its four) and the (ray, chunk, box)
+    triples that meet under K8's slab test; per warp (a tile row), the
+    chunk visits and the boxes it stages (some lane meets), split by
+    whether the warp hoists."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    nb, list_w = lists.shape
+    n_chunks = tri.shape[0]
+    full = counts > list_w
+    live = (rays[7] > rays[6]).reshape(nb, RT.RB)
+    walk = torch.div(pairs_free.reshape(nb, RT.RB) + RT.TC - 1, RT.TC,
+                     rounding_mode="floor")
+    walk = torch.where(live, walk, 0)
+    hoist, _ = warp_directions(rays)
+    o, inv, flat, tmin, tmax = (a.reshape(a.shape[:-1] + (nb, RT.RB))
+                                for a in RT.slab_rows(rays))
+    union = torch.cat([boxes[:, 0:3].amin(-1), boxes[:, 3:6].amax(-1)], 1)
+    tot = collections.Counter()
+    for j in range(int(walk.max()) if nb else 0):
+        act = walk > j
+        rows_all = torch.nonzero(act.any(1)).squeeze(1)
+        for s in range(0, rows_all.numel(), batch):
+            rows = rows_all[s:s + batch]
+            ci = torch.where(full[rows], j,
+                             lists[rows, min(j, list_w - 1)]).long()
+            a = act[rows]                                   # [na, RB]
+            ray = [x[:, rows] for x in (o, inv, flat)]       # [3, na, RB]
+            tn, tf = tmin[rows], tmax[rows]
+            u = union[ci]                                   # [na, 6]
+            meet_c = RT.segment_overlaps(
+                *ray, tn, tf, [u[:, c, None] for c in range(3)],
+                [u[:, 3 + c, None] for c in range(3)]) & a
+            bx = boxes[ci]                                  # [na, 6, 4]
+            meet = RT.segment_overlaps(
+                *[x[..., None] for x in ray], tn[..., None], tf[..., None],
+                [bx[:, c, None, :] for c in range(3)],
+                [bx[:, 3 + c, None, :] for c in range(3)]) & a[..., None]
+            warp_on = a.reshape(-1, 8, 32).any(-1)          # [na, 8]
+            staged = meet.reshape(-1, 8, 32, RT.N_CULL).any(2).sum(-1)
+            h = hoist[rows]
+            tot["ray_chunks"] += int(a.sum())
+            tot["chunk_meets"] += int(meet_c.sum())
+            tot["box_meets"] += int(meet.sum())
+            tot["warp_visits"] += int(warp_on.sum())
+            tot["staged_hoisted"] += int(staged[h].sum())
+            tot["staged_per_pair"] += int(staged[~h].sum())
+    return dict(tot)
+
+
+def any_hit_work(walk, pairs, rays):
+    """fp32 operations of K8 on this run's data, counted from any_hit.cu:
+    per pair tested 32 in a hoisting warp (o - v0 3, u*det 5, tv x e1 9,
+    v*det 5, t*det 5, the sign products 3, the interval 2) and 47 in
+    another (adding d x e2 9, det 5, adet 1); per box staged by a hoisting
+    warp 32 x 16 (d x e2 9, det 5, adet 1, 1/det 1); per slab test 12
+    (four boxes per live ray and chunk visit)."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    hoist, _ = warp_directions(rays)
+    p = pairs.reshape(hoist.shape + (32,)).double().sum(-1)
+    ops = (float(p[hoist].sum()) * ANY_HIT_FLOPS_PER_PAIR_HOISTED
+           + float(p[~hoist].sum()) * ANY_HIT_FLOPS_PER_PAIR
+           + walk.get("staged_hoisted", 0) * RT.CULL_SUB * 16
+           + walk.get("ray_chunks", 0) * RT.N_CULL * 12)
+    return ops, float(p[hoist].sum()), float(p[~hoist].sum())
+
+
+def nudged_directions(rays):
+    """The same rays with dx of every odd lane moved by one ulp: no warp
+    with live rays of both parities hoists, so K8 forms d x e2 and det per
+    pair (a timing variant; the hits may differ from the real rays')."""
+    import torch
+    r = rays.clone()
+    dx = r[3, 1::2]
+    r[3, 1::2] = torch.nextafter(dx, torch.full_like(dx, float("inf")))
+    return r.contiguous()
+
+
 def compare_any_hit(k):
-    """K8: bit-exact, hits and the pairs each ray tested, on ANY_HIT_TILES
-    whole 8x32 tiles spread evenly over the tiles of the graph's last frame
-    that hold a live ray (the plain version over all 2.47M rays would take
-    too long); the kernel's launch over every tile must give the same
-    answers on those tiles as its launch on the subset. The bound counts
-    the ray-triangle pairs this run needed: each ray's pairs up to and
-    including its first hit, as the kernel reports them for every ray."""
+    """K8 on the graph's last-frame call: hits bit-exact against the plain
+    version without the cull and pairs against the replay of the cull, on
+    ANY_HIT_TILES whole 8x32 tiles spread evenly over the tiles that hold
+    a live ray (the plain version over all 2.47M rays would take too long);
+    the launch over every tile gives the same answers on those tiles as its
+    launch on the subset, and the same hits as K8 with boxes that cull
+    nothing (whose pairs, the walk without the cull, are held against the
+    plain version without the cull on the subset). The cull's yield over
+    the walk (k8_walk) and the warps that hoist (warp_directions). Timing
+    variants, each on the same tiles: boxes that cull nothing, one
+    box per chunk (the union of its four), the per-pair path, and the
+    per-pair path without the cull. Bounds: the pairs this run needed x
+    the operations per pair of the kernel that tests them (any_hit_work),
+    and beside it a yardstick: the walk without the cull x 47."""
     import torch
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     check(len(k.calls) >= 1, "K8: no recorded call")
-    (tri, lists, counts, rays), kwargs = k.calls[-1]
+    args, kwargs = k.calls[-1]
+    tri, boxes, lists, counts, rays = args
     nb = counts.shape[0]
-    hit, pairs = RT.any_hit_blocks(tri, lists, counts, rays)
+    hit, pairs = RT.any_hit_blocks(*args)
+    free = RT.no_cull_boxes(tri.shape[0], tri.device)
+    free_args = (tri, free, lists, counts, rays)
+    hit_f, pairs_f = RT.any_hit_blocks(*free_args)
+    check(torch.equal(hit, hit_f), "K8 with its cull finds other hits than "
+                                   "K8 without it")
+    got, want = hold_any_hit(args)
+    sel, sub = any_hit_subset(*args)
+    hit_p = want[0]
+    pairs_fs = pairs_f.reshape(nb, RT.RB)[sel].reshape(-1)
+    _, pairs_fp = RT.any_hit_blocks_plain(tri, None, *sub[2:])
+    mism = sum(int((g != w).sum()) for g, w in zip(got, want)) \
+        + int((pairs_fs != pairs_fp).sum())
+    err = float((got[0].double() - hit_p.double()).abs().max())
     live = (rays[7] > rays[6]).reshape(nb, RT.RB)
-    sel, sub = any_hit_subset(tri, lists, counts, rays)
-    hit_s, pairs_s = RT.any_hit_blocks(*sub)
-    hit_p, pairs_p = RT.any_hit_blocks_plain(*sub)
-    mism = int((hit_s != hit_p).sum()) + int((pairs_s != pairs_p).sum())
-    err = float((hit_s.double() - hit_p.double()).abs().max())
     n_live = int(live.sum())
     hit_share = float(hit.reshape(nb, RT.RB)[live].double().mean())
-    # the chunks a tile walked: the most of its rays' pairs over 128
-    vis = torch.div(pairs.reshape(nb, RT.RB).amax(1) + RT.TC - 1, RT.TC,
-                    rounding_mode="floor").double()
-    n_pairs = float(pairs.double().sum())
-    walk_pairs = float((vis * live.sum(1).double()).sum()) * RT.TC
+    n_pairs, n_free = float(pairs.double().sum()), float(
+        pairs_f.double().sum())
     log(f"K8 any_hit {nb * RT.RB} rays ({n_live} live) x {tri.shape[0]} "
-        f"chunks: {hit_share:.4f} of live rays occluded; tiles walk "
-        f"{float(vis.mean()):.1f} chunks on average (max {int(vis.max())}, "
-        f"{int(vis.sum())} in all); {n_pairs:.6g} ray-triangle pairs tested "
-        f"({walk_pairs:.6g} if every live ray tested its tile's whole walk)")
+        f"chunks: {hit_share:.4f} of live rays occluded; pairs tested "
+        f"{n_pairs:.6g} with the cull, {n_free:.6g} without")
     log(f"K8 against its plain version on {sel.numel()} tiles "
         f"({int(live[sel].sum())} live rays): {mism} mismatches of hits "
-        "and tested pairs (bound: bit-exact)")
+        "(against no cull) and tested pairs (against the cull's replay; "
+        "K8 without the cull against no cull) (bound: bit-exact)")
     check(mism == 0, "K8 disagrees with its plain version")
-    check(torch.equal(hit.reshape(nb, RT.RB)[sel].reshape(-1), hit_s)
-          and torch.equal(pairs.reshape(nb, RT.RB)[sel].reshape(-1),
-                          pairs_s),
-          "K8 over every tile disagrees with K8 over the subset")
     check(0.0 < hit_share < 1.0, f"K8: occluded share {hit_share}")
-    ms = cuda_ms(lambda: RT.any_hit_blocks(tri, lists, counts, rays), 10, 2)
+    walk = k8_walk(tri, boxes, lists, counts, rays, pairs_f)
+    warp_h, tile_same = warp_directions(rays)
+    rc = max(walk.get("ray_chunks", 0), 1)
+    log(f"K8 walk: {walk.get('ray_chunks', 0)} (live ray, walked chunk) "
+        f"pairs; the segment meets the chunk's box in "
+        f"{walk.get('chunk_meets', 0) / rc:.4f} of them, and "
+        f"{walk.get('box_meets', 0) / rc:.4f} of its four 32-triangle "
+        f"boxes on average; warps visit {walk.get('warp_visits', 0)} "
+        f"chunks and stage {walk.get('staged_hoisted', 0)} boxes hoisted, "
+        f"{walk.get('staged_per_pair', 0)} per pair; "
+        f"{int(tile_same.sum())} of {nb} tiles have 256 bit-identical "
+        f"directions, {int(warp_h.sum())} of {warp_h.numel()} warps hoist")
+    ops, p_h, p_m = any_hit_work(walk, pairs, rays)
+    t = timings(lambda: RT.any_hit_blocks(*args), KERNEL_SYMBOLS["any_hit"],
+                10)
+    ms_free = cuda_ms(lambda: RT.any_hit_blocks(*free_args), 5, 1)
+    nudged = nudged_directions(rays)
+    nudged_args = (tri, RT.any_hit_boxes(tri, nudged), lists, counts,
+                   nudged)
+    _, pairs_n = RT.any_hit_blocks(*nudged_args)
+    ms_nudged = cuda_ms(lambda: RT.any_hit_blocks(*nudged_args), 10, 2)
+    ms_nudged_free = cuda_ms(lambda: RT.any_hit_blocks(
+        tri, free, lists, counts, nudged), 5, 1)
+    # one box per chunk: each of the four boxes replaced by their union
+    union = torch.cat([boxes[:, 0:3].amin(-1, keepdim=True),
+                       boxes[:, 3:6].amax(-1, keepdim=True)], 1) \
+        .expand(-1, -1, RT.N_CULL).contiguous()
+    chunk_args = (tri, union, lists, counts, rays)
+    _, pairs_u = RT.any_hit_blocks(*chunk_args)
+    ms_chunk = cuda_ms(lambda: RT.any_hit_blocks(*chunk_args), 10, 2)
     ms_sub = cuda_ms(lambda: RT.any_hit_blocks(*sub), 10, 2)
     plain_ms = cuda_ms(lambda: RT.any_hit_blocks_plain(*sub), 1, 0)
-    log(f"K8 times: kernel {ms:.4f} ms over every tile; on the "
-        f"{sel.numel()} tiles kernel {ms_sub:.4f} ms, plain {plain_ms:.2f} "
-        "ms")
+    yard_ms, _ = bound(0.0, n_free * ANY_HIT_FLOPS_PER_PAIR)
+    log(f"K8 times: kernel {t['event_ms']:.4f} ms (device "
+        f"{t['device_ms']} ms, host {t['host_us']:.1f} us); without the "
+        f"cull {ms_free:.4f} ms; one box per chunk "
+        f"({float(pairs_u.double().sum()):.6g} pairs) {ms_chunk:.4f} ms; "
+        f"per-pair path (nudged directions, "
+        f"{float(pairs_n.double().sum()):.6g} pairs) {ms_nudged:.4f} ms, "
+        f"without the cull {ms_nudged_free:.4f} ms; on the {sel.numel()} "
+        f"tiles kernel {ms_sub:.4f} ms, plain {plain_ms:.2f} ms; "
+        f"yardstick bound (no cull, 47 a pair) {yard_ms:.4f} ms")
     # no PyTorch call traces rays: no library yardstick
     return [dict(with_bound(
-        dict(max_abs_err=err, mismatches=mism, exact=True, ms=ms,
-             plain_ms=plain_ms, ms_on_plain_tiles=ms_sub,
+        dict(max_abs_err=err, mismatches=mism, exact=True,
+             ms=t["event_ms"], device_ms=t["device_ms"],
+             host_us=t["host_us"], plain_ms=plain_ms, ms_no_cull=ms_free,
+             ms_per_pair_path=ms_nudged,
+             ms_per_pair_path_no_cull=ms_nudged_free,
+             ms_chunk_boxes=ms_chunk,
+             pairs_chunk_boxes=float(pairs_u.double().sum()),
+             ms_on_plain_tiles=ms_sub,
              plain_on=f"{sel.numel()} of {nb} tiles",
-             pairs=n_pairs, walk_pairs=walk_pairs,
-             chunk_visits=int(vis.sum())),
-        nbytes(tri, lists, counts, rays, hit, pairs),
-        n_pairs * ANY_HIT_FLOPS_PER_PAIR), name="any_hit")]
+             pairs=n_pairs, pairs_hoisted=p_h, pairs_per_pair_path=p_m,
+             pairs_no_cull=n_free, yardstick_bound_ms=yard_ms, walk=walk,
+             tiles_one_direction=int(tile_same.sum()),
+             warps_hoisting=int(warp_h.sum())),
+        nbytes(tri, boxes, lists, counts, rays, hit, pairs), ops),
+        name="any_hit")]
 
 
 # fp32 operations of K10 per output pixel and per output value, counted
@@ -1095,9 +1332,11 @@ def compare_warp(k, launches_by_mode):
         plain_ms = cuda_ms(lambda: W.warp_resample_plain(taa, sx, sy, mode),
                            5, 1)
         library_ms = library_device_ms = None
+        library_one = None
         if mode == "bilinear":
             lib = times["grid_sample"]
             library_ms, library_device_ms = lib["event_ms"], lib["device_ms"]
+            library_one = one["grid_sample"]
             lib_err = _max_abs(grid_sample_yardstick(taa, sx, sy)()[0], out)
             log(f"K10 bilinear yardstick grid_sample: max |diff| from K10 "
                 f"{lib_err:.3g} (not used by the port)")
@@ -1107,6 +1346,7 @@ def compare_warp(k, launches_by_mode):
                  ms=times[mode]["event_ms"],
                  device_ms=times[mode]["device_ms"],
                  host_us=times[mode]["host_us"], one_channel=one[mode],
+                 library_one_channel=library_one,
                  library_device_ms=library_device_ms, plain_ms=plain_ms,
                  timed_at=f"{tuple(taa.shape)}, synthetic motion"),
             n_bytes, flops, library_ms),
@@ -1240,6 +1480,7 @@ def graph_timing(m, reps: int = 7):
 # ---------------------------------------------------------------------------
 
 HBAO_SCRIPT = ROOT / "scripts" / "HBAO.py"
+FORWARD_SCRIPT = ROOT / "scripts" / "Forward.py"
 SVAO_FULL_SCRIPT = ROOT / "scripts" / "SVAO.py"
 SVAO_FULL_OUTPUTS = ("AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
                      "DiffuseTAA.colorOut", "DiffuseDLSS.output")
@@ -1428,17 +1669,8 @@ def _pair_fetch_sd_packed(args, kwargs):
 
 
 def _pair_any_hit(args, kwargs):
-    """On the spread tile subset (any_hit_subset): the plain version there,
-    and the launch over every tile cut to the subset."""
-    from rtsdm_tpu_torch.ops import rt_cuda as RT
-    tri, lists, counts, rays = args
-    nb = counts.shape[0]
-    full = RT.any_hit_blocks(*args, **kwargs)
-    sel, sub = any_hit_subset(tri, lists, counts, rays)
-    got = RT.any_hit_blocks(*sub)
-    return (got + tuple(a.reshape(nb, RT.RB)[sel].reshape(-1)
-                        for a in full),
-            RT.any_hit_blocks_plain(*sub) + got)
+    """On the spread tile subset (hold_any_hit)."""
+    return hold_any_hit(args)
 
 
 def _pair_sd_trace_resident(args, kwargs):
@@ -1624,20 +1856,27 @@ def dual_depth_frame(m, kernels):
 
 
 def small_configs_against_references():
-    """The configs' graphs and SVAO.py at their golden settings on the
-    card, held against the committed goldens (tests/image_refs; the JAX
-    package's output) by the golden runner's MSE bound, 2e-4
-    (rtsdm_tpu/testing/image_tests.py:96-100). SVAO.py's golden traces its
-    SD map with K7 (CornellBox: one chunk), every frame."""
+    """The configs' graphs, SVAO.py, Forward.py (CornellBox, Arcade and
+    the TAA sweep) and SVAO_small.py with a 32-pixel guard band at their
+    golden settings on the card, held against the committed goldens
+    (tests/image_refs; the JAX package's output) by the golden runner's
+    MSE bound, 2e-4 (rtsdm_tpu/testing/image_tests.py:96-100). SVAO.py's
+    golden traces its SD map with K7 (CornellBox: one chunk), every frame;
+    Forward.py launches K8 once a frame."""
     import numpy as np
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
     res = {}
-    for test, script in (("test_HBAO", HBAO_SCRIPT),
-                         ("test_SVAO_rasterSD", GRAPH_SCRIPT),
-                         ("test_SVAO_full", SVAO_FULL_SCRIPT)):
+    for test, script, kind in (
+            ("test_HBAO", HBAO_SCRIPT, "renderpasses"),
+            ("test_SVAO_rasterSD", GRAPH_SCRIPT, "renderpasses"),
+            ("test_SVAO_full", SVAO_FULL_SCRIPT, "renderpasses"),
+            ("test_Forward", FORWARD_SCRIPT, "renderpasses"),
+            ("test_Forward_arcade", FORWARD_SCRIPT, "renderpasses"),
+            ("test_TAA_sweep", FORWARD_SCRIPT, "renderscripts"),
+            ("test_SVAO_guardband", GRAPH_SCRIPT, "renderpasses")):
         ns = {}
-        exec((ROOT / "tests" / "image_tests" / "renderpasses"
+        exec((ROOT / "tests" / "image_tests" / kind
               / f"{test}.py").read_text(), ns)
         cfg = ns["IMAGE_TEST"]
         m = Renderer(cfg["width"], cfg["height"], device="cuda")
@@ -1659,7 +1898,10 @@ def small_configs_against_references():
                   and LAUNCHES["rtsdm_sd_trace"] == 0,
                   f"{test}: K7 launched {n} times, K5 "
                   f"{LAUNCHES['rtsdm_sd_trace']}")
-        for name in ns["OUTPUTS"]:
+        if script == FORWARD_SCRIPT:      # RayShadow: K8 once a frame
+            check(LAUNCHES["rtsdm_any_hit"] == max(cfg["frames"]) + 1,
+                  f"{test}: K8 launched {LAUNCHES['rtsdm_any_hit']} times")
+        for name in ns.get("OUTPUTS", sorted(out)):
             ref = np.load(ROOT / "tests" / "image_refs"
                           / f"{test}.{name}.{max(cfg['frames'])}.npy")
             img = out[name].float().cpu().numpy()
@@ -1995,6 +2237,9 @@ def main() -> int:
         k.result = COMPARE[k.name](k)
         log(f"  {k.name}: kernel {k.result['ms']:.4f} ms, plain "
             f"{k.result['plain_ms']:.4f} ms")
+    fetch_split = fetch_host_split(
+        *(kernels_by_name(kernels)[n] for n in ("fetch_all_directions",
+                                                 "fetch_sd_packed")))
     maxcount = maxcount_on_main_path(scene)
     raster_setup = raster_setup_ms(scene)
 
@@ -2075,7 +2320,8 @@ def main() -> int:
                       warp_launches_by_mode=warp_modes,
                       raster_calls=graph_raster),
         "configs": configs, "svao_full": svao_full,
-        "svao_path_maxcount8": maxcount, "raster_setup": raster_setup}}))
+        "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
+        "fetch_host_split_us": fetch_split}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

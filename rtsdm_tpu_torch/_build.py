@@ -63,7 +63,7 @@ KERNEL_SIGNATURES = {
         "rtsdm_warp_resample": [_P, _P, _P] + [_I] * 7 + [_P, _P],
     },
     "any_hit.cu": {
-        "rtsdm_any_hit": [_P] * 4 + [_I] * 3 + [_P, _P, _P],
+        "rtsdm_any_hit": [_P] * 5 + [_I] * 3 + [_P, _P, _P],
     },
     "raster_sd.cu": {
         "rtsdm_raster_stochastic": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P,

@@ -22,11 +22,11 @@ import runpy
 import sys
 import time
 
-import numpy as np
 import torch
 
 from . import falcor
 from .core.clock import Clock
+from .core.frame_capture import FrameCapture
 from .core.profiler import Profiler
 from .core.settings import Settings
 from .rendergraph.graph import RenderGraph
@@ -47,6 +47,8 @@ class Renderer:
         self.clock = Clock()
         self.settings = Settings()
         self.profiler = Profiler(enabled=False)
+        self.frameCapture = FrameCapture()
+        self.frameCapture._attach(self)
         self.graphs: list[RenderGraph] = []
         self.active_graph: RenderGraph | None = None
         self.scene = None
@@ -230,7 +232,8 @@ def main(argv=None) -> int:
     ap.add_argument("--height", type=int, default=256)
     ap.add_argument("--frames", type=int, default=1)
     ap.add_argument("--capture", default=None,
-                    help="directory for each frame's marked outputs (.npy)")
+                    help="directory for each frame's marked outputs: "
+                         "Mogwai.<graph>.<output>.<frame>.npy and .png")
     ap.add_argument("--profile", action="store_true",
                     help="print each pass's time (CUDA events) per frame and "
                          "the profiler's capture at the end")
@@ -249,7 +252,7 @@ def main(argv=None) -> int:
     m.profiler.enabled = args.profile
     for f in range(args.frames):
         m.clock.frame = f
-        out = m.renderFrame()
+        m.renderFrame()
         line = f"frame {f}: {m.last_frame_ms:.3f} ms (host clock)"
         if m.active_graph.time_passes:
             line += "; passes (ms): " + ", ".join(
@@ -257,10 +260,8 @@ def main(argv=None) -> int:
                 m.active_graph.pass_times_ms().items())
         print(line, flush=True)
         if args.capture:
-            os.makedirs(args.capture, exist_ok=True)
-            for k, v in out.items():
-                np.save(os.path.join(args.capture, f"{k}.{f}.npy"),
-                        v.float().cpu().numpy())
+            m.frameCapture.outputDir = args.capture
+            m.frameCapture.capture()
     print("outputs:", {k: tuple(v.shape) for k, v in m._last_outputs.items()})
     if args.profile:
         print(m.profiler.capture_json())

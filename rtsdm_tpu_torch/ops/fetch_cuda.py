@@ -8,7 +8,10 @@ Every kernel reads a static per-configuration table: for every direction,
 class and radius level the source (class and) offset of the shifted read.
 The tables are built once per configuration (K3/K4 from
 ao_shift.offset_tables, K6 from the HBAO ring's offsets) and kept on the
-device (a small bounded cache).
+device (a small bounded cache). K3 and K4 find theirs by the identity of
+the ring's tables, which the SVAO passes keep per configuration as
+immutable tuples (passes/svao_shift._ring): a call neither walks nor
+hashes them.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ from . import ao as A
 from . import ao_shift as S
 
 
-def _offs_key(offs):
+def offs_tuple(offs):
+    """Offset tables offs[d][c][l] = (dy, dx) as nested tuples of ints."""
     return tuple(tuple(tuple((int(dy), int(dx)) for (dy, dx) in cl)
                        for cl in d) for d in offs)
 
@@ -71,32 +75,54 @@ def same_class_table(offs, pad: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _host_table(kind, key):
-    """(table, ok) of one configuration (see direction_table, sd_table)."""
-    _, offs, _, extra = key
-    if kind == "dir":
-        return direction_table(offs, *extra), True
-    return sd_table(offs, *extra)
-
-
-@functools.lru_cache(maxsize=8)
 def _same_class_device_table(offs_key, pad: int, device):
     return torch.as_tensor(same_class_table(offs_key, pad), device=device)
 
 
-@functools.lru_cache(maxsize=8)
-def _device_tables(kind, key, device):
-    """Per-configuration lookup tables on `device` (immutable, cached)."""
-    levels, _, radii, _ = key
+# K3's and K4's tables by the identity of (levels, offs, radii); each entry
+# holds those objects, so their ids are not reused while it lives
+_TABLES: dict = {}
+_TABLES_MAX = 16
+MAX_BOUNDS = 63    # csrc/fetch.cu: K3's level search and shared memory
+MAX_DIRS = 64      # hold its bounds and radii
+
+
+def _build_tables(kind, levels, offs, radii, extra, device):
+    """(bounds, radii, table) on `device` and whether the table fits (K4's
+    halo condition; always True for K3)."""
     bounds = A.level_bounds(np.asarray(levels, np.float32))
+    if kind == "dir":
+        if len(bounds) > MAX_BOUNDS or len(offs) > MAX_DIRS \
+                or bool((np.diff(bounds) < 0).any()):
+            raise ValueError("fetch_all_directions: at most 63 ascending "
+                             "level bounds and 64 directions")
+        tab, ok = direction_table(offs, *extra), True
+    else:
+        tab, ok = sd_table(offs, *extra)
     return (torch.as_tensor(bounds, device=device),
             torch.as_tensor(np.asarray(radii, np.float32), device=device),
-            torch.as_tensor(_host_table(kind, key)[0], device=device))
+            torch.as_tensor(tab, device=device), ok)
 
 
-def _key(levels, offs, radii, extra):
-    return (tuple(float(x) for x in levels), _offs_key(offs),
-            tuple(float(r) for r in radii), tuple(extra))
+def _tables(kind, levels, offs, radii, extra, device):
+    """_build_tables of one configuration, cached while levels, offs and
+    radii are the immutable objects svao_shift._ring keeps (a read-only
+    array and tuples); other arguments are built anew on every call."""
+    frozen = (isinstance(offs, tuple) and isinstance(radii, tuple)
+              and isinstance(levels, np.ndarray)
+              and not levels.flags.writeable)
+    if not frozen:
+        return _build_tables(kind, levels, offs, radii, extra, device)
+    key = (kind, id(levels), id(offs), id(radii), extra, device)
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not levels or hit[1] is not offs \
+            or hit[2] is not radii:
+        if len(_TABLES) >= _TABLES_MAX:
+            _TABLES.clear()
+        hit = (levels, offs, radii,
+               _build_tables(kind, levels, offs, radii, extra, device))
+        _TABLES[key] = hit
+    return hit[3]
 
 
 def fetch_all_directions(padded_sets, pad: int, radius_px_q, levels, offs,
@@ -107,7 +133,10 @@ def fetch_all_directions(padded_sets, pad: int, radius_px_q, levels, offs,
     entry [d] equals fetch_direction(set, pad, shift_level_index(levels,
     radius * radii[d]), offs[d], qh, qw)."""
     qh, qw = radius_px_q.shape[1:]
-    planes = torch.stack(list(padded_sets)).contiguous()
+    sets = list(padded_sets)
+    # one set (SVAO's phases) is read in place, not stacked
+    planes = (sets[0][None] if len(sets) == 1 else torch.stack(sets)) \
+        .contiguous()
     radius = radius_px_q.contiguous()
     if planes.dtype != torch.float32 or radius.dtype != torch.float32:
         raise TypeError("fetch_all_directions: float32 planes and radius")
@@ -115,11 +144,13 @@ def fetch_all_directions(padded_sets, pad: int, radius_px_q, levels, offs,
     if (ph, pw) != (qh + 2 * pad, qw + 2 * pad):
         raise ValueError("fetch_all_directions: planes not padded by pad")
     if planes.is_cuda:
-        bounds, radii_t, tab = _device_tables(
-            "dir", _key(levels, offs, radii, (pad,)), planes.device)
+        bounds, radii_t, tab, _ = _tables("dir", levels, offs, radii,
+                                          (pad,), planes.device)
         nd = len(offs)
         out = torch.empty((n_src, nd, 16, qh, qw), dtype=torch.float32,
                           device=planes.device)
+        if max(planes.numel(), out.numel()) >= 2**31:
+            raise ValueError("fetch_all_directions: more than 2^31 values")
         launch("rtsdm_fetch_directions", ptr(planes), ptr(radius),
                ptr(bounds), ptr(radii_t), ptr(tab), n_src, nd, len(levels),
                qh, qw, ph, pw, ptr(out), stream_of(planes))
@@ -145,7 +176,7 @@ def _same_class_table_on(offs, pad: int, device):
     """same_class_table of offs on `device`, cached. A tuple
     (passes/hbao.shift_tables) is its own cache key: converting it would
     cost a millisecond of host time per call."""
-    key = offs if isinstance(offs, tuple) else _offs_key(offs)
+    key = offs if isinstance(offs, tuple) else offs_tuple(offs)
     return _same_class_device_table(key, pad, device)
 
 
@@ -234,12 +265,13 @@ def fetch_sd_packed(sd_map, guard: int, radius_px_q, levels, offs, radii,
     qh, qw = radius_px_q.shape[1:]
     sd_pl = pack_sd16(sd_map)
     kp, sd_h, sd_w = sd_pl.shape
-    key = _key(levels, offs, radii, (guard, pad, sd_h, sd_w, qh, qw))
-    if not _host_table("sd", key)[1]:
+    bounds, radii_t, tab, ok = _tables(
+        "sd", levels, offs, radii, (guard, pad, sd_h, sd_w, qh, qw),
+        sd_pl.device)
+    if not ok:
         return None
     radius = radius_px_q.contiguous()
     if sd_pl.is_cuda:
-        bounds, radii_t, tab = _device_tables("sd", key, sd_pl.device)
         nd = len(offs)
         out = torch.empty((nd, 16, kp, qh, qw), dtype=torch.int32,
                           device=sd_pl.device)

@@ -16,7 +16,8 @@ MaxCount cap.
 The shadow-ray any-hit (K8, counterpart of rt_pallas.py:any_hit_pallas)
 shares the chunking and the tile lists: its rays have their own origins, so
 chunks hold raw [n_chunks, 12, 128] rows (v0, e1, e2, flags) and the tile
-segment boxes are built from per-ray origins.
+segment boxes are built from per-ray origins. Each ray also culls the
+boxes of 32 triangles its own segment misses (any_hit_boxes).
 """
 from __future__ import annotations
 
@@ -574,8 +575,155 @@ def decode_packed(packed, near, far, normalize: bool = True,
 # the shadow-ray any-hit (K8)
 # ---------------------------------------------------------------------------
 
-def _check_any_hit_args(tri_packed, lists, counts, rays):
+CULL_SUB = 32             # triangles per cull box: a chunk has TC // CULL_SUB
+N_CULL = TC // CULL_SUB
+BOX_BIG = 3e38            # finite stand-in for infinity in the cull boxes
+FLAT_DIR = 1e-30          # |d_c| below this: the segment is flat along c
+U32 = 2.0 ** -24          # float32 unit roundoff
+GAMMA8 = 8 * U32 / (1 - 8 * U32)   # gamma_8 = 8u / (1 - 8u)
+
+
+def any_hit_boxes(tri_packed, rays):
+    """K8's cull boxes [n_chunks, 6, N_CULL] float32 (rows: lo x, y, z, hi
+    x, y, z; one box per CULL_SUB consecutive triangles of a chunk) for the
+    live rays of `rays` [8, nb*256] against classic chunks [n_chunks, 12,
+    TC]. A ray whose segment [tmin, tmax] misses a box (K8's slab test,
+    segment_overlaps) cannot have any triangle of the box accepted by K8's
+    float32 Moller-Trumbore test. The bound, for one accepted pair, with
+    u = 2^-24 and G = gamma_8 (every gamma_k below is at most G):
+
+    * the computed det', u*det' (pu'), v*det' (pv') and t*det' (tp') each
+      lie within G * S * |tv|_1 / |d|_1 (det: G * S) of the exact triple
+      products of the float inputs, S = |d|_1 |e1|_1 |e2|_1 (a cross
+      product, then a dot product, no contraction);
+    * the identity det*tv + tp*d = pu*e1 + pv*e2, exact for the exact
+      products, then places P = o + t'd (t' = tp'/det' within [tmin,
+      tmax] up to a factor 1 +- u) within delta = kappa * |tv|_1 of
+      Q = v0 + u'e1 + v'e2 (u', v' >= 0, u' + v' <= 1 + u: in the
+      triangle scaled by 1 + u about v0), per component, where kappa =
+      (4 G S / |det'| + G)(1 + G);
+    * |tv|_1 <= T |d|_1 + 3 delta + (1 + u) E (T = the largest |tmin|,
+      |tmax|, E = the larger of |e1|_1, |e2|_1), so delta <= kappa (T
+      |d|_1 + (1 + G) E) / (1 - 3 kappa) while 3 kappa < 1/2; beyond that
+      the triangle gets the whole space and is never culled;
+    * |det'| >= max(1e-9 (K8 accepts no smaller), |DET| - G S), and
+      |DET| >= |d|_2 |n|_2 sin(psi - beta): n = e1 x e2, psi the angle
+      between the rays' mean direction and the triangle's plane, beta the
+      largest angle between a live ray and that mean (all computed in
+      float64 for every live ray at once; a directional light gives beta
+      ~ 0, so grazing triangles alone widen).
+
+    Each triangle's box then grows by delta, by u T |d|_inf (t' beyond the
+    interval), by gamma_8 (|face| + max |o|) (the slab test's three
+    roundings move a face by at most gamma_3 |face - o|) and by 1e-20
+    (flat axes, FLAT_DIR), and is rounded outward to float32. Rejected
+    triangles (padding) extend no box; a box of none stays at (BOX_BIG,)*6,
+    which no segment with tmax < 3e38 meets."""
+    dev = tri_packed.device
+    n_chunks = tri_packed.shape[0]
+    empty = torch.full((n_chunks, 6, N_CULL), BOX_BIG, dtype=torch.float32,
+                       device=dev)
+    r = rays[:, rays[7] > rays[6]].double()          # the live rays
+    if n_chunks == 0 or r.shape[1] == 0:
+        return empty
+    o, d, tmin, tmax = r[0:3], r[3:6], r[6], r[7]
+    d1 = d.abs().sum(0).amax()
+    dinf = d.abs().amax()
+    big_t = torch.maximum(tmin.abs(), tmax.abs()).amax()
+    wo = o.abs().amax()
+    dn = d.norm(dim=0)
+    dh = d / dn
+    axis = dh.mean(1)
+    axis = axis / axis.norm().clamp(min=1e-300)
+    beta = torch.acos((dh * axis[:, None]).sum(0).amin().clamp(-1.0, 1.0)) \
+        + 1e-6
+    t = tri_packed.double()
+    v0, e1, e2 = t[:, 0:3], t[:, 3:6], t[:, 6:9]            # [n, 3, TC]
+    n = torch.stack([e1[:, 1] * e2[:, 2] - e1[:, 2] * e2[:, 1],
+                     e1[:, 2] * e2[:, 0] - e1[:, 0] * e2[:, 2],
+                     e1[:, 0] * e2[:, 1] - e1[:, 1] * e2[:, 0]], 1)
+    nn = n.norm(dim=1)
+    sin_psi = ((n * axis[None, :, None]).sum(1).abs()
+               / nn.clamp(min=1e-300)).clamp(0.0, 1.0)
+    ang = (torch.asin(sin_psi) - beta).clamp(min=0.0)
+    det_lo = dn.amin() * nn * torch.sin(ang) * (1.0 - 1e-9)
+    e1n, e2n = e1.abs().sum(1), e2.abs().sum(1)
+    s = d1 * e1n * e2n
+    adet = (det_lo - GAMMA8 * s).clamp(min=0.99e-9)
+    kappa = (4.0 * GAMMA8 * s / adet + GAMMA8) * (1.0 + GAMMA8)
+    delta = kappa * (big_t * d1 + (1.0 + GAMMA8) * torch.maximum(e1n, e2n)) \
+        / (1.0 - 3.0 * kappa)
+    bounded = (3.0 * kappa <= 0.5) & torch.isfinite(delta)
+    zero = torch.zeros_like(e1)
+    lo = v0 + (1.0 + U32) * torch.minimum(zero, torch.minimum(e1, e2))
+    hi = v0 + (1.0 + U32) * torch.maximum(zero, torch.maximum(e1, e2))
+    # float64 rounding of the corners, generously
+    lo = lo - 1e-15 * (v0.abs() + e1.abs() + e2.abs())
+    hi = hi + 1e-15 * (v0.abs() + e1.abs() + e2.abs())
+    pad = (delta + U32 * big_t * dinf * (1.0 + GAMMA8))[:, None] + 1e-20
+    lo = lo - pad
+    hi = hi + pad
+    lo = lo - GAMMA8 * (1.0 + GAMMA8) * (lo.abs() + wo)
+    hi = hi + GAMMA8 * (1.0 + GAMMA8) * (hi.abs() + wo)
+    lo = torch.where(bounded[:, None], lo, -BOX_BIG)
+    hi = torch.where(bounded[:, None], hi, BOX_BIG)
+    rej = (tri_packed[:, 10] != 0.0)[:, None]                # [n, 1, TC]
+    lo = torch.where(rej, BOX_BIG, lo).reshape(n_chunks, 3, N_CULL,
+                                               CULL_SUB).amin(-1)
+    hi = torch.where(rej, -BOX_BIG, hi).reshape(n_chunks, 3, N_CULL,
+                                                CULL_SUB).amax(-1)
+    none = lo[:, :1] > 1e38                       # every triangle rejected
+    hi = torch.where(none, BOX_BIG, hi)
+    lo32 = lo.clamp(-BOX_BIG, BOX_BIG).float()
+    hi32 = hi.clamp(-BOX_BIG, BOX_BIG).float()
+    lo32 = torch.where(lo32.double() > lo, torch.nextafter(
+        lo32, torch.tensor(-float("inf"), device=dev)), lo32)
+    hi32 = torch.where(hi32.double() < hi, torch.nextafter(
+        hi32, torch.tensor(float("inf"), device=dev)), hi32)
+    return torch.cat([lo32, hi32], 1).contiguous()
+
+
+def no_cull_boxes(n_chunks: int, device):
+    """Cull boxes that cull nothing (every box the whole space): K8 then
+    tests every triangle of every chunk it walks."""
+    return torch.cat([torch.full((n_chunks, 3, N_CULL), -BOX_BIG,
+                                 device=device),
+                      torch.full((n_chunks, 3, N_CULL), BOX_BIG,
+                                 device=device)], 1)
+
+
+def slab_rows(rays):
+    """Per ray, what K8's slab test reads: origin [3, R], 1/d [3, R] (0
+    on a flat axis, |d_c| < FLAT_DIR), flat [3, R] bool, tmin, tmax [R]."""
+    d = rays[3:6]
+    flat = d.abs() < FLAT_DIR
+    inv = torch.where(flat, 0.0, 1.0 / torch.where(flat, 1.0, d))
+    return rays[0:3], inv, flat, rays[6], rays[7]
+
+
+def segment_overlaps(o, inv, flat, tmin, tmax, lo, hi):
+    """K8's float32 slab test of segments against boxes (every argument
+    broadcast together; o, inv, flat, lo, hi indexed by axis first): does
+    [tmin, tmax] meet the box? The same operations in the same order as
+    any_hit.cu, so the answers agree bit for bit; a flat axis tests the
+    origin against the slab, so no 0 * inf arises."""
+    inf = float("inf")
+    tn, tf = tmin, tmax
+    for c in range(3):
+        t0 = (lo[c] - o[c]) * inv[c]
+        t1 = (hi[c] - o[c]) * inv[c]
+        inside = (o[c] >= lo[c]) & (o[c] <= hi[c])
+        a = torch.where(flat[c], torch.where(inside, -inf, inf),
+                        torch.minimum(t0, t1))
+        b = torch.where(flat[c], inf, torch.maximum(t0, t1))
+        tn = torch.maximum(tn, a)
+        tf = torch.minimum(tf, b)
+    return tn <= tf
+
+
+def _check_any_hit_args(tri_packed, boxes, lists, counts, rays):
     for t, dt, name in ((tri_packed, torch.float32, "tri_packed"),
+                        (boxes, torch.float32, "boxes"),
                         (lists, torch.int32, "lists"),
                         (counts, torch.int32, "counts"),
                         (rays, torch.float32, "rays")):
@@ -584,47 +732,97 @@ def _check_any_hit_args(tri_packed, lists, counts, rays):
                              f"{dt}")
     nb = counts.shape[0]
     if tri_packed.shape[1:] != (PACK_ROWS_CLASSIC, TC) \
+            or boxes.shape != (tri_packed.shape[0], 6, N_CULL) \
             or lists.shape[0] != nb or rays.shape != (8, nb * RB):
         raise ValueError("any_hit_blocks: inconsistent shapes")
 
 
-def any_hit_blocks(tri_packed, lists, counts, rays):
+def any_hit_blocks(tri_packed, boxes, lists, counts, rays):
     """K8: (hit [nb*256] bool, pairs [nb*256] int32) for rays [8, nb*256]
     = (ox, oy, oz, dx, dy, dz, tmin, tmax) in 8x32-tile order against
-    classic chunks; pairs counts the ray-triangle pairs each ray tested, up
-    to and including the one that hit. A tile walks its list until all of
-    its live rays (tmax > tmin) have hit."""
-    _check_any_hit_args(tri_packed, lists, counts, rays)
+    classic chunks and their cull boxes (any_hit_boxes). Each ray walks its
+    tile's list and tests the triangles of each box its segment meets, in
+    order, until its first hit; pairs counts the ray-triangle pairs it
+    tested, up to and including the one that hit. The hits are those of
+    the walk without the cull (any_hit_blocks_plain with boxes None)."""
+    _check_any_hit_args(tri_packed, boxes, lists, counts, rays)
     if tri_packed.is_cuda:
         nb = counts.shape[0]
         hit = torch.empty((nb * RB,), dtype=torch.uint8,
                           device=tri_packed.device)
         pairs = torch.empty((nb * RB,), dtype=torch.int32,
                             device=tri_packed.device)
-        launch("rtsdm_any_hit", ptr(tri_packed), ptr(lists), ptr(counts),
-               ptr(rays), nb, tri_packed.shape[0], lists.shape[1], ptr(hit),
-               ptr(pairs), stream_of(tri_packed))
+        launch("rtsdm_any_hit", ptr(tri_packed), ptr(boxes), ptr(lists),
+               ptr(counts), ptr(rays), nb, tri_packed.shape[0],
+               lists.shape[1], ptr(hit), ptr(pairs), stream_of(tri_packed))
         return hit.bool(), pairs
     if tri_packed.device.type != "cpu":
         raise RuntimeError(f"any_hit_blocks: unsupported device "
                            f"{tri_packed.device}")
-    return any_hit_blocks_plain(tri_packed, lists, counts, rays)
+    return any_hit_blocks_plain(tri_packed, boxes, lists, counts, rays)
+
+
+def any_hit_accepts(tri, ray):
+    """K8's pair test: [n, R, TC] bool, does ray j of row i (ray [8, n, R]
+    = ox, oy, oz, dx, dy, dz, tmin, tmax) hit triangle l of chunk tri[i]
+    ([n, 12, TC] classic rows) in (tmin, tmax), alpha mask included? The
+    kernel's float32 operations in its order (rt_pallas.py:
+    _classic_origin_math with k = 1, back faces per their flag)."""
+    tri = tri[:, :, None, :]                          # [n, 12, 1, TC]
+    ox, oy, oz, dx, dy, dz, tmin, tmax = (r[:, :, None] for r in ray)
+    e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
+    e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    tvx = ox - tri[:, 0]
+    tvy = oy - tri[:, 1]
+    tvz = oz - tri[:, 2]
+    pu = tvx * px + tvy * py + tvz * pz
+    qx = tvy * e1z - tvz * e1y
+    qy = tvz * e1x - tvx * e1z
+    qz = tvx * e1y - tvy * e1x
+    pv = dx * qx + dy * qy + dz * qz
+    tp = e2x * qx + e2y * qy + e2z * qz
+    ok = (torch.abs(det) > EPS_DET) \
+        & ((det > 0.0) | (tri[:, 9] > 0.0))
+    sg = torch.where(det >= 0.0, 1.0, -1.0)
+    adet, spu, spv, stp = det * sg, pu * sg, pv * sg, tp * sg
+    ok = ok & (tri[:, 10] == 0.0)
+    ok_face = ok & (spu >= 0.0) & (spv >= 0.0) \
+        & (spu + spv <= adet) & (stp > tmin * adet) \
+        & (stp < tmax * adet)
+    inv_det = 1.0 / torch.where(torch.abs(det) < EPS_DET, 1.0, det)
+    # lanes that fail the face test are zeroed before the integer
+    # conversion (their values are discarded anyway)
+    u = torch.where(ok_face, pu * inv_det, 0.0)
+    v = torch.where(ok_face, pv * inv_det, 0.0)
+    cell = (torch.clamp(u * 4.0, 0.0, 3.0).to(torch.int32)
+            + 4 * torch.clamp(v * 4.0, 0.0, 3.0).to(torch.int32))
+    abit = torch.bitwise_right_shift(tri[:, 11].to(torch.int32),
+                                     cell) & 1
+    return ok_face & (abit > 0)
 
 
 # tiles of K8's plain version evaluated at once
 ANY_HIT_PLAIN_BATCH = 64
 
 
-def any_hit_blocks_plain(tri_packed, lists, counts, rays):
+def any_hit_blocks_plain(tri_packed, boxes, lists, counts, rays):
     """Plain PyTorch version of K8: tiles advance through their chunk
     lists together (ANY_HIT_PLAIN_BATCH tiles at a time); a tile stops once
-    every live ray in it has hit."""
+    every live ray in it has hit. With boxes None every ray tests every
+    triangle of every chunk it walks (the contract K8's hits are held to);
+    with K8's boxes it replays K8's cull, so the pairs agree too."""
     dev = tri_packed.device
     nb, list_w = lists.shape
     n_chunks = tri_packed.shape[0]
     full = counts > list_w
     cnt = torch.where(full, n_chunks, counts)
     ray = rays.reshape(8, nb, RB)
+    o, inv, flat, _, _ = (a.reshape(a.shape[:-1] + (nb, RB))
+                          for a in slab_rows(rays))
     live = ray[7] > ray[6]
     hit = torch.zeros((nb, RB), dtype=torch.bool, device=dev)
     pairs = torch.zeros((nb, RB), dtype=torch.int32, device=dev)
@@ -637,48 +835,30 @@ def any_hit_blocks_plain(tri_packed, lists, counts, rays):
             rows = act_rows[s:s + ANY_HIT_PLAIN_BATCH]
             ci = torch.where(full[rows], j,
                              lists[rows, min(j, list_w - 1)]).long()
-            tri = tri_packed[ci][:, :, None, :]           # [na, 12, 1, TC]
-            ox, oy, oz, dx, dy, dz, tmin, tmax = (ray[i, rows][:, :, None]
-                                                  for i in range(8))
-            e1x, e1y, e1z = tri[:, 3], tri[:, 4], tri[:, 5]
-            e2x, e2y, e2z = tri[:, 6], tri[:, 7], tri[:, 8]
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
-            tvx = ox - tri[:, 0]
-            tvy = oy - tri[:, 1]
-            tvz = oz - tri[:, 2]
-            pu = tvx * px + tvy * py + tvz * pz
-            qx = tvy * e1z - tvz * e1y
-            qy = tvz * e1x - tvx * e1z
-            qz = tvx * e1y - tvy * e1x
-            pv = dx * qx + dy * qy + dz * qz
-            tp = e2x * qx + e2y * qy + e2z * qz
-            ok = (torch.abs(det) > EPS_DET) \
-                & ((det > 0.0) | (tri[:, 9] > 0.0))
-            sg = torch.where(det >= 0.0, 1.0, -1.0)
-            adet, spu, spv, stp = det * sg, pu * sg, pv * sg, tp * sg
-            ok = ok & (tri[:, 10] == 0.0)
-            ok_face = ok & (spu >= 0.0) & (spv >= 0.0) \
-                & (spu + spv <= adet) & (stp > tmin * adet) \
-                & (stp < tmax * adet)
-            inv = 1.0 / torch.where(torch.abs(det) < EPS_DET, 1.0, det)
-            # lanes that fail the face test are zeroed before the integer
-            # conversion (their values are discarded anyway)
-            u = torch.where(ok_face, pu * inv, 0.0)
-            v = torch.where(ok_face, pv * inv, 0.0)
-            cell = (torch.clamp(u * 4.0, 0.0, 3.0).to(torch.int32)
-                    + 4 * torch.clamp(v * 4.0, 0.0, 3.0).to(torch.int32))
-            abit = torch.bitwise_right_shift(tri[:, 11].to(torch.int32),
-                                             cell) & 1
-            okh = ok_face & (abit > 0)
-            # a ray tests the chunk's triangles in order up to its first hit
+            okh = any_hit_accepts(tri_packed[ci], ray[:, rows])
+            if boxes is None:
+                meets = torch.ones(okh.shape[:2] + (N_CULL,),
+                                   dtype=torch.bool, device=dev)
+            else:
+                bx = boxes[ci][:, :, None, :]             # [na, 6, 1, N]
+                meets = segment_overlaps(
+                    *(a[:, rows, :, None] for a in (o, inv, flat)),
+                    ray[6, rows][..., None], ray[7, rows][..., None],
+                    bx[:, 0:3].unbind(1), bx[:, 3:6].unbind(1))
+            okh = (okh.reshape(okh.shape[:2] + (N_CULL, CULL_SUB))
+                   & meets[..., None]).reshape(okh.shape)
+            # a ray tests, in order, the triangles of each box it meets up
+            # to its first hit
             tested = live[rows] & ~hit[rows]
             got = okh.any(-1)
-            first = torch.argmax(okh.to(torch.int32), -1).to(torch.int32)
-            pairs[rows] += torch.where(tested, torch.where(got, first + 1, TC),
-                                       0).to(torch.int32)
+            first = torch.argmax(okh.to(torch.int32), -1)
+            sub = meets.to(torch.int32) * CULL_SUB
+            before = torch.cumsum(sub, -1) - sub
+            upto = torch.gather(before, -1, (first // CULL_SUB)[..., None]
+                                )[..., 0] + first % CULL_SUB + 1
+            pairs[rows] += torch.where(
+                tested, torch.where(got, upto, sub.sum(-1)), 0) \
+                .to(torch.int32)
             hit[rows] |= tested & got
     return hit.reshape(nb * RB), pairs.reshape(nb * RB)
 
@@ -699,10 +879,12 @@ def any_hit_rays(origins, dirs, tmin, tmax):
 
 
 def any_hit_inputs(scene, origins, dirs, tmin, tmax):
-    """K8's arguments (tri_packed, lists, counts, rays) for rays [R, 3] /
-    [R] against `scene`: classic chunks with every face accepted (back
-    faces block shadow rays), ordered near to far along the mean ray
-    direction so tiles reach their occluders early, and the tiles' lists."""
+    """K8's arguments (tri_packed, boxes, lists, counts, rays) for rays
+    [R, 3] / [R] against `scene`: classic chunks with every face accepted
+    (back faces block shadow rays; the scene builder's morton order keeps
+    each chunk's triangles together), ordered near to far along the mean
+    ray direction so tiles reach their occluders early, their cull boxes
+    for these rays, and the tiles' lists."""
     v0t, e1t, e2t, flags = prep_triangles(scene, True)
     flags = flags.clone()
     flags[0] = 1.0
@@ -714,7 +896,9 @@ def any_hit_inputs(scene, origins, dirs, tmin, tmax):
     tri_packed = tri_packed[order].contiguous()
     lists, counts = build_chunk_lists(aabb[:, order], origins, dirs, tmin,
                                       tmax)
-    return tri_packed, lists, counts, any_hit_rays(origins, dirs, tmin, tmax)
+    rays = any_hit_rays(origins, dirs, tmin, tmax)
+    return (tri_packed, any_hit_boxes(tri_packed, rays), lists, counts,
+            rays)
 
 
 def any_hit(scene, origins, dirs, tmin, tmax):

@@ -190,6 +190,9 @@ class StochasticDepthMapRT(RenderPass):
                 cam.near_z, cam.far_z, **trace).reshape(sd_h, sd_w, k)
         depths = rt.decode_packed(packed, cam.near_z, cam.far_z,
                                   bool(self.cfg["normalize"]), mode=impl)
+        ctx.debug_print("sdrt.stochasticDepth", depths)
+        ctx.debug_print("sdrt.rayMin", ray_min)
+        ctx.debug_print("sdrt.rayMax", ray_max)
         return {"stochasticDepth": depths}, None
 
 

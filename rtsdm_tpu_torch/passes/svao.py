@@ -236,10 +236,20 @@ class SVAO(RenderPass):
 
         sd_graph = self._nested_graph(ctx.scene)
         sd_w, sd_h = self._stoch_map_size((w, h))
+        # PixelDebug reaches the nested graph: the selected pixel maps to
+        # SD texel (x // div + guard, y // div + guard), and the log is
+        # shared, so the nested taps land in the outer frame's log
+        sd_dbg = None
+        if ctx.pixel_debug is not None:
+            div = int(self.cfg["stochMapDivisor"])
+            g_sd = self._extra_guard()
+            sd_dbg = (ctx.pixel_debug[0] // div + g_sd,
+                      ctx.pixel_debug[1] // div + g_sd)
         sd_ctx = RenderContext(width=sd_w, height=sd_h, scene=ctx.scene,
                                frame_index=ctx.frame_index, time=ctx.time,
                                dictionary=ctx.dictionary,
-                               profiler=ctx.profiler)
+                               profiler=ctx.profiler, pixel_debug=sd_dbg)
+        sd_ctx.debug_log = ctx.debug_log
         marked, _, _ = sd_graph.execute(
             sd_ctx, {},
             external_inputs={"StochasticDepthMap.linearZ": depth,
@@ -248,11 +258,16 @@ class SVAO(RenderPass):
                              "StochasticDepthMap.rayMin": out["ray_min"],
                              "StochasticDepthMap.rayMax": out["ray_max"]})
         sd_map = marked["StochasticDepthMap.stochasticDepth"]
+        ctx.dictionary["SD_MAP"] = sd_map
         delta = svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
                                   bool(self.cfg["stochMapJitter"]),
                                   int(self.cfg["stochMapDivisor"]))
         ao = torch.where(stencil != 0, A.finalize(cfg, ao_raw + delta),
                          A.finalize(cfg, ao_raw))
+        ctx.debug_print("svao.ao_raw", ao_raw)
+        ctx.debug_print("svao.delta", delta)
+        ctx.debug_print("svao.stencil", stencil)
+        ctx.debug_print("svao.ao", ao)
         return {"ao": ao, "stencil": stencil,
                 "internalRayMin": out["ray_min"],
                 "internalRayMax": out["ray_max"]}, None

@@ -11,6 +11,7 @@ the HBAO kernel and dual depth stay in ROADMAP queue 1.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -19,7 +20,7 @@ import torch
 from ..ops import ao as A
 from ..ops import ao_shift as S
 from ..ops.fetch_cuda import (fetch_all_directions, fetch_sd_packed,
-                              unpack_sd16)
+                              offs_tuple, unpack_sd16)
 
 
 def _cam_consts(cam, cfg):
@@ -190,9 +191,23 @@ def _require_ray(cfg, bq, s, oz):
 
 
 def _ring(cfg):
-    levels, offs, radii = S.offset_tables(cfg, cfg.ss_max_radius)
-    pad = int(-(-float(levels[-1]) // 4)) + 1
-    return levels, offs, radii, pad
+    """(levels, offs, radii, pad) of cfg's ring of directions."""
+    return _ring_tables(int(cfg.num_directions), int(cfg.kernel),
+                        float(cfg.ss_max_radius))
+
+
+@functools.lru_cache(maxsize=8)
+def _ring_tables(num_directions: int, kernel: int, max_radius: float):
+    """The ring's tables, built once per configuration and kept immutable
+    (a read-only levels array, tuples): K3's and K4's wrappers find their
+    device tables by these objects' identity (ops/fetch_cuda._tables)."""
+    cfg = A.VAOConfig(num_directions=num_directions, kernel=kernel,
+                      ss_max_radius=max_radius)
+    levels, offs, radii = S.offset_tables(cfg, max_radius)
+    levels = np.array(levels, np.float32)
+    levels.setflags(write=False)
+    return (levels, offs_tuple(offs), tuple(float(r) for r in radii),
+            int(-(-float(levels[-1]) // 4)) + 1)
 
 
 def _check_cfg(cfg):

@@ -71,10 +71,27 @@ class RenderContext:
     # output channels of the running pass that something consumes; set by
     # RenderGraph.execute, None when a pass runs on its own
     consumed_outputs: Any = None
+    # PixelDebug (reference PixelDebug.h:65, a shader print() gated to one
+    # pixel): with pixel_debug = (x, y) set, passes' debug_print calls
+    # append (name, value at that pixel) to debug_log; None costs nothing
+    pixel_debug: Any = None
+    debug_log: list = dataclasses.field(default_factory=list)
 
     @property
     def guard_band(self) -> int:
         return int(self.dictionary.get("guardBand", 0))
+
+    def debug_print(self, name: str, arr) -> None:
+        """Record arr[y, x(, ...)] at the selected debug pixel, clamped to
+        the array (a no-op, with no device sync, while no pixel is
+        selected or arr has fewer than two dimensions)."""
+        if self.pixel_debug is None or not hasattr(arr, "ndim") \
+                or arr.ndim < 2:
+            return
+        x, y = self.pixel_debug
+        y = min(max(int(y), 0), arr.shape[0] - 1)
+        x = min(max(int(x), 0), arr.shape[1] - 1)
+        self.debug_log.append((name, arr[y, x]))
 
 
 class RenderPass:

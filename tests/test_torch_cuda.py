@@ -309,8 +309,10 @@ def test_warp_kernel_channels_and_ragged_rows_on_gpu(cuda_device, mode, c):
 def test_any_hit_kernel_matches_plain_on_gpu(cuda_device):
     """K8 against its plain version: per-ray origins, random alpha masks on
     every triangle, dead rays, and a list width small enough that some
-    tiles stream every chunk. Hits and the pairs each ray tested must
-    agree."""
+    tiles stream every chunk; random directions (the per-pair path, boxes
+    of the whole sphere of directions) and one shared direction (hoisted,
+    tight boxes). Hits must agree with the walk without the cull, pairs
+    with the replay of the cull."""
     st = arcade(device=cuda_device)
     rng = np.random.default_rng(17)
     t, m = st.num_triangles, st.mat_alpha_mode.shape[0]
@@ -329,14 +331,19 @@ def test_any_hit_kernel_matches_plain_on_gpu(cuda_device):
     tmax[rng.random(n) < 0.2] = -1.0
     args = [torch.as_tensor(a, device=cuda_device) for a in
             (origins, d, np.full(n, 1e-3, np.float32), tmax)]
-    tri, lists, counts, rays = RT.any_hit_inputs(st, *args)
-    for lw in (lists.shape[1], 2):
-        ls = lists[:, :lw].contiguous()
-        hit, pairs = RT.any_hit_blocks(tri, ls, counts, rays)
-        hit_p, pairs_p = RT.any_hit_blocks_plain(tri, ls, counts, rays)
-        assert torch.equal(hit, hit_p)
-        assert torch.equal(pairs, pairs_p)
-    assert hit.any() and not hit.all()
+    sun = torch.tensor([-0.36, 0.89, 0.27], device=cuda_device)
+    for dirs in (args[1], (sun / sun.norm()).expand(n, 3).contiguous()):
+        tri, boxes, lists, counts, rays = RT.any_hit_inputs(
+            st, args[0], dirs, *args[2:])
+        for lw in (lists.shape[1], 2):
+            ls = lists[:, :lw].contiguous()
+            hit, pairs = RT.any_hit_blocks(tri, boxes, ls, counts, rays)
+            hit_p, _ = RT.any_hit_blocks_plain(tri, None, ls, counts, rays)
+            _, pairs_p = RT.any_hit_blocks_plain(tri, boxes, ls, counts,
+                                                 rays)
+            assert torch.equal(hit, hit_p)
+            assert torch.equal(pairs, pairs_p)
+        assert hit.any() and not hit.all()
 
 
 def _raster_inputs(st, w, h):

@@ -174,3 +174,33 @@ def test_fetch_sd_direction_matches_reference(planes, divisor):
                                    torch.as_tensor(np.array(lvl)),
                                    p["offs"][d], guard, qh, qw, divisor)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_cached_ring_tables_equal_uncached():
+    """SVAO's ring tables are built once per configuration and kept
+    immutable; K3's and K4's wrappers find their device tables by those
+    objects (no call walks or hashes the offsets), and the cached tables
+    equal tables built anew from the uncached offset_tables."""
+    import dataclasses
+
+    from rtsdm_tpu_torch.passes import svao_shift as PH
+    cfg = A.VAOConfig(num_directions=8, ss_max_radius=512.0)
+    ring = PH._ring(cfg)
+    assert PH._ring(dataclasses.replace(cfg, resolution=(64, 48))) is ring
+    levels, offs, radii, pad = ring
+    assert not levels.flags.writeable
+    lv, of, ra = S.offset_tables(cfg, 512.0)
+    np.testing.assert_array_equal(levels, lv)
+    assert offs == tuple(tuple(tuple(c) for c in d) for d in of)
+    assert radii == tuple(float(r) for r in ra)
+    assert pad == int(-(-float(lv[-1]) // 4)) + 1
+    dev = torch.device("cpu")
+    for kind, extra in (("dir", (pad,)),
+                        ("sd", (128, pad, 528, 736, 68, 120))):
+        cached = F._tables(kind, levels, offs, radii, extra, dev)
+        assert F._tables(kind, levels, offs, radii, extra, dev) is cached
+        fresh = F._tables(kind, lv, of, ra, extra, dev)
+        assert fresh is not cached
+        for c, f in zip(cached[:3], fresh[:3]):
+            assert torch.equal(c, f)
+        assert cached[3] == fresh[3]

@@ -89,6 +89,62 @@ def test_svao_small_matches_goldens(svao_small_frames, output):
         assert hashlib.sha256(path.read_bytes()).hexdigest() == before
 
 
+GOLDENS = ROOT / "tests" / "image_tests"
+
+
+def _render_golden(test_file):
+    """The golden runner's steps (rtsdm_tpu/testing/image_tests.py:
+    run_test) through the port's Renderer on the CPU: the test's script,
+    guard band and pass overrides, a paused clock, frames 0..max; returns
+    (settings, {output.frame: image}) for the frames and outputs it
+    keeps."""
+    ns = {}
+    exec(test_file.read_text(), ns)
+    cfg = ns["IMAGE_TEST"]
+    m = Renderer(cfg["width"], cfg["height"], device="cpu")
+    run_script(str(ROOT / ns["SCRIPT"]), m)
+    if "guard_band" in cfg:
+        m.active_graph.get_pass("GuardBand").cfg["guardBand"] = \
+            cfg["guard_band"]
+    for name, props in cfg.get("pass_overrides", {}).items():
+        m.active_graph.get_pass(name).cfg.update(props)
+    m.loadScene(cfg["scene"])
+    m.clock.pause()
+    out = {}
+    for f in range(max(cfg["frames"]) + 1):
+        m.clock.frame = f
+        frame = m.renderFrame()
+        if f in cfg["frames"]:
+            out.update({f"{k}.{f}": v.numpy().astype(np.float32)
+                        for k, v in frame.items()
+                        if k in ns.get("OUTPUTS", frame)})
+    return cfg, out
+
+
+@pytest.mark.parametrize("golden", [
+    "renderpasses/test_Forward.py", "renderpasses/test_Forward_arcade.py",
+    "renderscripts/test_TAA_sweep.py", "renderpasses/test_SVAO_guardband.py"])
+def test_port_renders_golden(golden):
+    """Goldens the port renders that no other port test holds (the JAX
+    package's output of the same script and settings), by the golden
+    runner's MSE bound: Forward.py (RayShadow's K8, ForwardLighting, TAA;
+    CornellBox and Arcade), its TAA sweep at frame 2, and SVAO_small.py
+    with a 32-pixel guard band on 256x256."""
+    path = GOLDENS / golden
+    cfg, images = _render_golden(path)
+    assert cfg["tolerance"] == MSE_BOUND
+    name = path.stem
+    refs = sorted(REFS.glob(f"{name}.*.npy"))
+    assert refs and sorted(images) == sorted(
+        p.name[len(name) + 1:-len(".npy")] for p in refs)
+    for ref_path in refs:
+        ref = np.load(ref_path).astype(np.float32)
+        img = images[ref_path.name[len(name) + 1:-len(".npy")]]
+        assert img.shape == ref.shape, ref_path.name
+        mse = float(((img - ref) ** 2).mean())
+        assert mse <= MSE_BOUND, (ref_path.name, mse)
+
+
 HARNESS_ORDERS = """
 import sys
 sys.path.insert(0, {root!r})
@@ -172,5 +228,62 @@ def test_mogwai_main_runs_a_script_with_a_plugin(tmp_path, capsys):
     assert rc == 0
     assert "outputs: {'Half.dst': (24, 40)}" in capsys.readouterr().out
     for f in (0, 1):
-        img = np.load(tmp_path / "out" / f"Half.dst.{f}.npy")
+        img = np.load(tmp_path / "out"
+                      / f"Mogwai.PluginGraph.Half.dst.{f}.npy")
         assert img.shape == (24, 40) and np.isfinite(img).all()
+
+
+SCRIPT_DEPTH = '''
+from falcor import *
+
+g = RenderGraph("DepthGraph")
+g.addPass(createPass("GBufferRaster", {}), "GBufferRaster")
+g.addPass(createPass("LinearizeDepth", {}), "LinearizeDepth")
+g.addEdge("GBufferRaster.depth", "LinearizeDepth.depth")
+g.markOutput("LinearizeDepth.linearDepth")
+g.markOutput("GBufferRaster.faceNormalW")
+m.addGraph(g)
+'''
+
+
+def test_capture_names_files_as_the_reference(tmp_path):
+    """mogwai --capture goes through m.frameCapture as the reference's does
+    (rtsdm_tpu/mogwai.py:365-367). On CornellBox 64x64, two frames of a
+    G-buffer graph: the port's command line writes the same files, with
+    the same arrays (exactly), as the JAX package's FrameCapture
+    (rtsdm_tpu/core/frame_capture.py) attached to a port Renderer that
+    rendered the same frames: <base>.<graph>.<output>.<frame>.npy and a
+    .png preview."""
+    from rtsdm_tpu.core.frame_capture import FrameCapture as FrameCaptureJ
+    from rtsdm_tpu_torch import mogwai
+    from rtsdm_tpu_torch.core.frame_capture import FrameCapture
+    script = tmp_path / "depth_graph.py"
+    script.write_text(SCRIPT_DEPTH)
+    want_dir, got_dir = tmp_path / "ref", tmp_path / "port"
+    m, _ = run_script(str(script), Renderer(64, 64, device="cpu"))
+    m.loadScene("CornellBox")
+    m.clock.pause()
+    ref_cap = FrameCaptureJ()
+    ref_cap._attach(m)
+    ref_cap.outputDir = str(want_dir)
+    for f in (0, 1):
+        m.clock.frame = f
+        m.renderFrame()
+        ref_cap.capture()
+    assert mogwai.main([str(script), "--scene", "CornellBox", "--width",
+                        "64", "--height", "64", "--frames", "2", "--device",
+                        "cpu", "--capture", str(got_dir)]) == 0
+    want = sorted(p.name for p in want_dir.iterdir())
+    assert sorted(p.name for p in got_dir.iterdir()) == want
+    assert "Mogwai.DepthGraph.LinearizeDepth.linearDepth.1.npy" in want
+    assert "Mogwai.DepthGraph.GBufferRaster.faceNormalW.0.png" in want
+    for name in want:
+        if name.endswith(".npy"):
+            a, b = np.load(got_dir / name), np.load(want_dir / name)
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    cap = FrameCapture()
+    for fmt in ("exr", "png"):
+        cap.format = fmt
+        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
+            cap.capture()

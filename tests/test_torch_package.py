@@ -109,7 +109,8 @@ def _tiny_inputs():
         "warp_resample": (torch.ones((1, 2, 2)), torch.ones((1, 2)),
                           torch.ones((1, 2)), "bilinear"),
         "any_hit_blocks": (torch.zeros((1, RT.PACK_ROWS_CLASSIC, RT.TC)),
-                           lists, counts, torch.zeros((8, RT.RB))),
+                           torch.zeros((1, 6, RT.N_CULL)), lists, counts,
+                           torch.zeros((8, RT.RB))),
         "fetch_taps_same_class": (planes[None],
                                   torch.zeros((4, 16, 2, 2),
                                               dtype=torch.int32),

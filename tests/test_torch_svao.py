@@ -332,3 +332,108 @@ def test_finalize_and_dilation_match_reference():
     np.testing.assert_allclose(A.finalize(A.VAOConfig(), t(x)).numpy(),
                                np.asarray(AJ.finalize(cfg_j, jnp.asarray(x))),
                                rtol=2.5e-7, atol=0)
+
+
+@pytest.fixture(scope="module")
+def debug_case(case):
+    """The reference's SVAO.execute with a debug pixel selected (a
+    stenciled one, so the SD map is read there), on its accelerator path
+    (the nested trace on the Pallas tier), with its three heavy stages
+    replaced by their results in `case` (phase 1, the trace's decoded SD
+    map, phase 2; computed by the reference's own functions): its own glue
+    then publishes SD_MAP, maps the pixel into the nested graph and prints
+    its taps. And the port's SVAO.execute, run in full, on the same inputs
+    and pixel."""
+    import rtsdm_tpu.passes.svao_shift as shift_j
+    sj, st, ref = case["sj"], case["st"], case["ref"]
+    ys, xs = np.nonzero(ref["p1"]["stencil"])
+    px, py = int(xs[len(xs) // 2]), int(ys[len(ys) // 2])
+    pj = SVAO_J(PROPS)
+    pj.set_scene(sj)
+    pj._sd_graph = pj._build_sd_graph()
+    pj._sd_graph.set_scene(sj)
+    pj._sd_graph.passes["StochasticDepthMap"].cfg["pallasStream"] = True
+    ctx = RC_J(width=W, height=H, scene=sj, dictionary={"guardBand": 0},
+               pixel_debug=(px, py))
+    k = ref["sd_map"].shape[-1]
+    fake = [type("D", (), {"platform": "tpu"})()]
+    with mock.patch.object(jax, "devices", lambda *a, **kw: fake), \
+            mock.patch.object(shift_j, "svao_phase1_shift", lambda *a, **kw:
+                              {n: jnp.asarray(v)
+                               for n, v in ref["p1"].items()}), \
+            mock.patch.object(shift_j, "svao_phase2_shift", lambda *a, **kw:
+                              jnp.asarray(ref["delta"])), \
+            mock.patch.object(rp, "sd_trace_pallas_stream", lambda *a, **kw:
+                              jnp.zeros((a[2].shape[0], k), jnp.int32)), \
+            mock.patch.object(rp, "decode_packed", lambda *a, **kw:
+                              jnp.asarray(ref["sd_map"]).reshape(-1, k)):
+        pj.execute(ctx, {n: jnp.asarray(v) for n, v in (
+            ("gbufferDepth", ref["g"]["depth"]), ("depth", ref["lin"]),
+            ("normals", ref["nv_in"]))})
+    want = dict(sd_map=np.asarray(ctx.dictionary["SD_MAP"]),
+                names=[n for n, _ in ctx.debug_log],
+                values=[np.asarray(v) for _, v in ctx.debug_log])
+
+    pt = SVAO(PROPS)
+    pt.set_scene(st)
+    ctx_t = RenderContext(width=W, height=H, scene=st,
+                          dictionary={"guardBand": 0}, pixel_debug=(px, py))
+    pt.execute(ctx_t, {"gbufferDepth": t(ref["g"]["depth"]),
+                       "depth": t(ref["lin"]),
+                       "normals": t(ref["nv_in"].view(np.int32))})
+    return dict(want=want, ctx=ctx_t)
+
+
+def test_svao_publishes_its_sd_map(debug_case):
+    """SVAO stores the nested graph's SD map as ctx.dictionary["SD_MAP"],
+    as the reference does (rtsdm_tpu/passes/svao.py:247): the same shape,
+    the same empty slots, and the same depth codes wherever a texel has
+    fewer than k hits (test_sd_pass_matches_reference's rule)."""
+    got = debug_case["ctx"].dictionary["SD_MAP"].numpy()
+    want = debug_case["want"]["sd_map"]
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got == 1.0, want == 1.0)
+    free = (want < 1.0).sum(-1) < want.shape[-1]
+    assert free.any() and (want < 1.0).any()
+
+    def codes(d):
+        return np.sort(np.round(d * 65535.0), -1)[free]
+
+    np.testing.assert_array_equal(codes(got), codes(want))
+
+
+def test_svao_debug_print_at_one_pixel(debug_case):
+    """ctx.debug_print with a pixel selected: the reference's taps in its
+    order (the nested SD pass's at the pixel's SD texel, then SVAO's),
+    with their values; the stencil exactly, the SD depths as 16-bit codes,
+    the intervals to 1 ulp and the AO terms to 1e-5 (the bounds of the
+    stage tests above)."""
+    want = debug_case["want"]
+    log = debug_case["ctx"].debug_log
+    assert [n for n, _ in log] == want["names"] == [
+        "sdrt.stochasticDepth", "sdrt.rayMin", "sdrt.rayMax", "svao.ao_raw",
+        "svao.delta", "svao.stencil", "svao.ao"]
+    for (name, got), w in zip(log, want["values"]):
+        got = got.numpy()
+        assert got.shape == w.shape, name
+        if name == "svao.stencil":
+            np.testing.assert_array_equal(got, w.astype(np.int32))
+        elif name == "sdrt.stochasticDepth":
+            np.testing.assert_array_equal(np.round(got * 65535.0),
+                                          np.round(w * 65535.0))
+        elif name.startswith("sdrt.ray"):
+            np.testing.assert_allclose(got, w, rtol=2.5e-7, atol=0)
+        else:
+            np.testing.assert_allclose(got, w, atol=1e-5, rtol=0, err_msg=name)
+    assert int(log[5][1]) != 0                    # a stenciled pixel
+
+
+def test_debug_print_is_a_no_op_without_a_pixel():
+    """No pixel selected: nothing is logged (and nothing is read back)."""
+    ctx = RenderContext(width=4, height=4)
+    ctx.debug_print("x", torch.zeros((4, 4)))
+    assert ctx.debug_log == []
+    ctx.pixel_debug = (9, -3)                     # clamped to the array
+    ctx.debug_print("x", torch.arange(16.0).reshape(4, 4))
+    ctx.debug_print("scalar", torch.zeros(3))      # fewer than 2 dims
+    assert [(n, float(v)) for n, v in ctx.debug_log] == [("x", 3.0)]
