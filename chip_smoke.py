@@ -22,7 +22,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    host enqueue); K1's walk and cull replayed on the host give its bounds
    on the pairs it evaluates and on every lane of every visit; the host
    time of K1's inputs and cull boxes; K3's and K4's wrappers' host time
-   piece by piece (fetch_host_split);
+   piece by piece (fetch_host_split); K5's and K7's resources (registers,
+   shared memory, blocks an SM) and the SD trace stage piece by piece
+   (sd_stage_split: each rt_cuda function the SD pass calls, by CUDA events
+   and host time; K5's row is its whole wrapper, lists included);
 6. time a steady-state frame stage by stage (CUDA events) and through the
    public entry points (host clock), and profile one frame (torch.profiler:
    device time by kernel, and the device's idle share of the frame);
@@ -83,9 +86,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    stochMaxCount 8 (K7 with the cap, held); StochasticDepthMapRT at that
    frame's SD inputs in the default, kbuffer, coverage (alpha 0.375) and
    MaxCount 8 settings on both tiers, each call held and K7 equal to K5
-   bit for bit; K7 and K5 timed on the same rays; the frame timed as in
-   10. (Phase 5 also runs the SVAO path once with stochMaxCount 8: K5 with
-   the cap, held and timed.)
+   bit for bit; K7 and K5 timed on the same rays, K7's visits on its 8x32
+   tiles and on 256 consecutive rays; the SD stage split; the frame timed
+   as in 10. (Phase 5 also runs the SVAO path once with stochMaxCount 8:
+   K5 with the cap, held and timed.)
+16. with --parent DIR: the parent's SD stage (SVAO path and SVAO.py)
+   against this checkout's, in turns in processes of their own; both
+   checkouts' K5 and K7 resources; phase 17 through the parent's kernels,
+   measured only;
+17. scripts/SVAO_small.py at Arcade@full 480x270, frame 0, through K7 and
+   through K5, each marked output held by MSE against the JAX package's
+   render committed in tests/torch_refs/ (made by make_refs.py there).
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound and library yardstick), and
@@ -724,27 +735,41 @@ def fetch_host_split(k3, k4) -> dict:
     return res
 
 
+def k5_lists(args):
+    """The lists K5 builds inside the kernel for a recorded sd_trace_blocks
+    call (tri, aabb, origin, rays, k, cull_back, mode, max_count, alpha,
+    rx, ry), as its plain version builds them: (lists, counts)."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    aabb, origin, rays = args[1:4]
+    rx, ry = (args[9], args[10]) if len(args) > 10 else (None, None)
+    return RT.build_chunk_lists(aabb, origin, rays[0:3].T, rays[3], rays[4],
+                                rx, ry)
+
+
 def compare_sd_trace(k):
-    """K5: bit-exact expected (--fmad=false; the reservoir keeps the k
-    smallest distinct values whatever the insertion order); bounded
-    residual: at most 1e-4 of the rays differ. Also the key function on
-    the INT_MIN hash, where |INT_MIN| stays negative (key 32765)."""
+    """K5: bit-exact (--fmad=false; the reservoir keeps the k smallest
+    distinct values whatever the insertion order): zero rays may differ.
+    Also the key function on the INT_MIN hash, where |INT_MIN| stays
+    negative (key 32765)."""
     import torch
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     args, kwargs = k.calls[0]
     got = RT.sd_trace_blocks(*args, **kwargs)
     want = RT.sd_trace_blocks_plain(*args, **kwargs)
-    bad = (got != want).any(1)
-    mism = int(bad.sum())
+    mism = int((got != want).any(1).sum())
     err = _max_abs(RT.decode_packed(got, 0.0, 1.0),
                    RT.decode_packed(want, 0.0, 1.0))
     n = got.shape[0]
-    log(f"K5 sd_trace {n} rays x {got.shape[1]} slots, {args[0].shape[0]} "
-        f"chunks: {mism} rays differ; max |diff| of the decoded depths "
-        f"{err:.3g} (bound: {int(1e-4 * n)} rays)")
-    log(f"K5 walk: {chunk_visits(args[1], args[2], args[0].shape[0])}; "
-        f"rays with a hit {float((got != RT.INVALID).any(1).double().mean()):.4f}")
-    check(mism <= 1e-4 * n, "K5 disagrees with its plain version")
+    n_chunks = args[0].shape[0]
+    lists, counts = k5_lists(args)
+    visits = walk_visits(lists, counts, n_chunks)
+    log(f"K5 sd_trace {n} rays x {got.shape[1]} slots, {n_chunks} chunks: "
+        f"{mism} rays differ; max |diff| of the decoded depths {err:.3g} "
+        "(bound: bit-exact)")
+    log(f"K5 walk: visits per block {spread(visits)}; rays with a hit "
+        f"{float((got != RT.INVALID).any(1).double().mean()):.4f}")
+    check(mism == 0 and torch.equal(got, want),
+          f"K5 disagrees with its plain version on {mism} rays")
     check(bool((got != RT.INVALID).any()), "K5 found no hit")
 
     dev = got.device
@@ -762,16 +787,18 @@ def compare_sd_trace(k):
           "the trace kernel's key function disagrees with the plain one")
     log(f"K5 key function: INT_MIN -> {int(key_hb[0])}, 4096 (u, v) keys "
         "bit-exact")
-    tests = float(walk_visits(args[1], args[2], args[0].shape[0]).sum()) \
-        * RT.TC * RT.RB
-    # no PyTorch call traces rays: no library yardstick
+    tests = float(visits.sum()) * RT.TC * RT.RB
+    # no PyTorch call traces rays: no library yardstick. `ms` is replaced
+    # by the whole wrapper's time (sd_trace_stream, lists included) once
+    # the stage split has run; kernel_ms keeps the launch alone.
+    ms = cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10, 2)
     return with_bound(
         dict(max_abs_err=err, mismatches=mism,
-             exact=bool(torch.equal(got, want)),
-             ms=cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10, 2),
+             exact=bool(torch.equal(got, want)), ms=ms, kernel_ms=ms,
              plain_ms=cuda_ms(lambda: RT.sd_trace_blocks_plain(
-                 *args, **kwargs), 1, 1)),
-        nbytes(args[:4], got), tests * TRACE_FLOPS_PER_TEST)
+                 *args, **kwargs), 1, 1),
+             chunk_visits=int(visits.sum()), visits_per_block=spread(visits)),
+        nbytes(args[:4], args[9:11], got), tests * TRACE_FLOPS_PER_TEST)
 
 
 COMPARE = {"raster": compare_raster,
@@ -2008,13 +2035,17 @@ def hold_sd_call(call, what: str):
     return mism
 
 
-def resident_visits(args):
-    """Chunks each K7 block visits: its world-box overlaps (the plain
-    version's lists), as float64."""
+def resident_visits(args, tiled: bool = True):
+    """Chunks each K7 block visits, as float64: its world-box overlaps
+    (the plain version's lists) on the SD grid's 8x32 tiles, or with
+    tiled=False on blocks of 256 consecutive rays (the parent's K7)."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     tri, aabb, origin, rays = args[:4]
+    if tiled:
+        grid = args[9] if len(args) > 9 else None
+        rays = RT.grid_tile_rays(rays, *RT._grid(rays, grid))
     _, counts = RT.build_chunk_lists(aabb, origin, rays[0:3].T, rays[3],
-                                     rays[4])
+                                     rays[4], cap=tri.shape[0])
     return counts.double()
 
 
@@ -2073,9 +2104,9 @@ def svao_full_sd_phases(m):
     """After SVAO.py's frames: one frame with SVAO's stochMaxCount 8 (K7
     with the cap, held), then the SD pass at the next frame's inputs in
     every SD_SETTINGS entry on both tiers (sd_tiers_at). Returns (tiers,
-    filled slots per ray under the cap)."""
+    filled slots per ray under the cap, the SD pass's (pass, ctx, inputs)
+    of that frame)."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
-    from rtsdm_tpu_torch.passes.stochastic_depth import StochasticDepthMapRT
     svao = m.active_graph.get_pass("SVAO")
     svao.cfg["stochMaxCount"] = 8
     with sd_trace_calls() as calls:
@@ -2091,23 +2122,14 @@ def svao_full_sd_phases(m):
 
     # the nested SD graph is rebuilt with the restored properties, so the
     # capture goes on the class
-    seen = []
-    real_exec = StochasticDepthMapRT.execute
-
-    def capture(self, ctx, inputs, state=None):
-        seen.append((self.cfg, ctx, dict(inputs)))
-        return real_exec(self, ctx, inputs, state)
-
-    StochasticDepthMapRT.execute = capture
-    try:
+    with sd_pass_capture() as seen:
         m.renderFrame()
-    finally:
-        StochasticDepthMapRT.execute = real_exec
     check(len(seen) == 1, "the SD pass did not run once")
-    cfg, sd_ctx, sd_inputs = seen[0]
-    base = {k: v for k, v in cfg.items()
+    sd_pass, sd_ctx, sd_inputs = seen[0]
+    base = {k: v for k, v in sd_pass.cfg.items()
             if k not in ("Implementation", "MaxCount", "pallasStream")}
-    return sd_tiers_at(m._scene_comp, sd_ctx, sd_inputs, base), capped
+    return (sd_tiers_at(m._scene_comp, sd_ctx, sd_inputs, base), capped,
+            seen[0])
 
 
 def resident_row(tiers):
@@ -2120,23 +2142,24 @@ def resident_row(tiers):
                    RT.decode_packed(plain, 0.0, 1.0))
     visits = resident_visits(args)
     n_chunks = args[0].shape[0]
+    walk = spread(visits)
+    row_major = spread(resident_visits(args, tiled=False))
     log(f"K7 sd_trace_resident {out.shape[0]} rays x {out.shape[1]} slots, "
-        f"{n_chunks} chunks: {visits.numel()} blocks visit "
-        f"{float(visits.mean()):.1f} chunks on average (max "
-        f"{int(visits.max())}, {int(visits.sum())} in all)")
+        f"{n_chunks} chunks: visits per 8x32 tile {walk}; per block of 256 "
+        f"consecutive rays (the parent's blocking) {row_major}")
     ms = cuda_ms(lambda: RT.sd_trace_resident_blocks(*args, **kwargs), 10, 2)
     plain_ms = cuda_ms(lambda: RT.sd_trace_resident_blocks_plain(
         *args, **kwargs), 1, 1)
     _, a5, kw5, _ = tiers["default"]["stream"]
     ms5 = cuda_ms(lambda: RT.sd_trace_blocks(*a5, **kw5), 10, 2)
-    v5 = walk_visits(a5[1], a5[2], a5[0].shape[0])
-    log(f"K7 {ms:.4f} ms (plain {plain_ms:.2f} ms); K5 on the same rays in "
-        f"8x32 tiles with its lists {ms5:.4f} ms "
-        f"({chunk_visits(a5[1], a5[2], a5[0].shape[0])})")
+    v5 = walk_visits(*k5_lists(a5), a5[0].shape[0])
+    log(f"K7 {ms:.4f} ms (plain {plain_ms:.2f} ms); K5 on the same rays "
+        f"{ms5:.4f} ms ({spread(v5)})")
     return with_bound(
         dict(max_abs_err=err, mismatches=0, exact=True, ms=ms,
              plain_ms=plain_ms, timed_at=f"{tuple(out.shape)} rays x slots, "
              f"{n_chunks} chunks", chunk_visits=int(visits.sum()),
+             visits_per_block=walk, visits_per_block_row_major=row_major,
              k5_same_rays_ms=ms5, k5_chunk_visits=int(v5.sum())),
         nbytes(args[:4], out),
         float(visits.sum()) * RT.TC * RT.RB * TRACE_FLOPS_PER_TEST)
@@ -2154,8 +2177,12 @@ def run_svao_full():
     m, totals, modes = drive_config(label, kernels)
     held = check_config_calls(label, kernels)
     raster_calls = time_raster_calls(label, by_name["raster"].calls)
-    tiers, capped = svao_full_sd_phases(m)
+    tiers, capped, sd_call = svao_full_sd_phases(m)
     row = resident_row(tiers)
+    row["sd_stage"] = sd_stage_split(*sd_call)
+    whole = row["sd_stage"]["sd_trace_resident"]
+    row.update(kernel_ms=row["ms"], ms=whole["event_ms"],
+               device_ms=whole["device_ms"], wrapper_host_us=whole["host_us"])
     times, _ = graph_timing(m)
     row = dict(row, name="sd_trace_resident",
                launches=totals["sd_trace_resident"],
@@ -2201,13 +2228,339 @@ def maxcount_on_main_path(scene):
                 filled_slots_per_ray=filled)
 
 # ---------------------------------------------------------------------------
+# the SD trace stage piece by piece, K5's and K7's resources and walks
+# ---------------------------------------------------------------------------
 
-def main() -> int:
+# rt_cuda functions the SD pass calls, timed piece by piece (the wrappers
+# sd_trace_stream and sd_trace_resident hold the pieces they call)
+SD_PIECES = ("prep_triangles_packed", "chunk_screen_rows",
+             "build_chunk_lists", "_ray_rows", "pad_tile", "tile_flatten",
+             "tile_unflatten", "sd_trace_blocks", "sd_trace_resident_blocks",
+             "decode_packed", "sd_trace_stream", "sd_trace_resident")
+
+
+@contextlib.contextmanager
+def sd_pass_capture():
+    """Record (pass, ctx, inputs) of every StochasticDepthMapRT.execute."""
+    from rtsdm_tpu_torch.passes.stochastic_depth import StochasticDepthMapRT
+    seen = []
+    real = StochasticDepthMapRT.execute
+
+    def capture(self, ctx, inputs, state=None):
+        seen.append((self, ctx, dict(inputs)))
+        return real(self, ctx, inputs, state)
+
+    StochasticDepthMapRT.execute = capture
+    try:
+        yield seen
+    finally:
+        StochasticDepthMapRT.execute = real
+
+
+def sd_stage_split(sd_pass, ctx, inputs, reps: int = 10) -> dict:
+    """The SD pass's execute on these inputs, whole and piece by piece:
+    for each rt_cuda function of SD_PIECES that it calls, all its calls
+    replayed together, by CUDA events (host work included) and host
+    enqueue time; K5's or K7's kernel by torch.profiler. On the streamed
+    tier build_chunk_lists is also timed when the path no longer calls it
+    (`off_path`)."""
     import torch
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    real = {n: getattr(RT, n) for n in SD_PIECES}
+    calls = {n: [] for n in SD_PIECES}
+
+    def rec(n):
+        def f(*a, **kw):
+            calls[n].append((a, kw))
+            return real[n](*a, **kw)
+        return f
+
+    for n in SD_PIECES:
+        setattr(RT, n, rec(n))
+    try:
+        sd_pass.execute(ctx, inputs)
+    finally:
+        for n, fn in real.items():
+            setattr(RT, n, fn)
+    torch.cuda.synchronize()
+
+    def replay(n):
+        def run():
+            for a, kw in calls[n]:
+                real[n](*a, **kw)
+        return run
+
+    res = {"stage": dict(event_ms=cuda_ms(lambda: sd_pass.execute(
+        ctx, inputs), reps, 2), host_us=host_us(lambda: sd_pass.execute(
+            ctx, inputs), reps))}
+    for n in SD_PIECES:
+        if calls[n]:
+            res[n] = dict(calls=len(calls[n]),
+                          event_ms=cuda_ms(replay(n), reps, 2),
+                          host_us=host_us(replay(n), reps))
+    if calls["sd_trace_stream"] and not calls["build_chunk_lists"]:
+        a, kw = calls["sd_trace_stream"][0]
+        lists_args = (a[1], a[2], a[3], a[4], a[5], kw.get("rx"),
+                      kw.get("ry"))
+        res["build_chunk_lists"] = dict(
+            calls=0, off_path=True,
+            event_ms=cuda_ms(lambda: RT.build_chunk_lists(*lists_args),
+                             reps, 2),
+            host_us=host_us(lambda: RT.build_chunk_lists(*lists_args), reps))
+    for n in ("sd_trace_stream", "sd_trace_resident"):
+        if calls[n]:
+            res[n]["device_ms"] = device_ms(replay(n), "sd_trace", reps)
+    log("SD stage split (CUDA events ms / host us): " + "; ".join(
+        f"{n} {v['event_ms']:.4f} / {v['host_us']:.1f}"
+        + (" (off the path)" if v.get("off_path") else "")
+        + (f", device {v['device_ms']:.4f}" if v.get("device_ms") else "")
+        for n, v in res.items()))
+    return res
+
+
+def spread(visits) -> dict:
+    """Max, mean and tail of the chunk visits per block (float64 tensor)."""
+    import torch
+    v = visits.double().cpu()
+    q = torch.quantile(v, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64))
+    return dict(blocks=int(v.numel()), total=int(v.sum()),
+                mean=float(v.mean()), p50=float(q[0]), p90=float(q[1]),
+                p99=float(q[2]), max=int(v.max()))
+
+
+# sm_90's limits a block's resources count against (occupancy)
+SM_REGS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
+SM_SHARED, BLOCK_SHARED_RESERVED = 233472, 1024
+SD_THREADS = 256    # K5's and K7's block (the parent's too)
+
+
+def sd_trace_resources() -> dict:
+    """Registers a thread, static shared and local bytes of K5's and K7's
+    k = 4 kernels (with the back-face cull, where it is a template
+    parameter) as the imported package built them, read from its
+    sd_trace library by cuobjdump --dump-resource-usage, and the blocks
+    of 256 threads an SM holds by them (sm_90's limits; registers are
+    allocated 256 a warp)."""
+    import re
+    from rtsdm_tpu_torch import _build
+    src = _build.CSRC_DIR / "sd_trace.cu"
+    headers = sorted(_build.CSRC_DIR.glob("*.cuh"))
+    digest = _build._digest([src, *headers], _build.NVCC_FLAGS)
+    lib = _build.BUILD_DIR / f"librtsdm_sd_trace_{digest}.so"
+    check(lib.exists(), f"{lib} is not built")
+    dump = subprocess.run(
+        [str(Path(_build.nvcc_path()).parent / "cuobjdump"),
+         "--dump-resource-usage", str(lib)],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    res = {}
+    for m in re.finditer(r"Function \S*?\d+(sd_trace_kernel|"
+                         r"sd_trace_resident_kernel)ILi4E(?:Lb1E)?E\S*:"
+                         r"\s*REG:(\d+) STACK:\d+ SHARED:(\d+) LOCAL:(\d+)",
+                         dump):
+        name = m.group(1).replace("_kernel", "")
+        regs, shared, local = (int(g) for g in m.group(2, 3, 4))
+        warps = SD_THREADS // 32
+        by_regs = SM_REGS // (-(-regs * 32 // 256) * 256) // warps
+        by_shared = SM_SHARED // (-(-shared // 128) * 128
+                                  + BLOCK_SHARED_RESERVED)
+        res[name] = dict(registers=regs, shared_bytes=shared,
+                         local_bytes=local, threads=SD_THREADS,
+                         blocks_per_sm=min(by_regs, by_shared, SM_BLOCKS,
+                                           SM_THREADS // SD_THREADS))
+    check(set(res) == {"sd_trace", "sd_trace_resident"},
+          f"cuobjdump listed {sorted(res)} of K5 and K7 in {lib.name}")
+    log("SD trace resources (k = 4, cuobjdump): " + "; ".join(
+        f"{n}: {v['registers']} registers, {v['shared_bytes']} B shared, "
+        f"{v['local_bytes']} B local, {v['threads']} threads a block, "
+        f"{v['blocks_per_sm']} blocks an SM" for n, v in res.items()))
+    return res
+
+
+def import_checkout(root: Path):
+    """Import rtsdm_tpu_torch from the checkout at `root`."""
+    sys.path.insert(0, str(root))
+    import rtsdm_tpu_torch
+    where = Path(rtsdm_tpu_torch.__file__).resolve().parent.parent
+    check(where == root.resolve(), f"rtsdm_tpu_torch imported from {where}")
+
+
+def sd_child(root: Path) -> dict:
+    """Run as `chip_smoke.py --sd-child ROOT` in a process of its own: the
+    SD stage, piece by piece (sd_stage_split), of the SVAO path
+    (SunTemple@full 1920x1080) and of scripts/SVAO.py's first frame
+    (Arcade@full 1280x720) through the package of the checkout at ROOT,
+    and its K5's and K7's resources (sd_trace_resources)."""
+    import_checkout(root)
+    from rtsdm_tpu_torch.scene.procedural import sun_temple
+    scene = sun_temple(aspect=WIDTH / HEIGHT, detail="full", device="cuda")
+    pass_, ctx = make_svao(scene, WIDTH, HEIGHT, SVAO_PROPS)
+    with sd_pass_capture() as seen:
+        frame(scene, pass_, ctx, WIDTH, HEIGHT)
+    res = {"svao_path": sd_stage_split(*seen[0])}
+    m = config_renderer("svao_full")
+    with sd_pass_capture() as seen:
+        m.renderFrame()
+    res["svao_full"] = sd_stage_split(*seen[0])
+    res["resources"] = sd_trace_resources()
+    return res
+
+
+def child(flag: str, root: Path) -> dict:
+    """The JSON a `chip_smoke.py FLAG ROOT` child process prints last."""
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                          str(root)], capture_output=True, text=True,
+                         timeout=900)
+    check(out.returncode == 0, f"{flag} {root} failed:\n"
+                               f"{out.stdout[-3000:]}{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def sd_trace_ab(parent: Path) -> dict:
+    """The parent's SD stage and resources against this checkout's, in
+    turns (parent, change, change, parent), each in a process of its own
+    (sd_child), on this card; and the mid-size comparison through the
+    parent's kernels (mid_size_against_jax, measured only). Returns the
+    four runs and the parent's MSEs."""
+    runs = []
+    for who in ("parent", "change", "change", "parent"):
+        res = child("--sd-child", parent if who == "parent" else ROOT)
+        runs.append(dict(who=who, **res))
+        for cell in ("svao_path", "svao_full"):
+            split = res[cell]
+            log(f"A/B {who} {cell}: stage {split['stage']['event_ms']:.4f} "
+                "ms; " + ", ".join(
+                    f"{n} {v['event_ms']:.4f} ms"
+                    + (f" (device {v['device_ms']:.4f})"
+                       if v.get("device_ms") else "")
+                    for n, v in split.items() if n != "stage"))
+    mid = child("--mid-child", parent)
+    log("mid size through the parent's kernels: " + ", ".join(
+        f"{k} MSE {v['mse']:.4g}" for k, v in mid.items()))
+    return dict(runs=runs, parent_mid_size=mid)
+
+
+# ---------------------------------------------------------------------------
+# the mid-size comparison with the JAX package
+# ---------------------------------------------------------------------------
+
+# scripts/SVAO_small.py as tests/torch_refs/make_refs.py rendered it with the
+# JAX package on the CPU (tests/test_torch_refs.py checks that the file
+# records these settings)
+MID_REF = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
+               width=480, height=270, frames=1, frame=0,
+               outputs=["AmbientOcclusion.out", "Shaded.out",
+                        "AmbientOcclusionTAA.colorOut",
+                        "ShadedTAA.colorOut"],
+               pass_overrides={p: {"maxPerTile": 4096}
+                               for p in ("GBufferRaster", "DepthPeeling",
+                                         "ForwardLighting")},
+               shadows="RayShadow through any_hit_pallas (interpret mode)")
+MID_REF_FILE = ROOT / "tests" / "torch_refs" / \
+    "SVAO_small.Arcade_full.480x270.f0.npz"
+# MSE bound of each output against the JAX package's render: the MSE
+# measured on the card through the parent commit's kernels (AO 3.69e-6, its
+# TAA 4.70e-6, Shaded 2.54e-6, its TAA 6.28e-7; PERF.md section 6), doubled
+# and rounded up to one digit. What is left is located in PERF.md: the
+# rasters' last bits (tests/torch_refs/compare_passes.py --substitute) and
+# the SD map's keys; the card differs from the port on the CPU as much.
+MID_MSE_BOUND = {"AmbientOcclusion.out": 8e-6,
+                 "AmbientOcclusionTAA.colorOut": 1e-5,
+                 "Shaded.out": 6e-6, "ShadedTAA.colorOut": 2e-6}
+
+
+def mid_size_against_jax(bound: dict | None = MID_MSE_BOUND) -> dict:
+    """SVAO_small.py at MID_REF's scene, size, pass overrides (the port's
+    rasters keep no per-tile cap, so maxPerTile changes nothing there) and
+    frame through the port on the card, twice: pallasStream 'auto'
+    (Arcade's 38,610 triangles: the resident tier, K7) and True (the
+    streamed tier, K5). Each marked output is held against the JAX
+    package's render by MSE under its `bound` (None: measured only); the
+    share of pixels that differ at all and by more than 1e-3 is logged."""
+    import numpy as np
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    ref = np.load(MID_REF_FILE)
+    recorded = json.loads(str(ref["settings"]))
+    check({k: recorded[k] for k in MID_REF} == MID_REF,
+          f"{MID_REF_FILE.name} records {recorded}, not {MID_REF}")
+    res = {}
+    for stream in ("auto", True):
+        m = Renderer(MID_REF["width"], MID_REF["height"], device="cuda")
+        run_script(str(ROOT / MID_REF["script"]), m)
+        for name, props in MID_REF["pass_overrides"].items():
+            m.active_graph.get_pass(name).cfg.update(props)
+        svao = m.active_graph.get_pass("SVAO")
+        base = svao._sd_pass
+        svao._sd_pass = lambda _b=base, _s=stream: (
+            _b()[0], {**_b()[1], "pallasStream": _s})
+        m.loadScene(MID_REF["scene"])
+        m.clock.pause()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        for f in range(MID_REF["frames"]):
+            m.clock.frame = f
+            out = m.renderFrame()
+            if f == MID_REF["frame"]:
+                kept = {k: out[k].float().cpu().numpy()
+                        for k in MID_REF["outputs"]}
+        torch.cuda.synchronize()
+        k5, k7 = LAUNCHES["rtsdm_sd_trace"], LAUNCHES["rtsdm_sd_trace_resident"]
+        n = MID_REF["frames"]
+        tier = "K5" if stream is True else "K7"
+        check((k5, k7) == ((n, 0) if stream is True else (0, n)),
+              f"mid size pallasStream={stream}: K5 {k5}, K7 {k7} launches")
+        for name in MID_REF["outputs"]:
+            img, want = kept[name], ref[name]
+            check(img.shape == want.shape,
+                  f"mid size {name}: shape {img.shape}, JAX {want.shape}")
+            check(bool(np.isfinite(img).all()), f"mid size {name}: not finite")
+            d = np.abs(img - want)
+            d = d.max(-1) if d.ndim == 3 else d
+            mse = float(((img - want) ** 2).mean())
+            row = dict(mse=mse, differ=float((d > 0).mean()),
+                       differ_1e3=float((d > 1e-3).mean()),
+                       max_abs=float(d.max()))
+            res[f"{tier}.{name}"] = row
+            log(f"mid size {MID_REF['scene']} {MID_REF['width']}x"
+                f"{MID_REF['height']} through {tier}, {name} vs the JAX "
+                f"package: MSE {mse:.4g} (bound "
+                f"{bound[name] if bound else None}); pixels "
+                f"differing {row['differ']:.5f}, by > 1e-3 "
+                f"{row['differ_1e3']:.5f}; max |diff| {row['max_abs']:.4g}")
+        del m
+    if bound is not None:
+        bad = {k: v["mse"] for k, v in res.items()
+               if v["mse"] > bound[k.split(".", 1)[1]]}
+        check(not bad, f"mid size: MSE above its bound: {bad}")
+    return res
+
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    import argparse
+    import torch
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                             "NVIDIA GPU")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="an unpacked checkout of the parent commit: time "
+                         "its SD stage against this one's (sd_trace_ab)")
+    ap.add_argument("--sd-child", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mid-child", type=Path, default=None,
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.sd_child is not None:
+        print(json.dumps(sd_child(args.sd_child)), flush=True)
+        return 0
+    if args.mid_child is not None:
+        import_checkout(args.mid_child)
+        print(json.dumps(mid_size_against_jax(bound=None)), flush=True)
+        return 0
     load_port()
     from rtsdm_tpu_torch import _build
     from rtsdm_tpu_torch.scene.procedural import sun_temple
@@ -2242,6 +2595,18 @@ def main() -> int:
                                                  "fetch_sd_packed")))
     maxcount = maxcount_on_main_path(scene)
     raster_setup = raster_setup_ms(scene)
+    resources = sd_trace_resources()
+    with sd_pass_capture() as seen:
+        frame(scene, pass_, ctx, WIDTH, HEIGHT)
+    check(len(seen) == 1, "the SD pass did not run once")
+    sd_stage = sd_stage_split(*seen[0])
+    k5 = kernels_by_name(kernels)["sd_trace"].result
+    k5.update(ms=sd_stage["sd_trace_stream"]["event_ms"],
+              device_ms=sd_stage["sd_trace_stream"]["device_ms"],
+              wrapper_host_us=sd_stage["sd_trace_stream"]["host_us"])
+    log(f"K5 row: whole wrapper (sd_trace_stream, lists included) "
+        f"{k5['ms']:.4f} ms by CUDA events, the launch alone "
+        f"{k5['kernel_ms']:.4f} ms, device {k5['device_ms']} ms")
 
     torch.cuda.reset_peak_memory_stats()
     stages = staged_frame_ms(scene, pass_, ctx)
@@ -2303,6 +2668,8 @@ def main() -> int:
     config_rows, configs = run_configs()
     k7_row, svao_full = run_svao_full()
     config_rows.append(k7_row)
+    ab = sd_trace_ab(args.parent.resolve()) if args.parent else None
+    mid_size = mid_size_against_jax()
     rows += config_rows
     for r in config_rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
@@ -2321,6 +2688,8 @@ def main() -> int:
                       raster_calls=graph_raster),
         "configs": configs, "svao_full": svao_full,
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
+        "sd_stage": sd_stage, "sd_trace_resources": resources,
+        "mid_size_vs_jax": mid_size, "sd_trace_ab": ab,
         "fetch_host_split_us": fetch_split}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -3,15 +3,16 @@ csrc/sd_trace.cu, their plain PyTorch versions, and the tensor code around
 them (counterpart of rtsdm_tpu/ops/rt_pallas.py, shared-origin tiers).
 
 One ray per SD texel, all from the pinhole origin. Triangles are packed per
-frame into [n_chunks, 13, 128] chunks of shared-origin rows (the
-origin-dependent Möller-Trumbore cross products folded in once). K5 takes
-rays in 8x32-tile order and gives each tile the ascending list of chunks
-whose world AABB overlaps its segment bundle and whose pinhole screen
-footprint and distance range overlap its texels; K7 takes rays in
-row-major order and culls every chunk against each block's segment box
-inside the kernel, with no lists. Both insert hits in the reference's
-three modes (default/reservoir, k-buffer, coverage) with an optional
-MaxCount cap.
+frame into [n_chunks, 128, 16] chunks of shared-origin rows, triangle-major
+(the origin-dependent Möller-Trumbore cross products folded in once). K5
+and K7 are one kernel: a block takes an 8x32 texel tile and walks, in
+order, the chunks whose world AABB overlaps its segment bundle, listing
+them itself. K5 takes rays in 8x32-tile order and also culls by the chunks'
+pinhole screen footprint and distance range, with the reference's list
+width (a tile with more overlaps walks every chunk); K7 reads the
+row-major rays of an SD grid through the tile mapping and has no width.
+Both insert hits in the reference's three modes (default/reservoir,
+k-buffer, coverage) with an optional MaxCount cap.
 
 The shadow-ray any-hit (K8, counterpart of rt_pallas.py:any_hit_pallas)
 shares the chunking and the tile lists: its rays have their own origins, so
@@ -32,6 +33,11 @@ TC = 128                  # triangles per chunk
 TILE_RH, TILE_RW = 8, 32  # tile shape (TILE_RH * TILE_RW == RB)
 LIST_CAP = 512            # chunk-list width once n_chunks > 2 * LIST_CAP
 PACK_ROWS = 13            # nt(3) bt(3) ct(3) tp(1) + acc-back, reject, mask
+PACK_W = 16               # floats a packed triangle: nt tp | bt acc | ct
+                          # reject | mask + padding (csrc/sd_trace.cu)
+# the shared-origin row (of rt_pallas.prep_triangles_packed's 13, in its
+# order) at each of the first 13 places of a packed triangle; 13-15 are 0
+PACK_ORDER = (0, 1, 2, 9, 3, 4, 5, 10, 6, 7, 8, 11, 12)
 PACK_ROWS_CLASSIC = 12    # v0(3) e1(3) e2(3) + acc-back, reject, mask
 INVALID = 2**31 - 1       # empty reservoir slot
 EPS_DET = 1e-9
@@ -70,14 +76,19 @@ def tile_unflatten(a, h: int, w: int):
     return t.transpose(1, 2).reshape((h, w) + a.shape[1:])
 
 
+def list_width(n: int, cap: int = LIST_CAP) -> int:
+    """The reference's list width for n chunks: `cap` when n > 2*cap, else
+    n; a block with more overlaps than the width walks every chunk."""
+    return cap if n > 2 * cap else n
+
+
 def compact_lists(overlap, cap: int):
     """[nb, n] bool -> (lists [nb, width] int32: ascending overlapping
-    column ids padded with 0, counts [nb] int32 unclamped). width is `cap`
-    when n > 2*cap, else n — the reference's list width rule; a block with
-    more than `width` overlaps streams every chunk instead."""
+    column ids padded with 0, counts [nb] int32 unclamped), width =
+    list_width(n, cap)."""
     n = overlap.shape[1]
     counts = overlap.sum(1, dtype=torch.int32)
-    width = cap if n > 2 * cap else n
+    width = list_width(n, cap)
     ids = torch.arange(n, dtype=torch.int32, device=overlap.device)
     keys = torch.where(overlap, ids, n)
     keys = torch.sort(keys, dim=1).values[:, :width]
@@ -152,17 +163,42 @@ def chunk_aabbs(v0t, e1t, e2t, flags):
 
 
 def prep_triangles_packed(scene, alpha_test: bool = True, origin=None):
-    """(tri_packed [n_chunks, PACK_ROWS, TC], chunk AABBs [8, n_chunks]) for
-    rays from `origin` (default: the scene camera position)."""
+    """(tri_packed [n_chunks, TC, PACK_W], chunk AABBs [8, n_chunks]) for
+    rays from `origin` (default: the scene camera position): per triangle
+    nt, tp, bt, accept-back, ct, reject, alpha mask and three zeros."""
     if origin is None:
         origin = scene.camera.pos_w
-    v0t, e1t, e2t, flags = prep_triangles(scene, alpha_test)
+    return pack_shared_origin(*prep_triangles(scene, alpha_test), origin)
+
+
+def pack_shared_origin(v0t, e1t, e2t, flags, origin):
+    """prep_triangles_packed's result from prep_triangles' arrays."""
     nt, bt, ct, tpk = shared_origin_rows(v0t, e1t, e2t, origin)
-    packed = torch.cat([nt, bt, ct, tpk, flags], 0)
+    packed = torch.cat([nt, tpk, bt, flags[0:1], ct, flags[1:3],
+                        torch.zeros_like(nt)], 0)
     n_chunks = v0t.shape[1] // TC
-    tri_packed = packed.reshape(PACK_ROWS, n_chunks, TC).permute(1, 0, 2) \
+    tri_packed = packed.reshape(PACK_W, n_chunks, TC).permute(1, 2, 0) \
         .contiguous()
     return tri_packed, chunk_aabbs(v0t, e1t, e2t, flags)
+
+
+def tri_major(rows):
+    """[n_chunks, PACK_ROWS, TC] shared-origin rows in the reference's
+    order (rt_pallas.prep_triangles_packed) -> prep_triangles_packed's
+    [n_chunks, TC, PACK_W]."""
+    out = torch.zeros(rows.shape[0], TC, PACK_W, dtype=rows.dtype,
+                      device=rows.device)
+    out[:, :, :PACK_ROWS] = rows[:, list(PACK_ORDER)].transpose(1, 2)
+    return out
+
+
+def tri_rows(tri_packed):
+    """prep_triangles_packed's chunks -> [n_chunks, PACK_ROWS, TC] rows in
+    the reference's order (the inverse of tri_major)."""
+    rows = torch.empty(tri_packed.shape[0], PACK_ROWS, TC,
+                       dtype=tri_packed.dtype, device=tri_packed.device)
+    rows[:, list(PACK_ORDER)] = tri_packed[:, :, :PACK_ROWS].transpose(1, 2)
+    return rows
 
 
 def pack_for_stream_classic(v0t, e1t, e2t, flags):
@@ -222,12 +258,14 @@ def chunk_screen_rows(aabb, origin, cam_u, cam_v, cam_w, dim_w: int,
     return torch.stack([x0, y0, dmin, x1, y1, dmax])
 
 
-def build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx=None, ry=None):
+def build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx=None, ry=None,
+                      cap: int = LIST_CAP):
     """Per-ray-tile ascending lists of chunks that overlap the tile's
     segment bundle (world AABB test, plus the screen rows 6-11 of `aabb`
     when rx/ry — the rays' signed SD-texel coordinates — are given).
     `origin` is the rays' shared origin [3] or their own origins [R, 3].
-    Returns (lists [nb, width] int32, counts [nb] int32 unclamped)."""
+    Returns (lists [nb, width] int32, counts [nb] int32 unclamped), width =
+    list_width(n_chunks, cap)."""
     r = dirs.shape[0]
     rp = r + (-r) % RB
     nb = rp // RB
@@ -266,7 +304,55 @@ def build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx=None, ry=None):
             & (aabb[10][None, :] >= by0[:, None]) \
             & (aabb[8][None, :] <= bt1[:, None]) \
             & (aabb[11][None, :] >= bt0[:, None])
-    return compact_lists(overlap, LIST_CAP)
+    return compact_lists(overlap, cap)
+
+
+LIST_WINDOW = 1024        # chunks a K5/K7 block lists at once
+
+
+def block_lists_replay(aabb, origin, rays, rx=None, ry=None,
+                       cap: int = LIST_CAP):
+    """The list step of K5 and K7 (csrc/sd_trace.cu) in PyTorch, for rays
+    [7, nb*256] (and rx, ry [nb*256]) in 8x32-tile order from `origin` [3]:
+    each block's box reduced as the kernel reduces it (fmin/fmax over its
+    rays, which skip NaN as fminf does), its overlaps counted over all
+    chunks, and the overlapping ids listed in ascending order, LIST_WINDOW
+    chunks at a time.
+    Returns (lists [nb, width], counts [nb]) with width = list_width(n,
+    cap): a block's ids, then zeros; a block with more overlaps than the
+    width lists none (it walks every chunk)."""
+    n = aabb.shape[1]
+    nb = rays.shape[1] // RB
+    r = rays.reshape(7, nb, RB)
+    valid = r[4] > r[3]
+    inf = torch.tensor(float("inf"), device=rays.device)
+
+    def lo_hi(a, b):
+        lo = torch.where(valid, torch.fmin(a, b), inf)
+        hi = torch.where(valid, torch.fmax(a, b), -inf)
+        return lo.amin(1)[:, None], hi.amax(1)[:, None]
+
+    overlap = torch.ones((nb, n), dtype=torch.bool, device=rays.device)
+    for c in range(3):
+        lo, hi = lo_hi(origin[c] + r[c] * r[3], origin[c] + r[c] * r[4])
+        overlap &= (aabb[c][None] <= hi) & (aabb[3 + c][None] >= lo)
+    if rx is not None:
+        for row, a, b in ((6, rx, rx), (7, ry, ry), (8, r[3], r[4])):
+            a = a.reshape(r.shape[1:]) if a.dim() == 1 else a
+            b = b.reshape(r.shape[1:]) if b.dim() == 1 else b
+            lo, hi = lo_hi(a, b)
+            overlap &= (aabb[row][None] <= hi) & (aabb[row + 3][None] >= lo)
+    counts = overlap.sum(1, dtype=torch.int32)
+    width = list_width(n, cap)
+    lists = torch.zeros((nb, width), dtype=torch.int32, device=rays.device)
+    for b in range(nb):
+        if int(counts[b]) > width:
+            continue
+        ids = [torch.nonzero(overlap[b, w:w + LIST_WINDOW]).squeeze(1) + w
+               for w in range(0, n, LIST_WINDOW)]
+        ids = torch.cat(ids) if ids else lists.new_zeros(0)
+        lists[b, :ids.numel()] = ids.to(torch.int32)
+    return lists, counts
 
 
 # ---------------------------------------------------------------------------
@@ -310,13 +396,20 @@ def sd_keys(u, v, hb):
             key15_of_hash(hb.to(torch.int64)).to(torch.int32))
 
 
-def _check_trace_args(fn, tensors, rays, nb, k, mode):
-    for t, dt, name in (*tensors, (rays, torch.float32, "rays")):
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"{fn}: {name} must be contiguous {dt}")
-    if tensors[0][0].shape[1:] != (PACK_ROWS, TC) or rays.shape != (7,
-                                                                    nb * RB):
+def _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode,
+                      aabb_rows: int):
+    for t, name in ((tri_packed, "tri_packed"), (aabb, "aabb"),
+                    (origin, "origin"), (rays, "rays")):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous float32")
+    if tri_packed.shape[1:] != (TC, PACK_W) or rays.dim() != 2 \
+            or rays.shape[0] != 7 or rays.shape[1] % RB \
+            or aabb.dim() != 2 or aabb.shape[0] < aabb_rows \
+            or aabb.shape[1] != tri_packed.shape[0] or origin.shape != (3,):
         raise ValueError(f"{fn}: inconsistent shapes")
+    if tri_packed.data_ptr() % 16:
+        raise ValueError(f"{fn}: tri_packed must start on a 16-byte "
+                         "boundary (the kernel copies it as float4)")
     if not 1 <= k <= 8 or mode not in MODES:
         raise ValueError(f"{fn}: unsupported k={k} mode={mode}")
 
@@ -331,42 +424,58 @@ def _tail_args(k: int, cull_back: bool, mode: str, max_count: int,
             ptr(lut), lut.numel(), ptr(idx))
 
 
-def sd_trace_blocks(tri_packed, lists, counts, rays, k: int,
+def sd_trace_blocks(tri_packed, aabb, origin, rays, k: int,
                     cull_back: bool = True, mode: str = "default",
-                    max_count: int = 0, alpha: float = 0.2):
+                    max_count: int = 0, alpha: float = 0.2, rx=None,
+                    ry=None):
     """K5: packed int32 slots [nb*256, k] (INVALID = empty) for rays
-    [7, nb*256] = (dx, dy, dz, tmin, tmax, za, zb) in 8x32-tile order, where
-    depth_norm = clip(t*za - zb, 0, 1). Default and kbuffer slots ascend;
+    [7, nb*256] = (dx, dy, dz, tmin, tmax, za, zb) from `origin` [3] in
+    8x32-tile order, where depth_norm = clip(t*za - zb, 0, 1). Each tile
+    walks, in order, the chunks whose AABB (aabb rows 0-5: min, max)
+    overlaps its segment bundle and, given rx and ry [nb*256] (the rays'
+    signed SD-texel coordinates), whose screen rows (aabb rows 6-11,
+    chunk_screen_rows) overlap its texels: the lists of build_chunk_lists,
+    built inside the kernel, with their width (list_width); a tile with
+    more overlaps walks every chunk. Default and kbuffer slots ascend;
     coverage slots are per-slot minima of depth16. max_count > 0 caps the
     face-accepted hits that take part (MaxCount); alpha is the coverage
     insertion's."""
-    nb = counts.shape[0]
-    _check_trace_args("sd_trace_blocks",
-                      ((tri_packed, torch.float32, "tri_packed"),
-                       (lists, torch.int32, "lists"),
-                       (counts, torch.int32, "counts")), rays, nb, k, mode)
-    if lists.shape[0] != nb:
-        raise ValueError("sd_trace_blocks: inconsistent shapes")
+    fn = "sd_trace_blocks"
+    _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode,
+                      6 if rx is None else 12)
+    if (rx is None) != (ry is None):
+        raise ValueError(f"{fn}: rx and ry go together")
+    if rx is not None and any(
+            t.dtype != torch.float32 or not t.is_contiguous()
+            or t.shape != rays.shape[1:] for t in (rx, ry)):
+        raise ValueError(f"{fn}: rx and ry must be contiguous float32 "
+                         f"[{rays.shape[1]}]")
     if tri_packed.is_cuda:
-        out = torch.empty((nb * RB, k), dtype=torch.int32,
+        out = torch.empty((rays.shape[1], k), dtype=torch.int32,
                           device=tri_packed.device)
-        launch("rtsdm_sd_trace", ptr(tri_packed), ptr(lists), ptr(counts),
-               ptr(rays), nb, tri_packed.shape[0], lists.shape[1], k,
+        n_chunks = tri_packed.shape[0]
+        launch("rtsdm_sd_trace", ptr(tri_packed), ptr(aabb), ptr(origin),
+               ptr(rays), None if rx is None else ptr(rx),
+               None if ry is None else ptr(ry), rays.shape[1] // RB,
+               n_chunks, list_width(n_chunks), k,
                *_tail_args(k, cull_back, mode, max_count, alpha,
                            tri_packed.device),
                ptr(out), stream_of(tri_packed))
         return out
     if tri_packed.device.type != "cpu":
-        raise RuntimeError(f"sd_trace_blocks: unsupported device "
-                           f"{tri_packed.device}")
-    return sd_trace_blocks_plain(tri_packed, lists, counts, rays, k,
-                                 cull_back, mode, max_count, alpha)
+        raise RuntimeError(f"{fn}: unsupported device {tri_packed.device}")
+    return sd_trace_blocks_plain(tri_packed, aabb, origin, rays, k,
+                                 cull_back, mode, max_count, alpha, rx, ry)
 
 
-def sd_trace_blocks_plain(tri_packed, lists, counts, rays, k: int,
+def sd_trace_blocks_plain(tri_packed, aabb, origin, rays, k: int,
                           cull_back: bool = True, mode: str = "default",
-                          max_count: int = 0, alpha: float = 0.2):
-    """Plain PyTorch version of K5."""
+                          max_count: int = 0, alpha: float = 0.2, rx=None,
+                          ry=None):
+    """Plain PyTorch version of K5: the tiles' lists by build_chunk_lists,
+    walked by _trace_lists_plain."""
+    lists, counts = build_chunk_lists(aabb, origin, rays[0:3].T, rays[3],
+                                      rays[4], rx, ry)
     return _trace_lists_plain(tri_packed, lists, counts, rays, k, cull_back,
                               mode, max_count, alpha)
 
@@ -396,19 +505,21 @@ def _trace_lists_plain(tri_packed, lists, counts, rays, k: int,
             rows = torch.nonzero(act).squeeze(1) + s
             ci = torch.where(full[rows], j,
                              lists[rows, min(j, list_w - 1)]).long()
-            tri = tri_packed[ci][:, :, None, :]               # [na,13,1,TC]
+            # [na, 16, 1, TC]: rows nt(0-2) tp(3) bt(4-6) acc(7) ct(8-10)
+            # reject(11) mask(12)
+            tri = tri_packed[ci].transpose(1, 2)[:, :, None, :]
             dx, dy, dz, tmin, tmax, za, zb = (ray[i, rows][:, :, None]
                                               for i in range(7))
             det = dx * tri[:, 0] + dy * tri[:, 1] + dz * tri[:, 2]
-            pu = dx * tri[:, 3] + dy * tri[:, 4] + dz * tri[:, 5]
-            pv = dx * tri[:, 6] + dy * tri[:, 7] + dz * tri[:, 8]
-            tp = tri[:, 9].expand_as(det)
+            pu = dx * tri[:, 4] + dy * tri[:, 5] + dz * tri[:, 6]
+            pv = dx * tri[:, 8] + dy * tri[:, 9] + dz * tri[:, 10]
+            tp = tri[:, 3].expand_as(det)
             if cull_back:
                 ok = det > EPS_DET
                 adet, spu, spv, stp = det, pu, pv, tp
             else:
                 ok = (torch.abs(det) > EPS_DET) \
-                    & ((det > 0.0) | (tri[:, 10] > 0.0))
+                    & ((det > 0.0) | (tri[:, 7] > 0.0))
                 sg = torch.where(det >= 0.0, 1.0, -1.0)
                 adet, spu, spv, stp = det * sg, pu * sg, pv * sg, tp * sg
             ok = ok & (tri[:, 11] == 0.0)
@@ -485,75 +596,107 @@ def sd_trace_stream(tri_packed, aabb, origin, dirs, tmin, tmax, vz_scale,
                     max_count: int = 0, alpha: float = 0.2, rx=None,
                     ry=None):
     """Streamed tier (counterpart of sd_trace_pallas_stream): dirs [R,3],
-    tmin/tmax/vz_scale [R] in 8x32-tile order; returns the packed slots
-    [R, num_samples] int32 (K5)."""
-    lists, counts = build_chunk_lists(aabb, origin, dirs, tmin, tmax, rx, ry)
+    tmin/tmax/vz_scale [R] and the signed texel coordinates rx/ry [R] (or
+    None: no screen cull) in 8x32-tile order; returns the packed slots
+    [R, num_samples] int32 (K5, which lists each tile's chunks itself)."""
     rays = _ray_rows(dirs, tmin, tmax, vz_scale, near, far)
-    return sd_trace_blocks(tri_packed, lists, counts, rays, num_samples,
-                           cull_back, mode, max_count,
-                           alpha)[:dirs.shape[0]]
+    if rx is not None:
+        pad = rays.shape[1] - rx.shape[0]
+        rx, ry = (torch.nn.functional.pad(a, (0, pad)).contiguous()
+                  for a in (rx, ry))
+    return sd_trace_blocks(tri_packed, aabb.contiguous(),
+                           origin.contiguous(), rays, num_samples, cull_back,
+                           mode, max_count, alpha, rx, ry)[:dirs.shape[0]]
 
 
 # ---------------------------------------------------------------------------
 # the resident trace (K7)
 # ---------------------------------------------------------------------------
 
+def _grid(rays, grid):
+    """(h, w) of the SD grid whose row-major rays `rays` holds; without a
+    grid, 32 wide, so that a tile is 256 consecutive rays."""
+    h, w = grid if grid is not None else (rays.shape[1] // TILE_RW, TILE_RW)
+    if h < 0 or w < 0 or h * w > rays.shape[1]:
+        raise ValueError(f"grid {h}x{w} does not fit {rays.shape[1]} rays")
+    return int(h), int(w)
+
+
 def sd_trace_resident_blocks(tri_packed, aabb, origin, rays, k: int,
                              cull_back: bool = True, mode: str = "default",
-                             max_count: int = 0, alpha: float = 0.2):
-    """K7: K5's function for rays [7, nb*256] in row-major order, with no
-    host-built lists: each block of 256 consecutive rays walks every chunk
-    in order and skips those whose AABB (aabb [6+, n_chunks], rows 0-2
-    min, 3-5 max) misses the box of its valid segments from `origin` [3]."""
-    nb = rays.shape[1] // RB
-    _check_trace_args("sd_trace_resident_blocks",
-                      ((tri_packed, torch.float32, "tri_packed"),
-                       (aabb, torch.float32, "aabb"),
-                       (origin, torch.float32, "origin")), rays, nb, k, mode)
-    if aabb.shape != (6, tri_packed.shape[0]) or origin.shape != (3,):
-        raise ValueError("sd_trace_resident_blocks: aabb [6, n_chunks] and "
-                         "origin [3]")
+                             max_count: int = 0, alpha: float = 0.2,
+                             grid=None):
+    """K7: K5's function for rays [7, n] in row-major order over an SD grid
+    `grid` = (h, w) (h * w <= n; default (n / 32, 32)); returns [h * w, k].
+    A block takes an 8x32 tile of the grid and walks, in order, every chunk
+    whose AABB (aabb [6, n_chunks], rows 0-2 min, 3-5 max) overlaps the box
+    of its valid segments from `origin` [3], listing them itself; there is
+    no list width."""
+    fn = "sd_trace_resident_blocks"
+    _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode, 6)
+    if aabb.shape[0] != 6:
+        raise ValueError(f"{fn}: aabb [6, n_chunks]")
+    h, w = _grid(rays, grid)
     if tri_packed.is_cuda:
-        out = torch.empty((nb * RB, k), dtype=torch.int32,
+        out = torch.empty((h * w, k), dtype=torch.int32,
                           device=tri_packed.device)
         launch("rtsdm_sd_trace_resident", ptr(tri_packed), ptr(aabb),
-               ptr(origin), ptr(rays), nb, tri_packed.shape[0], k,
+               ptr(origin), ptr(rays), rays.shape[1], h, w,
+               tri_packed.shape[0], k,
                *_tail_args(k, cull_back, mode, max_count, alpha,
                            tri_packed.device),
                ptr(out), stream_of(tri_packed))
         return out
     if tri_packed.device.type != "cpu":
-        raise RuntimeError(f"sd_trace_resident_blocks: unsupported device "
-                           f"{tri_packed.device}")
+        raise RuntimeError(f"{fn}: unsupported device {tri_packed.device}")
     return sd_trace_resident_blocks_plain(tri_packed, aabb, origin, rays, k,
-                                          cull_back, mode, max_count, alpha)
+                                          cull_back, mode, max_count, alpha,
+                                          grid)
+
+
+def grid_tile_rays(rays, h: int, w: int):
+    """Row-major rays [7, >= h*w] of an h x w grid -> [7, nt*256] in
+    8x32-tile order, the grid padded to whole tiles with dead rays (0, and
+    tmax = -1)."""
+    a, _ = pad_tile(rays[:, :h * w].T.reshape(h, w, 7))
+    live = torch.zeros(a.shape[:2], dtype=torch.bool, device=a.device)
+    live[:h, :w] = True
+    a = torch.cat([a[..., :4], torch.where(live, a[..., 4], -1.0)[..., None],
+                   a[..., 5:]], -1)
+    return tile_flatten(a).T.contiguous()
 
 
 def sd_trace_resident_blocks_plain(tri_packed, aabb, origin, rays, k: int,
                                    cull_back: bool = True,
                                    mode: str = "default", max_count: int = 0,
-                                   alpha: float = 0.2):
-    """Plain PyTorch version of K7: each block's ascending list of the
-    chunks that overlap its segment box (build_chunk_lists' world test,
-    never capped for up to 2 * LIST_CAP chunks) walked as K5's plain
+                                   alpha: float = 0.2, grid=None):
+    """Plain PyTorch version of K7: the grid's 8x32 tiles (grid_tile_rays),
+    each with the ascending list of the chunks that overlap its segment box
+    (build_chunk_lists' world test, with no width), walked as K5's plain
     version walks its lists."""
-    lists, counts = build_chunk_lists(aabb, origin, rays[0:3].T, rays[3],
-                                      rays[4])
-    return _trace_lists_plain(tri_packed, lists, counts, rays, k, cull_back,
-                              mode, max_count, alpha)
+    h, w = _grid(rays, grid)
+    tiled = grid_tile_rays(rays, h, w)
+    lists, counts = build_chunk_lists(aabb, origin, tiled[0:3].T, tiled[3],
+                                      tiled[4], cap=tri_packed.shape[0])
+    out = _trace_lists_plain(tri_packed, lists, counts, tiled, k, cull_back,
+                             mode, max_count, alpha)
+    ph, pw = h + (-h) % TILE_RH, w + (-w) % TILE_RW
+    return tile_unflatten(out, ph, pw)[:h, :w].reshape(h * w, k)
 
 
 def sd_trace_resident(tri_packed, aabb, origin, dirs, tmin, tmax, vz_scale,
                       near, far, *, num_samples: int = 4,
                       cull_back: bool = True, mode: str = "default",
-                      max_count: int = 0, alpha: float = 0.2):
+                      max_count: int = 0, alpha: float = 0.2, grid=None):
     """Resident tier (counterpart of sd_trace_pallas): dirs [R,3], tmin/
-    tmax/vz_scale [R] in any order (row-major for an SD grid); returns the
-    packed slots [R, num_samples] int32 (K7)."""
+    tmax/vz_scale [R] in row-major order over the SD grid `grid` = (h, w)
+    (h * w == R; without one, any order, in tiles of 256 consecutive
+    rays); returns the packed slots [R, num_samples] int32 (K7)."""
     rays = _ray_rows(dirs, tmin, tmax, vz_scale, near, far)
     return sd_trace_resident_blocks(
         tri_packed, aabb[:6].contiguous(), origin.contiguous(), rays,
-        num_samples, cull_back, mode, max_count, alpha)[:dirs.shape[0]]
+        num_samples, cull_back, mode, max_count, alpha,
+        grid)[:dirs.shape[0]]
 
 
 def decode_packed(packed, near, far, normalize: bool = True,

@@ -187,7 +187,8 @@ class StochasticDepthMapRT(RenderPass):
             packed = rt.sd_trace_resident(
                 tri_packed, aabb, origin, dirs.reshape(-1, 3),
                 tmin.reshape(-1), tmax.reshape(-1), cos_w.reshape(-1),
-                cam.near_z, cam.far_z, **trace).reshape(sd_h, sd_w, k)
+                cam.near_z, cam.far_z, grid=(sd_h, sd_w),
+                **trace).reshape(sd_h, sd_w, k)
         depths = rt.decode_packed(packed, cam.near_z, cam.far_z,
                                   bool(self.cfg["normalize"]), mode=impl)
         ctx.debug_print("sdrt.stochasticDepth", depths)

@@ -210,8 +210,8 @@ def test_fetch_kernels_match_plain_on_gpu(cuda_device):
 def test_trace_kernel_matches_plain_on_gpu(cuda_device, cull_back):
     """K5 and K7 against their plain versions in every insertion mode, for
     k of 1, 2 and 4, uncapped and with MaxCount 2; K7 equal to K5 on the
-    same rays (K5 given the world-box lists that K7 builds in-kernel); and
-    the kernel's key function on the INT_MIN hash."""
+    same rays (K5 without screen rows lists what K7 lists); and the
+    kernel's key function on the INT_MIN hash."""
     st = arcade(device=cuda_device)
     cam, dev = st.camera, cuda_device
     rng = np.random.default_rng(19)
@@ -225,7 +225,6 @@ def test_trace_kernel_matches_plain_on_gpu(cuda_device, cull_back):
     tmax = tmin + torch.as_tensor(
         rng.uniform(0.5, 30.0, n).astype(np.float32), device=dev)
     tri, aabb = RT.prep_triangles_packed(st, True)
-    lists, counts = RT.build_chunk_lists(aabb, origin, dirs, tmin, tmax)
     za = (dirs * cam.camera_w).sum(-1) / (cam.far_z - cam.near_z)
     zb = (cam.near_z / (cam.far_z - cam.near_z)).expand(n)
     rays = torch.stack([dirs[:, 0], dirs[:, 1], dirs[:, 2], tmin, tmax, za,
@@ -234,8 +233,8 @@ def test_trace_kernel_matches_plain_on_gpu(cuda_device, cull_back):
         for k in (1, 2, 4):
             for mc in (0, 2):
                 a = (k, cull_back, mode, mc, 0.375)
-                got = RT.sd_trace_blocks(tri, lists, counts, rays, *a)
-                want = RT.sd_trace_blocks_plain(tri, lists, counts, rays, *a)
+                got = RT.sd_trace_blocks(tri, aabb, origin, rays, *a)
+                want = RT.sd_trace_blocks_plain(tri, aabb, origin, rays, *a)
                 assert torch.equal(got, want), (mode, k, mc)
                 res = RT.sd_trace_resident_blocks(tri, aabb[:6].contiguous(),
                                                   origin, rays, *a)
@@ -251,6 +250,97 @@ def test_trace_kernel_matches_plain_on_gpu(cuda_device, cull_back):
     assert key_hb.tolist() == want_hb.tolist()
     assert key_hb.tolist()[0] == 32765
     assert torch.equal(key_uv.cpu(), want_uv)
+
+
+def _pinhole_grid_rays(cam, h, w, rng, t_lo, t_hi, dev):
+    """Row-major pinhole rays through an h x w grid's texels with seeded
+    intervals (every 97th ray dead), their rays [7, n] rows and signed
+    texel coordinates."""
+    n = h * w
+    py, px = torch.meshgrid(torch.arange(h, device=dev),
+                            torch.arange(w, device=dev), indexing="ij")
+    signed = torch.stack([px, py], -1).reshape(n, 2).float()
+    origin, dirs = cam.compute_ray_pinhole(
+        signed, (w, h), jitter=torch.full((n, 2), 0.5, device=dev))
+    tmin = torch.as_tensor(rng.uniform(0.0, t_lo, n).astype(np.float32),
+                           device=dev)
+    tmax = tmin + torch.as_tensor(
+        rng.uniform(0.5, t_hi, n).astype(np.float32), device=dev)
+    tmax[::97] = tmin[::97]
+    cosw = (dirs * cam.camera_w).sum(-1) / cam.camera_w.norm()
+    rays = RT._ray_rows(dirs, tmin, tmax, cosw, cam.near_z, cam.far_z)
+    return origin, rays, signed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull_back", [True, False])
+def test_trace_kernels_tiles_overflow_and_caps_on_gpu(cuda_device,
+                                                      cull_back):
+    """The redesigned K5 and K7 against their plain versions where the
+    design decides: 1,100 chunks (width LIST_CAP, more than one list
+    window) with tiles that overflow their list and walk every chunk and
+    tiles that do not; K5 with its screen rows; K7 on an SD grid whose
+    sides are not whole tiles; MaxCount 8 and coverage with k = 5."""
+    dev = cuda_device
+    cam = arcade(device=dev).camera
+    rng = np.random.default_rng(41)
+    n_chunks = 1100
+    t = n_chunks * RT.TC
+    fwd = (cam.target - cam.pos_w) / (cam.target - cam.pos_w).norm()
+    centre = cam.pos_w + 6.0 * fwd
+    v0 = centre + torch.as_tensor(rng.normal(0, 3.0, (t, 3)).astype(
+        np.float32), device=dev)
+    e1, e2 = (torch.as_tensor(rng.normal(0, 0.4, (t, 3)).astype(np.float32),
+                              device=dev) for _ in range(2))
+    order = torch.argsort(v0[:, 0])              # chunks of near triangles
+    v0, e1, e2 = v0[order], e1[order], e2[order]
+    acc = torch.as_tensor((rng.uniform(size=t) < 0.5).astype(np.float32),
+                          device=dev)
+    mask = torch.as_tensor(rng.choice([0xFFFF, 0x0F0F, 0x3333], t).astype(
+        np.float32), device=dev)
+    flags = torch.stack([acc, torch.zeros_like(acc), mask])
+    tri, aabb = RT.pack_shared_origin(v0.T.contiguous(), e1.T.contiguous(),
+                                      e2.T.contiguous(), flags, cam.pos_w)
+    h, w = 27, 70
+    origin, rays, signed = _pinhole_grid_rays(cam, h, w, rng, 4.0, 6.0, dev)
+    # short intervals in the left half: tiles there list few chunks
+    rays[4] = torch.where(torch.arange(rays.shape[1], device=dev) % w < 32,
+                          torch.minimum(rays[4], rays[3] + 0.3), rays[4])
+    scr = RT.chunk_screen_rows(aabb, origin, cam.camera_u, cam.camera_v,
+                               cam.camera_w, w, h)
+    aabb12 = torch.cat([aabb[:6], scr]).contiguous()
+
+    def tf(a, fill=0.0):                          # 8x32-tile order
+        return RT.tile_flatten(RT.pad_tile(
+            a[:h * w].reshape((h, w) + a.shape[1:]), fill)[0]).contiguous()
+
+    tiled = torch.stack([tf(rays[i], -1.0 if i == 4 else 0.0)
+                         for i in range(7)]).contiguous()
+    rx, ry = tf(signed[:, 0]), tf(signed[:, 1])
+    _, counts = RT.build_chunk_lists(aabb12, origin, tiled[0:3].T, tiled[3],
+                                     tiled[4], rx, ry)
+    assert (counts > RT.LIST_CAP).any() and (counts <= RT.LIST_CAP).any()
+    for k, mode, mc in ((4, "default", 0), (4, "kbuffer", 0),
+                        (4, "default", 8), (5, "coverage", 0)):
+        a = (k, cull_back, mode, mc, 1.5 / k)
+        got = RT.sd_trace_blocks(tri, aabb12, origin, tiled, *a, rx, ry)
+        assert torch.equal(got, RT.sd_trace_blocks_plain(
+            tri, aabb12, origin, tiled, *a, rx, ry)), (mode, k, mc)
+        res = RT.sd_trace_resident_blocks(tri, aabb[:6].contiguous(),
+                                          origin, rays, *a, grid=(h, w))
+        assert torch.equal(res, RT.sd_trace_resident_blocks_plain(
+            tri, aabb[:6].contiguous(), origin, rays, *a,
+            grid=(h, w))), (mode, k, mc)
+        # K7's tiles are K5's: without the screen rows K5 lists what K7
+        # lists, but walks every chunk where a tile overflows its width;
+        # no chunk either culls holds an accepted pair, so the slots agree
+        k5 = RT.sd_trace_blocks(tri, aabb[:6].contiguous(), origin, tiled,
+                                *a)
+        k5 = RT.tile_unflatten(k5, h + (-h) % 8, w + (-w) % 32)[:h, :w]
+        assert torch.equal(res, k5.reshape(h * w, k)), (mode, k, mc)
+        assert bool((got != RT.INVALID).any())
+        if mc:
+            assert bool(((res != RT.INVALID).sum(1) <= mc).all())
 
 
 @pytest.mark.cuda

@@ -97,7 +97,7 @@ def _tiny_inputs():
         rng.uniform(size=(16, 2, 2)).astype(np.float32)), pad)
     sd = torch.as_tensor(rng.uniform(size=(2 + 2 * pad, 2 + 2 * pad, 2))
                          .astype(np.float32))
-    tri = torch.zeros((1, RT.PACK_ROWS, RT.TC))
+    tri = torch.zeros((1, RT.TC, RT.PACK_W))
     rays = torch.zeros((7, RT.RB))
     return {
         "raster_blocks": (chunks, torch.zeros((1, 4, RC.TC)), lists, counts,
@@ -105,7 +105,8 @@ def _tiny_inputs():
         "fetch_attributes": (tri_id, bary, table, 2, 1),
         "fetch_all_directions": ([planes], pad, radius, levels, offs, radii),
         "fetch_sd_packed": (sd, pad, radius, levels, offs, radii, pad),
-        "sd_trace_blocks": (tri, lists, counts, rays, 2),
+        "sd_trace_blocks": (tri, torch.zeros((8, 1)), torch.zeros(3), rays,
+                            2),
         "warp_resample": (torch.ones((1, 2, 2)), torch.ones((1, 2)),
                           torch.ones((1, 2)), "bilinear"),
         "any_hit_blocks": (torch.zeros((1, RT.PACK_ROWS_CLASSIC, RT.TC)),

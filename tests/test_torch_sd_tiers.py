@@ -22,12 +22,16 @@ So, as the reference's own resident-vs-stream test does:
   with any differing slot, measured: CornellBox 24 of 256, Arcade 17 of
   512; bound asserted: 1 in 8.
 K7's plain version equals K5's bit for bit on the same rows in every mode:
-both walk the chunks in order and skip only chunks without hits.
+both walk the chunks in order and skip only chunks without hits. On an SD
+grid whose sides are not whole tiles, K7's 8x32 tiles give bit for bit
+what its walk of 256 consecutive rays gives, and what K5 gives on the same
+tiles; against sd_trace_pallas the contract above holds.
 """
 import sys
 from pathlib import Path
 from unittest import mock
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -70,7 +74,8 @@ def rays_case(request):
     origins, dirs, tmin, tmax, cosw = _rays(sj, n=n, seed=7)
     tri_t, aabb_t = RT.prep_triangles_packed(st, True)
     tri_j, aabb_j = rp.prep_triangles_packed(sj, True)
-    np.testing.assert_array_equal(tri_t.numpy(), np.asarray(tri_j))
+    np.testing.assert_array_equal(RT.tri_rows(tri_t).numpy(),
+                                  np.asarray(tri_j))
     cam = sj.camera
     port_args = (tri_t, aabb_t, st.camera.pos_w, t(dirs), t(tmin), t(tmax),
                  t(cosw), t(cam.near_z), t(cam.far_z))
@@ -136,6 +141,81 @@ def test_stream_plain_matches_sd_trace_pallas_stream(rays_case, mode, mc):
 def test_resident_plain_equals_stream_plain(rays_case, mode, mc):
     resident, stream = rays_case["plain"][mode, mc]
     np.testing.assert_array_equal(resident, stream)
+
+
+# an SD grid whose width is no multiple of 32 and height no multiple of 8
+GRID_H, GRID_W = 21, 45
+
+
+@pytest.fixture(scope="module")
+def grid_case():
+    """Pinhole rays through every texel of a GRID_H x GRID_W grid over
+    Arcade (10 chunks), row-major, with seeded intervals (a few dead); the
+    tiled K7 plain version's output in every mode."""
+    sj = PJ.load_scene("Arcade", aspect=16 / 9)
+    st = carry(sj)
+    cam = sj.camera
+    n = GRID_H * GRID_W
+    py, px = np.meshgrid(np.arange(GRID_H), np.arange(GRID_W),
+                         indexing="ij")
+    signed = np.stack([px, py], -1).reshape(n, 2).astype(np.float32)
+    origin, dirs = cam.compute_ray_pinhole(jnp.asarray(signed),
+                                           (GRID_W, GRID_H),
+                                           jitter=jnp.full((n, 2), 0.5))
+    rng = np.random.default_rng(29)
+    tmin = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    tmax = (tmin + rng.uniform(0.5, 8.0, n)).astype(np.float32)
+    tmax[::97] = tmin[::97]                      # dead rays
+    cosw = jnp.sum(dirs * (cam.camera_w / jnp.linalg.norm(cam.camera_w)),
+                   -1)
+    tri_t, aabb_t = RT.prep_triangles_packed(st, True)
+    args = (tri_t, aabb_t, st.camera.pos_w, t(dirs), t(tmin), t(tmax),
+            t(cosw), t(cam.near_z), t(cam.far_z))
+    tiled = {}
+    for mode, mc in MODES:
+        kw = dict(num_samples=K, mode=mode, max_count=mc, alpha=ALPHA)
+        tiled[mode, mc] = RT.sd_trace_resident(
+            *args, grid=(GRID_H, GRID_W), **kw)
+    return dict(sj=sj, args=args, tiled=tiled,
+                rays=(jnp.broadcast_to(origin, (n, 3)), dirs, tmin, tmax,
+                      cosw))
+
+
+@pytest.mark.parametrize("mode,mc", MODES, ids=MODE_IDS)
+def test_tiled_resident_plain_equals_row_major_walk(grid_case, mode, mc):
+    """K7's plain version on the grid's 8x32 tiles equals its walk of 256
+    consecutive row-major rays (the parent's blocking) and K5's plain
+    version on the same tiles, bit for bit."""
+    c = grid_case
+    kw = dict(num_samples=K, mode=mode, max_count=mc, alpha=ALPHA)
+    tiled = c["tiled"][mode, mc]
+    assert tiled.shape == (GRID_H * GRID_W, K)
+    assert bool((tiled != RT.INVALID).any())
+    row_major = RT.sd_trace_resident(*c["args"], **kw)
+    np.testing.assert_array_equal(tiled.numpy(), row_major.numpy())
+    tri, aabb, origin, dirs, tmin, tmax, cosw, near, far = c["args"]
+
+    def tf(a, fill=0.0):                          # 8x32-tile order
+        return RT.tile_flatten(RT.pad_tile(
+            a.reshape((GRID_H, GRID_W) + a.shape[1:]), fill)[0])
+
+    stream = RT.sd_trace_stream(tri, aabb, origin, tf(dirs), tf(tmin),
+                                tf(tmax, -1.0), tf(cosw), near, far, **kw)
+    ph, pw = GRID_H + (-GRID_H) % 8, GRID_W + (-GRID_W) % 32
+    stream = RT.tile_unflatten(stream, ph, pw)[:GRID_H, :GRID_W]
+    np.testing.assert_array_equal(tiled.numpy(),
+                                  stream.reshape(-1, K).numpy())
+
+
+@pytest.mark.parametrize("mode,mc", MODES[2:], ids=MODE_IDS[2:])
+def test_tiled_resident_plain_matches_sd_trace_pallas(grid_case, mode, mc):
+    """The tiled walk against rt_pallas.sd_trace_pallas in interpret mode
+    on the grid's rays, under the contract of the module docstring."""
+    c = grid_case
+    got = c["tiled"][mode, mc].numpy()
+    _assert_same_hits(got, _reference(c, "resident", mode, mc), mode)
+    if mc:
+        assert ((got != RT.INVALID).sum(1) <= mc).all()
 
 
 def test_coverage_decodes_per_slot_depths():

@@ -1,0 +1,167 @@
+#!/usr/bin/env python3
+"""Generate the mid-size references that chip_smoke.py holds the port
+against: scripts/SVAO_small.py rendered by the JAX package (rtsdm_tpu) on
+the CPU, as the golden runner renders (use_jit=False, the script's own
+properties, a paused clock), at a size above every golden's.
+
+The JAX package's CPU raster (its XLA tier) keeps at most maxPerTile
+triangles in each screen tile and drops the rest; at this size the
+script's 256 drops some, where the port's raster (like the reference's
+GPU raster) drops none. So the three raster passes get a maxPerTile at
+which the XLA raster drops nothing (the pass overrides below, as the
+golden tests set theirs); the script checks that no tile overflows it and
+records the overflow at 256 beside it.
+
+RayShadow takes the JAX package's accelerator branch (reference_shadows):
+on the CPU the package calls its XLA any-hit (ops/rt.py:any_hit), which
+ignores alpha masks, so masked triangles (Arcade's foliage and grilles)
+cast shadows there and nowhere else; the accelerator branch,
+any_hit_pallas, tests the masks, as the reference does and as the port
+does. It runs here in interpret mode, as the package's own interpret tests
+run it.
+
+    JAX_PLATFORMS=cpu python tests/torch_refs/make_refs.py
+
+writes tests/torch_refs/SVAO_small.<scene>.<W>x<H>.f<frame>.npz with the
+graph's marked outputs of the recorded frame (float32, compressed) and a
+JSON `settings` entry: script, scene, width, height, frames rendered, the
+frame kept, the outputs, the pass overrides, the G-buffer raster's
+overflow at 256 and at the override, and the render's seconds. The tier-1
+tests only load these files (tests/test_torch_refs.py); they never run
+this script.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+OUT_DIR = Path(__file__).resolve().parent
+
+# what chip_smoke.py renders through the port (read back by the tier-1 test
+# that checks the two agree)
+MAX_PER_TILE = 4096
+SETTINGS = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
+                width=480, height=270, frames=1, frame=0,
+                outputs=["AmbientOcclusion.out", "Shaded.out",
+                         "AmbientOcclusionTAA.colorOut",
+                         "ShadedTAA.colorOut"],
+                pass_overrides={p: {"maxPerTile": MAX_PER_TILE}
+                                for p in ("GBufferRaster", "DepthPeeling",
+                                          "ForwardLighting")},
+                shadows="RayShadow through any_hit_pallas (interpret mode)")
+
+
+@contextlib.contextmanager
+def reference_shadows():
+    """While it holds, RayShadow.execute runs the JAX package's accelerator
+    branch on the CPU: jax.devices() reports an accelerator inside it and
+    rt_pallas' kernels run in interpret mode."""
+    from unittest import mock
+    import jax
+    from rtsdm_tpu.ops import rt_pallas
+    from rtsdm_tpu.passes.lighting import RayShadow
+    accelerator = [type("Device", (), {"platform": "tpu"})()]
+    real_call, real_exec = rt_pallas.pl.pallas_call, RayShadow.execute
+
+    def interpreted(*a, **kw):
+        return real_call(*a, **dict(kw, interpret=True))
+
+    def execute(self, ctx, inputs, state=None):
+        with mock.patch.object(jax, "devices", lambda *a, **k: accelerator), \
+                mock.patch.object(rt_pallas.pl, "pallas_call", interpreted):
+            return real_exec(self, ctx, inputs, state)
+
+    RayShadow.execute = execute
+    try:
+        yield
+    finally:
+        RayShadow.execute = real_exec
+
+
+def ref_path(settings: dict) -> Path:
+    scene = settings["scene"].replace("@", "_")
+    return OUT_DIR / (f"SVAO_small.{scene}.{settings['width']}x"
+                      f"{settings['height']}.f{settings['frame']}.npz")
+
+
+def render(settings: dict):
+    """({output: float32 image} of the kept frame, rendered by rtsdm_tpu;
+    the renderer)."""
+    import numpy as np
+    from rtsdm_tpu.mogwai import Renderer, run_script
+    m = Renderer(width=settings["width"], height=settings["height"],
+                 use_jit=False)
+    run_script(str(ROOT / settings["script"]), m)
+    for name, props in settings["pass_overrides"].items():
+        m.active_graph.get_pass(name).cfg.update(props)
+    m.loadScene(settings["scene"])
+    m.clock.pause()
+    kept = {}
+    for f in range(settings["frames"]):
+        m.clock.frame = f
+        out = m.renderFrame()
+        if f == settings["frame"]:
+            kept = {k: np.asarray(v, np.float32) for k, v in out.items()
+                    if k in settings["outputs"]}
+    missing = set(settings["outputs"]) - set(kept)
+    if missing:
+        raise SystemExit(f"outputs not marked by the graph: {missing}")
+    return kept, m
+
+
+def gbuffer_overflow(m, settings: dict, max_per_tile: int) -> int:
+    """Triangle-tile entries the XLA raster drops in the kept frame's
+    G-buffer raster (the GBufferRaster pass's jittered camera, at the
+    guard-banded target size) with `max_per_tile`."""
+    from rtsdm_tpu.ops.raster import rasterize
+    from rtsdm_tpu.passes.gbuffer import pattern_jittered_scene
+    graph = m.active_graph
+    gb = graph.get_pass("GBufferRaster").cfg
+    guard = int(graph.get_pass("GuardBand").cfg["guardBand"])
+    w, h = settings["width"] + 2 * guard, settings["height"] + 2 * guard
+    scene = pattern_jittered_scene(m.scene, gb["samplePattern"],
+                                   gb["sampleCount"], settings["frame"], w,
+                                   h)
+    cam = scene.camera
+    vis = rasterize(cam.view_proj_no_jitter, scene.positions, width=w,
+                    height=h, jitter_x=cam.jitter_x, jitter_y=cam.jitter_y,
+                    cull=gb["cull"].lower(), max_per_tile=max_per_tile)
+    return int(vis["overflow"])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--width", type=int, default=SETTINGS["width"])
+    ap.add_argument("--height", type=int, default=SETTINGS["height"])
+    args = ap.parse_args(argv)
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    sys.path.insert(0, str(ROOT))
+    import numpy as np
+    settings = dict(SETTINGS, width=args.width, height=args.height)
+    t0 = time.perf_counter()
+    with reference_shadows():
+        images, m = render(settings)
+    settings["seconds"] = round(time.perf_counter() - t0, 1)
+    settings["overflow_at_256"] = gbuffer_overflow(m, settings, 256)
+    settings["overflow"] = gbuffer_overflow(m, settings, MAX_PER_TILE)
+    if settings["overflow"]:
+        raise SystemExit(f"the XLA raster drops {settings['overflow']} "
+                         f"entries at maxPerTile {MAX_PER_TILE}")
+    path = ref_path(settings)
+    np.savez_compressed(path, settings=np.asarray(json.dumps(settings)),
+                        **images)
+    print(f"{path.relative_to(ROOT)}: "
+          + ", ".join(f"{k} {v.shape}" for k, v in images.items())
+          + f"; {settings['seconds']} s; G-buffer overflow at 256: "
+          f"{settings['overflow_at_256']}, at {MAX_PER_TILE}: 0")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
