@@ -59,9 +59,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    launches once and K5 never; K1-K4 and K8 as the graph gives them. Every
    call of the last frame of K1-K4, K8 and K10 is held bit-exact against its
    plain version at the config's shapes (K4 with no SD guard band; K8 on a
-   spread subset of tiles), and so is K9, at the path's alpha and at 1.0,
-   and timed; every K1 call timed as in 9; then the frame is timed as in
-   10;
+   spread subset of tiles), and so is K9 (with its per-triangle cull,
+   against the plain version without it), at the path's alpha and at 1.0,
+   its walk whole and split, and on short lists that stream every chunk;
+   K9's walk, cull and visits per tile replayed on the host; K9 timed with
+   its walk in 1, 4, 8, 16 and 32 parts and its default in turns (CUDA
+   events and torch.profiler); every K1 call timed as in 9; then the frame
+   is timed as in 10;
 12. BASELINE config 1: scripts/HBAO.py on CornellBox 256x256, 3 frames. Per
    frame K6 (fetch_taps_same_class) launches once and K1 once with its
    depth floor (DepthPeeling) besides its two plain launches; the last
@@ -70,7 +74,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 13. config 1's graph again on SunTemple@full 1920x1080, where K6 and the
    floored K1 do real work: the last frame's calls held as in 11, K6 held
    bit-exact on every call kept (also the CornellBox and DualDepth calls),
-   K6 and the floored K1 timed; the frame timed as in 10;
+   K6 (CUDA events, torch.profiler per call) and the floored K1 timed; the
+   frame timed as in 10;
 14. both configs' graphs, scripts/SVAO.py, scripts/Forward.py (three
    goldens, K8 once a frame) and SVAO_small.py with a guard band at their
    golden settings on the card (tests/image_tests/renderpasses/
@@ -90,13 +95,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tiles and on 256 consecutive rays; the SD stage split; the frame timed
    as in 10. (Phase 5 also runs the SVAO path once with stochMaxCount 8:
    K5 with the cap, held and timed.)
-16. with --parent DIR: the parent's SD stage (SVAO path and SVAO.py)
-   against this checkout's, in turns in processes of their own; both
-   checkouts' K5 and K7 resources; phase 17 through the parent's kernels,
-   measured only;
+16. with --parent DIR: the parent's SD stage (SVAO path and SVAO.py), K6
+   (config 1 at SunTemple) and K9 (config 2) against this checkout's, in
+   turns in processes of their own (CUDA events around the wrapper,
+   torch.profiler per call); both checkouts' K5 and K7 resources; phases
+   17 and 17b through the parent's kernels, measured only;
 17. scripts/SVAO_small.py at Arcade@full 480x270, frame 0, through K7 and
    through K5, each marked output held by MSE against the JAX package's
-   render committed in tests/torch_refs/ (made by make_refs.py there).
+   render committed in tests/torch_refs/ (made by make_refs.py there);
+17b. the same for scripts/HBAO.py (K6; HBAO's samplingMode "Shift", as the
+   card takes it) and config 2 (K9) at the same scene, size and frame.
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound and library yardstick), and
@@ -299,9 +307,12 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 
 def device_ms(fn, symbol: str, reps: int):
-    """Mean device time per call of kernel `symbol` (a substring of the
-    profiler's kernel name) over `reps` calls of fn() under torch.profiler,
-    after one warm-up call; None where the profiler saw no such kernel."""
+    """Mean device time per launch of kernel `symbol` (a substring of the
+    profiler's kernel name), which fn() launches once, over the launches
+    the profiler recorded in `reps` calls of fn() under torch.profiler,
+    after one warm-up call (it has dropped some records of a call's
+    launches: the mean over `reps` then understated the time); None where
+    it saw no such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -314,7 +325,10 @@ def device_ms(fn, symbol: str, reps: int):
         torch.cuda.synchronize()
     hits = [e.device_time_total for e in prof.events()
             if e.device_type == DeviceType.CUDA and symbol in e.name]
-    return sum(hits) / 1e3 / reps if hits else None
+    if hits and len(hits) != reps:
+        log(f"torch.profiler recorded {len(hits)} launches of {symbol} in "
+            f"{reps} calls")
+    return sum(hits) / 1e3 / len(hits) if hits else None
 
 
 def host_us(fn, reps: int) -> float:
@@ -491,18 +505,10 @@ def walk_visits(lists, counts, n_chunks: int):
         counts <= lists.shape[1], n_chunks).double()
 
 
-def chunk_visits(lists, counts, n_chunks: int) -> str:
-    """The work of a tile walk: chunks visited per tile."""
-    visits = walk_visits(lists, counts, n_chunks)
-    return (f"{counts.numel()} tiles visit {float(visits.mean()):.1f} chunks "
-            f"on average (max {int(visits.max())}, {int(visits.sum())} in "
-            f"all); {int((counts > lists.shape[1]).sum())} tiles overflow "
-            f"their list of {lists.shape[1]}")
-
-
 def raster_walk(chunks, tri_boxes, lists, counts, nbx: int) -> dict:
-    """K1's work at a call: chunks visited per tile, the lanes that survive
-    its per-triangle cull per visit of a warp (half a tile; replayed on the
+    """K1's (or K9's, which culls alike) work at a call: chunks visited
+    per tile, the lanes that survive its per-triangle cull per visit of a
+    warp (half a tile; replayed on the
     host with the kernel's boxes and comparisons, raster_cuda.
     cull_survivors), the pixel-triangle pairs it evaluates, and the
     operation counts of both bounds: the pairs it evaluates, and every lane
@@ -1530,8 +1536,9 @@ AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
 FLOOR = "raster:floor"          # K1 launched with its depth floor
 RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
                                 # and the w plane (4 each), evaluated for
-                                # every pixel-triangle pair; the tail of
-                                # fragments inside is not counted
+                                # every pixel-triangle pair its cull
+                                # leaves; the tail of fragments inside is
+                                # not counted
 
 
 def kernels_of_configs():
@@ -1786,7 +1793,8 @@ def compare_raster_floor(calls):
 
 def compare_taps_same_class(calls, timed_label):
     """K6: bit-exact (a copy chosen by a table lookup) on every call kept
-    from the configs' last frames; the timed row is the largest call."""
+    from the configs' last frames; the timed row is the largest call (CUDA
+    events around the wrapper, device time per call by torch.profiler)."""
     import torch
     from rtsdm_tpu_torch.ops import fetch_cuda as F
     check(calls, "K6: no recorded call")
@@ -1803,60 +1811,98 @@ def compare_taps_same_class(calls, timed_label):
     args, kwargs, got = worst
     planes, lvl, pad, offs = args
     tab = F._same_class_table_on(offs, pad, planes.device)
+    t = timings(lambda: F.fetch_taps_same_class(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_taps_same_class"], 50)
+    log(f"K6 at {timed_label} {tuple(got.shape)}: {t['event_ms']:.4f} ms "
+        f"by CUDA events, device {t['device_ms']} ms, host "
+        f"{t['host_us']:.1f} us a call")
     # a copy per output; no single PyTorch call looks the offset up and
     # gathers (torch.gather needs the flat index this kernel computes): no
     # library yardstick
     return with_bound(
-        dict(max_abs_err=0.0, mismatches=0, exact=True,
-             ms=cuda_ms(lambda: F.fetch_taps_same_class(*args, **kwargs),
-                        50, 3),
+        dict(t, max_abs_err=0.0, mismatches=0, exact=True, ms=t["event_ms"],
              plain_ms=cuda_ms(lambda: F.fetch_taps_same_class_plain(
                  *args, **kwargs), 5, 1),
              timed_at=f"{timed_label} {tuple(got.shape)}"),
         nbytes(planes, lvl, tab, got), 0.0)
 
 
+def k9_parts_timing(args, parts_list, reps: int = 20) -> dict:
+    """K9 at one call with its walk split into each of parts_list, timed in
+    turns (the list, then the list reversed): {parts: {event_ms: [two
+    runs], device_ms: [two runs]}}."""
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    res = {p: {"event_ms": [], "device_ms": []} for p in parts_list}
+    for order in (parts_list, parts_list[::-1]):
+        for p in order:
+            t = timings(lambda: RC.raster_stochastic_blocks(*args, parts=p),
+                        KERNEL_SYMBOLS["raster_stochastic"], reps)
+            res[p]["event_ms"].append(t["event_ms"])
+            res[p]["device_ms"].append(t["device_ms"])
+    for p, v in res.items():
+        log(f"K9 with its walk in {p} part(s): CUDA events "
+            f"{v['event_ms']} ms, device {v['device_ms']} ms")
+    return res
+
+
 def compare_raster_stochastic(k):
-    """K9: bit-exact at the path's inputs (the last frame's call), at the
-    path's alpha and at alpha 1.0 (every fragment writes floor(k + rng)
-    slots), and on the same tiles with short lists that stream every
-    chunk. The bound counts the pixel-triangle pairs of this run's walk."""
+    """K9: bit-exact against the plain version without its per-triangle
+    cull at the path's inputs (the last frame's call), at the path's alpha
+    and at alpha 1.0 (every fragment writes floor(k + rng) slots), its walk
+    whole and split, and on the same tiles with short lists that stream
+    every chunk. The bound counts the pixel-triangle pairs its cull leaves
+    (replayed on the host, raster_walk); bound_ms_walk, the earlier
+    definition, counts every pair of the walk."""
     import torch
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     check(k.calls, "K9: no recorded call")
     args, kwargs = k.calls[-1]
-    chunks, lists, counts, nby, nbx, first, rmin, rmax, kk, alpha = args
+    chunks, boxes, lists, counts, nby, nbx, first, rmin, rmax, kk, alpha = \
+        args
     got = RC.raster_stochastic_blocks(*args, **kwargs)
     hit = float((got < RC.SD_EMPTY).double().mean())
+    parts = RC.sd_parts(nby * nbx)
     log(f"K9 raster_stochastic {tuple(got.shape)}, {chunks.shape[0]} chunks, "
-        f"k={kk}, alpha={alpha}: slots with a depth {hit:.4f}")
-    log(f"K9 walk: {chunk_visits(lists, counts, chunks.shape[0])}")
+        f"k={kk}, alpha={alpha}, walk in {parts} part(s): slots with a "
+        f"depth {hit:.4f}")
     check(0.0 < hit < 1.0, f"K9: share of filled slots {hit}")
-    for a in (alpha, 1.0):
-        run = (chunks, lists, counts, nby, nbx, first, rmin, rmax, kk, a)
-        g = RC.raster_stochastic_blocks(*run)
-        w = RC.raster_stochastic_blocks_plain(*run)
-        mism = int((g != w).sum())
-        log(f"K9 at alpha {a}: {mism} slot mismatches of {g.numel()} "
-            "(bound: bit-exact)")
-        check(torch.equal(g, w), f"K9 is not bit-exact at alpha {a}")
+    walk = raster_walk(chunks, boxes, lists, counts, nbx)
+    visits = spread(walk_visits(lists, counts, chunks.shape[0]))
+    log(f"K9 walk: {walk_line(walk)}; visits per tile {visits}")
     short = lists[:, :2].contiguous()
-    g = RC.raster_stochastic_blocks(chunks, short, counts, nby, nbx, first,
-                                    rmin, rmax, kk, alpha)
-    check(torch.equal(g, got), "K9 streaming every chunk disagrees with "
-                               "its walk of the lists")
-    pairs = float(walk_visits(lists, counts, chunks.shape[0]).sum()) \
-        * RC.TC * 256
+    for a in (alpha, 1.0):
+        run = (chunks, boxes, lists, counts, nby, nbx, first, rmin, rmax, kk,
+               a)
+        w = RC.raster_stochastic_blocks_plain(chunks, None, *run[2:])
+        for p in sorted({1, parts}):
+            g = RC.raster_stochastic_blocks(*run, parts=p)
+            mism = int((g != w).sum())
+            log(f"K9 at alpha {a}, {p} part(s): {mism} slot mismatches of "
+                f"{g.numel()} (bound: bit-exact)")
+            check(torch.equal(g, w), f"K9 is not bit-exact at alpha {a}, {p} "
+                                     "part(s)")
+    for p in sorted({1, parts}):
+        g = RC.raster_stochastic_blocks(chunks, boxes, short, *args[3:],
+                                        parts=p)
+        check(torch.equal(g, got), f"K9 streaming every chunk ({p} "
+                                   "part(s)) disagrees with its walk")
+    split = k9_parts_timing(args, sorted({1, 4, 8, 16, 32, parts}))
+    t = timings(lambda: RC.raster_stochastic_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["raster_stochastic"], 20)
+    pairs_walk = walk["visits"] * RC.TC * RC.RB
+    n_bytes = nbytes(chunks, boxes, lists, counts, first, rmin, rmax, got)
     # no PyTorch call rasterizes triangles: no library yardstick
     return with_bound(
-        dict(max_abs_err=0.0, mismatches=0, exact=True,
-             ms=cuda_ms(lambda: RC.raster_stochastic_blocks(*args, **kwargs),
-                        10, 2),
+        dict(t, max_abs_err=0.0, mismatches=0, exact=True, ms=t["event_ms"],
              plain_ms=cuda_ms(lambda: RC.raster_stochastic_blocks_plain(
-                 *args, **kwargs), 1, 0),
-             pairs=pairs, filled_share=hit),
-        nbytes(chunks, lists, counts, first, rmin, rmax, got),
-        pairs * RASTER_SD_FLOPS_PER_PAIR)
+                 chunks, None, *args[2:]), 1, 0),
+             parts=parts, parts_timing=split, walk=walk,
+             visits_per_tile=visits, pairs=walk["pairs"],
+             pairs_walk=pairs_walk,
+             bound_ms_walk=bound(n_bytes, pairs_walk
+                                 * RASTER_SD_FLOPS_PER_PAIR)[0],
+             filled_share=hit),
+        n_bytes, walk["pairs"] * RASTER_SD_FLOPS_PER_PAIR)
 
 
 def dual_depth_frame(m, kernels):
@@ -2384,12 +2430,33 @@ def import_checkout(root: Path):
     check(where == root.resolve(), f"rtsdm_tpu_torch imported from {where}")
 
 
-def sd_child(root: Path) -> dict:
-    """Run as `chip_smoke.py --sd-child ROOT` in a process of its own: the
+def k6_k9_timed(reps: int = 20) -> dict:
+    """K6 at config 1's SunTemple call and K9 at config 2's, through the
+    package imported: each call recorded from one frame of its config and
+    its wrapper timed there (timings: CUDA events, device time per call,
+    host enqueue)."""
+    res = {}
+    for label, name in (("config1_suntemple", "fetch_taps_same_class"),
+                        ("config2", "raster_stochastic")):
+        k = kernels_by_name(kernels_of_configs())[name]
+        m = config_renderer(label)
+        with record_main_path([k]):
+            m.renderFrame()
+        check(k.calls, f"{label}: {name} was not called")
+        args, kwargs = k.calls[-1]
+        res[name] = timings(lambda: k.wrapper(*args, **kwargs),
+                            KERNEL_SYMBOLS[name], reps)
+        del m
+    return res
+
+
+def ab_child(root: Path) -> dict:
+    """Run as `chip_smoke.py --ab-child ROOT` in a process of its own: the
     SD stage, piece by piece (sd_stage_split), of the SVAO path
     (SunTemple@full 1920x1080) and of scripts/SVAO.py's first frame
-    (Arcade@full 1280x720) through the package of the checkout at ROOT,
-    and its K5's and K7's resources (sd_trace_resources)."""
+    (Arcade@full 1280x720), its K5's and K7's resources
+    (sd_trace_resources), and K6 and K9 at configs 1 and 2 (k6_k9_timed),
+    through the package of the checkout at ROOT."""
     import_checkout(root)
     from rtsdm_tpu_torch.scene.procedural import sun_temple
     scene = sun_temple(aspect=WIDTH / HEIGHT, detail="full", device="cuda")
@@ -2401,7 +2468,9 @@ def sd_child(root: Path) -> dict:
     with sd_pass_capture() as seen:
         m.renderFrame()
     res["svao_full"] = sd_stage_split(*seen[0])
+    del m
     res["resources"] = sd_trace_resources()
+    res.update(k6_k9_timed())
     return res
 
 
@@ -2415,15 +2484,15 @@ def child(flag: str, root: Path) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def sd_trace_ab(parent: Path) -> dict:
-    """The parent's SD stage and resources against this checkout's, in
-    turns (parent, change, change, parent), each in a process of its own
-    (sd_child), on this card; and the mid-size comparison through the
-    parent's kernels (mid_size_against_jax, measured only). Returns the
-    four runs and the parent's MSEs."""
+def parent_ab(parent: Path) -> dict:
+    """The parent's SD stage, K5's and K7's resources, K6 and K9 against
+    this checkout's, in turns (parent, change, change, parent), each in a
+    process of its own (ab_child), on this card; and the mid-size
+    comparisons through the parent's kernels (mid_child, measured only).
+    Returns the four runs and the parent's MSEs."""
     runs = []
     for who in ("parent", "change", "change", "parent"):
-        res = child("--sd-child", parent if who == "parent" else ROOT)
+        res = child("--ab-child", parent if who == "parent" else ROOT)
         runs.append(dict(who=who, **res))
         for cell in ("svao_path", "svao_full"):
             split = res[cell]
@@ -2433,6 +2502,10 @@ def sd_trace_ab(parent: Path) -> dict:
                     + (f" (device {v['device_ms']:.4f})"
                        if v.get("device_ms") else "")
                     for n, v in split.items() if n != "stage"))
+        for name in ("fetch_taps_same_class", "raster_stochastic"):
+            t = res[name]
+            log(f"A/B {who} {name}: {t['event_ms']:.4f} ms by CUDA events, "
+                f"device {t['device_ms']} ms, host {t['host_us']:.1f} us")
     mid = child("--mid-child", parent)
     log("mid size through the parent's kernels: " + ", ".join(
         f"{k} MSE {v['mse']:.4g}" for k, v in mid.items()))
@@ -2443,97 +2516,182 @@ def sd_trace_ab(parent: Path) -> dict:
 # the mid-size comparison with the JAX package
 # ---------------------------------------------------------------------------
 
-# scripts/SVAO_small.py as tests/torch_refs/make_refs.py rendered it with the
-# JAX package on the CPU (tests/test_torch_refs.py checks that the file
-# records these settings)
+# the graph scripts as tests/torch_refs/make_refs.py rendered them with the
+# JAX package on the CPU (tests/test_torch_refs.py checks that each file
+# records these settings): SVAO_small.py; HBAO.py (BASELINE config 1) with
+# HBAO's samplingMode "Shift", which the port takes on the card (hazard l);
+# config 2, SVAO_small.py with the raster SD map, the JAX package's through
+# raster_stochastic_pallas, which K9 follows (hazard m)
+MID_RASTER_CAPS = {p: {"maxPerTile": 4096}
+                   for p in ("GBufferRaster", "DepthPeeling",
+                             "ForwardLighting")}
 MID_REF = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
                width=480, height=270, frames=1, frame=0,
                outputs=["AmbientOcclusion.out", "Shaded.out",
                         "AmbientOcclusionTAA.colorOut",
                         "ShadedTAA.colorOut"],
-               pass_overrides={p: {"maxPerTile": 4096}
-                               for p in ("GBufferRaster", "DepthPeeling",
-                                         "ForwardLighting")},
+               pass_overrides=MID_RASTER_CAPS,
                shadows="RayShadow through any_hit_pallas (interpret mode)")
-MID_REF_FILE = ROOT / "tests" / "torch_refs" / \
-    "SVAO_small.Arcade_full.480x270.f0.npz"
+MID_HBAO_REF = dict(MID_REF, script="scripts/HBAO.py",
+                    outputs=["Ambient.out", "Diffuse.out"],
+                    pass_overrides={**MID_RASTER_CAPS,
+                                    "HBAO": {"samplingMode": "Shift"}})
+MID_RASTER_SD_REF = dict(
+    MID_REF, pass_overrides={**MID_RASTER_CAPS, **RASTER_SD},
+    raster_sd="StochasticDepthMap through raster_stochastic_pallas "
+              "(interpret mode)")
 # MSE bound of each output against the JAX package's render: the MSE
-# measured on the card through the parent commit's kernels (AO 3.69e-6, its
-# TAA 4.70e-6, Shaded 2.54e-6, its TAA 6.28e-7; PERF.md section 6), doubled
-# and rounded up to one digit. What is left is located in PERF.md: the
-# rasters' last bits (tests/torch_refs/compare_passes.py --substitute) and
-# the SD map's keys; the card differs from the port on the CPU as much.
+# measured on the card through the parent commit's kernels (PERF.md section
+# 6), doubled and rounded up to one digit. SVAO_small.py's (AO 3.69e-6, its
+# TAA 4.70e-6, Shaded 2.54e-6, its TAA 6.28e-7): what is left is located
+# in PERF.md, the rasters' last bits (tests/torch_refs/compare_passes.py
+# --substitute) and the SD map's keys; the card differs from the port on
+# the CPU as much. HBAO.py's (Ambient 7.514e-7, Diffuse 3.393e-6) and
+# config 2's (AO 3.008e-6, its TAA 3.723e-6, Shaded 2.302e-6, its TAA
+# 6.056e-7): the same order, and the port on the CPU differs as much.
 MID_MSE_BOUND = {"AmbientOcclusion.out": 8e-6,
                  "AmbientOcclusionTAA.colorOut": 1e-5,
                  "Shaded.out": 6e-6, "ShadedTAA.colorOut": 2e-6}
+MID_HBAO_BOUND = {"Ambient.out": 2e-6, "Diffuse.out": 7e-6}
+MID_RASTER_SD_BOUND = {"AmbientOcclusion.out": 7e-6,
+                       "AmbientOcclusionTAA.colorOut": 8e-6,
+                       "Shaded.out": 5e-6, "ShadedTAA.colorOut": 2e-6}
+# file name prefix -> (settings, MSE bounds)
+MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
+            "HBAO": (MID_HBAO_REF, MID_HBAO_BOUND),
+            "SVAO_rasterSD": (MID_RASTER_SD_REF, MID_RASTER_SD_BOUND)}
+MID_ENTRIES = ("rtsdm_sd_trace", "rtsdm_sd_trace_resident",
+               "rtsdm_fetch_taps_same_class", "rtsdm_raster_stochastic")
 
 
-def mid_size_against_jax(bound: dict | None = MID_MSE_BOUND) -> dict:
-    """SVAO_small.py at MID_REF's scene, size, pass overrides (the port's
-    rasters keep no per-tile cap, so maxPerTile changes nothing there) and
-    frame through the port on the card, twice: pallasStream 'auto'
-    (Arcade's 38,610 triangles: the resident tier, K7) and True (the
-    streamed tier, K5). Each marked output is held against the JAX
-    package's render by MSE under its `bound` (None: measured only); the
-    share of pixels that differ at all and by more than 1e-3 is logged."""
+def mid_ref_file(name: str) -> Path:
+    ref = MID_REFS[name][0]
+    return ROOT / "tests" / "torch_refs" / (
+        f"{name}.{ref['scene'].replace('@', '_')}.{ref['width']}x"
+        f"{ref['height']}.f{ref['frame']}.npz")
+
+
+def mid_ref(name: str):
+    """The reference of MID_REFS[name], checked to record its settings."""
     import numpy as np
+    want = MID_REFS[name][0]
+    path = mid_ref_file(name)
+    ref = np.load(path)
+    recorded = json.loads(str(ref["settings"]))
+    check({k: recorded.get(k) for k in want} == want,
+          f"{path.name} records {recorded}, not {want}")
+    return ref
+
+
+def mid_frame(settings: dict, sd_stream=None):
+    """The kept frame of `settings` through the port on the card: its
+    marked outputs (numpy) and the launches of MID_ENTRIES over the frames
+    rendered. sd_stream sets the SD pass's pallasStream (SVAO_small.py:
+    'auto' traces resident, K7; True streams, K5)."""
     import torch
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
-    ref = np.load(MID_REF_FILE)
-    recorded = json.loads(str(ref["settings"]))
-    check({k: recorded[k] for k in MID_REF} == MID_REF,
-          f"{MID_REF_FILE.name} records {recorded}, not {MID_REF}")
-    res = {}
-    for stream in ("auto", True):
-        m = Renderer(MID_REF["width"], MID_REF["height"], device="cuda")
-        run_script(str(ROOT / MID_REF["script"]), m)
-        for name, props in MID_REF["pass_overrides"].items():
-            m.active_graph.get_pass(name).cfg.update(props)
+    m = Renderer(settings["width"], settings["height"], device="cuda")
+    run_script(str(ROOT / settings["script"]), m)
+    for name, props in settings["pass_overrides"].items():
+        m.active_graph.get_pass(name).cfg.update(props)
+    if sd_stream is not None:
         svao = m.active_graph.get_pass("SVAO")
         base = svao._sd_pass
-        svao._sd_pass = lambda _b=base, _s=stream: (
+        svao._sd_pass = lambda _b=base, _s=sd_stream: (
             _b()[0], {**_b()[1], "pallasStream": _s})
-        m.loadScene(MID_REF["scene"])
-        m.clock.pause()
-        torch.cuda.synchronize()
-        LAUNCHES.clear()
-        for f in range(MID_REF["frames"]):
-            m.clock.frame = f
-            out = m.renderFrame()
-            if f == MID_REF["frame"]:
-                kept = {k: out[k].float().cpu().numpy()
-                        for k in MID_REF["outputs"]}
-        torch.cuda.synchronize()
-        k5, k7 = LAUNCHES["rtsdm_sd_trace"], LAUNCHES["rtsdm_sd_trace_resident"]
-        n = MID_REF["frames"]
-        tier = "K5" if stream is True else "K7"
-        check((k5, k7) == ((n, 0) if stream is True else (0, n)),
-              f"mid size pallasStream={stream}: K5 {k5}, K7 {k7} launches")
-        for name in MID_REF["outputs"]:
-            img, want = kept[name], ref[name]
-            check(img.shape == want.shape,
-                  f"mid size {name}: shape {img.shape}, JAX {want.shape}")
-            check(bool(np.isfinite(img).all()), f"mid size {name}: not finite")
-            d = np.abs(img - want)
-            d = d.max(-1) if d.ndim == 3 else d
-            mse = float(((img - want) ** 2).mean())
-            row = dict(mse=mse, differ=float((d > 0).mean()),
-                       differ_1e3=float((d > 1e-3).mean()),
-                       max_abs=float(d.max()))
-            res[f"{tier}.{name}"] = row
-            log(f"mid size {MID_REF['scene']} {MID_REF['width']}x"
-                f"{MID_REF['height']} through {tier}, {name} vs the JAX "
-                f"package: MSE {mse:.4g} (bound "
-                f"{bound[name] if bound else None}); pixels "
-                f"differing {row['differ']:.5f}, by > 1e-3 "
-                f"{row['differ_1e3']:.5f}; max |diff| {row['max_abs']:.4g}")
-        del m
+    m.loadScene(settings["scene"])
+    m.clock.pause()
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    for f in range(settings["frames"]):
+        m.clock.frame = f
+        out = m.renderFrame()
+        if f == settings["frame"]:
+            kept = {k: out[k].float().cpu().numpy()
+                    for k in settings["outputs"]}
+    torch.cuda.synchronize()
+    return kept, {e: LAUNCHES[e] for e in MID_ENTRIES}
+
+
+def mid_rows(label: str, kept: dict, ref, bound: dict | None) -> dict:
+    """Each marked output against the JAX package's render: its MSE, the
+    share of pixels that differ at all and by more than 1e-3, and the
+    largest difference, logged beside its bound."""
+    import numpy as np
+    res = {}
+    for name, img in kept.items():
+        want = ref[name]
+        check(img.shape == want.shape,
+              f"{label} {name}: shape {img.shape}, JAX {want.shape}")
+        check(bool(np.isfinite(img).all()), f"{label} {name}: not finite")
+        d = np.abs(img - want)
+        d = d.max(-1) if d.ndim == 3 else d
+        mse = float(((img - want) ** 2).mean())
+        row = dict(mse=mse, differ=float((d > 0).mean()),
+                   differ_1e3=float((d > 1e-3).mean()),
+                   max_abs=float(d.max()))
+        res[f"{label}.{name}"] = row
+        log(f"mid size {label}, {name} vs the JAX package: MSE {mse:.4g} "
+            f"(bound {bound[name] if bound else None}); pixels differing "
+            f"{row['differ']:.5f}, by > 1e-3 {row['differ_1e3']:.5f}; max "
+            f"|diff| {row['max_abs']:.4g}")
     if bound is not None:
         bad = {k: v["mse"] for k, v in res.items()
                if v["mse"] > bound[k.split(".", 1)[1]]}
         check(not bad, f"mid size: MSE above its bound: {bad}")
     return res
+
+
+def mid_size_against_jax(bound: dict | None = MID_MSE_BOUND) -> dict:
+    """Phase 17: SVAO_small.py at MID_REF's scene, size, pass overrides
+    (the port's rasters keep no per-tile cap, so maxPerTile changes
+    nothing there) and frame through the port on the card, twice:
+    pallasStream 'auto' (Arcade's 38,610 triangles: the resident tier, K7)
+    and True (the streamed tier, K5). Each marked output is held against
+    the JAX package's render by MSE under its `bound` (None: measured
+    only)."""
+    ref = mid_ref("SVAO_small")
+    res = {}
+    for stream in ("auto", True):
+        kept, launches = mid_frame(MID_REF, stream)
+        n = MID_REF["frames"]
+        tier = "K5" if stream is True else "K7"
+        got = (launches["rtsdm_sd_trace"],
+               launches["rtsdm_sd_trace_resident"])
+        check(got == ((n, 0) if stream is True else (0, n)),
+              f"mid size pallasStream={stream}: K5, K7 launches {got}")
+        res.update(mid_rows(tier, kept, ref, bound))
+    return res
+
+
+def mid_configs_against_jax(bounds=(MID_HBAO_BOUND, MID_RASTER_SD_BOUND)):
+    """Phase 17b: HBAO.py (K6 once a frame) and config 2 (SVAO_small.py
+    with the raster SD map, K9 once a frame, the SD trace never) at the
+    scene, size, pass overrides and frame of their references through the
+    port on the card, each marked output held against the JAX package's
+    render by MSE under its bound (None: measured only)."""
+    res = {}
+    n = MID_REF["frames"]
+    for name, bound, want in (
+            ("HBAO", bounds[0], {"rtsdm_fetch_taps_same_class": n}),
+            ("SVAO_rasterSD", bounds[1], {"rtsdm_raster_stochastic": n})):
+        settings = MID_REFS[name][0]
+        ref = mid_ref(name)
+        kept, launches = mid_frame(settings)
+        want = {e: want.get(e, 0) for e in MID_ENTRIES}
+        check(launches == want, f"mid size {name}: launches {launches}, "
+                                f"expected {want}")
+        res.update(mid_rows(name, kept, ref, bound))
+    return res
+
+
+def mid_child(root: Path) -> dict:
+    """Run as `chip_smoke.py --mid-child ROOT`: phases 17 and 17b through
+    the package of the checkout at ROOT, measured only."""
+    import_checkout(root)
+    return dict(mid_size_against_jax(bound=None),
+                **mid_configs_against_jax(bounds=(None, None)))
 
 # ---------------------------------------------------------------------------
 
@@ -2544,8 +2702,9 @@ def main(argv=None) -> int:
                                              "NVIDIA GPU")
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of the parent commit: time "
-                         "its SD stage against this one's (sd_trace_ab)")
-    ap.add_argument("--sd-child", type=Path, default=None,
+                         "its SD stage, K6 and K9 against this one's "
+                         "(parent_ab)")
+    ap.add_argument("--ab-child", type=Path, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mid-child", type=Path, default=None,
                     help=argparse.SUPPRESS)
@@ -2554,12 +2713,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this check runs only on an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    if args.sd_child is not None:
-        print(json.dumps(sd_child(args.sd_child)), flush=True)
+    if args.ab_child is not None:
+        print(json.dumps(ab_child(args.ab_child)), flush=True)
         return 0
     if args.mid_child is not None:
-        import_checkout(args.mid_child)
-        print(json.dumps(mid_size_against_jax(bound=None)), flush=True)
+        print(json.dumps(mid_child(args.mid_child)), flush=True)
         return 0
     load_port()
     from rtsdm_tpu_torch import _build
@@ -2668,8 +2826,8 @@ def main(argv=None) -> int:
     config_rows, configs = run_configs()
     k7_row, svao_full = run_svao_full()
     config_rows.append(k7_row)
-    ab = sd_trace_ab(args.parent.resolve()) if args.parent else None
-    mid_size = mid_size_against_jax()
+    ab = parent_ab(args.parent.resolve()) if args.parent else None
+    mid_size = dict(mid_size_against_jax(), **mid_configs_against_jax())
     rows += config_rows
     for r in config_rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
@@ -2689,7 +2847,7 @@ def main(argv=None) -> int:
         "configs": configs, "svao_full": svao_full,
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
         "sd_stage": sd_stage, "sd_trace_resources": resources,
-        "mid_size_vs_jax": mid_size, "sd_trace_ab": ab,
+        "mid_size_vs_jax": mid_size, "parent_ab": ab,
         "fetch_host_split_us": fetch_split}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

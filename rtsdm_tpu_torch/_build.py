@@ -66,7 +66,7 @@ KERNEL_SIGNATURES = {
         "rtsdm_any_hit": [_P] * 5 + [_I] * 3 + [_P, _P, _P],
     },
     "raster_sd.cu": {
-        "rtsdm_raster_stochastic": [_P] * 6 + [_I] * 5 + [_F, _P, _I, _P,
+        "rtsdm_raster_stochastic": [_P] * 7 + [_I] * 6 + [_F, _P, _I, _P,
                                                           _P, _P],
     },
 }

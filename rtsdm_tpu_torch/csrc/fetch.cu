@@ -30,8 +30,14 @@
 // at the static offset tab[d, c, lvl[k, c, q]], a level given per step.
 // The TPU's select chain over every level, its per-tile halo DMA and its
 // dedup of equal consecutive offsets were workarounds for the missing
-// gather; here it is one thread per output texel doing one table lookup
-// and one load per plane set. Bounded by memory, as K3.
+// gather; here it is a gather. Bounded by memory: the nd * taps * n_src
+// outputs a texel writes are nearly all of its bytes (the planes, a few
+// MB, stay in L2), so K6 has K3's form: a block is a 32x8 tile of one
+// class's quarter texels (x fastest, every write of a warp one 128-byte
+// line), the class's table slice tab[:, c] sits in shared memory, a thread
+// reads each of its taps levels once and serves all nd directions and all
+// n_src sets from it, and all index arithmetic is 32-bit (the wrapper
+// checks the sizes fit).
 //
 // The level is computed exactly as rtsdm_tpu/ops/ao.py:shift_level_index:
 // a float32 product compared with float32 bounds (the float64 geometric
@@ -119,33 +125,42 @@ __global__ void fetch_sd_packed_kernel(
         sd[((size_t)kk * sd_h + y) * sd_w + x];
 }
 
-__global__ void fetch_taps_same_class_kernel(
-    const float* __restrict__ planes, const int* __restrict__ lvl,
-    const int* __restrict__ tab, int n_src, int nd, int taps, int n_levels,
-    int qh, int qw, int ph, int pw, float* __restrict__ out) {
-  const long long total = (long long)nd * taps * 16 * qh * qw;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int qx = (int)(i % qw);
-  long long rem = i / qw;
-  const int qy = (int)(rem % qh);
-  rem /= qh;
-  const int c = (int)(rem % 16);
-  const int t = (int)(rem / 16);
-  const int d = t / taps, k = t - d * taps;
-  const int l = lvl[(((size_t)k * 16 + c) * qh + qy) * qw + qx];
-  const int nt = nd * taps;
-  const size_t o = (((size_t)t * 16 + c) * qh + qy) * qw + qx;
-  if (l < 0 || l >= n_levels) {  // no level selected: the chain's 0
-    for (int s = 0; s < n_src; ++s)
-      out[(size_t)s * nt * 16 * qh * qw + o] = 0.0f;
-    return;
+__global__ void __launch_bounds__(kTileX * kTileY)
+    fetch_taps_same_class_kernel(const float* __restrict__ planes,
+                                 const int* __restrict__ lvl,
+                                 const int* __restrict__ tab, int n_src,
+                                 int nd, int taps, int n_levels, int qh,
+                                 int qw, int ph, int pw,
+                                 float* __restrict__ out) {
+  extern __shared__ int st[];  // tab[:, c] as [nd, n_levels, 2]
+  const int c = blockIdx.z;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const int row = n_levels * 2;
+  for (int i = tid; i < nd * row; i += kTileX * kTileY) {
+    const int d = i / row;
+    st[i] = tab[(d * 16 + c) * row + (i - d * row)];
   }
-  const int* e = tab + (((size_t)d * 16 + c) * n_levels + l) * 2;
-  const int y = e[0] + qy, x = e[1] + qx;
-  for (int s = 0; s < n_src; ++s)
-    out[(size_t)s * nt * 16 * qh * qw + o] =
-        planes[(((size_t)s * 16 + c) * ph + y) * pw + x];
+  __syncthreads();
+  const int qx = blockIdx.x * kTileX + threadIdx.x;
+  const int qy = blockIdx.y * kTileY + threadIdx.y;
+  if (qx >= qw || qy >= qh) return;
+  const int plane = qh * qw;
+  const int q = qy * qw + qx;
+  const int out_set = nd * taps * 16 * plane;  // one set's outputs
+  const int src_set = 16 * ph * pw;            // one set's planes
+  const float* own = planes + (c * ph + qy) * pw + qx;  // set 0, class c
+  for (int k = 0; k < taps; ++k) {
+    const int l = lvl[(k * 16 + c) * plane + q];
+    const bool ok = l >= 0 && l < n_levels;  // else the chain's 0
+#pragma unroll 4
+    for (int d = 0; d < nd; ++d) {
+      const int* e = st + d * row + (ok ? l : 0) * 2;
+      const int src = e[0] * pw + e[1];
+      const int o = ((d * taps + k) * 16 + c) * plane + q;
+      for (int s = 0; s < n_src; ++s)
+        out[s * out_set + o] = ok ? own[s * src_set + src] : 0.0f;
+    }
+  }
 }
 
 }  // namespace
@@ -190,18 +205,22 @@ extern "C" int rtsdm_fetch_sd_packed(const int* sd, const float* radius,
 
 // planes [n_src, 16, ph, pw]; lvl [taps, 16, qh, qw]; tab
 // [nd, 16, n_levels, 2] = padded-plane (y, x); out [n_src, nd * taps, 16,
-// qh, qw].
+// qh, qw]; every size below 2^31 elements and tab[:, c] (nd * n_levels * 2
+// ints) within 48 KB.
 extern "C" int rtsdm_fetch_taps_same_class(const float* planes,
                                            const int* lvl, const int* tab,
                                            int n_src, int nd, int taps,
                                            int n_levels, int qh, int qw,
                                            int ph, int pw, float* out,
                                            cudaStream_t stream) {
-  const long long total = (long long)nd * taps * 16 * qh * qw;
-  if (total > 0)
-    fetch_taps_same_class_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+  if (nd > 0 && taps > 0 && qh > 0 && qw > 0 && n_src > 0) {
+    const dim3 grid((qw + kTileX - 1) / kTileX, (qh + kTileY - 1) / kTileY,
+                    16);
+    fetch_taps_same_class_kernel<<<grid, dim3(kTileX, kTileY),
+                                   nd * n_levels * 2 * sizeof(int),
                                    stream>>>(planes, lvl, tab, n_src, nd,
                                              taps, n_levels, qh, qw, ph, pw,
                                              out);
+  }
   return (int)cudaGetLastError();
 }

@@ -85,6 +85,7 @@ _TABLES: dict = {}
 _TABLES_MAX = 16
 MAX_BOUNDS = 63    # csrc/fetch.cu: K3's level search and shared memory
 MAX_DIRS = 64      # hold its bounds and radii
+TAPS_TABLE_BYTES = 48 * 1024   # K6's shared table slice tab[:, c]
 
 
 def _build_tables(kind, levels, offs, radii, extra, device):
@@ -209,6 +210,12 @@ def fetch_taps_same_class(planes, lvl_taps, pad: int, offs):
         n_src, _, ph, pw = planes.shape
         taps, _, qh, qw = lvl.shape
         nd, _, n_levels, _ = tab.shape
+        if max(planes.numel(), lvl.numel(), n_src * nd * taps * 16 * qh
+               * qw) >= 2**31:
+            raise ValueError("fetch_taps_same_class: more than 2^31 values")
+        if nd * n_levels * 2 * 4 > TAPS_TABLE_BYTES:
+            raise ValueError("fetch_taps_same_class: a class's table slice "
+                             f"exceeds {TAPS_TABLE_BYTES} bytes")
         out = torch.empty((n_src, nd * taps, 16, qh, qw),
                           dtype=torch.float32, device=planes.device)
         launch("rtsdm_fetch_taps_same_class", ptr(planes), ptr(lvl),

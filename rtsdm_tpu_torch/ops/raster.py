@@ -130,7 +130,7 @@ def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
     [H,W] linear first-layer depth and ray interval (None: no floor, no
     interval). Returns LINEAR view depths [H, W, k], `far` where a slot
     stayed empty."""
-    chunks, _, lists, counts, nby, nbx = _binned_chunks(
+    chunks, tri_boxes, lists, counts, nby, nbx = _binned_chunks(
         view_proj, positions, width, height, 0.0, 0.0, cull)
     dev = chunks.device
     hp, wp = nby * raster_cuda.TILE_RH, nbx * raster_cuda.TILE_RW
@@ -141,7 +141,7 @@ def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
         return pad_tile(a.to(torch.float32), fill)[0].contiguous()
 
     slots = raster_cuda.raster_stochastic_blocks(
-        chunks, lists, counts, nby, nbx,
+        chunks, tri_boxes, lists, counts, nby, nbx,
         per_pixel(first_depth, 3e38, -3e38), per_pixel(ray_min, 0.0, 0.0),
         per_pixel(ray_max, 0.0, 3e38), k, alpha)
     t = slots[:, :height, :width].permute(1, 2, 0)

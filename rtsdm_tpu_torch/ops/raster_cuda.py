@@ -351,15 +351,36 @@ def raster_blocks_plain(coef_chunks, tri_boxes, lists, counts, nby: int,
 
 
 SD_EMPTY = 3e38   # K9's empty slot
+# K9 splits each tile's walk over enough warps that the launch has about
+# SD_WARPS of them, at most SD_MAX_PARTS per half tile: an SD grid has a
+# few hundred tiles, and its heaviest walks (config 2: 47 visits against a
+# mean of 10) set the pace. At config 2 the kernel took 0.30 ms in 1 part,
+# 0.11 in 4, 0.073 in 16 and no less in 24-48 (chip_smoke.py on an H100
+# 80GB HBM3 at 700 W; PERF.md)
+SD_WARPS = 8448   # 132 SMs x 64 warps, an SM's most
+SD_MAX_PARTS = 16
 
 
-def raster_stochastic_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
-                             first, ray_min, ray_max, k: int, alpha: float):
+def sd_parts(nb: int) -> int:
+    """Parts K9 splits each of `nb` tiles' walks into."""
+    return max(1, min(SD_MAX_PARTS, -(-SD_WARPS // max(2 * nb, 1))))
+
+
+def raster_stochastic_blocks(coef_chunks, tri_boxes, lists, counts,
+                             nby: int, nbx: int, first, ray_min, ray_max,
+                             k: int, alpha: float, parts: int | None = None):
     """K9: k-slot stochastic depth over an [nby*8, nbx*32] image (pixel
-    centres at +0.5). first / ray_min / ray_max: [nby*8, nbx*32] float32
-    per-pixel first-layer depth and ray interval. Returns [k, nby*8,
-    nbx*32] slot minima of linear view depth, SD_EMPTY where empty."""
+    centres at +0.5). tri_boxes [n_chunks, 4, TC] are the triangles' cull
+    boxes (cull_boxes, pack_tri_boxes), with which the kernel culls a
+    chunk's triangles per half tile, as K1 does; the cull changes no
+    output, so a CPU tensor takes the plain version without it. first /
+    ray_min / ray_max: [nby*8, nbx*32] float32 per-pixel first-layer depth
+    and ray interval. `parts` (default sd_parts) splits each tile's walk
+    over that many warps per half tile, merged exactly (a minimum). Returns
+    [k, nby*8, nbx*32] slot minima of linear view depth, SD_EMPTY where
+    empty."""
     for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
+                     (tri_boxes, torch.float32, "tri_boxes"),
                      (lists, torch.int32, "lists"),
                      (counts, torch.int32, "counts"),
                      (first, torch.float32, "first"),
@@ -370,27 +391,37 @@ def raster_stochastic_blocks(coef_chunks, lists, counts, nby: int, nbx: int,
             raise ValueError(f"raster_stochastic_blocks: {n} on {t.device}")
     shape = (nby * TILE_RH, nbx * TILE_RW)
     if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
+            or tri_boxes.shape != (coef_chunks.shape[0], 4, TC) \
             or lists.shape[0] != nby * nbx or counts.shape != (nby * nbx,) \
             or any(a.shape != shape for a in (first, ray_min, ray_max)):
         raise ValueError("raster_stochastic_blocks: inconsistent shapes")
     if not 1 <= k <= 8:
         raise ValueError(f"raster_stochastic_blocks: k={k} not in 1..8")
+    parts = sd_parts(nby * nbx) if parts is None else int(parts)
+    if parts < 1:
+        raise ValueError(f"raster_stochastic_blocks: parts={parts} < 1")
     if coef_chunks.is_cuda:
+        if max(coef_chunks.numel(), lists.numel(), k * shape[0] * shape[1],
+               2 * parts * nby * nbx) >= 2**31:
+            raise ValueError("raster_stochastic_blocks: more than 2^31 "
+                             "values")
         lut, idx = coverage_table_tensors(k, coef_chunks.device)
         out = torch.empty((k,) + shape, dtype=torch.float32,
                           device=coef_chunks.device)
-        launch("rtsdm_raster_stochastic", ptr(coef_chunks), ptr(lists),
-               ptr(counts), ptr(first), ptr(ray_min), ptr(ray_max),
-               coef_chunks.shape[0], lists.shape[1], nby, nbx, k,
-               alpha * k, ptr(lut), lut.numel(), ptr(idx), ptr(out),
-               stream_of(coef_chunks))
+        if parts > 1:    # the parts merge by atomicMin into it
+            out.fill_(SD_EMPTY)
+        launch("rtsdm_raster_stochastic", ptr(coef_chunks), ptr(tri_boxes),
+               ptr(lists), ptr(counts), ptr(first), ptr(ray_min),
+               ptr(ray_max), coef_chunks.shape[0], lists.shape[1], nby, nbx,
+               parts, k, alpha * k, ptr(lut), lut.numel(), ptr(idx),
+               ptr(out), stream_of(coef_chunks))
         return out
     if coef_chunks.device.type != "cpu":
         raise RuntimeError(f"raster_stochastic_blocks: unsupported device "
                            f"{coef_chunks.device}")
-    return raster_stochastic_blocks_plain(coef_chunks, lists, counts, nby,
-                                          nbx, first, ray_min, ray_max, k,
-                                          alpha)
+    return raster_stochastic_blocks_plain(coef_chunks, None, lists, counts,
+                                          nby, nbx, first, ray_min, ray_max,
+                                          k, alpha)
 
 
 def fragment_draws(px, py, oid):
@@ -413,60 +444,54 @@ def fragment_draws(px, py, oid):
 SD_PLAIN_BATCH = 256   # tiles per step of K9's plain version
 
 
-def raster_stochastic_blocks_plain(coef_chunks, lists, counts, nby: int,
-                                   nbx: int, first, ray_min, ray_max, k: int,
-                                   alpha: float):
+def raster_stochastic_blocks_plain(coef_chunks, tri_boxes, lists, counts,
+                                   nby: int, nbx: int, first, ray_min,
+                                   ray_max, k: int, alpha: float,
+                                   part: tuple[int, int] | None = None):
     """Plain PyTorch version of K9 (same expressions): all tiles advance
-    through their lists together, SD_PLAIN_BATCH tiles at a time."""
+    through their lists together, SD_PLAIN_BATCH tiles at a time.
+    tri_boxes None tests every lane of a visited chunk; given
+    (pack_tri_boxes), each half of a tile tests only the lanes that survive
+    K9's per-triangle cull for it (lane_survivors), which leaves every slot
+    as it is without them. part (p, parts) walks only the visits j with
+    j % parts == p, one of the kernel's split parts."""
     dev = coef_chunks.device
-    nb, list_w = lists.shape
-    n_chunks = coef_chunks.shape[0]
-    full = counts > list_w
-    cnt = torch.where(full, n_chunks, counts)
-    t = torch.arange(RB, device=dev)
-    blk = torch.arange(nb, device=dev)
-    px = ((blk % nbx)[:, None] * TILE_RW + t % TILE_RW).to(torch.float32) \
-        + 0.5
-    py = ((blk // nbx)[:, None] * TILE_RH + t // TILE_RW).to(torch.float32) \
-        + 0.5
+    nb = lists.shape[0]
+    px, py = tile_centres(nb, nbx, 0.5, 0.5, dev)
     fi = (tile_flatten(first) + 0.01).reshape(nb, RB)
     rmn = tile_flatten(ray_min).reshape(nb, RB)
     rmx = tile_flatten(ray_max).reshape(nb, RB)
     slots = torch.full((k, nb, RB), SD_EMPTY, device=dev)
-    for j in range(int(cnt.max()) if nb else 0):
-        for s in range(0, nb, SD_PLAIN_BATCH):
-            sl = slice(s, min(s + SD_PLAIN_BATCH, nb))
-            act = cnt[sl] > j
-            if not bool(act.any()):
-                continue
-            rows = torch.nonzero(act).squeeze(1) + s
-            ci = torch.where(full[rows], j,
-                             lists[rows, min(j, list_w - 1)]).long()
-            tri = coef_chunks[ci][:, :, None, :]          # [na,17,1,TC]
-            x, y = px[rows][:, :, None], py[rows][:, :, None]
+    for j, rows, ci in tile_walk(lists, counts, coef_chunks.shape[0],
+                                 SD_PLAIN_BATCH):
+        if part is not None and j % part[1] != part[0]:
+            continue
+        tri = coef_chunks[ci][:, :, None, :]          # [na,17,1,TC]
+        x, y = px[rows][:, :, None], py[rows][:, :, None]
 
-            def edge(r):
-                return tri[:, r] * x + tri[:, r + 1] * y + tri[:, r + 2]
+        def edge(r):
+            return tri[:, r] * x + tri[:, r + 1] * y + tri[:, r + 2]
 
-            e0, e1, e2, zn, wd = (edge(0), edge(3), edge(6), edge(9),
-                                  edge(12))
-            inside = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (wd > 0.0)
-                      & (tri[:, 15] > 0.0))
-            z = zn / torch.where(wd == 0.0, 1.0, wd)
-            inside = inside & (z >= 0.0) & (z <= 1.0)
-            esum = e0 + e1 + e2
-            vd = wd / torch.where(esum == 0.0, 1.0, esum)
-            rn, rx = rmn[rows][:, :, None], rmx[rows][:, :, None]
-            inside = (inside & (vd > fi[rows][:, :, None])
-                      & ((rn == 0.0) | (vd >= rn)) & (rx != 0.0) & (vd <= rx))
-            rng, rng2 = fragment_draws(x.expand_as(vd), y.expand_as(vd),
-                                       tri[:, 16].expand_as(vd))
-            mask = coverage_mask_select(alpha, rng, rng2, k)
-            vd = torch.where(inside, vd, SD_EMPTY)
-            for q in range(k):
-                m = torch.where(((mask >> q) & 1) > 0, vd, SD_EMPTY) \
-                    .amin(-1)
-                slots[q, rows] = torch.minimum(slots[q, rows], m)
+        e0, e1, e2, zn, wd = (edge(0), edge(3), edge(6), edge(9), edge(12))
+        inside = ((e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0) & (wd > 0.0)
+                  & (tri[:, 15] > 0.0))
+        if tri_boxes is not None:   # pixels 0-127 are rows 0-3 of a tile
+            inside = inside & lane_survivors(tri_boxes, ci, rows, nbx) \
+                .repeat_interleave(RB // 2, 1)
+        z = zn / torch.where(wd == 0.0, 1.0, wd)
+        inside = inside & (z >= 0.0) & (z <= 1.0)
+        esum = e0 + e1 + e2
+        vd = wd / torch.where(esum == 0.0, 1.0, esum)
+        rn, rx = rmn[rows][:, :, None], rmx[rows][:, :, None]
+        inside = (inside & (vd > fi[rows][:, :, None])
+                  & ((rn == 0.0) | (vd >= rn)) & (rx != 0.0) & (vd <= rx))
+        rng, rng2 = fragment_draws(x.expand_as(vd), y.expand_as(vd),
+                                   tri[:, 16].expand_as(vd))
+        mask = coverage_mask_select(alpha, rng, rng2, k)
+        vd = torch.where(inside, vd, SD_EMPTY)
+        for q in range(k):
+            m = torch.where(((mask >> q) & 1) > 0, vd, SD_EMPTY).amin(-1)
+            slots[q, rows] = torch.minimum(slots[q, rows], m)
     hp, wp = nby * TILE_RH, nbx * TILE_RW
     return torch.stack([tile_unflatten(a.reshape(-1), hp, wp)
                         for a in slots])

@@ -470,9 +470,10 @@ def test_raster_floor_kernel_matches_plain_on_gpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("alpha", [0.375, 1.0])
 def test_raster_stochastic_kernel_matches_plain_on_gpu(cuda_device, alpha):
-    """K9 against its plain version for k of 1, 4 and 8, with a first layer
-    and a ray interval that exclude some fragments, and with full and
-    short lists."""
+    """K9, with its per-triangle cull, against its plain version without
+    it for k of 1, 4 and 8, with a first layer and a ray interval that
+    exclude some fragments, with full and short lists, its walk whole and
+    split over 3 parts."""
     st = arcade(aspect=1.5, device=cuda_device)
     w, h = 96, 64
     chunks, boxes, lists, counts, nby, nbx = _raster_inputs(st, w, h)
@@ -491,24 +492,57 @@ def test_raster_stochastic_kernel_matches_plain_on_gpu(cuda_device, alpha):
     for k in (1, 4, 8):
         for lw in (lists.shape[1], 2):
             ls = lists[:, :lw].contiguous()
-            got = RC.raster_stochastic_blocks(chunks, ls, counts, nby, nbx,
-                                              *planes, k, alpha)
-            want = RC.raster_stochastic_blocks_plain(chunks, ls, counts, nby,
-                                                     nbx, *planes, k, alpha)
-            assert torch.equal(got, want), (k, lw)
+            want = RC.raster_stochastic_blocks_plain(chunks, None, ls, counts,
+                                                     nby, nbx, *planes, k,
+                                                     alpha)
+            for parts in (1, 3):
+                got = RC.raster_stochastic_blocks(chunks, boxes, ls, counts,
+                                                  nby, nbx, *planes, k,
+                                                  alpha, parts=parts)
+                assert torch.equal(got, want), (k, lw, parts)
         hit = got < RC.SD_EMPTY
         assert bool(hit.any()) and not bool(hit.all())
 
 
 @pytest.mark.cuda
-def test_same_class_fetch_kernel_matches_plain_on_gpu(cuda_device):
+def test_raster_stochastic_cull_is_exact_on_gpu(cuda_device):
+    """K9's per-triangle cull on the adversarial scene (70x45: triangles
+    through the eye plane, slivers on tile borders, near-degenerate ones):
+    bit-exact with the plain version without the cull, padding pixels
+    included, with full and short lists, whole and split into 4 parts."""
+    vp, pos = adversarial_scene()
+    args = R._binned_chunks(torch.as_tensor(vp, device=cuda_device),
+                            torch.as_tensor(pos, device=cuda_device),
+                            ADV_W, ADV_H, 0.0, 0.0, "none")
+    chunks, boxes, lists, counts, nby, nbx = args
+    lin = adversarial_floor(RC.raster_blocks(*args)[0])
+    rng = np.random.default_rng(41)
+    first = torch.where(torch.as_tensor(rng.random(lin.shape) < 0.5,
+                                        device=cuda_device), -3e38, lin)
+    rmax = torch.full_like(lin, 3e38)
+    planes = [a.contiguous() for a in (first, torch.zeros_like(lin), rmax)]
+    for lw in (lists.shape[1], 2):
+        ls = lists[:, :lw].contiguous()
+        want = RC.raster_stochastic_blocks_plain(chunks, None, ls, counts,
+                                                 nby, nbx, *planes, 4, 0.375)
+        for parts in (1, 4):
+            got = RC.raster_stochastic_blocks(chunks, boxes, ls, counts, nby,
+                                              nbx, *planes, 4, 0.375,
+                                              parts=parts)
+            assert torch.equal(got, want), (lw, parts)
+    assert bool((want < RC.SD_EMPTY).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qh,qw", [(24, 40), (13, 70)])
+def test_same_class_fetch_kernel_matches_plain_on_gpu(cuda_device, qh, qw):
     """K6 (HBAO's 8 directions x 4 steps) against its plain version for one
     and two plane sets, with level planes that include out-of-range
-    levels."""
+    levels, at quarter sizes that are not multiples of its 32x8 tiles."""
     from rtsdm_tpu_torch.ops import ao as A
     from rtsdm_tpu_torch.passes import hbao as H
     rng = np.random.default_rng(31)
-    qh, qw, dev = 24, 40, cuda_device
+    dev = cuda_device
     levels = A.shift_radius_levels(float(H.MAX_SHIFT_REACH))
     pad = int(np.ceil(levels[-1]))
     offs = H.shift_offsets(levels, H.direction_tables())

@@ -116,7 +116,8 @@ def _tiny_inputs():
                                   torch.zeros((4, 16, 2, 2),
                                               dtype=torch.int32),
                                   pad, [[[(1, -1)]] * 16] * 8),
-        "raster_stochastic_blocks": (chunks, lists, counts, 1, 1,
+        "raster_stochastic_blocks": (chunks, torch.zeros((1, 4, RC.TC)),
+                                     lists, counts, 1, 1,
                                      torch.zeros((8, 32)),
                                      torch.zeros((8, 32)),
                                      torch.ones((8, 32)), 4, 0.375),

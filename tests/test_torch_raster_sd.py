@@ -52,6 +52,8 @@ import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_pallas_interpret import interpret_mode  # noqa: E402
+from test_torch_cuda import (ADV_H, ADV_W, adversarial_floor,  # noqa: E402
+                             adversarial_scene)
 from test_torch_scene import carry  # noqa: E402
 
 from rtsdm_tpu.ops import raster_pallas as rpx  # noqa: E402
@@ -183,6 +185,105 @@ def test_raster_stochastic_matches_pallas_interpret(k9_case, alpha):
     np.testing.assert_array_equal(got[~filled_g], c["far"])
     if alpha == 1.0:   # floor(k + rng) = k: every fragment writes each slot
         assert (filled_r.all(-1) == filled_r.any(-1)).all()
+
+
+# --- K9's per-triangle cull and split walk (csrc/raster_sd.cu) -------------
+
+@pytest.fixture(scope="module", params=["CornellBox 128x128", "Arcade 64x48",
+                                        "adversarial 70x45"])
+def k9_cull_case(request):
+    """K9's inputs on a scene of the package and on the adversarial scene
+    of the K1 cull tests (near-degenerate triangles, which get the whole
+    plane): (chunks, boxes, lists, counts, nby, nbx) and the per-pixel
+    first layer (its view depth, no floor on about 30% of the pixels), ray
+    minimum (0 on every third row) and maximum (0 on every seventh
+    column), padded to the tiles."""
+    from rtsdm_tpu_torch.scene.procedural import load_scene
+    name = request.param.split()[0]
+    if name == "adversarial":
+        vp, pos = adversarial_scene()
+        args = R._binned_chunks(torch.as_tensor(vp), torch.as_tensor(pos),
+                                ADV_W, ADV_H, 0.0, 0.0, "none")
+        to_lin = adversarial_floor
+    else:
+        w, h = map(int, request.param.split()[1].split("x"))
+        st = load_scene(name, aspect=w / h, device="cpu")
+        args = R._binned_chunks(st.camera.view_proj_no_jitter, st.positions,
+                                w, h, 0.0, 0.0, "back")
+        to_lin = st.camera.linearize_depth
+    lin = to_lin(RC.raster_blocks_plain(args[0], None, *args[2:])[0])
+    rng = np.random.default_rng(37)
+    first = torch.where(torch.as_tensor(rng.random(lin.shape) < 0.3),
+                        -3e38, lin)
+    rmin = lin * torch.as_tensor(rng.uniform(0.5, 1.0, lin.shape)
+                                 .astype(np.float32))
+    rmin[::3] = 0.0
+    rmax = lin + torch.as_tensor(rng.uniform(0.5, 20.0, lin.shape)
+                                 .astype(np.float32))
+    rmax[:, ::7] = 0.0
+    return args, [a.contiguous() for a in (first, rmin, rmax)]
+
+
+@pytest.mark.parametrize("alpha", [0.375, 1.0])
+def test_k9_cull_equals_unrestricted(k9_cull_case, alpha):
+    """The plain K9 restricted to each half tile's survivors of the cull
+    boxes (lane_survivors) equals the unrestricted plain K9 bit for bit,
+    padding pixels included, with complete lists and with lists of width 2
+    that stream every chunk: the boxes bound K1's more tolerant fragment
+    test, so they never cull a fragment K9 keeps."""
+    (chunks, boxes, lists, counts, nby, nbx), planes = k9_cull_case
+    for ls in (lists, lists[:, :2].contiguous()):
+        want = RC.raster_stochastic_blocks_plain(chunks, None, ls, counts,
+                                                 nby, nbx, *planes, 4, alpha)
+        got = RC.raster_stochastic_blocks_plain(chunks, boxes, ls, counts,
+                                                nby, nbx, *planes, 4, alpha)
+        assert torch.equal(got, want)
+    hit = want < RC.SD_EMPTY
+    assert bool(hit.any()) and not bool(hit.all())
+
+
+def test_k9_split_walk_merges_exactly(k9_cull_case):
+    """K9's walk split into 3 parts (visits j = p, p + 3, ...), each part's
+    slots merged by torch.minimum, equals the whole walk; so does the
+    kernel's merge, atomicMin on the slots' bit patterns read as int32
+    (replayed by view(torch.int32) and amin), since every stored value is
+    a positive float. Complete lists and lists that stream every chunk."""
+    (chunks, boxes, lists, counts, nby, nbx), planes = k9_cull_case
+    for ls in (lists, lists[:, :2].contiguous()):
+        args = (chunks, boxes, ls, counts, nby, nbx, *planes, 4, 0.375)
+        whole = RC.raster_stochastic_blocks_plain(*args)
+        parts = torch.stack([RC.raster_stochastic_blocks_plain(
+            *args, part=(p, 3)) for p in range(3)])
+        assert torch.equal(parts.amin(0), whole)
+        assert bool((parts > 0).all())
+        assert torch.equal(parts.view(torch.int32).amin(0)
+                           .view(torch.float32), whole)
+
+
+def test_raster_stochastic_blocks_checks_tri_boxes():
+    """K9's wrapper refuses triangle boxes of another shape, type or device
+    than the chunks' (ValueError, TypeError) and fewer than one part,
+    before any dispatch."""
+    chunks = torch.zeros((2, RC.COEF_ROWS, RC.TC))
+    lists = torch.zeros((1, 1), dtype=torch.int32)
+    counts = torch.ones((1,), dtype=torch.int32)
+    planes = (torch.zeros((8, 32)), torch.zeros((8, 32)),
+              torch.ones((8, 32)))
+    good = torch.zeros((2, 4, RC.TC))
+    out = RC.raster_stochastic_blocks(chunks, good, lists, counts, 1, 1,
+                                      *planes, 4, 0.375)
+    assert out.shape == (4, 8, 32) and bool((out == RC.SD_EMPTY).all())
+    for bad in (torch.zeros((1, 4, RC.TC)), torch.zeros((2, 5, RC.TC)),
+                good.to("meta")):
+        with pytest.raises(ValueError, match="tri_boxes|inconsistent"):
+            RC.raster_stochastic_blocks(chunks, bad, lists, counts, 1, 1,
+                                        *planes, 4, 0.375)
+    with pytest.raises(TypeError, match="tri_boxes"):
+        RC.raster_stochastic_blocks(chunks, good.double(), lists, counts, 1,
+                                    1, *planes, 4, 0.375)
+    with pytest.raises(ValueError, match="parts"):
+        RC.raster_stochastic_blocks(chunks, good, lists, counts, 1, 1,
+                                    *planes, 4, 0.375, parts=0)
 
 
 @pytest.mark.parametrize("name,w,h", [("CornellBox", 128, 128),

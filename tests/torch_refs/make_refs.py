@@ -1,38 +1,54 @@
 #!/usr/bin/env python3
 """Generate the mid-size references that chip_smoke.py holds the port
-against: scripts/SVAO_small.py rendered by the JAX package (rtsdm_tpu) on
-the CPU, as the golden runner renders (use_jit=False, the script's own
-properties, a paused clock), at a size above every golden's.
+against: a graph script rendered by the JAX package (rtsdm_tpu) on the
+CPU, as the golden runner renders (use_jit=False, the script's own
+properties, a paused clock), at a size above every golden's. Three
+configurations (REFS): scripts/SVAO_small.py; scripts/HBAO.py (BASELINE
+config 1); scripts/SVAO_small.py with SVAO's stochasticDepthImpl set to
+"Raster" after the graph was built (BASELINE config 2, as
+bench_configs.py:20-23 sets it).
 
-The JAX package's CPU raster (its XLA tier) keeps at most maxPerTile
-triangles in each screen tile and drops the rest; at this size the
-script's 256 drops some, where the port's raster (like the reference's
-GPU raster) drops none. So the three raster passes get a maxPerTile at
-which the XLA raster drops nothing (the pass overrides below, as the
-golden tests set theirs); the script checks that no tile overflows it and
-records the overflow at 256 beside it.
+Wherever a CPU tier of the JAX package departs from its accelerator path,
+which the port follows, the reference takes the accelerator's behaviour:
 
-RayShadow takes the JAX package's accelerator branch (reference_shadows):
-on the CPU the package calls its XLA any-hit (ops/rt.py:any_hit), which
-ignores alpha masks, so masked triangles (Arcade's foliage and grilles)
-cast shadows there and nowhere else; the accelerator branch,
-any_hit_pallas, tests the masks, as the reference does and as the port
-does. It runs here in interpret mode, as the package's own interpret tests
-run it.
+* the JAX package's CPU raster (its XLA tier) keeps at most maxPerTile
+  triangles in each screen tile and drops the rest; at this size the
+  scripts' 256 drops some, where the port's raster (like the reference's
+  GPU raster) drops none. So the three raster passes get a maxPerTile at
+  which the XLA raster drops nothing (the pass overrides below, as the
+  golden tests set theirs); the script checks that the G-buffer raster
+  overflows no tile and records its overflow at 256 beside it;
+* RayShadow takes the JAX package's accelerator branch (accelerator_branch):
+  on the CPU the package calls its XLA any-hit (ops/rt.py:any_hit), which
+  ignores alpha masks, so masked triangles (Arcade's foliage and grilles)
+  cast shadows there and nowhere else; the accelerator branch,
+  any_hit_pallas, tests the masks, as the reference does and as the port
+  does;
+* HBAO samples with samplingMode "Shift" (a pass override): under "Auto"
+  the JAX package gathers on the CPU and shifts on an accelerator, and the
+  port shifts on the card (K6);
+* the raster stochastic-depth pass (config 2) takes the JAX package's
+  accelerator branch, raster_stochastic_pallas: its XLA tier caps each
+  tile's list at maxPerTile and hashes fragments differently from the
+  Pallas kernel, which the port's K9 follows.
 
-    JAX_PLATFORMS=cpu python tests/torch_refs/make_refs.py
+The Pallas kernels run here in interpret mode, as the package's own
+interpret tests run them.
 
-writes tests/torch_refs/SVAO_small.<scene>.<W>x<H>.f<frame>.npz with the
+    JAX_PLATFORMS=cpu python tests/torch_refs/make_refs.py [--config NAME]
+
+writes tests/torch_refs/<NAME>.<scene>.<W>x<H>.f<frame>.npz with the
 graph's marked outputs of the recorded frame (float32, compressed) and a
 JSON `settings` entry: script, scene, width, height, frames rendered, the
-frame kept, the outputs, the pass overrides, the G-buffer raster's
-overflow at 256 and at the override, and the render's seconds. The tier-1
-tests only load these files (tests/test_torch_refs.py); they never run
-this script.
+frame kept, the outputs, the pass overrides, the accelerator branches
+taken, the G-buffer raster's overflow at 256 and at the override, and the
+render's seconds. The tier-1 tests only load these files
+(tests/test_torch_refs.py); they never run this script.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import os
@@ -46,47 +62,86 @@ OUT_DIR = Path(__file__).resolve().parent
 # what chip_smoke.py renders through the port (read back by the tier-1 test
 # that checks the two agree)
 MAX_PER_TILE = 4096
+RASTER_CAPS = {p: {"maxPerTile": MAX_PER_TILE}
+               for p in ("GBufferRaster", "DepthPeeling", "ForwardLighting")}
+SHADOWS = "RayShadow through any_hit_pallas (interpret mode)"
 SETTINGS = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
                 width=480, height=270, frames=1, frame=0,
                 outputs=["AmbientOcclusion.out", "Shaded.out",
                          "AmbientOcclusionTAA.colorOut",
                          "ShadedTAA.colorOut"],
-                pass_overrides={p: {"maxPerTile": MAX_PER_TILE}
-                                for p in ("GBufferRaster", "DepthPeeling",
-                                          "ForwardLighting")},
-                shadows="RayShadow through any_hit_pallas (interpret mode)")
+                pass_overrides=RASTER_CAPS, shadows=SHADOWS)
+HBAO_SETTINGS = dict(script="scripts/HBAO.py", scene="Arcade@full",
+                     width=480, height=270, frames=1, frame=0,
+                     outputs=["Ambient.out", "Diffuse.out"],
+                     pass_overrides={**RASTER_CAPS,
+                                     "HBAO": {"samplingMode": "Shift"}},
+                     shadows=SHADOWS)
+RASTER_SD_SETTINGS = dict(
+    SETTINGS, pass_overrides={**RASTER_CAPS,
+                              "SVAO": {"stochasticDepthImpl": "Raster"}},
+    raster_sd="StochasticDepthMap through raster_stochastic_pallas "
+              "(interpret mode)")
+# file name prefix -> settings
+REFS = {"SVAO_small": SETTINGS, "HBAO": HBAO_SETTINGS,
+        "SVAO_rasterSD": RASTER_SD_SETTINGS}
+
+
+# Pallas kernels run in interpret mode, per pass whose branch was patched
+INTERPRETED = collections.Counter()
 
 
 @contextlib.contextmanager
-def reference_shadows():
-    """While it holds, RayShadow.execute runs the JAX package's accelerator
+def accelerator_branch(pass_cls, kernels):
+    """While it holds, pass_cls.execute runs the JAX package's accelerator
     branch on the CPU: jax.devices() reports an accelerator inside it and
-    rt_pallas' kernels run in interpret mode."""
+    the Pallas kernels of module `kernels` run in interpret mode."""
     from unittest import mock
     import jax
-    from rtsdm_tpu.ops import rt_pallas
-    from rtsdm_tpu.passes.lighting import RayShadow
     accelerator = [type("Device", (), {"platform": "tpu"})()]
-    real_call, real_exec = rt_pallas.pl.pallas_call, RayShadow.execute
+    real_call, real_exec = kernels.pl.pallas_call, pass_cls.execute
 
     def interpreted(*a, **kw):
+        INTERPRETED[pass_cls.__name__] += 1
         return real_call(*a, **dict(kw, interpret=True))
 
     def execute(self, ctx, inputs, state=None):
         with mock.patch.object(jax, "devices", lambda *a, **k: accelerator), \
-                mock.patch.object(rt_pallas.pl, "pallas_call", interpreted):
+                mock.patch.object(kernels.pl, "pallas_call", interpreted):
             return real_exec(self, ctx, inputs, state)
 
-    RayShadow.execute = execute
+    pass_cls.execute = execute
     try:
         yield
     finally:
-        RayShadow.execute = real_exec
+        pass_cls.execute = real_exec
 
 
-def ref_path(settings: dict) -> Path:
+def reference_shadows():
+    """RayShadow through any_hit_pallas (accelerator_branch)."""
+    from rtsdm_tpu.ops import rt_pallas
+    from rtsdm_tpu.passes.lighting import RayShadow
+    return accelerator_branch(RayShadow, rt_pallas)
+
+
+@contextlib.contextmanager
+def reference_branches(settings: dict):
+    """The accelerator branches `settings` records: the shadows always, the
+    raster stochastic depth through raster_stochastic_pallas where the
+    settings name it."""
+    from rtsdm_tpu.ops import raster_pallas
+    from rtsdm_tpu.passes.stochastic_depth import StochasticDepthMap
+    with contextlib.ExitStack() as st:
+        st.enter_context(reference_shadows())
+        if "raster_sd" in settings:
+            st.enter_context(accelerator_branch(StochasticDepthMap,
+                                                raster_pallas))
+        yield
+
+
+def ref_path(name: str, settings: dict) -> Path:
     scene = settings["scene"].replace("@", "_")
-    return OUT_DIR / (f"SVAO_small.{scene}.{settings['width']}x"
+    return OUT_DIR / (f"{name}.{scene}.{settings['width']}x"
                       f"{settings['height']}.f{settings['frame']}.npz")
 
 
@@ -137,23 +192,31 @@ def gbuffer_overflow(m, settings: dict, max_per_tile: int) -> int:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--width", type=int, default=SETTINGS["width"])
-    ap.add_argument("--height", type=int, default=SETTINGS["height"])
+    ap.add_argument("--config", choices=sorted(REFS), default="SVAO_small")
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
     args = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(ROOT))
     import numpy as np
-    settings = dict(SETTINGS, width=args.width, height=args.height)
+    settings = dict(REFS[args.config])
+    settings.update({k: v for k, v in (("width", args.width),
+                                       ("height", args.height)) if v})
     t0 = time.perf_counter()
-    with reference_shadows():
+    with reference_branches(settings):
         images, m = render(settings)
+    want = {"RayShadow"} | ({"StochasticDepthMap"} if "raster_sd" in settings
+                            else set())
+    if set(INTERPRETED) != want:
+        raise SystemExit(f"Pallas kernels ran in {dict(INTERPRETED)}, not "
+                         f"in each of {sorted(want)}")
     settings["seconds"] = round(time.perf_counter() - t0, 1)
     settings["overflow_at_256"] = gbuffer_overflow(m, settings, 256)
     settings["overflow"] = gbuffer_overflow(m, settings, MAX_PER_TILE)
     if settings["overflow"]:
         raise SystemExit(f"the XLA raster drops {settings['overflow']} "
                          f"entries at maxPerTile {MAX_PER_TILE}")
-    path = ref_path(settings)
+    path = ref_path(args.config, settings)
     np.savez_compressed(path, settings=np.asarray(json.dumps(settings)),
                         **images)
     print(f"{path.relative_to(ROOT)}: "
