@@ -22,7 +22,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    host enqueue); K1's walk and cull replayed on the host give its bounds
    on the pairs it evaluates and on every lane of every visit; the host
    time of K1's inputs and cull boxes; K3's and K4's wrappers' host time
-   piece by piece (fetch_host_split); K5's and K7's resources (registers,
+   piece by piece (fetch_host_split); K4's wrapper runs its kernel and
+   nothing else on the card (torch.profiler: the pack is in the kernel);
+   the G-buffer's attribute fetch piece by piece (gbuffer_host_split: face
+   normals, the table, K2's wrapper, by host clock and device time); K5's
+   and K7's resources (registers,
    shared memory, blocks an SM) and the SD trace stage piece by piece
    (sd_stage_split: each rt_cuda function the SD pass calls, by CUDA events
    and host time; K5's row is its whole wrapper, lists included);
@@ -95,16 +99,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    tiles and on 256 consecutive rays; the SD stage split; the frame timed
    as in 10. (Phase 5 also runs the SVAO path once with stochMaxCount 8:
    K5 with the cap, held and timed.)
-16. with --parent DIR: the parent's SD stage (SVAO path and SVAO.py), K6
-   (config 1 at SunTemple) and K9 (config 2) against this checkout's, in
-   turns in processes of their own (CUDA events around the wrapper,
-   torch.profiler per call); both checkouts' K5 and K7 resources; phases
-   17 and 17b through the parent's kernels, measured only;
+16. with --parent DIR: the parent's SD stage (SVAO path and SVAO.py), K2
+   (the SVAO path's and the graph's 2048x1208 call) and K4 (the SVAO
+   path's call) against this checkout's, in turns in processes of their
+   own (CUDA events around the wrapper, torch.profiler per call, host
+   enqueue); both checkouts' K5 and K7 resources; phases 17, 17b and 17c
+   through the parent's kernels, measured only;
 17. scripts/SVAO_small.py at Arcade@full 480x270, frame 0, through K7 and
    through K5, each marked output held by MSE against the JAX package's
    render committed in tests/torch_refs/ (made by make_refs.py there);
 17b. the same for scripts/HBAO.py (K6; HBAO's samplingMode "Shift", as the
-   card takes it) and config 2 (K9) at the same scene, size and frame.
+   card takes it) and config 2 (K9) at the same scene, size and frame;
+17c. the same for scripts/SVAO.py (K7 once a frame; K1 twice, never with
+   its floor: the graph prunes DepthPass and DepthPeeling; K2-K4, K8, K10).
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound and library yardstick), and
@@ -607,7 +614,10 @@ def compare_raster(k):
 
 
 def compare_fetch_attributes(k):
-    """K2: bit-exact (same products and sums in the same order)."""
+    """K2: bit-exact (same products and sums in the same order). Its bound
+    reads the table rows of the triangles some pixel shows, once each (the
+    rows this run's data needs; `bound_ms_whole_table`, the definition of
+    PR 1-8, reads every row)."""
     import torch
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     args, kwargs = k.calls[0]
@@ -618,15 +628,28 @@ def compare_fetch_attributes(k):
         "(bound: bit-exact)")
     check(torch.equal(got, want), "K2 is not bit-exact")
     tri_id, nci = args[0], args[3]
+    t = timings(lambda: RC.fetch_attributes(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_attributes"], 50)
+    log(f"K2 times: CUDA events {t['event_ms']:.4f} ms, device "
+        f"{t['device_ms']} ms, host enqueue {t['host_us']:.1f} us")
     # b0 (2), then 3 products and 2 sums per interpolated component; no
     # single PyTorch call gathers and interpolates: no library yardstick
     flops = float((tri_id >= 0).sum()) * (2 + 5 * nci)
+    table = args[2]
+    rows = int(torch.unique(tri_id[tri_id >= 0]).numel())
+    n_bytes = nbytes(args[:2], got) + rows * table.shape[1] * 4
+    whole, _ = bound(nbytes(args[:3], got), flops)
+    log(f"K2 bound: {rows} of {table.shape[0]} table rows read; "
+        f"{bound(n_bytes, flops)[0]:.4f} ms ({whole:.4f} ms reading the "
+        f"whole table)")
     return with_bound(
         dict(max_abs_err=err, mismatches=0, exact=True,
-             ms=cuda_ms(lambda: RC.fetch_attributes(*args, **kwargs), 50, 3),
+             ms=t["event_ms"], device_ms=t["device_ms"],
+             host_us=t["host_us"], table_rows_read=rows,
+             bound_ms_whole_table=whole,
              plain_ms=cuda_ms(lambda: RC.fetch_attributes_plain(
                  *args, **kwargs), 10, 2)),
-        nbytes(args[:3], got), flops)
+        n_bytes, flops)
 
 
 def compare_fetch_directions(k):
@@ -683,6 +706,12 @@ def compare_fetch_sd_packed(k):
     log(f"K4 fetch_sd_packed {tuple(got.shape)}: {mism} mismatches, max "
         f"|diff| of the unpacked depths {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K4 is not bit-exact")
+    acts = profiled(lambda: F.fetch_sd_packed(*args, **kwargs))
+    log(f"K4's wrapper on the card (torch.profiler): {acts}")
+    check(len(acts) == 1 and all(
+        KERNEL_SYMBOLS["fetch_sd_packed"] in n and c == 1
+        for n, (_, c) in acts.items()),
+        "K4's wrapper runs more than its kernel on the card")
     t = timings(lambda: F.fetch_sd_packed(*args, **kwargs),
                 KERNEL_SYMBOLS["fetch_sd_packed"], 50)
     log(f"K4 times: CUDA events {t['event_ms']:.4f} ms, device "
@@ -738,6 +767,51 @@ def fetch_host_split(k3, k4) -> dict:
         *k4.calls[0][0]), 50)
     log("K3/K4 host split (us, host clock): " + ", ".join(
         f"{n} {v:.1f}" for n, v in res.items()))
+    return res
+
+
+def gbuffer_host_split(scene, k2) -> dict:
+    """The G-buffer's attribute fetch at K2's recorded call (the SVAO
+    path's, SunTemple@full 1920x1080), piece by piece: host enqueue
+    (host clock, no synchronize, us), CUDA-event time and device time
+    (torch.profiler: every device activity of one call summed, and their
+    count) of scene.face_normals(), pack_attr_rows of the five attributes,
+    K2's wrapper, fetch_vertex_attributes building its table on every call
+    (as the G-buffer called it before the table was kept), the kept
+    table's lookup (passes/gbuffer.attribute_table) and
+    fetch_vertex_attributes with it (the G-buffer's call now)."""
+    from rtsdm_tpu_torch.ops import raster as R
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    from rtsdm_tpu_torch.passes.gbuffer import attribute_table
+    args = k2.calls[0][0]
+    tri_id, bary = args[:2]
+    interp = [scene.positions, scene.normals, scene.texcoords]
+    face_n = scene.face_normals()
+    pieces = {
+        "face_normals": scene.face_normals,
+        "pack_attr_rows": lambda: RC.pack_attr_rows(
+            interp, [face_n, scene.material_id]),
+        "k2_wrapper": lambda: RC.fetch_attributes(*args),
+        "fetch_vertex_attributes_table_each_call":
+            lambda: R.fetch_vertex_attributes(
+                tri_id, bary, interp,
+                [scene.face_normals(), scene.material_id]),
+        "attribute_table_kept": lambda: attribute_table(scene),
+        "fetch_vertex_attributes_kept_table":
+            lambda: R.fetch_vertex_attributes(
+                tri_id, bary, table=attribute_table(scene)),
+    }
+    res = {}
+    for name, fn in pieces.items():
+        acts = profiled(fn)
+        res[name] = dict(host_us=host_us(fn, 20), event_ms=cuda_ms(fn, 20, 3),
+                         device_ms=sum(ms for ms, _ in acts.values()),
+                         device_activities=sum(n for _, n in acts.values()))
+        log(f"G-buffer split {name}: host enqueue "
+            f"{res[name]['host_us']:.1f} us, CUDA events "
+            f"{res[name]['event_ms']:.4f} ms, device "
+            f"{res[name]['device_ms']:.4f} ms in "
+            f"{res[name]['device_activities']} activities")
     return res
 
 
@@ -2430,47 +2504,43 @@ def import_checkout(root: Path):
     check(where == root.resolve(), f"rtsdm_tpu_torch imported from {where}")
 
 
-def k6_k9_timed(reps: int = 20) -> dict:
-    """K6 at config 1's SunTemple call and K9 at config 2's, through the
-    package imported: each call recorded from one frame of its config and
-    its wrapper timed there (timings: CUDA events, device time per call,
-    host enqueue)."""
-    res = {}
-    for label, name in (("config1_suntemple", "fetch_taps_same_class"),
-                        ("config2", "raster_stochastic")):
-        k = kernels_by_name(kernels_of_configs())[name]
-        m = config_renderer(label)
-        with record_main_path([k]):
-            m.renderFrame()
-        check(k.calls, f"{label}: {name} was not called")
-        args, kwargs = k.calls[-1]
-        res[name] = timings(lambda: k.wrapper(*args, **kwargs),
-                            KERNEL_SYMBOLS[name], reps)
-        del m
-    return res
-
-
 def ab_child(root: Path) -> dict:
     """Run as `chip_smoke.py --ab-child ROOT` in a process of its own: the
     SD stage, piece by piece (sd_stage_split), of the SVAO path
     (SunTemple@full 1920x1080) and of scripts/SVAO.py's first frame
     (Arcade@full 1280x720), its K5's and K7's resources
-    (sd_trace_resources), and K6 and K9 at configs 1 and 2 (k6_k9_timed),
-    through the package of the checkout at ROOT."""
+    (sd_trace_resources), and K2 and K4 timed (timings) at calls recorded
+    from a frame: K2 at the SVAO path's call and at the graph's 2048x1208
+    one (SVAO_small.py on SunTemple@full, guard band 64), K4 at the SVAO
+    path's, through the package of the checkout at ROOT."""
     import_checkout(root)
     from rtsdm_tpu_torch.scene.procedural import sun_temple
     scene = sun_temple(aspect=WIDTH / HEIGHT, detail="full", device="cuda")
     pass_, ctx = make_svao(scene, WIDTH, HEIGHT, SVAO_PROPS)
-    with sd_pass_capture() as seen:
+    by_name = kernels_by_name(kernels_of_path())
+    k2, k4 = by_name["fetch_attributes"], by_name["fetch_sd_packed"]
+    with sd_pass_capture() as seen, record_main_path([k2, k4]):
         frame(scene, pass_, ctx, WIDTH, HEIGHT)
     res = {"svao_path": sd_stage_split(*seen[0])}
+    calls = {"k2_svao_path": (k2, k2.calls[0]),
+             "k4_svao_path": (k4, k4.calls[0])}
+    m = graph_renderer()
+    k2.calls.clear()
+    with record_main_path([k2]):
+        m.renderFrame()
+    del m
+    wide = [c for c in k2.calls if tuple(c[0][0].shape) == (1208, 2048)]
+    check(wide, "the graph made no 2048x1208 K2 call")
+    calls["k2_graph"] = (k2, wide[0])
+    for label, (k, (args, kwargs)) in calls.items():
+        res[label] = timings(lambda: k.wrapper(*args, **kwargs),
+                             KERNEL_SYMBOLS[k.name], 50)
     m = config_renderer("svao_full")
     with sd_pass_capture() as seen:
         m.renderFrame()
     res["svao_full"] = sd_stage_split(*seen[0])
     del m
     res["resources"] = sd_trace_resources()
-    res.update(k6_k9_timed())
     return res
 
 
@@ -2485,7 +2555,7 @@ def child(flag: str, root: Path) -> dict:
 
 
 def parent_ab(parent: Path) -> dict:
-    """The parent's SD stage, K5's and K7's resources, K6 and K9 against
+    """The parent's SD stage, K5's and K7's resources, K2 and K4 against
     this checkout's, in turns (parent, change, change, parent), each in a
     process of its own (ab_child), on this card; and the mid-size
     comparisons through the parent's kernels (mid_child, measured only).
@@ -2502,7 +2572,7 @@ def parent_ab(parent: Path) -> dict:
                     + (f" (device {v['device_ms']:.4f})"
                        if v.get("device_ms") else "")
                     for n, v in split.items() if n != "stage"))
-        for name in ("fetch_taps_same_class", "raster_stochastic"):
+        for name in ("k2_svao_path", "k2_graph", "k4_svao_path"):
             t = res[name]
             log(f"A/B {who} {name}: {t['event_ms']:.4f} ms by CUDA events, "
                 f"device {t['device_ms']} ms, host {t['host_us']:.1f} us")
@@ -2549,6 +2619,9 @@ MID_RASTER_SD_REF = dict(
 # the CPU as much. HBAO.py's (Ambient 7.514e-7, Diffuse 3.393e-6) and
 # config 2's (AO 3.008e-6, its TAA 3.723e-6, Shaded 2.302e-6, its TAA
 # 6.056e-7): the same order, and the port on the CPU differs as much.
+# SVAO.py's (AmbientRef 3.69e-6, DiffuseRef 2.545e-6, AmbientTAA
+# 4.703e-6, DiffuseTAA 6.281e-7): SVAO_small.py's through K7 to the last
+# digit (frame 0, TemporalAO disabled: the same AO, shading and TAA).
 MID_MSE_BOUND = {"AmbientOcclusion.out": 8e-6,
                  "AmbientOcclusionTAA.colorOut": 1e-5,
                  "Shaded.out": 6e-6, "ShadedTAA.colorOut": 2e-6}
@@ -2556,10 +2629,25 @@ MID_HBAO_BOUND = {"Ambient.out": 2e-6, "Diffuse.out": 7e-6}
 MID_RASTER_SD_BOUND = {"AmbientOcclusion.out": 7e-6,
                        "AmbientOcclusionTAA.colorOut": 8e-6,
                        "Shaded.out": 5e-6, "ShadedTAA.colorOut": 2e-6}
+# scripts/SVAO.py, the reference's shipped graph: its DepthPass capped too
+# (hazard f; the graph prunes it and DepthPeeling, so only GBufferRaster
+# and ForwardLighting raster), DiffuseDLSS.output (a pass-through stub)
+# not kept
+MID_SVAO_FULL_REF = dict(
+    MID_REF, script="scripts/SVAO.py",
+    outputs=["AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
+             "DiffuseTAA.colorOut"],
+    pass_overrides={**MID_RASTER_CAPS, "DepthPass": {"maxPerTile": 4096}},
+    left_out={"DiffuseDLSS.output": "DLSSPass is a pass-through stub "
+                                    "(passes/stubs.py): DiffuseRef.out"})
+MID_SVAO_FULL_BOUND = {"AmbientRef.out": 8e-6, "DiffuseRef.out": 6e-6,
+                       "AmbientTAA.colorOut": 1e-5,
+                       "DiffuseTAA.colorOut": 2e-6}
 # file name prefix -> (settings, MSE bounds)
 MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
             "HBAO": (MID_HBAO_REF, MID_HBAO_BOUND),
-            "SVAO_rasterSD": (MID_RASTER_SD_REF, MID_RASTER_SD_BOUND)}
+            "SVAO_rasterSD": (MID_RASTER_SD_REF, MID_RASTER_SD_BOUND),
+            "SVAO_full": (MID_SVAO_FULL_REF, MID_SVAO_FULL_BOUND)}
 MID_ENTRIES = ("rtsdm_sd_trace", "rtsdm_sd_trace_resident",
                "rtsdm_fetch_taps_same_class", "rtsdm_raster_stochastic")
 
@@ -2585,8 +2673,8 @@ def mid_ref(name: str):
 
 def mid_frame(settings: dict, sd_stream=None):
     """The kept frame of `settings` through the port on the card: its
-    marked outputs (numpy) and the launches of MID_ENTRIES over the frames
-    rendered. sd_stream sets the SD pass's pallasStream (SVAO_small.py:
+    marked outputs (numpy) and the launches of every C entry point (and
+    mode) over the frames rendered. sd_stream sets the SD pass's pallasStream (SVAO_small.py:
     'auto' traces resident, K7; True streams, K5)."""
     import torch
     from rtsdm_tpu_torch._build import LAUNCHES
@@ -2611,7 +2699,7 @@ def mid_frame(settings: dict, sd_stream=None):
             kept = {k: out[k].float().cpu().numpy()
                     for k in settings["outputs"]}
     torch.cuda.synchronize()
-    return kept, {e: LAUNCHES[e] for e in MID_ENTRIES}
+    return kept, collections.Counter(LAUNCHES)
 
 
 def mid_rows(label: str, kept: dict, ref, bound: dict | None) -> dict:
@@ -2679,6 +2767,7 @@ def mid_configs_against_jax(bounds=(MID_HBAO_BOUND, MID_RASTER_SD_BOUND)):
         settings = MID_REFS[name][0]
         ref = mid_ref(name)
         kept, launches = mid_frame(settings)
+        launches = {e: launches[e] for e in MID_ENTRIES}
         want = {e: want.get(e, 0) for e in MID_ENTRIES}
         check(launches == want, f"mid size {name}: launches {launches}, "
                                 f"expected {want}")
@@ -2686,12 +2775,37 @@ def mid_configs_against_jax(bounds=(MID_HBAO_BOUND, MID_RASTER_SD_BOUND)):
     return res
 
 
+def mid_svao_full_against_jax(bound=MID_SVAO_FULL_BOUND) -> dict:
+    """Phase 17c: scripts/SVAO.py at the scene, size, pass overrides and
+    frame of its reference through the port on the card, each kept output
+    held against the JAX package's render by MSE under its bound (None:
+    measured only). Per frame K7 launches once (Arcade's 38,610 triangles)
+    and K5, K6 and K9 never; K1 twice and never with its floor, K2 and K3
+    twice, K4 once, K8 and TAA's two K10 calls."""
+    from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
+    settings = MID_REFS["SVAO_full"][0]
+    ref = mid_ref("SVAO_full")
+    kept, launches = mid_frame(settings)
+    n = settings["frames"]
+    want = dict({e: 0 for e in MID_ENTRIES}, rtsdm_sd_trace_resident=n,
+                rtsdm_raster_blocks=2 * n, rtsdm_fetch_attributes=2 * n,
+                rtsdm_fetch_directions=2 * n, rtsdm_fetch_sd_packed=n)
+    want[raster_cuda.RASTER_FLOOR_KEY] = 0
+    want[warp_cuda.launch_key("catmull_rom")] = 2 * n
+    got = {e: launches[e] for e in want}
+    check(got == want and launches["rtsdm_any_hit"] >= n,
+          f"mid size SVAO_full: launches {dict(launches)}, expected {want} "
+          f"and K8 at least once a frame")
+    return mid_rows("SVAO_full", kept, ref, bound)
+
+
 def mid_child(root: Path) -> dict:
-    """Run as `chip_smoke.py --mid-child ROOT`: phases 17 and 17b through
-    the package of the checkout at ROOT, measured only."""
+    """Run as `chip_smoke.py --mid-child ROOT`: phases 17, 17b and 17c
+    through the package of the checkout at ROOT, measured only."""
     import_checkout(root)
     return dict(mid_size_against_jax(bound=None),
-                **mid_configs_against_jax(bounds=(None, None)))
+                **mid_configs_against_jax(bounds=(None, None)),
+                **mid_svao_full_against_jax(bound=None))
 
 # ---------------------------------------------------------------------------
 
@@ -2702,7 +2816,7 @@ def main(argv=None) -> int:
                                              "NVIDIA GPU")
     ap.add_argument("--parent", type=Path, default=None,
                     help="an unpacked checkout of the parent commit: time "
-                         "its SD stage, K6 and K9 against this one's "
+                         "its SD stage, K2 and K4 against this one's "
                          "(parent_ab)")
     ap.add_argument("--ab-child", type=Path, default=None,
                     help=argparse.SUPPRESS)
@@ -2751,6 +2865,8 @@ def main(argv=None) -> int:
     fetch_split = fetch_host_split(
         *(kernels_by_name(kernels)[n] for n in ("fetch_all_directions",
                                                  "fetch_sd_packed")))
+    gbuffer_split = gbuffer_host_split(
+        scene, kernels_by_name(kernels)["fetch_attributes"])
     maxcount = maxcount_on_main_path(scene)
     raster_setup = raster_setup_ms(scene)
     resources = sd_trace_resources()
@@ -2827,7 +2943,15 @@ def main(argv=None) -> int:
     k7_row, svao_full = run_svao_full()
     config_rows.append(k7_row)
     ab = parent_ab(args.parent.resolve()) if args.parent else None
-    mid_size = dict(mid_size_against_jax(), **mid_configs_against_jax())
+    mid_size = dict(mid_size_against_jax(), **mid_configs_against_jax(),
+                    **mid_svao_full_against_jax())
+    if ab is not None:
+        # every kernel is bit-exact with its plain version on both sides,
+        # so the parent's MSEs are this checkout's to the last digit
+        moved = {k: (v["mse"], mid_size[k]["mse"])
+                 for k, v in ab["parent_mid_size"].items()
+                 if f"{v['mse']:.4g}" != f"{mid_size[k]['mse']:.4g}"}
+        check(not moved, f"mid size: MSEs moved from the parent's: {moved}")
     rows += config_rows
     for r in config_rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
@@ -2848,7 +2972,8 @@ def main(argv=None) -> int:
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
         "sd_stage": sd_stage, "sd_trace_resources": resources,
         "mid_size_vs_jax": mid_size, "parent_ab": ab,
-        "fetch_host_split_us": fetch_split}}))
+        "fetch_host_split_us": fetch_split,
+        "gbuffer_host_split": gbuffer_split}}))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

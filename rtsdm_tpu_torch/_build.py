@@ -46,11 +46,11 @@ KERNEL_SIGNATURES = {
     "raster.cu": {
         "rtsdm_raster_blocks": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
                                 _P, _F, _P, _P, _P, _P, _P],
-        "rtsdm_fetch_attributes": [_P, _P, _P, _I, _I, _I, _I, _P, _P],
+        "rtsdm_fetch_attributes": [_P, _P, _P, _I, _I, _I, _P, _P],
     },
     "fetch.cu": {
         "rtsdm_fetch_directions": [_P] * 5 + [_I] * 7 + [_P, _P],
-        "rtsdm_fetch_sd_packed": [_P] * 5 + [_I] * 7 + [_P, _P],
+        "rtsdm_fetch_sd_packed": [_P] * 5 + [_I] * 6 + [_P, _P],
         "rtsdm_fetch_taps_same_class": [_P] * 3 + [_I] * 8 + [_P, _P],
     },
     "sd_trace.cu": {

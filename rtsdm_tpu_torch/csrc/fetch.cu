@@ -17,11 +17,22 @@
 // (the same count of bounds below r), and all index arithmetic is 32-bit
 // (the wrapper checks the sizes fit).
 //
-// K4 replaces fetch_pallas.py:_fetch_sd_kernel (driver fetch_sd_packed):
-// the same level selection over the 16-bit-pair-packed SD planes
-// [kp, sd_h, sd_w] (divisor 4: the SD texel of a class-c pixel plus offset
-// is a stride-1 shift), reading sd[kk, y0 + qy, x0 + qx] for every packed
-// plane kk with the clamped global origin (y0, x0) of the table.
+// K4 replaces fetch_pallas.py:_fetch_sd_kernel (driver fetch_sd_packed,
+// whose 16-bit pack, fetch_pallas.py:448-453, it does too): the same level
+// selection over the SD map [sd_h, sd_w, k] (divisor 4: the SD texel of a
+// class-c pixel plus offset is a stride-1 shift), reading the texel
+// (y0 + qy, x0 + qx) with the clamped global origin (y0, x0) of the table
+// and packing its k depths as the plain version's pack_sd16 does: each
+// 16-bit field is rint(depth * 65535) (round half to even) clamped to
+// [0, 65535], layer 2j in bits 0-15 and layer 2j+1 in bits 16-31 of plane
+// j, the high half of the last plane 0 when k is odd. Bounded by memory
+// (the packed output is nearly all its bytes), so K4 has K3's form: a
+// block is a 32x8 tile of one class's quarter texels, the class's table
+// slice, the level bounds and radii sit in shared memory, a thread reads
+// its radius once and serves all nd directions and all packed planes,
+// finding each level by the binary search, and all index arithmetic is
+// 32-bit (the wrapper checks the sizes fit). At k = 4 a texel's depths are
+// one float4 read.
 //
 // K6 replaces fetch_pallas.py:fetch_taps_same_class (the HBAO ring, driven
 // from rtsdm_tpu/passes/hbao.py): tap t = d * taps + k of direction d and
@@ -44,18 +55,31 @@
 // midpoints rounded to float32). Built with --fmad=false.
 #include <cuda_runtime.h>
 
-namespace {
+#include <cstdint>
 
-__device__ __forceinline__ int level_of(float r, const float* bounds,
-                                        int n_bounds) {
-  int lvl = 0;
-  for (int b = 0; b < n_bounds; ++b) lvl += (r > bounds[b]) ? 1 : 0;
-  return lvl;
-}
+namespace {
 
 constexpr int kTileX = 32, kTileY = 8;   // K3's block: a tile of texels
 constexpr int kMaxBounds = 63;           // rtsdm_tpu_torch/ops/fetch_cuda.py
 constexpr int kMaxDirs = 64;
+
+// #{b : r > bounds[b]} of n_b <= 63 ascending bounds: r > bounds[b] holds
+// for a prefix of them (for none when r is NaN)
+__device__ __forceinline__ int level_of(float r, const float* sb, int n_b) {
+  int lvl = 0;
+  for (int step = 32; step > 0; step >>= 1) {
+    const int i = lvl + step;
+    if (i <= n_b && r > sb[i - 1]) lvl = i;
+  }
+  return lvl;
+}
+
+// pack_sd16's 16-bit field of a depth. A NaN depth packs as 0 (fmaxf
+// returns the number); the SD map holds none, as K5 and K7 store decoded
+// 16-bit depths.
+__device__ __forceinline__ unsigned sd16(float v) {
+  return (unsigned)fminf(fmaxf(rintf(v * 65535.0f), 0.0f), 65535.0f);
+}
 
 __global__ void __launch_bounds__(kTileX * kTileY)
     fetch_directions_kernel(const float* __restrict__ planes,
@@ -86,15 +110,7 @@ __global__ void __launch_bounds__(kTileX * kTileY)
   const int q = qy * qw + qx;
   const float rad = radius[c * plane + q];
   for (int d = 0; d < nd; ++d) {
-    const float r = rad * sr[d];
-    // #{b : r > bounds[b]}: the bounds ascend, so r > bounds[b] holds for
-    // a prefix of them (for none when r is NaN)
-    int lvl = 0;
-    for (int step = 32; step > 0; step >>= 1) {
-      const int i = lvl + step;
-      if (i <= n_b && r > sb[i - 1]) lvl = i;
-    }
-    const int* e = st + d * row + lvl * 3;
+    const int* e = st + d * row + level_of(rad * sr[d], sb, n_b) * 3;
     const int src = (e[0] * ph + e[1] + qy) * pw + e[2] + qx;
     for (int s = 0; s < n_src; ++s)
       out[((s * nd + d) * 16 + c) * plane + q] =
@@ -102,27 +118,56 @@ __global__ void __launch_bounds__(kTileX * kTileY)
   }
 }
 
-__global__ void fetch_sd_packed_kernel(
-    const int* __restrict__ sd, const float* __restrict__ radius,
-    const float* __restrict__ bounds, const float* __restrict__ radii,
-    const int* __restrict__ tab, int kp, int nd, int n_levels, int qh,
-    int qw, int sd_h, int sd_w, int* __restrict__ out) {
-  const long long total = (long long)nd * 16 * qh * qw;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int qx = (int)(i % qw);
-  long long rem = i / qw;
-  const int qy = (int)(rem % qh);
-  rem /= qh;
-  const int c = (int)(rem % 16);
-  const int d = (int)(rem / 16);
-  const float r = radius[((size_t)c * qh + qy) * qw + qx] * radii[d];
-  const int lvl = level_of(r, bounds, n_levels - 1);
-  const int* e = tab + (((size_t)d * n_levels + lvl) * 16 + c) * 2;
-  const int y = e[0] + qy, x = e[1] + qx;
-  for (int kk = 0; kk < kp; ++kk)
-    out[((((size_t)d * 16 + c) * kp + kk) * qh + qy) * qw + qx] =
-        sd[((size_t)kk * sd_h + y) * sd_w + x];
+// K = 4: a texel's four depths are one float4 read (the wrapper's map is
+// 16-byte aligned); K = 0: k at run time, a short loop
+template <int K>
+__global__ void __launch_bounds__(kTileX * kTileY)
+    fetch_sd_packed_kernel(const float* __restrict__ sd,
+                           const float* __restrict__ radius,
+                           const float* __restrict__ bounds,
+                           const float* __restrict__ radii,
+                           const int* __restrict__ tab, int k, int nd,
+                           int n_levels, int qh, int qw, int sd_w,
+                           int* __restrict__ out) {
+  __shared__ float sb[kMaxBounds];
+  __shared__ float sr[kMaxDirs];
+  extern __shared__ int st[];  // tab[:, :, c] as [nd, n_levels, 2]
+  const int c = blockIdx.z;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const int n_b = n_levels - 1;
+  for (int i = tid; i < n_b; i += kTileX * kTileY) sb[i] = bounds[i];
+  for (int i = tid; i < nd; i += kTileX * kTileY) sr[i] = radii[i];
+  for (int i = tid; i < nd * n_levels * 2; i += kTileX * kTileY)
+    st[i] = tab[((i >> 1) * 16 + c) * 2 + (i & 1)];
+  __syncthreads();
+  const int qx = blockIdx.x * kTileX + threadIdx.x;
+  const int qy = blockIdx.y * kTileY + threadIdx.y;
+  if (qx >= qw || qy >= qh) return;
+  if (K != 0) k = K;
+  const int kp = (k + 1) / 2;
+  const int plane = qh * qw;
+  const int q = qy * qw + qx;
+  const float rad = radius[c * plane + q];
+  // unrolled, a thread's reads of several directions are in flight at once
+  // (0.0656 against 0.0764 ms on the device at the SVAO path's call, H100
+  // 80GB HBM3 at 700 W)
+#pragma unroll 8
+  for (int d = 0; d < nd; ++d) {
+    const int* e = st + (d * n_levels + level_of(rad * sr[d], sb, n_b)) * 2;
+    const int texel = (e[0] + qy) * sd_w + e[1] + qx;
+    int* o = out + (d * 16 + c) * kp * plane + q;
+    if (K == 4) {
+      const float4 v = reinterpret_cast<const float4*>(sd)[texel];
+      o[0] = (int)(sd16(v.x) | (sd16(v.y) << 16));
+      o[plane] = (int)(sd16(v.z) | (sd16(v.w) << 16));
+    } else {
+      const float* s = sd + texel * k;
+      for (int j = 0; j < kp; ++j) {
+        const unsigned hi = 2 * j + 1 < k ? sd16(s[2 * j + 1]) : 0u;
+        o[j * plane] = (int)(sd16(s[2 * j]) | (hi << 16));
+      }
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kTileX * kTileY)
@@ -187,19 +232,31 @@ extern "C" int rtsdm_fetch_directions(const float* planes,
   return (int)cudaGetLastError();
 }
 
-// sd [kp, sd_h, sd_w]; tab [nd, n_levels, 16, 2] = (y0, x0); out
-// [nd, 16, kp, qh, qw].
-extern "C" int rtsdm_fetch_sd_packed(const int* sd, const float* radius,
+// sd [sd_h, sd_w, k] float32; radius [16, qh, qw]; bounds [n_levels - 1]
+// ascending; radii [nd]; tab [nd, n_levels, 16, 2] = (y0, x0); out
+// [nd, 16, ceil(k/2), qh, qw]; n_levels - 1 <= 63, nd <= 64, every size
+// below 2^31 elements and tab[:, :, c] (nd * n_levels * 2 ints) within
+// 48 KB.
+extern "C" int rtsdm_fetch_sd_packed(const float* sd, const float* radius,
                                      const float* bounds, const float* radii,
-                                     const int* tab, int kp, int nd,
-                                     int n_levels, int qh, int qw, int sd_h,
-                                     int sd_w, int* out,
-                                     cudaStream_t stream) {
-  const long long total = (long long)nd * 16 * qh * qw;
-  if (total > 0)
-    fetch_sd_packed_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
-                             stream>>>(sd, radius, bounds, radii, tab, kp, nd,
-                                       n_levels, qh, qw, sd_h, sd_w, out);
+                                     const int* tab, int k, int nd,
+                                     int n_levels, int qh, int qw, int sd_w,
+                                     int* out, cudaStream_t stream) {
+  if (nd > 0 && qh > 0 && qw > 0 && k > 0) {
+    const dim3 grid((qw + kTileX - 1) / kTileX, (qh + kTileY - 1) / kTileY,
+                    16);
+    const size_t smem = nd * n_levels * 2 * sizeof(int);
+    if (k == 4 && (reinterpret_cast<uintptr_t>(sd) & 15) == 0)
+      fetch_sd_packed_kernel<4><<<grid, dim3(kTileX, kTileY), smem,
+                                  stream>>>(sd, radius, bounds, radii, tab,
+                                            k, nd, n_levels, qh, qw, sd_w,
+                                            out);
+    else
+      fetch_sd_packed_kernel<0><<<grid, dim3(kTileX, kTileY), smem,
+                                  stream>>>(sd, radius, bounds, radii, tab,
+                                            k, nd, n_levels, qh, qw, sd_w,
+                                            out);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -83,8 +83,8 @@ def _same_class_device_table(offs_key, pad: int, device):
 # holds those objects, so their ids are not reused while it lives
 _TABLES: dict = {}
 _TABLES_MAX = 16
-MAX_BOUNDS = 63    # csrc/fetch.cu: K3's level search and shared memory
-MAX_DIRS = 64      # hold its bounds and radii
+MAX_BOUNDS = 63    # csrc/fetch.cu: K3's and K4's level search and shared
+MAX_DIRS = 64      # memory hold their bounds and radii
 TAPS_TABLE_BYTES = 48 * 1024   # K6's shared table slice tab[:, c]
 
 
@@ -92,14 +92,19 @@ def _build_tables(kind, levels, offs, radii, extra, device):
     """(bounds, radii, table) on `device` and whether the table fits (K4's
     halo condition; always True for K3)."""
     bounds = A.level_bounds(np.asarray(levels, np.float32))
+    # the kernels' level search and shared memory
+    searchable = (len(bounds) <= MAX_BOUNDS and len(offs) <= MAX_DIRS
+                  and not bool((np.diff(bounds) < 0).any()))
     if kind == "dir":
-        if len(bounds) > MAX_BOUNDS or len(offs) > MAX_DIRS \
-                or bool((np.diff(bounds) < 0).any()):
+        if not searchable:
             raise ValueError("fetch_all_directions: at most 63 ascending "
                              "level bounds and 64 directions")
         tab, ok = direction_table(offs, *extra), True
     else:
         tab, ok = sd_table(offs, *extra)
+        if ok and not searchable and torch.device(device).type == "cuda":
+            raise ValueError("fetch_sd_packed: at most 63 ascending level "
+                             "bounds and 64 directions")
     return (torch.as_tensor(bounds, device=device),
             torch.as_tensor(np.asarray(radii, np.float32), device=device),
             torch.as_tensor(tab, device=device), ok)
@@ -265,31 +270,39 @@ def pack_sd16(sd_map):
 
 def fetch_sd_packed(sd_map, guard: int, radius_px_q, levels, offs, radii,
                     pad: int):
-    """K4 (divisor 4 only). sd_map [sd_h, sd_w, k] guard-banded normalized
-    depths. Returns 16-bit-pair packed planes [nd, 16, ceil(k/2), qh, qw]
-    int32 (see unpack_sd16), or None when the slice tables do not fit the
-    halo of `pad` (tiny SD maps; the caller uses fetch_sd_direction)."""
+    """K4 (divisor 4 only). sd_map [sd_h, sd_w, k] float32 guard-banded
+    normalized depths. Returns 16-bit-pair packed planes [nd, 16,
+    ceil(k/2), qh, qw] int32 (see unpack_sd16), or None when the slice
+    tables do not fit the halo of `pad` (tiny SD maps; the caller uses
+    fetch_sd_direction). On the card the kernel packs the depths itself;
+    the contract it is held to is fetch_sd_packed_plain(pack_sd16(sd_map),
+    ...)."""
     qh, qw = radius_px_q.shape[1:]
-    sd_pl = pack_sd16(sd_map)
-    kp, sd_h, sd_w = sd_pl.shape
+    sd_h, sd_w, k = sd_map.shape
     bounds, radii_t, tab, ok = _tables(
         "sd", levels, offs, radii, (guard, pad, sd_h, sd_w, qh, qw),
-        sd_pl.device)
+        sd_map.device)
     if not ok:
         return None
     radius = radius_px_q.contiguous()
-    if sd_pl.is_cuda:
-        nd = len(offs)
-        out = torch.empty((nd, 16, kp, qh, qw), dtype=torch.int32,
-                          device=sd_pl.device)
-        launch("rtsdm_fetch_sd_packed", ptr(sd_pl), ptr(radius), ptr(bounds),
-               ptr(radii_t), ptr(tab), kp, nd, len(levels), qh, qw, sd_h,
-               sd_w, ptr(out), stream_of(sd_pl))
+    if sd_map.is_cuda:
+        sd = sd_map.contiguous()
+        if sd.dtype != torch.float32 or radius.dtype != torch.float32:
+            raise TypeError("fetch_sd_packed: float32 SD map and radius")
+        nd, n_levels = len(offs), len(levels)
+        out = torch.empty((nd, 16, (k + 1) // 2, qh, qw), dtype=torch.int32,
+                          device=sd.device)
+        if max(sd.numel(), out.numel()) >= 2**31:
+            raise ValueError("fetch_sd_packed: more than 2^31 values")
+        launch("rtsdm_fetch_sd_packed", ptr(sd), ptr(radius), ptr(bounds),
+               ptr(radii_t), ptr(tab), k, nd, n_levels, qh, qw, sd_w,
+               ptr(out), stream_of(sd))
         return out
-    if sd_pl.device.type != "cpu":
+    if sd_map.device.type != "cpu":
         raise RuntimeError(f"fetch_sd_packed: unsupported device "
-                           f"{sd_pl.device}")
-    return fetch_sd_packed_plain(sd_pl, guard, radius, levels, offs, radii)
+                           f"{sd_map.device}")
+    return fetch_sd_packed_plain(pack_sd16(sd_map), guard, radius, levels,
+                                 offs, radii)
 
 
 def fetch_sd_packed_plain(sd_pl, guard, radius_px_q, levels, offs, radii):

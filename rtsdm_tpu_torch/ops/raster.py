@@ -10,6 +10,8 @@ stochastic-depth raster, walks the same chunk lists.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from ..utils.math import cross, dot3, transform_point
@@ -164,21 +166,40 @@ def flat_fetch(tri_id, per_tri):
     return per_tri[torch.clamp(tri_id, min=0).long()]
 
 
-def fetch_vertex_attributes(tri_id, bary, interp=(), flats=()):
+class AttrTable(NamedTuple):
+    """K2's table of some attributes (raster_cuda.pack_attr_rows) and how
+    its outputs split into channels: (width, or None for a [T] flat, and
+    the dtype to cast to, or None) per attribute, in order."""
+    rows: torch.Tensor
+    nci: int
+    nflat: int
+    channels: tuple
+
+
+def attr_table(interp=(), flats=()) -> AttrTable:
+    """The AttrTable of interpolated ([T,3,C]) and flat ([T] / [T,C])
+    attributes."""
+    rows, nci, nflat = raster_cuda.pack_attr_rows(interp, flats)
+    channels = tuple((a.shape[2], None) for a in interp) + tuple(
+        (None if f.ndim == 1 else f.shape[1],
+         None if f.is_floating_point() else f.dtype) for f in flats)
+    return AttrTable(rows, nci, nflat, channels)
+
+
+def fetch_vertex_attributes(tri_id, bary, interp=(), flats=(), table=None):
     """Materialize interpolated ([T,3,C] tables) and flat ([T] / [T,C])
     attributes for a winner image in one pass (K2). Returns the channels in
     order; every channel is 0 at background pixels; integer flats keep
-    their dtype."""
-    table, nci, nflat = raster_cuda.pack_attr_rows(interp, flats)
+    their dtype. `table`: their attr_table, where the caller keeps one
+    (passes/gbuffer.attribute_table); built here otherwise."""
+    if table is None:
+        table = attr_table(interp, flats)
     out = raster_cuda.fetch_attributes(tri_id.contiguous(),
-                                       bary.contiguous(), table, nci, nflat)
+                                       bary.contiguous(), table.rows,
+                                       table.nci, table.nflat)
     res, k = [], 0
-    for a in interp:
-        res.append(out[..., k:k + a.shape[2]])
-        k += a.shape[2]
-    for f in flats:
-        c = 1 if f.ndim == 1 else f.shape[1]
-        o = out[..., k] if f.ndim == 1 else out[..., k:k + c]
-        res.append(o if f.is_floating_point() else o.to(f.dtype))
-        k += c
+    for width, dtype in table.channels:
+        o = out[..., k] if width is None else out[..., k:k + width]
+        res.append(o if dtype is None else o.to(dtype))
+        k += 1 if width is None else width
     return res

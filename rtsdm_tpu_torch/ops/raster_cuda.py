@@ -513,6 +513,10 @@ def pack_attr_rows(interp, flats):
     return torch.cat(cols, 1).contiguous(), nci, nflat
 
 
+FETCH_PIX = 256                  # csrc/raster.cu: K2's block stages its
+FETCH_SHARED_BYTES = 48 * 1024   # pixels' output rows in shared memory
+
+
 def fetch_attributes(tri_id, bary, table, nci: int, nflat: int):
     """K2: per pixel, b0*a0 + b1*a1 + b2*a2 of the winner's vertex rows
     (b0 = 1 - b1 - b2) for the nci interpolated components, then its nflat
@@ -524,11 +528,17 @@ def fetch_attributes(tri_id, bary, table, nci: int, nflat: int):
     if table.shape[1] != 3 * nci + nflat or bary.shape != tri_id.shape + (2,):
         raise ValueError("fetch_attributes: inconsistent shapes")
     if tri_id.is_cuda:
+        if (nci + nflat) * FETCH_PIX * 4 > FETCH_SHARED_BYTES:
+            raise ValueError(f"fetch_attributes: {nci + nflat} outputs a "
+                             f"pixel exceed the kernel's shared memory")
+        if tri_id.numel() >= 2**31:
+            raise ValueError("fetch_attributes: more than 2^31 pixels")
+        if bary.data_ptr() % 8:
+            bary = bary.clone()     # read as float2
         out = torch.empty(tri_id.shape + (nci + nflat,), dtype=torch.float32,
                           device=tri_id.device)
         launch("rtsdm_fetch_attributes", ptr(tri_id), ptr(bary), ptr(table),
-               tri_id.numel(), table.shape[1], nci, nflat, ptr(out),
-               stream_of(tri_id))
+               tri_id.numel(), nci, nflat, ptr(out), stream_of(tri_id))
         return out
     if tri_id.device.type != "cpu":
         raise RuntimeError(f"fetch_attributes: unsupported device "

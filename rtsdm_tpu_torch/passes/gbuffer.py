@@ -5,9 +5,39 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.raster import fetch_vertex_attributes, rasterize
+from ..ops.raster import attr_table, fetch_vertex_attributes, rasterize
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
 from ..utils.math import normalize, transform_point
+
+
+# the G-buffer's attribute tables (attribute_table): {(id, _version) of
+# each source tensor: (the sources, their AttrTable)}
+_ATTR_TABLES: dict = {}
+_ATTR_TABLES_MAX = 4
+
+
+def attribute_table(scene):
+    """The AttrTable of the G-buffer's attributes (positions, normals and
+    texcoords interpolated; face normals and material id flat), kept while
+    positions, normals, texcoords and material_id are the same tensors at
+    the same version: the scene's geometry is static, and a frame's
+    jittered scene (Scene.with_camera) shares its tensors. An in-place
+    edit of any of them builds the table anew."""
+    src = (scene.positions, scene.normals, scene.texcoords,
+           scene.material_id)
+
+    def build():
+        return attr_table(src[:3], [scene.face_normals(), src[3]])
+
+    if any(t.is_inference() for t in src):     # they keep no version
+        return build()
+    key = tuple((id(t), t._version) for t in src)
+    hit = _ATTR_TABLES.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], src)):
+        if len(_ATTR_TABLES) >= _ATTR_TABLES_MAX:
+            _ATTR_TABLES.clear()
+        hit = _ATTR_TABLES[key] = (src, build())
+    return hit[1]
 
 
 def raster_gbuffer(scene, width: int, height: int, cull: str = "back",
@@ -22,8 +52,7 @@ def raster_gbuffer(scene, width: int, height: int, cull: str = "back",
     tid, bary = vis["tri_id"], vis["bary"]
     hit = tid >= 0
     pos_w, norm_w, tex_c, face_n, mtl = fetch_vertex_attributes(
-        tid, bary, [scene.positions, scene.normals, scene.texcoords],
-        [scene.face_normals(), scene.material_id])
+        tid, bary, table=attribute_table(scene))
     norm_w = torch.where(hit[..., None], normalize(norm_w), 0.0)
     face_n = torch.where(hit[..., None], face_n, 0.0)
     mtl = torch.where(hit, mtl, -1)

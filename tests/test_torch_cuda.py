@@ -102,6 +102,20 @@ def adversarial_floor(z):
     return (ADV_B / (z + ADV_A)).contiguous()
 
 
+def sd16_edge_depths(rng, shape):
+    """float32 depths for the 16-bit SD pack: about a third whose product
+    with 65535 is a half-integer in float32 (round half to even decides),
+    a third below 0 or above 1 (clamped) and a third uniform in [0, 1]."""
+    n = rng.integers(0, 65535, shape)
+    tie = ((n + 0.5) / 65535).astype(np.float32)
+    assert ((tie * np.float32(65535)) == (n + 0.5)).all()
+    off = rng.choice(np.float32([-1.5, -1e-6, 0.0, 1.0, 1.000001, 2.0]),
+                     shape)
+    pick = rng.integers(0, 3, shape)
+    return np.where(pick == 0, tie, np.where(
+        pick == 1, off, rng.uniform(0.0, 1.0, shape))).astype(np.float32)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -203,6 +217,66 @@ def test_fetch_kernels_match_plain_on_gpu(cuda_device):
     want = F.fetch_sd_packed_plain(F.pack_sd16(sd), guard, radius, levels,
                                    offs, radii)
     assert got is not None and torch.equal(got, want)
+
+
+def misaligned(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4, 5])
+def test_sd_fetch_kernel_packs_as_plain_on_gpu(cuda_device, k):
+    """K4 packs the float SD map itself: against fetch_sd_packed_plain of
+    pack_sd16 for odd and even k, with depths whose product with 65535 is a
+    half-integer and depths outside [0, 1], at quarter sizes that are not
+    multiples of its 32x8 tiles; k = 4 also from a map that is not 16-byte
+    aligned (the kernel then reads it float by float)."""
+    rng = np.random.default_rng(43 + k)
+    h, w, dev, guard = 52, 140, cuda_device, 24
+    levels, offs, radii = S.offset_tables(_Cfg(), 20.0)
+    pad = int(-(-float(levels[-1]) // 4)) + 1
+    radius = S.deinterleave(torch.as_tensor(
+        rng.uniform(0.5, 30.0, (h, w)).astype(np.float32), device=dev))
+    sd = torch.as_tensor(sd16_edge_depths(
+        rng, (h // 4 + 2 * guard, w // 4 + 2 * guard, k)), device=dev)
+    want = F.fetch_sd_packed_plain(F.pack_sd16(sd), guard, radius, levels,
+                                   offs, radii)
+    assert want.shape == (len(offs), 16, (k + 1) // 2, h // 4, w // 4)
+    for m in ([sd, misaligned(sd)] if k == 4 else [sd]):
+        got = F.fetch_sd_packed(m, guard, radius, levels, offs, radii, pad)
+        assert got is not None and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nci,nflat", [(8, 4), (3, 0), (2, 1)])
+def test_attribute_fetch_kernel_matches_plain_on_gpu(cuda_device, nci,
+                                                     nflat):
+    """K2 against its plain version for the G-buffer's 12 outputs and two
+    narrower layouts, at a pixel count that is not a multiple of its
+    256-pixel blocks, with background pixels, on an all-background image,
+    and (the G-buffer's layout) from a table that is not 16-byte aligned
+    (its rows then read float by float)."""
+    rng = np.random.default_rng(47 + nci)
+    dev, t, h, w = cuda_device, 300, 37, 29
+    table = torch.as_tensor(rng.normal(size=(t, 3 * nci + nflat))
+                            .astype(np.float32), device=dev)
+    tri_id = torch.as_tensor(rng.integers(-1, t, (h, w)).astype(np.int32),
+                             device=dev)
+    bary = torch.as_tensor(rng.uniform(0.0, 0.6, (h, w, 2))
+                           .astype(np.float32), device=dev)
+    tables = [table, misaligned(table)] if nci == 8 else [table]
+    for ids in (tri_id, torch.full_like(tri_id, -1)):
+        want = RC.fetch_attributes_plain(ids, bary, table, nci, nflat)
+        assert want.shape == (h, w, nci + nflat)
+        for tab in tables:
+            assert torch.equal(
+                RC.fetch_attributes(ids, bary, tab, nci, nflat), want)
+    assert bool((tri_id < 0).any()) and bool((tri_id >= 0).any())
 
 
 @pytest.mark.cuda

@@ -22,6 +22,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_pallas_interpret import interpret_mode  # noqa: E402
+from test_torch_cuda import sd16_edge_depths  # noqa: E402
 
 import rtsdm_tpu.ops.ao as AJ  # noqa: E402
 import rtsdm_tpu.ops.ao_shift as SJ  # noqa: E402
@@ -102,9 +103,11 @@ def test_fetch_all_directions_matches_pallas_interpret(planes):
         np.testing.assert_array_equal(g.numpy(), np.asarray(wnt))
 
 
-def test_fetch_sd_packed_matches_pallas_interpret(planes):
-    """k = 3: plane 0 packs layers 0|1, plane 1 layer 2 and a zero half."""
-    p, k = planes, 3
+@pytest.mark.parametrize("k", [3, 4])
+def test_fetch_sd_packed_matches_pallas_interpret(planes, k):
+    """k = 3: plane 0 packs layers 0|1, plane 1 layer 2 and a zero half;
+    k = 4 (the SVAO path's): two full planes."""
+    p = planes
     qh, qw = p["h"] // 4, p["w"] // 4
     guard = 24
     sd = p["rng"].uniform(0.0, 1.0, (qh + 2 * guard, qw + 2 * guard, k)) \
@@ -123,6 +126,32 @@ def test_fetch_sd_packed_matches_pallas_interpret(planes):
         np.testing.assert_array_equal(
             F.unpack_sd16(got, kk).numpy(),
             np.asarray(FJ.unpack_sd16(want, kk)))
+
+
+def test_pack_sd16_matches_the_jax_pack(planes):
+    """pack_sd16, the rule K4 computes on the card, bit for bit against the
+    JAX driver's own pack (fetch_pallas.fetch_sd_packed, a map that fits):
+    depths whose product with 65535 rounds half to even, depths below 0
+    and above 1, and an odd k. The fetch copies packed texels, so equal
+    outputs are equal packs of every texel it reads."""
+    p, k, guard = planes, 3, 24
+    qh, qw = p["h"] // 4, p["w"] // 4
+    sd = sd16_edge_depths(np.random.default_rng(41),
+                          (qh + 2 * guard, qw + 2 * guard, k))
+    rq = SJ.deinterleave(jnp.asarray(p["radius_px"]))
+    with interpret_mode(FJ):
+        want = FJ.fetch_sd_packed(jnp.asarray(sd), guard, rq, p["levels"],
+                                  p["offs"], p["radii"], p["pad"])
+    got = F.fetch_sd_packed_plain(F.pack_sd16(torch.as_tensor(sd)), guard,
+                                  torch.as_tensor(np.array(rq)),
+                                  p["levels"], p["offs"], p["radii"])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    # every kind of depth reaches the output: ties of both parities,
+    # clamped ones at 0 and 65535
+    fields = np.concatenate([np.asarray(want) & 0xFFFF,
+                             (np.asarray(want) >> 16) & 0xFFFF]).ravel()
+    assert {0, 65535} <= set(np.unique(fields).tolist())
+    assert (fields % 2 == 1).any() and (fields % 2 == 0).any()
 
 
 def test_fetch_sd_packed_declines_tiny_maps(planes):

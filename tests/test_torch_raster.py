@@ -203,6 +203,35 @@ def test_gbuffer_matches_reference():
                                    err_msg=k)
 
 
+def test_gbuffer_table_cache_follows_in_place_edits():
+    """The G-buffer's attribute table is kept per scene geometry (a frame's
+    jittered scene shares it) and built anew after an in-place edit of the
+    positions or material ids: the G-buffer then equals one built from
+    fresh copies of the edited tensors, which miss the cache, and one built
+    from inference-mode copies, which keep no version and are never
+    kept."""
+    import dataclasses
+    from rtsdm_tpu_torch.passes.gbuffer import attribute_table, raster_gbuffer
+    st = carry(PJ.cornell_box())
+    before = raster_gbuffer(st, 48, 48)
+    assert attribute_table(st.with_camera(st.camera)) is attribute_table(st)
+    st.positions[:, :, 1].add_(0.05)
+    st.material_id[::2] = 1 - st.material_id[::2]
+    got = raster_gbuffer(st, 48, 48)
+    def copied(scene):
+        return dataclasses.replace(scene, **{
+            k: getattr(scene, k).clone()
+            for k in ("positions", "normals", "texcoords", "material_id")})
+
+    want = raster_gbuffer(copied(st), 48, 48)
+    with torch.inference_mode():    # tensors that keep no version
+        unkept = raster_gbuffer(copied(st), 48, 48)
+    for k, v in want.items():
+        assert torch.equal(got[k], v) and torch.equal(unkept[k], v), k
+    assert not torch.equal(got["posW"], before["posW"])
+    assert not torch.equal(got["mtlData"], before["mtlData"])
+
+
 # --- K1's per-triangle cull (csrc/raster.cu) ------------------------------
 
 @pytest.fixture(scope="module", params=["CornellBox 64x64", "Arcade 96x64",

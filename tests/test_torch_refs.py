@@ -1,6 +1,7 @@
 """The mid-size references of tests/torch_refs/ (the JAX package's renders
-of scripts/SVAO_small.py, scripts/HBAO.py and BASELINE config 2 above
-every golden's size, made by tests/torch_refs/make_refs.py): they load,
+of scripts/SVAO_small.py, scripts/HBAO.py, BASELINE config 2 and
+scripts/SVAO.py above every golden's size, made by
+tests/torch_refs/make_refs.py): they load,
 hold finite float32 images of the size they record, and record the
 settings chip_smoke.py renders the port with when it holds the card
 against them, the JAX package's accelerator branches included (hazards f,
@@ -21,7 +22,7 @@ import chip_smoke  # noqa: E402
 
 # each reference's AO output (its first channel lies in [0, 1])
 AO = {"SVAO_small": "AmbientOcclusion.out", "HBAO": "Ambient.out",
-      "SVAO_rasterSD": "AmbientOcclusion.out"}
+      "SVAO_rasterSD": "AmbientOcclusion.out", "SVAO_full": "AmbientRef.out"}
 
 
 @pytest.fixture(scope="module", params=sorted(chip_smoke.MID_REFS))
@@ -38,8 +39,10 @@ def test_mid_size_refs_record_what_chip_smoke_renders(ref):
     assert set(bound) == set(settings["outputs"])
     assert set(ref) == set(settings["outputs"]) | {"settings"}
     assert settings["width"] * settings["height"] > 128 * 128  # > goldens
-    # the JAX package's raster dropped no triangle in any tile
+    # the JAX package's raster dropped no triangle in any tile, in the
+    # G-buffer raster and (where recorded) in every raster pass that ran
     assert settings["overflow"] == 0
+    assert not any(settings.get("raster_overflow", {}).values())
     for out in settings["outputs"]:
         img = ref[out]
         assert img.dtype == np.float32
@@ -71,3 +74,28 @@ def test_mid_size_refs_take_the_accelerator_branches():
         assert "any_hit_pallas" in settings["shadows"]
         for p in ("GBufferRaster", "DepthPeeling", "ForwardLighting"):
             assert settings["pass_overrides"][p] == {"maxPerTile": 4096}
+
+
+def test_svao_full_ref_records_four_raster_caps_and_its_outputs():
+    """scripts/SVAO.py's reference differs from SVAO_small.py's only in the
+    script, its kept outputs (DiffuseDLSS.output, a pass-through stub, left
+    out and said so), and its fourth raster pass, DepthPass, capped as the
+    others (hazard f); the file records that the graph ran only the
+    G-buffer and ForwardLighting rasters, neither overflowing, and the
+    accelerator branches chip_smoke.py takes."""
+    full, bound = chip_smoke.MID_REFS["SVAO_full"]
+    base = chip_smoke.MID_REFS["SVAO_small"][0]
+    assert full["script"] == "scripts/SVAO.py"
+    assert full["pass_overrides"] == dict(
+        base["pass_overrides"], DepthPass={"maxPerTile": 4096})
+    assert list(full["left_out"]) == ["DiffuseDLSS.output"]
+    assert "DiffuseDLSS.output" not in full["outputs"] + list(bound)
+    differ = ("script", "outputs", "pass_overrides", "left_out")
+    assert {k: v for k, v in full.items() if k not in differ} == {
+        k: v for k, v in base.items() if k not in differ}
+    assert set(chip_smoke.SVAO_FULL_OUTPUTS) == set(full["outputs"]) | set(
+        full["left_out"])
+    with np.load(chip_smoke.mid_ref_file("SVAO_full")) as f:
+        settings = json.loads(str(f["settings"]))
+    assert settings["raster_overflow"] == {"ForwardLighting": 0,
+                                           "GBufferRaster": 0}

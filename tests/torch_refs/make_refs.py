@@ -2,11 +2,12 @@
 """Generate the mid-size references that chip_smoke.py holds the port
 against: a graph script rendered by the JAX package (rtsdm_tpu) on the
 CPU, as the golden runner renders (use_jit=False, the script's own
-properties, a paused clock), at a size above every golden's. Three
+properties, a paused clock), at a size above every golden's. Four
 configurations (REFS): scripts/SVAO_small.py; scripts/HBAO.py (BASELINE
 config 1); scripts/SVAO_small.py with SVAO's stochasticDepthImpl set to
 "Raster" after the graph was built (BASELINE config 2, as
-bench_configs.py:20-23 sets it).
+bench_configs.py:20-23 sets it); scripts/SVAO.py, the shipped research
+graph (SVAO_full).
 
 Wherever a CPU tier of the JAX package departs from its accelerator path,
 which the port follows, the reference takes the accelerator's behaviour:
@@ -14,10 +15,13 @@ which the port follows, the reference takes the accelerator's behaviour:
 * the JAX package's CPU raster (its XLA tier) keeps at most maxPerTile
   triangles in each screen tile and drops the rest; at this size the
   scripts' 256 drops some, where the port's raster (like the reference's
-  GPU raster) drops none. So the three raster passes get a maxPerTile at
-  which the XLA raster drops nothing (the pass overrides below, as the
-  golden tests set theirs); the script checks that the G-buffer raster
-  overflows no tile and records its overflow at 256 beside it;
+  GPU raster) drops none. So the raster passes (GBufferRaster,
+  DepthPeeling, ForwardLighting and, in SVAO.py, DepthPass) get a
+  maxPerTile at which the XLA raster drops nothing (the pass overrides
+  below, as the golden tests set theirs); the script records the overflow
+  of every raster pass the graph runs (SVAO.py runs only GBufferRaster and
+  ForwardLighting), fails unless each is 0, and records the
+  G-buffer raster's overflow at 256 beside them;
 * RayShadow takes the JAX package's accelerator branch (accelerator_branch):
   on the CPU the package calls its XLA any-hit (ops/rt.py:any_hit), which
   ignores alpha masks, so masked triangles (Arcade's foliage and grilles)
@@ -41,8 +45,9 @@ writes tests/torch_refs/<NAME>.<scene>.<W>x<H>.f<frame>.npz with the
 graph's marked outputs of the recorded frame (float32, compressed) and a
 JSON `settings` entry: script, scene, width, height, frames rendered, the
 frame kept, the outputs, the pass overrides, the accelerator branches
-taken, the G-buffer raster's overflow at 256 and at the override, and the
-render's seconds. The tier-1 tests only load these files
+taken, every raster pass's overflow, the G-buffer raster's overflow at 256
+and at the override, the outputs left out and why, and the render's
+seconds. The tier-1 tests only load these files
 (tests/test_torch_refs.py); they never run this script.
 """
 from __future__ import annotations
@@ -62,8 +67,9 @@ OUT_DIR = Path(__file__).resolve().parent
 # what chip_smoke.py renders through the port (read back by the tier-1 test
 # that checks the two agree)
 MAX_PER_TILE = 4096
-RASTER_CAPS = {p: {"maxPerTile": MAX_PER_TILE}
-               for p in ("GBufferRaster", "DepthPeeling", "ForwardLighting")}
+RASTER_PASSES = ("GBufferRaster", "DepthPeeling", "ForwardLighting",
+                 "DepthPass")
+RASTER_CAPS = {p: {"maxPerTile": MAX_PER_TILE} for p in RASTER_PASSES[:3]}
 SHADOWS = "RayShadow through any_hit_pallas (interpret mode)"
 SETTINGS = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
                 width=480, height=270, frames=1, frame=0,
@@ -82,9 +88,16 @@ RASTER_SD_SETTINGS = dict(
                               "SVAO": {"stochasticDepthImpl": "Raster"}},
     raster_sd="StochasticDepthMap through raster_stochastic_pallas "
               "(interpret mode)")
+SVAO_FULL_SETTINGS = dict(
+    SETTINGS, script="scripts/SVAO.py",
+    outputs=["AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
+             "DiffuseTAA.colorOut"],
+    pass_overrides={p: {"maxPerTile": MAX_PER_TILE} for p in RASTER_PASSES},
+    left_out={"DiffuseDLSS.output": "DLSSPass is a pass-through stub "
+                                    "(passes/stubs.py): DiffuseRef.out"})
 # file name prefix -> settings
 REFS = {"SVAO_small": SETTINGS, "HBAO": HBAO_SETTINGS,
-        "SVAO_rasterSD": RASTER_SD_SETTINGS}
+        "SVAO_rasterSD": RASTER_SD_SETTINGS, "SVAO_full": SVAO_FULL_SETTINGS}
 
 
 # Pallas kernels run in interpret mode, per pass whose branch was patched
@@ -137,6 +150,48 @@ def reference_branches(settings: dict):
             st.enter_context(accelerator_branch(StochasticDepthMap,
                                                 raster_pallas))
         yield
+
+
+@contextlib.contextmanager
+def raster_overflow():
+    """While it holds, every call of the JAX package's rasterize made by a
+    pass of RASTER_PASSES adds its overflow (triangle-tile entries the XLA
+    raster dropped) to the yielded {pass: entries}; a call from any other
+    pass fails the render. A raster pass that the graph's liveness prunes
+    (SVAO.py's DepthPass, whose one edge orders it, and DepthPeeling,
+    whose depth2 SVAO reads only under DualDepth) adds no key."""
+    from unittest import mock
+    from rtsdm_tpu.passes import depth_chain, gbuffer, lighting
+    classes = (gbuffer.GBufferRaster, depth_chain.DepthPeeling,
+               lighting.ForwardLighting, gbuffer.DepthPass)
+    seen = collections.Counter()
+    running = []
+    real_raster = gbuffer.rasterize
+
+    def rasterize(*a, **kw):
+        if len(running) != 1:
+            raise SystemExit(f"rasterize called outside {RASTER_PASSES}")
+        vis = real_raster(*a, **kw)
+        seen[running[0]] += int(vis["overflow"])
+        return vis
+
+    def tracked(cls):
+        real = cls.execute
+
+        def execute(self, ctx, inputs, state=None):
+            running.append(cls.__name__)
+            try:
+                return real(self, ctx, inputs, state)
+            finally:
+                running.pop()
+        return mock.patch.object(cls, "execute", execute)
+
+    with contextlib.ExitStack() as st:
+        for mod in (gbuffer, depth_chain):
+            st.enter_context(mock.patch.object(mod, "rasterize", rasterize))
+        for cls in classes:
+            st.enter_context(tracked(cls))
+        yield seen
 
 
 def ref_path(name: str, settings: dict) -> Path:
@@ -203,7 +258,7 @@ def main(argv=None) -> int:
     settings.update({k: v for k, v in (("width", args.width),
                                        ("height", args.height)) if v})
     t0 = time.perf_counter()
-    with reference_branches(settings):
+    with reference_branches(settings), raster_overflow() as overflow:
         images, m = render(settings)
     want = {"RayShadow"} | ({"StochasticDepthMap"} if "raster_sd" in settings
                             else set())
@@ -211,6 +266,11 @@ def main(argv=None) -> int:
         raise SystemExit(f"Pallas kernels ran in {dict(INTERPRETED)}, not "
                          f"in each of {sorted(want)}")
     settings["seconds"] = round(time.perf_counter() - t0, 1)
+    settings["raster_overflow"] = dict(sorted(overflow.items()))
+    capped = {p for p in RASTER_PASSES if p in settings["pass_overrides"]}
+    if not set(overflow) <= capped or any(overflow.values()):
+        raise SystemExit(f"raster overflow {dict(overflow)}; the passes "
+                         f"capped at {MAX_PER_TILE}: {sorted(capped)}")
     settings["overflow_at_256"] = gbuffer_overflow(m, settings, 256)
     settings["overflow"] = gbuffer_overflow(m, settings, MAX_PER_TILE)
     if settings["overflow"]:
