@@ -112,10 +112,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    card takes it) and config 2 (K9) at the same scene, size and frame;
 17c. the same for scripts/SVAO.py (K7 once a frame; K1 twice, never with
    its floor: the graph prunes DepthPass and DepthPeeling; K2-K4, K8, K10).
+17d. the same for scripts/SVAO_quarter.py (BASELINE config 4's graph: K7
+   once a frame, AOGuidedBlur's bright/dark fusion) and scripts/SVAO.py
+   with SVAO's primaryDepthMode DualDepth (DepthPeeling's floored K1 once a
+   frame), at the same scene, size and frame; this checkout only;
+18. BASELINE config 4 (bench_configs.py:28-30): scripts/SVAO_quarter.py at
+   Bistro@full (681,562 triangles) 1920x1080, 3 frames: SVAO at quarter
+   res with dualAO, divisor 4. Per frame K5 launches once and K7 never, K3
+   twice, K4 once, K1 and K2 twice, K8 once a light, one TAA (K10
+   Catmull-Rom); no plain version runs; the outputs are 1080x1920 and
+   finite, AO in [0, 1]. The last frame's calls held as in 11, K5's on a
+   spread subset of whole tiles; K5 timed with its bound; the frame timed
+   as in 10;
+19. BASELINE config 3 (bench_configs.py:24-27): SVAO_small.py with
+   stochMapDivisor 1 and stochMapGuardBand 512, SunTemple@full 1920x1080,
+   3 frames: K5 once a frame on the full-resolution SD grid, K4 never
+   (phase 2 reads the SD map through the plain fetch_sd_direction, XLA
+   code in the JAX package too); held and timed as in 18;
+20. scripts/SVAO.py at Arcade@full 1280x720: one frame with SVAO's
+   primaryDepthMode DualDepth (DepthPeeling runs: K1 once with its floor,
+   phase 1's K3 on two plane sets; the frame's calls held bit-exact) and
+   one with secondaryDepthMode SingleDepth (no SD trace, no K4).
 
 The last three lines are JSON: the frames' times, one entry per kernel
-({"kernels": [...]}, with its bound and library yardstick), and
-{"ok": true, "device": {...}}.
+({"kernels": [...]}, with its bound, library yardstick and launches per
+frame in configs 3 and 4), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -728,7 +749,8 @@ def fetch_host_split(k3, k4) -> dict:
     """Host time of K3's and K4's wrappers, piece by piece (host clock, no
     synchronize; microseconds): the ring's tables (svao_shift._ring, twice
     a frame), the cached table lookup, the launch alone, and each wrapper
-    whole; K4's pack_sd16 apart. Beside them what the ring and the lookup
+    whole (K3 also on two plane sets, with its stack's host and device
+    time); K4's pack_sd16 apart. Beside them what the ring and the lookup
     cost where nothing is cached: offset_tables, the walk of its offsets
     into a tuple key, and the hash of that key."""
     import torch
@@ -761,6 +783,14 @@ def fetch_host_split(k3, k4) -> dict:
         planes.shape[2], planes.shape[3], ptr(out), stream_of(planes)), 50)
     res["k3_wrapper_us"] = host_us(lambda: F.fetch_all_directions(*args),
                                    50)
+    # two plane sets (SVAO's and HBAO's DualDepth): the wrapper stacks
+    # them, one copy of both padded layers a call
+    two = [sets[0], sets[0]]
+    res["k3_two_sets_wrapper_us"] = host_us(
+        lambda: F.fetch_all_directions(two, *args[1:]), 50)
+    res["k3_two_sets_stack_us"] = host_us(lambda: torch.stack(two), 50)
+    res["k3_two_sets_stack_device_us"] = 1e3 * cuda_ms(
+        lambda: torch.stack(two), 50)
     sd_map = k4.calls[0][0][0]
     res["k4_pack_us"] = host_us(lambda: F.pack_sd16(sd_map), 50)
     res["k4_wrapper_us"] = host_us(lambda: F.fetch_sd_packed(
@@ -1118,19 +1148,25 @@ def drive_graph(kernels, path_counts):
     return m, dict(totals), dict(modes)
 
 
+def spread_tiles(live, n: int, what: str):
+    """Up to n tiles spread evenly over those of live [tiles, RB] (bool)
+    that hold a live ray."""
+    import torch
+    live_tiles = torch.nonzero(live.any(1)).squeeze(1)
+    check(live_tiles.numel() > 0, f"{what}: no live ray")
+    pick = torch.linspace(0, live_tiles.numel() - 1,
+                          min(n, live_tiles.numel()),
+                          device=live.device).round().long().unique()
+    return live_tiles[pick]
+
+
 def any_hit_subset(tri, boxes, lists, counts, rays):
     """(sel, inputs): up to ANY_HIT_TILES whole 8x32 tiles spread evenly
     over the tiles that hold a live ray, and K8's inputs cut to them."""
-    import torch
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     nb = counts.shape[0]
-    live = (rays[7] > rays[6]).reshape(nb, RT.RB)
-    live_tiles = torch.nonzero(live.any(1)).squeeze(1)
-    check(live_tiles.numel() > 0, "K8: no live ray")
-    pick = torch.linspace(0, live_tiles.numel() - 1,
-                          min(ANY_HIT_TILES, live_tiles.numel()),
-                          device=live.device).round().long().unique()
-    sel = live_tiles[pick]
+    sel = spread_tiles((rays[7] > rays[6]).reshape(nb, RT.RB),
+                       ANY_HIT_TILES, "K8")
     return sel, (tri, boxes, lists[sel].contiguous(),
                  counts[sel].contiguous(),
                  rays.reshape(8, nb, RT.RB)[:, sel].reshape(8, -1)
@@ -1591,8 +1627,12 @@ FORWARD_SCRIPT = ROOT / "scripts" / "Forward.py"
 SVAO_FULL_SCRIPT = ROOT / "scripts" / "SVAO.py"
 SVAO_FULL_OUTPUTS = ("AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
                      "DiffuseTAA.colorOut", "DiffuseDLSS.output")
+QUARTER_SCRIPT = ROOT / "scripts" / "SVAO_quarter.py"
 CONFIG_FRAMES = 3
 RASTER_SD = {"SVAO": {"stochasticDepthImpl": "Raster"}}
+# BASELINE config 3 (bench_configs.py:24-27): the SD map at full
+# resolution with a 512-pixel guard band
+DIVISOR_1 = {"SVAO": {"stochMapDivisor": 1, "stochMapGuardBand": 512}}
 # label: (script, scene, width, height, pass overrides, marked outputs)
 CONFIGS = {
     "config2": (GRAPH_SCRIPT, "Arcade@full", 1280, 720, RASTER_SD,
@@ -1603,10 +1643,22 @@ CONFIGS = {
                           ("Ambient.out", "Diffuse.out")),
     "svao_full": (SVAO_FULL_SCRIPT, "Arcade@full", 1280, 720, {},
                   SVAO_FULL_OUTPUTS),
+    "config3": (GRAPH_SCRIPT, "SunTemple@full", 1920, 1080, DIVISOR_1,
+                GRAPH_OUTPUTS),
+    "config4": (QUARTER_SCRIPT, "Bistro@full", 1920, 1080, {},
+                ("ShadedTAA.colorOut", "AmbientOcclusion.out")),
 }
 # each graph's AO output (its first channel is checked to lie in [0, 1])
 AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
-             "config1_suntemple": "Ambient.out", "svao_full": "AmbientRef.out"}
+             "config1_suntemple": "Ambient.out", "svao_full": "AmbientRef.out",
+             "config3": "AmbientOcclusion.out",
+             "config4": "AmbientOcclusion.out"}
+# AOGuidedBlur's fusion (config 4) weighs bright and dark by two ratios
+# that sum to 1 only up to float32 rounding, as in the JAX package (whose
+# clampResults is a no-op, as upstream): its AO may pass 1 by two ulps
+AO_ROUNDING = {"config4": 2.0 ** -22}
+# K10's Catmull-Rom launches a frame: one per TAA pass of the graph
+TAA_PASSES = {"config2": 2, "svao_full": 2, "config3": 2, "config4": 1}
 FLOOR = "raster:floor"          # K1 launched with its depth floor
 RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
                                 # and the w plane (4 each), evaluated for
@@ -1668,14 +1720,25 @@ def check_config_outputs(label, out):
         check(bool(torch.isfinite(v).all()), f"{label} {name}: non-finite")
     ao = out[AO_OUTPUT[label]][..., 0]
     lo, hi = float(ao.min()), float(ao.max())
-    check(0.0 <= lo and hi <= 1.0, f"{label}: AO outside [0, 1]: "
-                                   f"[{lo}, {hi}]")
+    check(0.0 <= lo and hi <= 1.0 + AO_ROUNDING.get(label, 0.0),
+          f"{label}: AO outside [0, 1]: [{lo}, {hi}]")
     check(lo < 0.9, f"{label}: AO shows no occlusion anywhere (min {lo})")
     return lo, hi
 
 
 def config_want(label, n_lights):
     """Launches per frame that each config's graph must make."""
+    if label in ("config3", "config4"):
+        # G-buffer and ForwardLighting raster; SVAO phase 1 and phase 2
+        # fetch once each; the SD trace streams (K5: SunTemple's 323,202
+        # and Bistro's 681,562 triangles are above 65,536); phase 2 reads
+        # the packed SD map through K4 at divisor 4 (config 4) and through
+        # the plain fetch_sd_direction at divisor 1 (config 3)
+        return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
+                "fetch_all_directions": 2,
+                "fetch_sd_packed": int(label == "config4"), "sd_trace": 1,
+                "raster_stochastic": 0, "sd_trace_resident": 0,
+                "fetch_taps_same_class": 0, "any_hit": n_lights}
     if label in ("config2", "svao_full"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 fetches both
         # ring halves, phase 2 reads the packed SD map; config 2 rasters
@@ -1734,10 +1797,9 @@ def drive_config(label, kernels):
                 check(counts[name] == n, f"{label}: {name} launched "
                                          f"{counts[name]} times in a frame, "
                                          f"expected {n}")
-            if label in ("config2", "svao_full"):
-                check(by_mode["catmull_rom"] == 2, "K10: TAA x2 expected")
-            else:
-                check(by_mode["catmull_rom"] == 0, "K10: HBAO.py has no TAA")
+            check(by_mode["catmull_rom"] == TAA_PASSES.get(label, 0),
+                  f"K10: {TAA_PASSES.get(label, 0)} TAA launch(es) a frame "
+                  f"expected in {label}")
             totals.update(counts)
             modes.update(by_mode)
     return m, dict(totals), dict(modes)
@@ -1793,25 +1855,62 @@ def _pair_warp(args, kwargs):
     return (W.warp_resample(**a),), (W.warp_resample_plain(**a),)
 
 
+SD_TRACE_TILES = 128   # whole 8x32 tiles of K5's plain comparison
+
+
+def sd_trace_subset(args):
+    """(sel, args): up to SD_TRACE_TILES whole 8x32 tiles spread evenly
+    over the tiles that hold a live ray (tmax > tmin), and K5's arguments
+    cut to them. Each tile lists and walks its chunks on its own, so a
+    tile's slots do not depend on the other tiles of the launch."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    rays = args[3]
+    nb = rays.shape[1] // RT.RB
+    sel = spread_tiles((rays[4] > rays[3]).reshape(nb, RT.RB),
+                       SD_TRACE_TILES, "K5")
+
+    def cut(a):                        # [..., nb * RB] -> the tiles of sel
+        lead = a.shape[:-1]
+        return a.reshape(lead + (nb, RT.RB))[..., sel, :] \
+            .reshape(lead + (-1,)).contiguous()
+
+    return sel, (args[:3] + (cut(rays),) + tuple(args[4:9])
+                 + tuple(None if a is None else cut(a) for a in args[9:11]))
+
+
+def _pair_sd_trace(args, kwargs):
+    """K5 on the spread tile subset (sd_trace_subset) against its plain
+    version (the tiles' lists by build_chunk_lists, walked in order), and
+    the launch over every tile cut to the subset against the launch on
+    the subset."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    full = RT.sd_trace_blocks(*args, **kwargs)
+    sel, sub = sd_trace_subset(args)
+    got = RT.sd_trace_blocks(*sub, **kwargs)
+    nb = args[3].shape[1] // RT.RB
+    return ((got, full.reshape(nb, RT.RB, -1)[sel].reshape(got.shape)),
+            (RT.sd_trace_blocks_plain(*sub, **kwargs), got))
+
+
 # kernel -> (args, kwargs) -> (kernel outputs, plain outputs), for the
-# configs' last-frame check; K6 and K9 are held by their own phases, K5 by
-# the SD phases of SVAO.py
+# configs' last-frame check; K6 and K9 are held by their own phases
 CONFIG_PAIRS = {"raster": _pair_raster,
                 "fetch_attributes": _pair_fetch_attributes,
                 "fetch_all_directions": _pair_fetch_directions,
                 "fetch_sd_packed": _pair_fetch_sd_packed,
                 "any_hit": _pair_any_hit,
                 "warp_resample": _pair_warp,
-                "sd_trace_resident": _pair_sd_trace_resident}
+                "sd_trace_resident": _pair_sd_trace_resident,
+                "sd_trace": _pair_sd_trace}
 
 
 def check_config_calls(label, kernels):
     """Every call of the config's last frame, at the config's own shapes
     and settings (K1 with and without its floor, K4 at guard 0 in config 2,
-    K7 in SVAO.py),
+    K7 in SVAO.py, K5 in configs 3 and 4),
     against its plain version on the card: bit-exact (--fmad=false, the
-    plain versions' operation order; K8 on a spread subset of whole tiles,
-    as in compare_any_hit). Returns {kernel: calls held}."""
+    plain versions' operation order; K8 and K5 on a spread subset of whole
+    tiles, as in compare_any_hit). Returns {kernel: calls held}."""
     import torch
     by_name = kernels_by_name(kernels)
     held = {}
@@ -2321,6 +2420,138 @@ def run_svao_full():
     return row, report
 
 
+# ---------------------------------------------------------------------------
+# BASELINE configs 3 and 4 (bench_configs.py:24-30) and SVAO's DualDepth and
+# SingleDepth modes in scripts/SVAO.py
+# ---------------------------------------------------------------------------
+
+def sd_trace_timing(label, k) -> dict:
+    """K5 at the config's last call: its launch (CUDA events, device time
+    per call by torch.profiler, host enqueue), its chunk visits per 8x32
+    tile and its bound (the visits' ray-triangle tests)."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    check(k.calls, f"{label}: no K5 call recorded")
+    args, kwargs = k.calls[-1]
+    out = RT.sd_trace_blocks(*args, **kwargs)
+    n_chunks = args[0].shape[0]
+    visits = walk_visits(*k5_lists(args), n_chunks)
+    t = timings(lambda: RT.sd_trace_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["sd_trace"], 10)
+    filled = float((out != RT.INVALID).any(1).double().mean())
+    res = with_bound(
+        dict(t, ms=t["event_ms"], rays=out.shape[0], chunks=n_chunks,
+             chunk_visits=int(visits.sum()), visits_per_block=spread(visits),
+             rays_with_a_hit=filled),
+        nbytes(args[:4], args[9:11], out),
+        float(visits.sum()) * RT.TC * RT.RB * TRACE_FLOPS_PER_TEST)
+    log(f"{label} K5: {out.shape[0]} rays ({out.shape[0] // RT.RB} tiles) x "
+        f"{n_chunks} chunks, visits per tile {res['visits_per_block']}; "
+        f"{res['ms']:.4f} ms by CUDA events, device {res['device_ms']} ms, "
+        f"host {res['host_us']:.1f} us; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}); rays with a hit {filled:.4f}")
+    return res
+
+
+def run_new_configs():
+    """Phases 18-19: BASELINE config 4 (scripts/SVAO_quarter.py, Bistro@full
+    1920x1080: quarter-res SVAO with dualAO, the SD trace streamed through
+    K5, AOGuidedBlur) and config 3 (SVAO_small.py at stochMapDivisor 1 and
+    SD guard band 512, SunTemple@full 1920x1080) through the harness:
+    CONFIG_FRAMES frames with the launches of config_want, the last
+    frame's calls bit-exact against their plain versions (K5 and K8 on a
+    spread subset of tiles), K5 timed with its bound, every K1 call timed,
+    the frame timed as in 10. Returns {label: report}."""
+    report = {}
+    for label in ("config4", "config3"):
+        kernels = kernels_of_configs()
+        by_name = kernels_by_name(kernels)
+        m, totals, modes = drive_config(label, kernels)
+        if label == "config3":
+            log("config3: phase 2 at divisor 1 reads the SD map through "
+                "the plain ao_shift.fetch_sd_direction, as the JAX package "
+                "does (rtsdm_tpu/passes/svao_shift.py:578-580, XLA code, "
+                "not a Pallas kernel): K4 serves divisor 4 only, so it "
+                "never launches here")
+        held = check_config_calls(label, kernels)
+        k5 = sd_trace_timing(label, by_name["sd_trace"])
+        raster_calls = time_raster_calls(label, by_name["raster"].calls)
+        times, _ = graph_timing(m)
+        script, scene, width, height, overrides, _ = CONFIGS[label]
+        report[label] = dict(times, script=str(script.relative_to(ROOT)),
+                             scene=scene, width=width, height=height,
+                             triangles=int(m.scene.num_triangles),
+                             overrides=overrides, launches=totals,
+                             warp_launches_by_mode=modes,
+                             frames=CONFIG_FRAMES, bit_exact_calls=held,
+                             sd_trace=k5, raster_calls=raster_calls)
+        del m
+    return report
+
+
+def svao_modes_frames() -> dict:
+    """Phase 20: scripts/SVAO.py at Arcade@full 1280x720, one frame with
+    SVAO's primaryDepthMode set to DualDepth after the build (DepthPeeling
+    runs: K1 once with its floor; phase 1's K3 call on two plane sets;
+    both held bit-exact against their plain versions, with the frame's
+    other calls), then one with secondaryDepthMode SingleDepth (phase 1
+    alone: no SD trace, no K4, K3 once). Counts are zeroed just before and
+    read just after each frame; no plain version may run."""
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    from rtsdm_tpu_torch.ops import raster_cuda
+    label = "svao_full"
+    kernels = kernels_of_configs()
+    by_name = kernels_by_name(kernels)
+    m = config_renderer(label)
+    svao = m.active_graph.get_pass("SVAO")
+    n_lights = min(int(m.scene.num_lights), int(
+        m.active_graph.get_pass("RayShadow").cfg["maxLights"]))
+    m.renderFrame()
+    base = {k: svao.cfg[k] for k in ("primaryDepthMode",
+                                     "secondaryDepthMode")}
+    res = {}
+    for mode, props in (("DualDepth", {"primaryDepthMode": "DualDepth"}),
+                        ("SingleDepth",
+                         {"secondaryDepthMode": "SingleDepth"})):
+        svao.cfg.update(props)
+        with record_main_path(kernels) as plain_calls:
+            for k in kernels:
+                k.calls.clear()
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            out = m.renderFrame()
+            torch.cuda.synchronize()
+            check(not plain_calls, f"plain versions ran: {plain_calls}")
+        svao.cfg.update(base)
+        counts = {k.name: k.launches for k in kernels}
+        counts[FLOOR] = LAUNCHES[raster_cuda.RASTER_FLOOR_KEY]
+        lo, hi = check_config_outputs(label, out)
+        dual = mode == "DualDepth"
+        want = {"raster": 2, FLOOR: int(dual), "fetch_attributes": 2,
+                "fetch_all_directions": 1 + int(dual),
+                "fetch_sd_packed": int(dual), "sd_trace": 0,
+                "sd_trace_resident": int(dual), "raster_stochastic": 0,
+                "fetch_taps_same_class": 0, "any_hit": n_lights}
+        log(f"SVAO.py with {props}: {m.last_frame_ms:.3f} ms host clock; "
+            f"launches {counts}; AO in [{lo:.4f}, {hi:.4f}]")
+        check(all(counts[n] == v for n, v in want.items()),
+              f"SVAO.py {mode}: launches {counts}, expected {want}")
+        sets = [len(a[0]) for a, _ in by_name["fetch_all_directions"].calls]
+        check(sets == ([2, 1] if dual else [1]),
+              f"SVAO.py {mode}: K3 took {sets} plane sets")
+        held = check_config_calls(f"SVAO.py {mode}", kernels)
+        floored = sum(kw.get("floor") is not None
+                      for _, kw in by_name["raster"].calls)
+        check(floored == int(dual), f"{mode}: {floored} floored K1 calls held")
+        res[mode] = dict(launches=counts, bit_exact_calls=held,
+                         k3_plane_sets=sets, floored_k1_held=floored,
+                         host_ms=m.last_frame_ms, ao_range=[lo, hi])
+    log("SVAO.py DualDepth: K1 launched once with its floor and phase 1's "
+        "K3 on 2 plane sets, both bit-exact with their plain versions; "
+        "SingleDepth: no SD trace and no K4")
+    del m
+    return res
+
 def maxcount_on_main_path(scene):
     """One SVAO-path frame at SunTemple@full with stochMaxCount 8: K5 (the
     streamed tier, 323,202 triangles) held bit-exact against its plain
@@ -2643,11 +2874,39 @@ MID_SVAO_FULL_REF = dict(
 MID_SVAO_FULL_BOUND = {"AmbientRef.out": 8e-6, "DiffuseRef.out": 6e-6,
                        "AmbientTAA.colorOut": 1e-5,
                        "DiffuseTAA.colorOut": 2e-6}
+# scripts/SVAO_quarter.py (BASELINE config 4's graph: no DepthPeeling
+# pass, so two raster caps) and scripts/SVAO.py with SVAO's
+# primaryDepthMode set to DualDepth after the build (DepthPeeling and
+# LinearizeDepth0 then run; only AmbientRef.out is kept)
+MID_QUARTER_REF = dict(
+    MID_REF, script="scripts/SVAO_quarter.py",
+    outputs=["AmbientOcclusion.out", "ShadedTAA.colorOut"],
+    pass_overrides={p: MID_RASTER_CAPS[p]
+                    for p in ("GBufferRaster", "ForwardLighting")})
+MID_DUAL_REF = dict(
+    MID_SVAO_FULL_REF, outputs=["AmbientRef.out"],
+    pass_overrides={**MID_SVAO_FULL_REF["pass_overrides"],
+                    "SVAO": {"primaryDepthMode": "DualDepth"}},
+    left_out={**{o: "kept small: SVAO_full holds it"
+                 for o in ("DiffuseRef.out", "AmbientTAA.colorOut",
+                           "DiffuseTAA.colorOut")},
+              **MID_SVAO_FULL_REF["left_out"]})
+# Bounds fixed before the first chip run of these graphs: twice the MSE of
+# the port's own CPU render against the reference, rounded up to one digit
+# (SVAO_quarter.py: AO 3.245e-4, ShadedTAA 5.383e-6; SVAO.py under
+# DualDepth: AmbientRef 3.173e-6). The quarter graph's AO is far from the
+# reference because its inputs' differences (the rasters' last bits, the SD
+# map's keys) reach the guided blur's bright/dark fusion, whose weights are
+# ratios of small local deviations.
+MID_QUARTER_BOUND = {"AmbientOcclusion.out": 7e-4, "ShadedTAA.colorOut": 2e-5}
+MID_DUAL_BOUND = {"AmbientRef.out": 7e-6}
 # file name prefix -> (settings, MSE bounds)
 MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
             "HBAO": (MID_HBAO_REF, MID_HBAO_BOUND),
             "SVAO_rasterSD": (MID_RASTER_SD_REF, MID_RASTER_SD_BOUND),
-            "SVAO_full": (MID_SVAO_FULL_REF, MID_SVAO_FULL_BOUND)}
+            "SVAO_full": (MID_SVAO_FULL_REF, MID_SVAO_FULL_BOUND),
+            "SVAO_quarter": (MID_QUARTER_REF, MID_QUARTER_BOUND),
+            "SVAO_dual": (MID_DUAL_REF, MID_DUAL_BOUND)}
 MID_ENTRIES = ("rtsdm_sd_trace", "rtsdm_sd_trace_resident",
                "rtsdm_fetch_taps_same_class", "rtsdm_raster_stochastic")
 
@@ -2799,6 +3058,42 @@ def mid_svao_full_against_jax(bound=MID_SVAO_FULL_BOUND) -> dict:
     return mid_rows("SVAO_full", kept, ref, bound)
 
 
+def config_launches(report: dict, row: str) -> int:
+    """Launches over a config's frames of a kernel row (K10's rows are per
+    mode, K1's floored launches have a row of their own)."""
+    base, _, mode = row.partition(":")
+    if base == "warp_resample" and mode:
+        return report["warp_launches_by_mode"].get(mode, 0)
+    return report["launches"].get(row if row == FLOOR else base, 0)
+
+
+def mid_new_graphs_against_jax(
+        bounds=(MID_QUARTER_BOUND, MID_DUAL_BOUND)) -> dict:
+    """Phase 17d: scripts/SVAO_quarter.py (BASELINE config 4's graph) and
+    scripts/SVAO.py under DualDepth at the scene, size, pass overrides and
+    frame of their references through the port on the card, each kept
+    output held against the JAX package's render by MSE under its bound.
+    Arcade's 38,610 triangles: K7 once a frame, K5, K6 and K9 never; under
+    DualDepth DepthPeeling's K1 once a frame with its floor, none in the
+    quarter graph. This checkout only: its parent cannot render them."""
+    from rtsdm_tpu_torch.ops import raster_cuda
+    res = {}
+    n = MID_REF["frames"]
+    for name, bound in (("SVAO_quarter", bounds[0]),
+                        ("SVAO_dual", bounds[1])):
+        settings = MID_REFS[name][0]
+        ref = mid_ref(name)
+        kept, launches = mid_frame(settings)
+        floor = int(name == "SVAO_dual") * n
+        got = {e: launches[e] for e in MID_ENTRIES}
+        want = dict({e: 0 for e in MID_ENTRIES}, rtsdm_sd_trace_resident=n)
+        check(got == want and launches[raster_cuda.RASTER_FLOOR_KEY] == floor,
+              f"mid size {name}: launches {dict(launches)}, expected {want} "
+              f"and {floor} floored K1")
+        res.update(mid_rows(name, kept, ref, bound))
+    return res
+
+
 def mid_child(root: Path) -> dict:
     """Run as `chip_smoke.py --mid-child ROOT`: phases 17, 17b and 17c
     through the package of the checkout at ROOT, measured only."""
@@ -2942,9 +3237,16 @@ def main(argv=None) -> int:
     config_rows, configs = run_configs()
     k7_row, svao_full = run_svao_full()
     config_rows.append(k7_row)
+    # BASELINE configs 4 and 3 (phases 18-19), SVAO's depth modes (20)
+    configs.update(run_new_configs())
+    svao_modes = svao_modes_frames()
     ab = parent_ab(args.parent.resolve()) if args.parent else None
+    if ab is not None:
+        log("phases 17d and 18-20 run on this checkout only: the parent "
+            "has no DownsamplePass, AOGuidedBlur or SVAO depth modes")
     mid_size = dict(mid_size_against_jax(), **mid_configs_against_jax(),
-                    **mid_svao_full_against_jax())
+                    **mid_svao_full_against_jax(),
+                    **mid_new_graphs_against_jax())
     if ab is not None:
         # every kernel is bit-exact with its plain version on both sides,
         # so the parent's MSEs are this checkout's to the last digit
@@ -2953,6 +3255,10 @@ def main(argv=None) -> int:
                  if f"{v['mse']:.4g}" != f"{mid_size[k]['mse']:.4g}"}
         check(not moved, f"mid size: MSEs moved from the parent's: {moved}")
     rows += config_rows
+    for r in rows:
+        r["launches_per_frame"] = {
+            lb: config_launches(configs[lb], r["name"]) / CONFIG_FRAMES
+            for lb in ("config3", "config4")}
     for r in config_rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -2969,6 +3275,7 @@ def main(argv=None) -> int:
                       warp_launches_by_mode=warp_modes,
                       raster_calls=graph_raster),
         "configs": configs, "svao_full": svao_full,
+        "svao_depth_modes": svao_modes,
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
         "sd_stage": sd_stage, "sd_trace_resources": resources,
         "mid_size_vs_jax": mid_size, "parent_ab": ab,

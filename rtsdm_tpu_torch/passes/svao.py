@@ -2,12 +2,13 @@
 (counterpart of rtsdm_tpu/passes/svao.py; reference SVAO.cpp:192-456:
 phase 1 -> nested SD graph -> phase 2).
 
-Ported configuration: samplingMode 'shift', primaryDepthMode 'SingleDepth',
-secondaryDepthMode 'StochasticDepth' with stochasticDepthImpl 'Ray'
-(StochasticDepthMapRT, K7 or K5) or 'Raster' (StochasticDepthMap, K9), kernel
-'VAO'. Every other mode raises NotImplementedError until its ROADMAP item
-(queue 1, item 12) ports it — checked wherever the configuration is read,
-since a graph script may change it after the pass was built.
+Ported configuration: samplingMode 'shift', primaryDepthMode 'SingleDepth'
+or 'DualDepth', secondaryDepthMode 'StochasticDepth' with stochasticDepthImpl
+'Ray' (StochasticDepthMapRT, K7 or K5) or 'Raster' (StochasticDepthMap, K9),
+or 'SingleDepth' (phase 1 alone), kernel 'VAO', dualAO off or on. Every
+other mode raises NotImplementedError until its ROADMAP item (queue 1,
+SVAO's reference modes) ports it — checked wherever the configuration is
+read, since a graph script may change it after the pass was built.
 """
 from __future__ import annotations
 
@@ -23,14 +24,16 @@ from ..utils.math import decode_normal_2x16, normalize, transform_vector
 from . import stochastic_depth  # noqa: F401  (registers the nested SD pass)
 
 DEPTH_MODE_SINGLE = "SingleDepth"
+DEPTH_MODE_DUAL = "DualDepth"
 DEPTH_MODE_STOCHASTIC = "StochasticDepth"
 
 # the values of each mode key that the port runs
 _SUPPORTED = dict(samplingMode=("shift",),
-                  primaryDepthMode=(DEPTH_MODE_SINGLE,),
-                  secondaryDepthMode=(DEPTH_MODE_STOCHASTIC,),
+                  primaryDepthMode=(DEPTH_MODE_SINGLE, DEPTH_MODE_DUAL),
+                  secondaryDepthMode=(DEPTH_MODE_STOCHASTIC,
+                                      DEPTH_MODE_SINGLE),
                   stochasticDepthImpl=("Ray", "Raster"), kernel=("VAO",),
-                  dualAO=(False,), stochMapDivisor=(1, 2, 4),
+                  dualAO=(False, True), stochMapDivisor=(1, 2, 4),
                   # read by the reference only on the Raytraced / gather
                   # paths, which the port does not run
                   traceOutOfScreen=(False,), maxRayBudgetFraction=(0.5,))
@@ -129,12 +132,14 @@ class SVAO(RenderPass):
                 raise NotImplementedError(
                     f"SVAO: {key}={self.cfg[key]!r} is not ported (only "
                     f"{' or '.join(map(repr, allowed))}; ROADMAP queue 1, "
-                    "item 12)")
+                    "SVAO's reference modes)")
 
     # --- sizing (SVAO.cpp:700-723) -----------------------------------------
     def _extra_guard(self) -> int:
-        """The SD map's guard band in SD texels (Ray SD only)."""
-        if self.cfg["stochasticDepthImpl"] != "Ray":
+        """The SD map's guard band in SD texels (the ray-traced SD map of
+        the StochasticDepth secondary mode only)."""
+        if self.cfg["secondaryDepthMode"] != DEPTH_MODE_STOCHASTIC \
+                or self.cfg["stochasticDepthImpl"] != "Ray":
             return 0
         return int(self.cfg["stochMapGuardBand"]) \
             // int(self.cfg["stochMapDivisor"])
@@ -156,8 +161,11 @@ class SVAO(RenderPass):
                 .add_output("internalRayMin").add_output("internalRayMax"))
 
     def unused_inputs(self, ctx):
-        """depth2 is only read with DualDepth primary mode (not ported)."""
-        return ("depth2",)
+        """depth2 is only read with DualDepth primary mode: otherwise the
+        graph prunes the DepthPeeling chain that feeds it."""
+        if self.cfg["primaryDepthMode"] != DEPTH_MODE_DUAL:
+            return ("depth2",)
+        return ()
 
     # --- nested SD graph (SVAO.cpp:157-190) --------------------------------
     def _sd_pass(self):
@@ -218,21 +226,31 @@ class SVAO(RenderPass):
             num_directions=int(self.cfg["sampleCount"]),
             resolution=res,
             low_resolution=self._stoch_map_size(res, include_guard=False),
-            sd_guard=self._extra_guard())
+            sd_guard=self._extra_guard(),
+            dual_ao=bool(self.cfg["dualAO"]))
 
     def execute(self, ctx, inputs, state=None):
         from .svao_shift import svao_phase1_shift, svao_phase2_shift
         self._check_supported()
         cam = ctx.scene.camera
         depth = inputs["depth"]
+        depth2 = inputs.get("depth2", depth)
         h, w = depth.shape
         cfg = self._vao_cfg(ctx, (w, h))
+        primary = self.cfg["primaryDepthMode"]
+        secondary = self.cfg["secondaryDepthMode"]
         normal_v = _normals_to_view(ctx, inputs["normals"])
         # the dictionary guard band is in full-res pixels
         guard = (ctx.guard_band * w) // max(ctx.width, 1)
         out = svao_phase1_shift(cam, cfg, depth, normal_v, guard,
-                                bool(self.cfg["useRayInterval"]))
+                                bool(self.cfg["useRayInterval"]),
+                                depth2=depth2, primary=primary,
+                                secondary=secondary)
         ao_raw, stencil = out["ao_raw"], out["stencil"]
+        result = {"stencil": stencil, "internalRayMin": out["ray_min"],
+                  "internalRayMax": out["ray_max"]}
+        if secondary == DEPTH_MODE_SINGLE:
+            return {"ao": A.finalize(cfg, ao_raw), **result}, None
 
         sd_graph = self._nested_graph(ctx.scene)
         sd_w, sd_h = self._stoch_map_size((w, h))
@@ -261,13 +279,22 @@ class SVAO(RenderPass):
         ctx.dictionary["SD_MAP"] = sd_map
         delta = svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
                                   bool(self.cfg["stochMapJitter"]),
-                                  int(self.cfg["stochMapDivisor"]))
-        ao = torch.where(stencil != 0, A.finalize(cfg, ao_raw + delta),
-                         A.finalize(cfg, ao_raw))
+                                  int(self.cfg["stochMapDivisor"]),
+                                  depth2=depth2, primary=primary)
+        refined = stencil != 0
+        if cfg.dual_ao:
+            raw2 = ao_raw + delta
+            # bright >= dark (SVAORaster2.ps.slang:62)
+            raw2 = torch.stack([raw2[..., 0],
+                                torch.minimum(raw2[..., 0], raw2[..., 1])],
+                               -1)
+            ao = torch.where(refined[..., None], A.finalize(cfg, raw2),
+                             A.finalize(cfg, ao_raw))
+        else:
+            ao = torch.where(refined, A.finalize(cfg, ao_raw + delta),
+                             A.finalize(cfg, ao_raw))
         ctx.debug_print("svao.ao_raw", ao_raw)
         ctx.debug_print("svao.delta", delta)
         ctx.debug_print("svao.stencil", stencil)
         ctx.debug_print("svao.ao", ao)
-        return {"ao": ao, "stencil": stencil,
-                "internalRayMin": out["ray_min"],
-                "internalRayMax": out["ray_max"]}, None
+        return {"ao": ao, **result}, None

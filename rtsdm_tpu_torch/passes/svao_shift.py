@@ -6,8 +6,11 @@ everything runs in deinterleaved space: [16, qh, qw] planes in which the
 ring's screen directions and the dither rotation are per-class constants.
 The depth fetches of both phases go through K3 (ops/fetch_cuda.
 fetch_all_directions) and the SD fetch of phase 2 through K4
-(fetch_sd_packed). Only the VAO kernel with single primary depth is ported;
-the HBAO kernel and dual depth stay in ROADMAP queue 1.
+(fetch_sd_packed). Only the VAO kernel is ported; the HBAO kernel stays in
+ROADMAP queue 1. Both phases take the primary depth mode (SingleDepth or
+DualDepth, a second layer `depth2`), phase 1 the secondary one
+(StochasticDepth, or SingleDepth: phase 1 alone), and cfg.dual_ao the
+bright/dark pair of channels.
 """
 from __future__ import annotations
 
@@ -142,10 +145,18 @@ def _visibility_vao(cfg, oz, s_start, s_end, pdf, radius):
     return sphere + halo
 
 
+def _eval_depth_affine(cfg, bq, oz_a, z, s_start, s_end, pdf):
+    """(vis, oz) of the fetched depth plane z: UVToViewSpace at the sample
+    uv is affine in z, oz = (v(z) - p) . (-p/|p|) = z * oz_a + |p|."""
+    oz = z * oz_a + bq["pos_len"]
+    return _visibility_vao(cfg, oz, s_start, s_end, pdf, bq["radius"]), oz
+
+
 def _sample_dir_q(cfg, bq, xg_q, yg_q, levels, r_frac: float, alpha: float,
-                  fetched_q):
+                  fetched_q, fetched2_q=None):
     """One ring direction in deinterleaved space: quantized radius, sample
-    position, sphere slab and the visibility of the fetched depth."""
+    position, sphere slab and the visibility of the fetched depth (and of
+    the second layer's, min-combined with the first's, under DualDepth)."""
     w, h = cfg.resolution
     lvl = A.shift_level_index(levels, bq["radius_px"] * r_frac)
     r_eff = S.level_radius(levels, lvl)
@@ -172,16 +183,21 @@ def _sample_dir_q(cfg, bq, xg_q, yg_q, levels, r_frac: float, alpha: float,
     s_end = torch.clamp(z_int, min=-sphere_h, max=sphere_h)
     valid = (sphere_h - s_end) / (2.0 * sphere_h) > 0.1
 
-    # UVToViewSpace at the sample uv, affine in the fetched depth z:
-    # oz = (v(z) - p) . (-p/|p|) = z * oz_a + |p|
     ax, ay, az = bq["a"]
     cx = (2.0 * uqx - 1.0) * bq["sx"]
     cy = (1.0 - 2.0 * uqy) * bq["sy"]
-    oz = fetched_q * (cx * ax + cy * ay - az) + bq["pos_len"]
-    vis = _visibility_vao(cfg, oz, sphere_h, s_end, pdf, bq["radius"])
+    oz_a = cx * ax + cy * ay - az
+    vis, oz = _eval_depth_affine(cfg, bq, oz_a, fetched_q, sphere_h, s_end,
+                                 pdf)
+    vis2 = oz2 = None
+    if fetched2_q is not None:
+        v2, o2 = _eval_depth_affine(cfg, bq, oz_a, fetched2_q, sphere_h,
+                                    s_end, pdf)
+        vis2, oz2 = torch.minimum(vis, v2), torch.minimum(oz, o2)
     return dict(off_x=off_x, off_y=off_y, same_pix=same_pix,
                 in_screen=in_screen, sphere_start=sphere_h, sphere_end=s_end,
-                pdf=pdf, valid=valid, ss_radius=r_eff, vis=vis, oz=oz)
+                pdf=pdf, valid=valid, ss_radius=r_eff, vis=vis, oz=oz,
+                vis2=vis2, oz2=oz2)
 
 
 def _require_ray(cfg, bq, s, oz):
@@ -211,25 +227,42 @@ def _ring_tables(num_directions: int, kernel: int, max_radius: float):
 
 
 def _check_cfg(cfg):
-    if cfg.kernel != A.AO_KERNEL_VAO or cfg.dual_ao:
-        raise NotImplementedError("shift-mode SVAO: only the VAO kernel "
-                                  "without dualAO is ported (ROADMAP queue "
-                                  "1, item 12)")
+    if cfg.kernel != A.AO_KERNEL_VAO:
+        raise NotImplementedError("shift-mode SVAO: only the VAO kernel is "
+                                  "ported (ROADMAP queue 1, SVAO's "
+                                  "reference modes)")
+
+
+def _depth_planes(depth, hp: int, wp: int, pad: int):
+    """A depth layer edge-padded to [hp, wp], deinterleaved and its planes
+    padded for the shift fetch."""
+    return S.pad_planes(S.deinterleave(_pad_edge(depth, hp, wp)), pad)
 
 
 def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
-                      use_ray_interval: bool = True):
-    """Phase 1 (SVAORaster.ps.slang) with stochastic-depth refinement:
-    returns ao_raw [H,W], stencil [H,W] int32 (bit i = direction i needs the
-    SD map), ray_min / ray_max [sd_h, sd_w] (the guard-banded SD grid)."""
-    from .svao import _intervals_to_sd_grid
+                      use_ray_interval: bool = True, *, depth2=None,
+                      primary: str = "SingleDepth",
+                      secondary: str = "StochasticDepth"):
+    """Phase 1 (SVAORaster.ps.slang): returns ao_raw [H,W] ([H,W,2] bright
+    and dark under cfg.dual_ao), stencil [H,W] int32 (bit i = direction i
+    needs the secondary depth), ray_min / ray_max [sd_h, sd_w] (the
+    guard-banded SD grid; empty, FLT_MAX and 0, unless the secondary mode
+    is StochasticDepth). Under DualDepth, depth2 is the second layer: both
+    layers are fetched by one K3 call, and where the first layer's sample
+    needs a ray the second's min-combined visibility is taken."""
+    from .svao import (DEPTH_MODE_DUAL, DEPTH_MODE_STOCHASTIC,
+                       _intervals_to_sd_grid)
     _check_cfg(cfg)
     h, w = depth.shape
     w_full, h_full = cfg.resolution
     b = _prep_planar(cam, cfg, depth, normal_v)
     hp, wp = b["hp"], b["wp"]
     levels, offs, radii, pad = _ring(cfg)
-    depth_pp = S.pad_planes(S.deinterleave(b["depth"]), pad)
+    sets = [S.pad_planes(S.deinterleave(b["depth"]), pad)]
+    dual = primary == DEPTH_MODE_DUAL
+    if dual:
+        sets.append(_depth_planes(depth2, hp, wp, pad))
+    stochastic = secondary == DEPTH_MODE_STOCHASTIC
     nd = cfg.num_directions
     qh, qw = hp // 4, wp // 4
     bq = _deint_b(b)
@@ -239,18 +272,24 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
                 & (yg_q >= guard) & (yg_q < h_full - guard))
 
     bright = torch.zeros((16, qh, qw), device=dev)
+    dark = torch.zeros((16, qh, qw), device=dev)
     stencil = torch.zeros((16, qh, qw), dtype=torch.int32, device=dev)
     pix_rmin = torch.full((16, qh, qw), A.FLT_MAX, device=dev)
     pix_rmax = torch.zeros((16, qh, qw), device=dev)
-    fetched = fetch_all_directions([depth_pp], pad, bq["radius_px"], levels,
-                                   offs, radii)[0]
+    fetched = fetch_all_directions(sets, pad, bq["radius_px"], levels, offs,
+                                   radii)
     for i in range(nd):
         alpha = (i / nd) * 2.0 * 3.141
         s = _sample_dir_q(cfg, bq, xg_q, yg_q, levels, float(radii[i]),
-                          alpha, fetched[i])
-        oz = s["oz"]
+                          alpha, fetched[0][i],
+                          fetched[1][i] if dual else None)
+        vis, oz = s["vis"], s["oz"]
+        if dual:
+            need2 = _require_ray(cfg, bq, s, oz)
+            vis = torch.where(need2, s["vis2"], vis)
+            oz = torch.where(need2, s["oz2"], oz)
         same_contrib = (s["sphere_start"] - s["sphere_end"]) / s["pdf"]
-        contrib = torch.where(s["same_pix"], same_contrib, s["vis"])
+        contrib = torch.where(s["same_pix"], same_contrib, vis)
         bright = bright + torch.where(s["valid"], contrib, 0.0)
 
         force_ray = torch.zeros_like(s["same_pix"])
@@ -263,29 +302,45 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
         need = need & s["valid"] & ~s["same_pix"] & bq["valid"] & interior
         stencil = stencil | torch.where(need, 1 << i, 0).to(torch.int32)
 
-        oz_min = torch.minimum(oz_int, bq["radius"] + cfg.thickness
-                               * bq["radius"] + s["sphere_start"])
-        rmin_v = torch.clamp(bq["pos_len"] - oz_min, min=0.0)
-        rmax_v = torch.clamp(bq["pos_len"] - s["sphere_end"], min=0.0)
-        if not use_ray_interval:
-            rmin_v = torch.zeros_like(rmin_v)
-            rmax_v = torch.ones_like(rmax_v)
-        pix_rmin = torch.minimum(pix_rmin,
-                                 torch.where(need, rmin_v, A.FLT_MAX))
-        pix_rmax = torch.maximum(pix_rmax, torch.where(need, rmax_v, 0.0))
+        if stochastic:
+            oz_min = torch.minimum(oz_int, bq["radius"] + cfg.thickness
+                                   * bq["radius"] + s["sphere_start"])
+            rmin_v = torch.clamp(bq["pos_len"] - oz_min, min=0.0)
+            rmax_v = torch.clamp(bq["pos_len"] - s["sphere_end"], min=0.0)
+            if not use_ray_interval:
+                rmin_v = torch.zeros_like(rmin_v)
+                rmax_v = torch.ones_like(rmax_v)
+            pix_rmin = torch.minimum(pix_rmin,
+                                     torch.where(need, rmin_v, A.FLT_MAX))
+            pix_rmax = torch.maximum(pix_rmax, torch.where(need, rmax_v, 0.0))
+        elif cfg.dual_ao:
+            dark = dark + torch.where(~need & s["valid"] & ~s["same_pix"],
+                                      vis, 0.0)
+        if cfg.dual_ao:
+            # the same-pixel contribution lands on both channels
+            # (SVAORaster.ps.slang:55-59)
+            dark = dark + torch.where(s["same_pix"] & s["valid"],
+                                      same_contrib, 0.0)
 
     def crop(a):
         return S.interleave(a, hp, wp)[:h, :w]
 
     bg = ~b["valid"][:h, :w]
-    bright = torch.where(bg, 1.0, crop(bright) * (2.0 / nd))
+    ao_raw = torch.where(bg, 1.0, crop(bright) * (2.0 / nd))
+    if cfg.dual_ao:
+        ao_raw = torch.stack(
+            [ao_raw, torch.where(bg, 1.0, crop(dark) * (2.0 / nd))], -1)
     stencil = torch.where(bg, 0, crop(stencil))
     sd_w = cfg.low_resolution[0] + 2 * cfg.sd_guard
     sd_h = cfg.low_resolution[1] + 2 * cfg.sd_guard
-    ray_min, ray_max = _intervals_to_sd_grid(
-        cfg, b["radius_px"][:h, :w], crop(pix_rmin), crop(pix_rmax),
-        sd_h, sd_w)
-    return dict(ao_raw=bright, stencil=stencil, ray_min=ray_min,
+    if stochastic:
+        ray_min, ray_max = _intervals_to_sd_grid(
+            cfg, b["radius_px"][:h, :w], crop(pix_rmin), crop(pix_rmax),
+            sd_h, sd_w)
+    else:
+        ray_min = torch.full((sd_h, sd_w), A.FLT_MAX, device=dev)
+        ray_max = torch.zeros((sd_h, sd_w), device=dev)
+    return dict(ao_raw=ao_raw, stencil=stencil, ray_min=ray_min,
                 ray_max=ray_max)
 
 
@@ -316,16 +371,22 @@ def _sd_eval_deint(cfg, bq, sd_p, s, jqx, jqy, xg_q, yg_q, divisor: int,
 
 
 def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
-                      sd_jitter: bool = True, divisor: int = 4):
+                      sd_jitter: bool = True, divisor: int = 4, *,
+                      depth2=None, primary: str = "SingleDepth"):
     """Stochastic-depth resolve (calcAO2, Common.slang:523-663): the
     additive correction to phase 1's raw AO on stenciled directions,
-    [H, W]. stochMapDivisor must be 1, 2 or 4."""
+    [H, W] ([H, W, 2] under cfg.dual_ao, the dark channel's 0). Under
+    DualDepth the primary visibility is read from depth2's layer.
+    stochMapDivisor must be 1, 2 or 4."""
+    from .svao import DEPTH_MODE_DUAL
     _check_cfg(cfg)
     h, w = depth.shape
     b = _prep_planar(cam, cfg, depth, normal_v)
     hp, wp = b["hp"], b["wp"]
     levels, offs, radii, pad = _ring(cfg)
-    layer_pp = S.pad_planes(S.deinterleave(b["depth"]), pad)
+    layer_pp = (_depth_planes(depth2, hp, wp, pad)
+                if primary == DEPTH_MODE_DUAL
+                else S.pad_planes(S.deinterleave(b["depth"]), pad))
     nd = cfg.num_directions
     qh, qw = hp // 4, wp // 4
     g = cfg.sd_guard
@@ -364,4 +425,7 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
                                 cam.near_z, k_sd, sd_pre is not None)
         vis = torch.minimum(vis, vis_sd)
         delta_q = delta_q + torch.where(bit, vis - old_vis, 0.0)
-    return S.interleave(delta_q, hp, wp)[:h, :w] * (2.0 / nd)
+    delta = S.interleave(delta_q, hp, wp)[:h, :w] * (2.0 / nd)
+    if cfg.dual_ao:
+        delta = torch.stack([delta, torch.zeros_like(delta)], -1)
+    return delta

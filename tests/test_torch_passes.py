@@ -11,6 +11,7 @@ adds and its transcendental functions round differently from PyTorch's):
   ForwardLighting (both on the port's re-raster): 2e-5 + 2e-5;
   ImageEquation, GuardBand: exact.
 """
+import collections
 import logging
 import sys
 from pathlib import Path
@@ -262,7 +263,8 @@ def _svao_small_renderer(w=32, h=32):
     return m
 
 
-@pytest.mark.parametrize("props", [{"kernel": "HBAO"}, {"dualAO": True},
+@pytest.mark.parametrize("props", [{"kernel": "HBAO"},
+                                   {"secondaryDepthMode": "Raytraced"},
                                    {"samplingMode": "gather"},
                                    {"stochasticDepthImpl": "Coverage"}])
 def test_svao_mode_set_after_construction_raises(props):
@@ -309,3 +311,49 @@ def test_svao_raster_set_after_construction_renders_raster_sd():
     assert svao._stoch_map_size((32, 32)) == (8, 8)
     ao = out["AmbientOcclusion.out"][..., 0]
     assert bool(torch.isfinite(ao).all()) and float(ao.max()) <= 1.0
+
+
+@pytest.mark.parametrize("mode,peeled,traced", [
+    ({"primaryDepthMode": "DualDepth"}, True, True),
+    ({"secondaryDepthMode": "SingleDepth"}, False, False)])
+def test_svao_depth_modes_set_after_construction(mode, peeled, traced):
+    """SVAO's depth modes set after the first frame, as a graph script may
+    set them: under DualDepth the graph's liveness, computed at each
+    execute, brings back the DepthPeeling chain that feeds depth2 (pruned
+    under SingleDepth); secondary SingleDepth runs phase 1 alone, with no
+    SD trace and no SD grid guard band."""
+    from rtsdm_tpu_torch.ops import rt_cuda
+    from rtsdm_tpu_torch.passes import depth_chain
+    m = _svao_small_renderer()
+    svao = m.active_graph.get_pass("SVAO")
+    runs = collections.Counter()
+
+    def counted(cls, name):
+        real = cls.execute
+
+        def execute(self, *a, **kw):
+            runs[name] += 1
+            return real(self, *a, **kw)
+        return mock.patch.object(cls, "execute", execute)
+
+    def trace(real):
+        def f(*a, **kw):
+            runs["trace"] += 1
+            return real(*a, **kw)
+        return f
+
+    with counted(depth_chain.DepthPeeling, "peel"), \
+            mock.patch.object(rt_cuda, "sd_trace_blocks",
+                              trace(rt_cuda.sd_trace_blocks)), \
+            mock.patch.object(rt_cuda, "sd_trace_resident_blocks",
+                              trace(rt_cuda.sd_trace_resident_blocks)):
+        m.renderFrame()
+        assert runs == {"trace": 1}
+        runs.clear()
+        svao.cfg.update(mode)
+        out = m.renderFrame()
+    assert runs["peel"] == int(peeled) and runs["trace"] == int(traced)
+    assert svao._extra_guard() == (4 if traced else 0)     # 16 // 4
+    ao = out["AmbientOcclusion.out"][..., 0]
+    assert bool(torch.isfinite(ao).all())
+    assert 0.0 <= float(ao.min()) < 0.9 and float(ao.max()) <= 1.0

@@ -1,6 +1,7 @@
 """The mid-size references of tests/torch_refs/ (the JAX package's renders
-of scripts/SVAO_small.py, scripts/HBAO.py, BASELINE config 2 and
-scripts/SVAO.py above every golden's size, made by
+of scripts/SVAO_small.py, scripts/HBAO.py, BASELINE config 2,
+scripts/SVAO.py, scripts/SVAO.py under DualDepth and scripts/
+SVAO_quarter.py above every golden's size, made by
 tests/torch_refs/make_refs.py): they load,
 hold finite float32 images of the size they record, and record the
 settings chip_smoke.py renders the port with when it holds the card
@@ -22,7 +23,8 @@ import chip_smoke  # noqa: E402
 
 # each reference's AO output (its first channel lies in [0, 1])
 AO = {"SVAO_small": "AmbientOcclusion.out", "HBAO": "Ambient.out",
-      "SVAO_rasterSD": "AmbientOcclusion.out", "SVAO_full": "AmbientRef.out"}
+      "SVAO_rasterSD": "AmbientOcclusion.out", "SVAO_full": "AmbientRef.out",
+      "SVAO_quarter": "AmbientOcclusion.out", "SVAO_dual": "AmbientRef.out"}
 
 
 @pytest.fixture(scope="module", params=sorted(chip_smoke.MID_REFS))
@@ -72,7 +74,10 @@ def test_mid_size_refs_take_the_accelerator_branches():
                               "SVAO": sd["pass_overrides"]["SVAO"]})
     for settings, _ in refs.values():
         assert "any_hit_pallas" in settings["shadows"]
-        for p in ("GBufferRaster", "DepthPeeling", "ForwardLighting"):
+        # scripts/SVAO_quarter.py has no DepthPeeling pass
+        rasters = ("GBufferRaster", "ForwardLighting") + (
+            () if "quarter" in settings["script"] else ("DepthPeeling",))
+        for p in rasters:
             assert settings["pass_overrides"][p] == {"maxPerTile": 4096}
 
 
@@ -99,3 +104,28 @@ def test_svao_full_ref_records_four_raster_caps_and_its_outputs():
         settings = json.loads(str(f["settings"]))
     assert settings["raster_overflow"] == {"ForwardLighting": 0,
                                            "GBufferRaster": 0}
+
+
+def test_quarter_and_dual_refs_record_their_graphs():
+    """BASELINE config 4's graph (scripts/SVAO_quarter.py: its two outputs,
+    its two raster passes capped and neither overflowing) and scripts/
+    SVAO.py with SVAO's primaryDepthMode set to DualDepth after the build
+    (SVAO_full's settings but that override and one kept output; its
+    DepthPeeling raster runs, capped, and overflows nothing)."""
+    refs = chip_smoke.MID_REFS
+    quarter, dual, full = (refs[n][0] for n in ("SVAO_quarter", "SVAO_dual",
+                                                "SVAO_full"))
+    assert quarter["script"] == "scripts/SVAO_quarter.py"
+    assert set(quarter["outputs"]) == {"AmbientOcclusion.out",
+                                       "ShadedTAA.colorOut"}
+    assert dual["pass_overrides"] == dict(
+        full["pass_overrides"], SVAO={"primaryDepthMode": "DualDepth"})
+    assert dual["outputs"] == ["AmbientRef.out"]
+    assert set(full["outputs"]) - set(dual["outputs"]) <= set(
+        dual["left_out"])
+    for name, ran in (("SVAO_quarter", {"GBufferRaster", "ForwardLighting"}),
+                      ("SVAO_dual", {"GBufferRaster", "ForwardLighting",
+                                     "DepthPeeling"})):
+        with np.load(chip_smoke.mid_ref_file(name)) as f:
+            settings = json.loads(str(f["settings"]))
+        assert settings["raster_overflow"] == dict.fromkeys(ran, 0)

@@ -16,6 +16,11 @@ fuses into multiply-adds); the final AO field, from the reference G-buffer
 and end to end from the port's own, meets the reference's own cross-tier
 bound (tests/test_svao.py:160-162): below 2e-2 everywhere and below 1e-4
 on at least 98% of pixels (measured: max 4.7e-6 end to end).
+
+The modes DualDepth (a second depth layer: the linear depth plus a seeded
+offset), secondary SingleDepth and dualAO are held phase by phase and
+through SVAO.execute against the same reference functions, with the
+bounds stated in each test.
 """
 import sys
 from pathlib import Path
@@ -293,9 +298,9 @@ def test_render_graph_runs_slice_and_prunes(case):
 
 
 @pytest.mark.parametrize("props", [
-    {"primaryDepthMode": "DualDepth"}, {"secondaryDepthMode": "Raytraced"},
+    {"secondaryDepthMode": "DualDepth"}, {"secondaryDepthMode": "Raytraced"},
     {"stochMapDivisor": 3}, {"kernel": "HBAO"},
-    {"samplingMode": "gather"}, {"dualAO": True}])
+    {"samplingMode": "gather"}, {"stochasticDepthImpl": "Coverage"}])
 def test_unported_svao_modes_raise(props):
     with pytest.raises(NotImplementedError):
         SVAO({**PROPS, **props})
@@ -437,3 +442,164 @@ def test_debug_print_is_a_no_op_without_a_pixel():
     ctx.debug_print("x", torch.arange(16.0).reshape(4, 4))
     ctx.debug_print("scalar", torch.zeros(3))      # fewer than 2 dims
     assert [(n, float(v)) for n, v in ctx.debug_log] == [("x", 3.0)]
+
+
+# --- the SVAO modes: DualDepth primary depth, SingleDepth secondary depth
+# (phase 1 alone) and dualAO (bright and dark channels) ----------------------
+
+MODES = {"DualDepth": {"primaryDepthMode": "DualDepth"},
+         "SingleDepth": {"secondaryDepthMode": "SingleDepth"},
+         "dualAO": {"dualAO": True}}
+
+
+def _mode_args(props):
+    return dict(primary=props.get("primaryDepthMode", "SingleDepth"),
+                secondary=props.get("secondaryDepthMode", "StochasticDepth"))
+
+
+@pytest.fixture(scope="module")
+def depth2(case):
+    """A second depth layer behind the first: the linear depth plus a
+    seeded offset in [0.05, 2]."""
+    rng = np.random.default_rng(10)
+    lin = np.asarray(case["ref"]["lin"])
+    return (lin + rng.uniform(0.05, 2.0, lin.shape)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def mode_refs(case, depth2):
+    """Per mode: the JAX package's phase 1 (jitted, as in `case`) and its
+    configuration, and the port's configuration."""
+    sj, st, ref = case["sj"], case["st"], case["ref"]
+    out = {}
+    for mode, extra in MODES.items():
+        props = {**PROPS, **extra}
+        pj = SVAO_J(props)
+        cfg = pj._vao_cfg(RC_J(width=W, height=H, scene=sj), (W, H))
+        a = _mode_args(props)
+        p1 = jax.jit(lambda d, d2, n, cfg=cfg, a=a: PHJ.svao_phase1_shift(
+            sj.camera, cfg, d, d2, n, 0, a["primary"], a["secondary"]))(
+                ref["lin"], depth2, ref["nv"])
+        cfg_t = SVAO(props)._vao_cfg(RenderContext(width=W, height=H,
+                                                   scene=st), (W, H))
+        out[mode] = dict(props=props, cfg=cfg, cfg_t=cfg_t,
+                         p1={k: np.asarray(v) for k, v in p1.items()})
+    return out
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_phase1_modes_match_reference(case, depth2, mode_refs, mode):
+    """Phase 1 under DualDepth (both layers through one K3 call), secondary
+    SingleDepth (no intervals: the empty grids; off-stencil visibility on
+    the dark channel) and dualAO ([H, W, 2]): the stencil bit-exact, the
+    raw AO to 1e-5 and the SD-grid intervals to 1 ulp, the bounds of
+    test_phase1_matches_reference (measured: raw AO within 2.9e-6, the
+    intervals within 2.3e-7 relative)."""
+    ref, r = case["ref"], mode_refs[mode]
+    got = PH.svao_phase1_shift(case["st"].camera, r["cfg_t"], t(ref["lin"]),
+                               t(ref["nv"]), 0, depth2=t(depth2),
+                               **_mode_args(r["props"]))
+    want = r["p1"]
+    np.testing.assert_array_equal(got["stencil"].numpy(),
+                                  want["stencil"].astype(np.int32))
+    assert (want["stencil"] != 0).any()
+    assert got["ao_raw"].shape == want["ao_raw"].shape == (
+        (H, W, 2) if mode == "dualAO" else (H, W))
+    np.testing.assert_allclose(got["ao_raw"].numpy(), want["ao_raw"],
+                               atol=1e-5, rtol=0)
+    for k in ("ray_min", "ray_max"):
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=2.5e-7,
+                                   atol=0, err_msg=k)
+    if mode == "SingleDepth":
+        assert r["cfg_t"].sd_guard == r["cfg"].sd_guard == 0
+        assert (want["ray_max"] == 0).all() and (want["ray_min"] > 1e38).all()
+
+
+def test_dual_depth_reads_the_second_layer(case, depth2, mode_refs):
+    """DualDepth's phase 1 is not SingleDepth's: where the first layer's
+    sample needs a ray, the second layer's visibility is taken."""
+    assert not np.array_equal(mode_refs["DualDepth"]["p1"]["ao_raw"],
+                              np.asarray(case["ref"]["p1"]["ao_raw"]))
+
+
+@pytest.mark.parametrize("mode", ["DualDepth", "dualAO"])
+def test_phase2_modes_match_reference(case, depth2, mode_refs, mode):
+    """Phase 2 under DualDepth (the primary visibility from depth2's layer)
+    and dualAO (the correction stacked with a zero dark channel) on the
+    reference's SD map and this mode's stencil: within 1e-5, the bound of
+    test_phase2_matches_reference (measured: 2.6e-6 and 3.0e-6)."""
+    ref, r = case["ref"], mode_refs[mode]
+    a = _mode_args(r["props"])
+    stencil = r["p1"]["stencil"]
+    want = np.asarray(jax.jit(lambda d, d2, n, s, m: PHJ.svao_phase2_shift(
+        case["sj"].camera, r["cfg"], d, d2, n, s, m, a["primary"],
+        divisor=4))(ref["lin"], depth2, ref["nv"], stencil,
+                    jnp.asarray(ref["sd_map"])))
+    got = PH.svao_phase2_shift(case["st"].camera, r["cfg_t"], t(ref["lin"]),
+                               t(ref["nv"]), t(stencil.astype(np.int32)),
+                               t(ref["sd_map"]), depth2=t(depth2),
+                               primary=a["primary"]).numpy()
+    assert got.shape == want.shape
+    assert np.abs(want).max() > 0.0
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_svao_execute_modes_match_reference(case, depth2, mode):
+    """SVAO.execute in each mode against the JAX package's SVAO.execute on
+    the same inputs (its nested SD graph through the streaming Pallas trace
+    in interpret mode, its fetches through the XLA tier): the stencil
+    bit-exact and the AO within 1e-5 in every mode (measured 4.7e-6 in
+    each)."""
+    import rtsdm_tpu.passes.svao_shift as shift_j
+    sj, st, ref = case["sj"], case["st"], case["ref"]
+    props = {**PROPS, **MODES[mode]}
+    pj = SVAO_J(props)
+    pj.set_scene(sj)
+    pj._sd_graph = pj._build_sd_graph()
+    pj._sd_graph.set_scene(sj)
+    pj._sd_graph.passes["StochasticDepthMap"].cfg["pallasStream"] = True
+    ctx = RC_J(width=W, height=H, scene=sj, dictionary={"guardBand": 0})
+    inputs = {"gbufferDepth": ref["g"]["depth"], "depth": ref["lin"],
+              "depth2": depth2, "normals": ref["nv_in"]}
+    fake = [type("D", (), {"platform": "tpu"})()]
+    with interpret_mode(rp), \
+            mock.patch.object(jax, "devices", lambda *a, **kw: fake), \
+            mock.patch.object(shift_j, "FUSED_FETCH", "off"):
+        want = jax.jit(lambda i: pj.execute(ctx, i)[0])(
+            {k: jnp.asarray(v) for k, v in inputs.items()})
+    want = {k: np.asarray(v) for k, v in want.items()}
+
+    pt = SVAO(props)
+    pt.set_scene(st)
+    ctx_t = RenderContext(width=W, height=H, scene=st,
+                          dictionary={"guardBand": 0})
+    got, _ = pt.execute(ctx_t, {
+        k: t(v.view(np.int32) if k == "normals" else v)
+        for k, v in inputs.items()})
+    got = {k: v.numpy() for k, v in got.items()}
+    assert set(got) == set(want)
+    np.testing.assert_array_equal(got["stencil"],
+                                  want["stencil"].astype(np.int32))
+    ao, ao_want = got["ao"], want["ao"]
+    assert ao.shape == ao_want.shape == ((H, W, 2) if mode == "dualAO"
+                                         else (H, W))
+    assert np.isfinite(ao).all() and 0.0 <= ao.min() and ao.max() <= 1.0
+    np.testing.assert_allclose(ao, ao_want, atol=1e-5, rtol=0)
+    if mode == "SingleDepth":
+        assert "SD_MAP" not in ctx_t.dictionary
+    else:
+        assert ctx_t.dictionary["SD_MAP"].shape[-1] == PROPS["stochSamples"]
+    if mode == "dualAO":
+        assert (ao[..., 1] <= ao[..., 0] + 1e-7).all()  # bright >= dark
+
+
+@pytest.mark.parametrize("mode,unused", [
+    ("SingleDepth", ("depth2",)), ("DualDepth", ()), ("dualAO", ("depth2",))])
+def test_unused_inputs_per_mode(mode, unused):
+    """depth2 is read only under DualDepth, so only then does the graph
+    keep the DepthPeeling chain that feeds it."""
+    ctx = RenderContext(width=W, height=H)
+    assert tuple(SVAO({**PROPS, **MODES[mode]}).unused_inputs(ctx)) == unused
+    assert tuple(SVAO_J({**PROPS, **MODES[mode]}).unused_inputs(
+        RC_J(width=W, height=H))) == unused

@@ -7,7 +7,9 @@ configurations (REFS): scripts/SVAO_small.py; scripts/HBAO.py (BASELINE
 config 1); scripts/SVAO_small.py with SVAO's stochasticDepthImpl set to
 "Raster" after the graph was built (BASELINE config 2, as
 bench_configs.py:20-23 sets it); scripts/SVAO.py, the shipped research
-graph (SVAO_full).
+graph (SVAO_full), and with SVAO's primaryDepthMode set to DualDepth after
+the graph was built (SVAO_dual); scripts/SVAO_quarter.py (BASELINE config
+4's graph: quarter-res SVAO with dualAO, DownsamplePass, AOGuidedBlur).
 
 Wherever a CPU tier of the JAX package departs from its accelerator path,
 which the port follows, the reference takes the accelerator's behaviour:
@@ -41,8 +43,18 @@ interpret tests run them.
 
     JAX_PLATFORMS=cpu python tests/torch_refs/make_refs.py [--config NAME]
 
-writes tests/torch_refs/<NAME>.<scene>.<W>x<H>.f<frame>.npz with the
-graph's marked outputs of the recorded frame (float32, compressed) and a
+    JAX_PLATFORMS=cpu python tests/torch_refs/make_refs.py --golden TEST
+
+renders the golden test tests/image_tests/renderpasses/TEST.py as the
+golden runner does (rtsdm_tpu/testing/image_tests.py: run_test), but with
+XLA's fused multiply-adds off (XLA_FLAGS=--xla_cpu_max_isa=AVX; compiled,
+the package's CPU raster contracts a*b+c in its edge functions, which the
+port's raster and K1 do not), into tests/torch_refs/TEST.nofma.npz: the
+kept frames' outputs and, in `settings`, each one's MSE against the
+committed golden.
+
+The first form writes tests/torch_refs/<NAME>.<scene>.<W>x<H>.f<frame>.npz
+with the graph's marked outputs of the recorded frame (float32, compressed) and a
 JSON `settings` entry: script, scene, width, height, frames rendered, the
 frame kept, the outputs, the pass overrides, the accelerator branches
 taken, every raster pass's overflow, the G-buffer raster's overflow at 256
@@ -95,9 +107,27 @@ SVAO_FULL_SETTINGS = dict(
     pass_overrides={p: {"maxPerTile": MAX_PER_TILE} for p in RASTER_PASSES},
     left_out={"DiffuseDLSS.output": "DLSSPass is a pass-through stub "
                                     "(passes/stubs.py): DiffuseRef.out"})
+# BASELINE config 4's graph (quarter-res SVAO with dualAO, DownsamplePass
+# and AOGuidedBlur), which has no DepthPeeling pass
+QUARTER_SETTINGS = dict(
+    SETTINGS, script="scripts/SVAO_quarter.py",
+    outputs=["AmbientOcclusion.out", "ShadedTAA.colorOut"],
+    pass_overrides={p: {"maxPerTile": MAX_PER_TILE}
+                    for p in ("GBufferRaster", "ForwardLighting")})
+# scripts/SVAO.py with SVAO's primaryDepthMode set to DualDepth after the
+# graph was built: DepthPeeling and LinearizeDepth0 feed its depth2
+DUAL_SETTINGS = dict(
+    SVAO_FULL_SETTINGS, outputs=["AmbientRef.out"],
+    pass_overrides={**SVAO_FULL_SETTINGS["pass_overrides"],
+                    "SVAO": {"primaryDepthMode": "DualDepth"}},
+    left_out={"DiffuseRef.out": "kept small: SVAO_full holds it",
+              "AmbientTAA.colorOut": "kept small: SVAO_full holds it",
+              "DiffuseTAA.colorOut": "kept small: SVAO_full holds it",
+              **SVAO_FULL_SETTINGS["left_out"]})
 # file name prefix -> settings
 REFS = {"SVAO_small": SETTINGS, "HBAO": HBAO_SETTINGS,
-        "SVAO_rasterSD": RASTER_SD_SETTINGS, "SVAO_full": SVAO_FULL_SETTINGS}
+        "SVAO_rasterSD": RASTER_SD_SETTINGS, "SVAO_full": SVAO_FULL_SETTINGS,
+        "SVAO_quarter": QUARTER_SETTINGS, "SVAO_dual": DUAL_SETTINGS}
 
 
 # Pallas kernels run in interpret mode, per pass whose branch was patched
@@ -245,14 +275,65 @@ def gbuffer_overflow(m, settings: dict, max_per_tile: int) -> int:
     return int(vis["overflow"])
 
 
+NO_FMA = "--xla_cpu_max_isa=AVX"
+
+
+def golden_without_fma(test: str) -> int:
+    """The golden test's frames rendered by rtsdm_tpu with XLA's fused
+    multiply-adds off, written with their MSE against the goldens."""
+    import numpy as np
+    from rtsdm_tpu.mogwai import Renderer, run_script
+    path = ROOT / "tests" / "image_tests" / "renderpasses" / f"{test}.py"
+    ns = {}
+    exec(path.read_text(), ns)
+    cfg = ns["IMAGE_TEST"]
+    t0 = time.perf_counter()
+    m = Renderer(width=cfg["width"], height=cfg["height"], use_jit=False)
+    run_script(str(ROOT / ns["SCRIPT"]), m)
+    m.active_graph.get_pass("GuardBand").cfg["guardBand"] = cfg["guard_band"]
+    for name, props in cfg.get("pass_overrides", {}).items():
+        m.active_graph.get_pass(name).cfg.update(props)
+    m.loadScene(cfg["scene"])
+    m.clock.pause()
+    images = {}
+    for f in range(max(cfg["frames"]) + 1):
+        m.clock.frame = f
+        out = m.renderFrame()
+        if f in cfg["frames"]:
+            images.update({f"{k}.{f}": np.asarray(v, np.float32)
+                           for k, v in out.items()
+                           if k in ns.get("OUTPUTS", out)})
+    mse = {k: float(((v - np.load(ROOT / "tests" / "image_refs" / f"{test}."
+                                  f"{k}.npy").astype(np.float32)) ** 2)
+                     .mean()) for k, v in images.items()}
+    settings = dict(test=test, xla_flags=os.environ["XLA_FLAGS"],
+                    seconds=round(time.perf_counter() - t0, 1),
+                    mse_vs_golden=mse)
+    out_path = OUT_DIR / f"{test}.nofma.npz"
+    np.savez_compressed(out_path, settings=np.asarray(json.dumps(settings)),
+                        **images)
+    print(f"{out_path.relative_to(ROOT)}: MSE against the goldens {mse}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(REFS), default="SVAO_small")
+    ap.add_argument("--golden", default=None,
+                    help="a golden test's name: render it with XLA's fused "
+                         "multiply-adds off")
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
     args = ap.parse_args(argv)
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(ROOT))
+    if args.golden:
+        if "jax" in sys.modules:
+            raise SystemExit("--golden: XLA_FLAGS must be set before JAX "
+                             "is imported")
+        os.environ["XLA_FLAGS"] = " ".join(
+            filter(None, (os.environ.get("XLA_FLAGS"), NO_FMA)))
+        return golden_without_fma(args.golden)
     import numpy as np
     settings = dict(REFS[args.config])
     settings.update({k: v for k, v in (("width", args.width),
