@@ -122,8 +122,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    twice, K4 once, K1 and K2 twice, K8 once a light, one TAA (K10
    Catmull-Rom); no plain version runs; the outputs are 1080x1920 and
    finite, AO in [0, 1]. The last frame's calls held as in 11, K5's on a
-   spread subset of whole tiles; K5 timed with its bound; the frame timed
-   as in 10;
+   spread subset of whole tiles; K5 timed with its bound, and K8 with the
+   bound of its pairs (k8_bound_at); the frame timed as in 10;
 19. BASELINE config 3 (bench_configs.py:24-27): SVAO_small.py with
    stochMapDivisor 1 and stochMapGuardBand 512, SunTemple@full 1920x1080,
    3 frames: K5 once a frame on the full-resolution SD grid, K4 never
@@ -132,7 +132,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
 20. scripts/SVAO.py at Arcade@full 1280x720: one frame with SVAO's
    primaryDepthMode DualDepth (DepthPeeling runs: K1 once with its floor,
    phase 1's K3 on two plane sets; the frame's calls held bit-exact) and
-   one with secondaryDepthMode SingleDepth (no SD trace, no K4).
+   one with secondaryDepthMode SingleDepth (no SD trace, no K4);
+21. scripts/SVAO_depth.py at Arcade@full 1280x720, 3 frames on a paused
+   clock: SVAO under DualDepth over TemporalDepthPeel's layer (phase 1
+   alone: K3 on two plane sets) and SVAO_ref under the Raytraced secondary
+   mode at full resolution (K3, then the brute-force interval query of
+   ops/rt.py, plain PyTorch). Per frame K1 once plain and once floored
+   (DepthPeeling), K2 once, K3 twice, no SD trace, no K4, no shadows,
+   TemporalDepthPeel's K10 bilinear from frame 1; the last frame's calls
+   held bit-exact; both outputs finite, AO in [0, 1]; the RT query timed by
+   CUDA events with its rays and its ray-triangle tests; the frame timed as
+   in 10 (3 host-clock frames);
+22. scripts/SVAO.py at Arcade@full 1280x720, one frame each with
+   samplingMode gather (no K3 or K4), kernel HBAO (K3 and K4 on HBAO's
+   ring tables) and secondaryDepthMode Raytraced (the RT query timed), set
+   after the build, each frame's calls held bit-exact; then one RTAO frame
+   at that size (closest_hit, timed);
+17e. scripts/SVAO_depth.py at Arcade@full 480x270, frame 1, against the JAX
+   package's render (tests/torch_refs/SVAO_depth.*); then SVAO_depth.py
+   and SVAO_quarter.py with the JAX package's G-buffer channels substituted
+   for the port's (<ref>.rasters.npz), their AO held under a bound far
+   below the rasters' last bits; this checkout only;
+23. one row of the quality oracle (rtsdm_tpu_torch/tools/quality_ssim.py):
+   BASELINE config 2 at 640x360, SSIM of the ray-traced and the raster SD
+   AO against SVAO's Raytraced mode and their mean absolute difference,
+   reported, not gated.
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound, library yardstick and launches per
@@ -705,6 +729,9 @@ def compare_fetch_directions(k):
         nbytes(planes, radius, got), float(got.numel()))
 
 
+K4_WRAPPER_REPS = 20   # calls whose device activity K4's check reads
+
+
 def compare_fetch_sd_packed(k):
     """K4: bit-exact (an int32 copy)."""
     import torch
@@ -727,12 +754,19 @@ def compare_fetch_sd_packed(k):
     log(f"K4 fetch_sd_packed {tuple(got.shape)}: {mism} mismatches, max "
         f"|diff| of the unpacked depths {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K4 is not bit-exact")
-    acts = profiled(lambda: F.fetch_sd_packed(*args, **kwargs))
-    log(f"K4's wrapper on the card (torch.profiler): {acts}")
-    check(len(acts) == 1 and all(
-        KERNEL_SYMBOLS["fetch_sd_packed"] in n and c == 1
-        for n, (_, c) in acts.items()),
-        "K4's wrapper runs more than its kernel on the card")
+    # the profiler drops some records of a launch (device_ms), so a single
+    # call can show no activity at all: hold K4_WRAPPER_REPS calls, of which
+    # every recorded activity must be K4's kernel, at most one a call
+    acts = profiled(lambda: [F.fetch_sd_packed(*args, **kwargs)
+                             for _ in range(K4_WRAPPER_REPS)])
+    own = sum(c for n, (_, c) in acts.items()
+              if KERNEL_SYMBOLS["fetch_sd_packed"] in n)
+    others = {n: c for n, (_, c) in acts.items()
+              if KERNEL_SYMBOLS["fetch_sd_packed"] not in n}
+    log(f"K4's wrapper on the card (torch.profiler), {K4_WRAPPER_REPS} "
+        f"calls: {own} launches of its kernel, other activities {others}")
+    check(not others and 1 <= own <= K4_WRAPPER_REPS,
+          "K4's wrapper runs more than its kernel on the card")
     t = timings(lambda: F.fetch_sd_packed(*args, **kwargs),
                 KERNEL_SYMBOLS["fetch_sd_packed"], 50)
     log(f"K4 times: CUDA events {t['event_ms']:.4f} ms, device "
@@ -1628,6 +1662,7 @@ SVAO_FULL_SCRIPT = ROOT / "scripts" / "SVAO.py"
 SVAO_FULL_OUTPUTS = ("AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
                      "DiffuseTAA.colorOut", "DiffuseDLSS.output")
 QUARTER_SCRIPT = ROOT / "scripts" / "SVAO_quarter.py"
+SVAO_DEPTH_SCRIPT = ROOT / "scripts" / "SVAO_depth.py"
 CONFIG_FRAMES = 3
 RASTER_SD = {"SVAO": {"stochasticDepthImpl": "Raster"}}
 # BASELINE config 3 (bench_configs.py:24-27): the SD map at full
@@ -1647,12 +1682,14 @@ CONFIGS = {
                 GRAPH_OUTPUTS),
     "config4": (QUARTER_SCRIPT, "Bistro@full", 1920, 1080, {},
                 ("ShadedTAA.colorOut", "AmbientOcclusion.out")),
+    "svao_depth": (SVAO_DEPTH_SCRIPT, "Arcade@full", 1280, 720, {},
+                   ("Ambient.out", "AmbientRef.out")),
 }
 # each graph's AO output (its first channel is checked to lie in [0, 1])
 AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
              "config1_suntemple": "Ambient.out", "svao_full": "AmbientRef.out",
              "config3": "AmbientOcclusion.out",
-             "config4": "AmbientOcclusion.out"}
+             "config4": "AmbientOcclusion.out", "svao_depth": "Ambient.out"}
 # AOGuidedBlur's fusion (config 4) weighs bright and dark by two ratios
 # that sum to 1 only up to float32 rounding, as in the JAX package (whose
 # clampResults is a no-op, as upstream): its AO may pass 1 by two ulps
@@ -1728,6 +1765,17 @@ def check_config_outputs(label, out):
 
 def config_want(label, n_lights):
     """Launches per frame that each config's graph must make."""
+    if label == "svao_depth":
+        # the G-buffer raster and DepthPeeling's floored one (the Switch
+        # keeps it live); SVAO (DualDepth primary, SingleDepth secondary)
+        # fetches both layers in one K3 call, SVAO_ref (Raytraced) one
+        # layer; no SD map, no K4, no shadows (TemporalDepthPeel's K10
+        # bilinear from the second frame on)
+        return {"raster": 1, FLOOR: 1, "fetch_attributes": 1,
+                "fetch_all_directions": 2, "fetch_sd_packed": 0,
+                "sd_trace": 0, "raster_stochastic": 0,
+                "sd_trace_resident": 0, "fetch_taps_same_class": 0,
+                "any_hit": 0}
     if label in ("config3", "config4"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 and phase 2
         # fetch once each; the SD trace streams (K5: SunTemple's 323,202
@@ -1768,8 +1816,10 @@ def drive_config(label, kernels):
     script, scene, width, height, overrides, _ = CONFIGS[label]
     t0 = time.perf_counter()
     m = config_renderer(label)
+    graph = m.active_graph
     n_lights = min(int(m.scene.num_lights), int(
-        m.active_graph.get_pass("RayShadow").cfg["maxLights"]))
+        graph.get_pass("RayShadow").cfg["maxLights"])) \
+        if "RayShadow" in graph.passes else 0
     log(f"{label}: {script.relative_to(ROOT)} {overrides or ''} on {scene} "
         f"({m.scene.num_triangles} triangles, {n_lights} light(s)) at "
         f"{width}x{height}, set up in {time.perf_counter() - t0:.2f} s")
@@ -2452,6 +2502,36 @@ def sd_trace_timing(label, k) -> dict:
     return res
 
 
+def k8_bound_at(label, k) -> dict:
+    """K8 at a config's last-frame call: its time (CUDA events, device time
+    per call by torch.profiler) and its bound as compare_any_hit counts it
+    (this run's pairs x the operations per pair of the warp that tests
+    them, plus the boxes staged, from the replayed walk; its bytes)."""
+    from rtsdm_tpu_torch.ops import rt_cuda as RT
+    check(k.calls, f"{label}: no K8 call recorded")
+    args, _ = k.calls[-1]
+    tri, boxes, lists, counts, rays = args
+    hit, pairs = RT.any_hit_blocks(*args)
+    free = RT.no_cull_boxes(tri.shape[0], tri.device)
+    _, pairs_f = RT.any_hit_blocks(tri, free, lists, counts, rays)
+    walk = k8_walk(tri, boxes, lists, counts, rays, pairs_f)
+    ops, p_h, p_m = any_hit_work(walk, pairs, rays)
+    t = timings(lambda: RT.any_hit_blocks(*args), KERNEL_SYMBOLS["any_hit"],
+                10)
+    res = with_bound(
+        dict(t, ms=t["event_ms"], rays=int(rays.shape[1]),
+             chunks=int(tri.shape[0]), pairs=float(pairs.double().sum()),
+             pairs_hoisted=p_h, pairs_per_pair_path=p_m,
+             pairs_no_cull=float(pairs_f.double().sum()), walk=walk),
+        nbytes(tri, boxes, lists, counts, rays, hit, pairs), ops)
+    log(f"{label} K8: {res['rays']} rays x {res['chunks']} chunks, "
+        f"{res['pairs']:.6g} pairs tested ({res['pairs_no_cull']:.6g} "
+        f"without the cull); {res['ms']:.4f} ms by CUDA events, device "
+        f"{res['device_ms']} ms; bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})")
+    return res
+
+
 def run_new_configs():
     """Phases 18-19: BASELINE config 4 (scripts/SVAO_quarter.py, Bistro@full
     1920x1080: quarter-res SVAO with dualAO, the SD trace streamed through
@@ -2474,6 +2554,8 @@ def run_new_configs():
                 "never launches here")
         held = check_config_calls(label, kernels)
         k5 = sd_trace_timing(label, by_name["sd_trace"])
+        k8 = k8_bound_at(label, by_name["any_hit"]) \
+            if label == "config4" else None
         raster_calls = time_raster_calls(label, by_name["raster"].calls)
         times, _ = graph_timing(m)
         script, scene, width, height, overrides, _ = CONFIGS[label]
@@ -2483,7 +2565,8 @@ def run_new_configs():
                              overrides=overrides, launches=totals,
                              warp_launches_by_mode=modes,
                              frames=CONFIG_FRAMES, bit_exact_calls=held,
-                             sd_trace=k5, raster_calls=raster_calls)
+                             sd_trace=k5, any_hit=k8,
+                             raster_calls=raster_calls)
         del m
     return report
 
@@ -2551,6 +2634,249 @@ def svao_modes_frames() -> dict:
         "SingleDepth: no SD trace and no K4")
     del m
     return res
+
+
+# ---------------------------------------------------------------------------
+# scripts/SVAO_depth.py, SVAO's reference modes, RTAO and the quality oracle
+# (phases 21-23): the brute-force ray queries of ops/rt.py are plain
+# PyTorch (XLA code in the JAX package), timed here
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def timed_rt_queries():
+    """While it holds, every call of ops/rt.py's closest_hit and
+    vao_interval_query is timed by CUDA events around it (synchronized
+    before and after) and the yielded list gets {fn, rays, ms, args}."""
+    import torch
+    from rtsdm_tpu_torch.ops import rt
+    seen = []
+    saved = []
+    for name in ("closest_hit", "vao_interval_query"):
+        real = getattr(rt, name)
+
+        def timed(scene, origins, dirs, tmin, tmax, *a, _real=real,
+                  _name=name, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            out = _real(scene, origins, dirs, tmin, tmax, *a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            seen.append(dict(fn=_name, rays=int(origins.shape[0]),
+                             ms=start.elapsed_time(end),
+                             chunk=kw.get("chunk", rt.DEFAULT_CHUNK),
+                             args=(scene, origins, dirs, tmin, tmax)))
+            return out
+
+        saved.append((name, real))
+        setattr(rt, name, timed)
+    try:
+        yield seen
+    finally:
+        for name, real in saved:
+            setattr(rt, name, real)
+
+
+def rt_query_row(q: dict, what: str) -> dict:
+    """A timed query's rays, time, rays a second and the ray-triangle
+    tests its culled blocks evaluated, against the brute force's."""
+    from rtsdm_tpu_torch.ops import rt
+    culled, brute = rt.query_tests(*q["args"], chunk=q["chunk"])
+    rps = q["rays"] / (q["ms"] / 1e3) if q["ms"] > 0 else None
+    row = dict(fn=q["fn"], rays=q["rays"], ms=q["ms"], rays_per_s=rps,
+               tests=culled, brute_force_tests=brute,
+               tests_per_s=culled / (q["ms"] / 1e3) if q["ms"] > 0 else None)
+    log(f"{what}: {q['fn']} traced {q['rays']} rays in {q['ms']:.3f} ms "
+        f"(CUDA events), {rps:.4g} rays/s; {culled} ray-triangle tests "
+        f"evaluated ({culled / max(brute, 1):.4g} of the brute force's "
+        f"{brute})")
+    return row
+
+
+def run_svao_depth() -> dict:
+    """Phase 21: scripts/SVAO_depth.py at Arcade@full 1280x720 through the
+    harness, CONFIG_FRAMES frames on a paused clock (TemporalDepthPeel holds
+    a layer from frame 1): SVAO under DualDepth with the SingleDepth
+    secondary mode, SVAO_ref under Raytraced at full resolution. The
+    launches of config_want per frame, counted between zeroing and reading
+    around each frame; the last frame's calls held bit-exact against their
+    plain versions (K1 with and without its floor, K2, K3, K10 bilinear);
+    both outputs finite, of the requested size, AO in [0, 1]; the RT query
+    timed by CUDA events with the rays it traced; the frame timed as in
+    10."""
+    label = "svao_depth"
+    kernels = kernels_of_configs()
+    with timed_rt_queries() as queries:
+        m, totals, modes = drive_config(label, kernels)
+    ref_ao = m._last_outputs["AmbientRef.out"][..., 0]
+    check(0.0 <= float(ref_ao.min()) and float(ref_ao.max()) <= 1.0,
+          "svao_depth: AmbientRef outside [0, 1]")
+    check(len(queries) == CONFIG_FRAMES
+          and all(q["fn"] == "vao_interval_query" for q in queries),
+          f"svao_depth: {len(queries)} RT queries in {CONFIG_FRAMES} frames")
+    check(modes.get("bilinear", 0) == CONFIG_FRAMES - 1,
+          f"svao_depth: TemporalDepthPeel's K10 bilinear launched "
+          f"{modes.get('bilinear', 0)} times, expected {CONFIG_FRAMES - 1}")
+    held = check_config_calls(label, kernels)
+    rt_row = rt_query_row(queries[-1], f"{label} SVAO_ref")
+    check(rt_row["rays"] > 0, "svao_depth: SVAO_ref traced no ray")
+    times, _ = graph_timing(m, reps=3)
+    script, scene, width, height, overrides, _ = CONFIGS[label]
+    report = dict(times, script=str(script.relative_to(ROOT)), scene=scene,
+                  width=width, height=height,
+                  triangles=int(m.scene.num_triangles), launches=totals,
+                  warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
+                  bit_exact_calls=held, rt_query=rt_row,
+                  rt_query_ms_per_frame=[q["ms"] for q in queries])
+    del m
+    return report
+
+
+# SVAO's reference modes in scripts/SVAO.py (phase 22): the mode, its
+# properties and what differs from the graph's own launches a frame
+REFERENCE_MODES = (
+    ("gather", {"samplingMode": "gather"},
+     {"fetch_all_directions": 0, "fetch_sd_packed": 0,
+      "sd_trace_resident": 1}),
+    ("HBAO", {"kernel": "HBAO"},
+     {"fetch_all_directions": 2, "fetch_sd_packed": 1,
+      "sd_trace_resident": 1}),
+    ("Raytraced", {"secondaryDepthMode": "Raytraced"},
+     {"fetch_all_directions": 1, "fetch_sd_packed": 0,
+      "sd_trace_resident": 0}))
+
+
+def svao_reference_modes() -> dict:
+    """Phase 22: scripts/SVAO.py at Arcade@full 1280x720, one frame each
+    with samplingMode gather (per-pixel phases: no K3 or K4; the SD map
+    through K7), kernel HBAO (shift mode: K3 and K4 on HBAO's ring tables,
+    held bit-exact) and secondaryDepthMode Raytraced (phase 1's K3, then
+    the RT query, timed), set after the build; counts zeroed just before
+    and read just after each frame, no plain version run, the frame's
+    calls held bit-exact. Then one RTAO frame at that size (rtao_frame)."""
+    import torch
+    from rtsdm_tpu_torch._build import LAUNCHES
+    from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
+    from rtsdm_tpu_torch.utils.sampling import (AO_KERNEL_HBAO,
+                                                sample_radius_table)
+    label = "svao_full"
+    kernels = kernels_of_configs()
+    by_name = kernels_by_name(kernels)
+    m = config_renderer(label)
+    svao = m.active_graph.get_pass("SVAO")
+    n_lights = min(int(m.scene.num_lights), int(
+        m.active_graph.get_pass("RayShadow").cfg["maxLights"]))
+    m.renderFrame()
+    base = {k: svao.cfg[k] for k in ("samplingMode", "kernel",
+                                     "secondaryDepthMode")}
+    hbao_radii = tuple(float(r) for r in sample_radius_table(
+        int(svao.cfg["sampleCount"]), AO_KERNEL_HBAO))
+    res = {}
+    for mode, props, differs in REFERENCE_MODES:
+        svao.cfg.update(props)
+        with timed_rt_queries() as queries, \
+                record_main_path(kernels) as plain_calls:
+            for k in kernels:
+                k.calls.clear()
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            out = m.renderFrame()
+            torch.cuda.synchronize()
+            check(not plain_calls, f"plain versions ran: {plain_calls}")
+            counts = {k.name: k.launches for k in kernels}
+            counts[FLOOR] = LAUNCHES[raster_cuda.RASTER_FLOOR_KEY]
+            by_mode = {md: LAUNCHES[warp_cuda.launch_key(md)]
+                       for md in warp_cuda.MODES}
+        svao.cfg.update(base)
+        lo, hi = check_config_outputs(label, out)
+        want = dict({"raster": 2, FLOOR: 0, "fetch_attributes": 2,
+                     "sd_trace": 0, "raster_stochastic": 0,
+                     "fetch_taps_same_class": 0, "any_hit": n_lights},
+                    **differs)
+        log(f"SVAO.py with {props}: {m.last_frame_ms:.3f} ms host clock; "
+            f"launches {counts}; AO in [{lo:.4f}, {hi:.4f}]")
+        check(all(counts[n] == v for n, v in want.items()),
+              f"SVAO.py {mode}: launches {counts}, expected {want}")
+        if mode == "HBAO":
+            tables = [tuple(a[5]) for a, _ in by_name["fetch_all_directions"]
+                      .calls] + [tuple(a[5]) for a, _ in
+                                 by_name["fetch_sd_packed"].calls]
+            check(len(tables) == 3 and all(t == hbao_radii for t in tables),
+                  f"SVAO.py HBAO: K3/K4 took ring radii {tables}, not "
+                  f"HBAO's {hbao_radii}")
+        held = check_config_calls(f"SVAO.py {mode}", kernels)
+        row = dict(launches=counts, warp_launches_by_mode=by_mode,
+                   bit_exact_calls=held, host_ms=m.last_frame_ms,
+                   ao_range=[lo, hi])
+        if mode == "Raytraced":
+            check(len(queries) == 1, f"Raytraced: {len(queries)} queries")
+            row.update(rt_query=rt_query_row(queries[0],
+                                             "SVAO.py Raytraced"))
+        else:
+            check(not queries, f"SVAO.py {mode}: an RT query ran")
+        res[mode] = row
+    del m
+    res["rtao"] = rtao_frame()
+    return res
+
+
+def rtao_frame(scene_name="Arcade@full", width=1280, height=720) -> dict:
+    """One RTAO frame on the G-buffer of `scene_name` at width x height:
+    a cosine ray a pixel through closest_hit (timed by CUDA events, after a
+    warm-up frame), ambient finite and in [0, 1], some pixels occluded."""
+    import torch
+    from rtsdm_tpu_torch.passes.ao_extra import RTAO
+    from rtsdm_tpu_torch.passes.gbuffer import raster_gbuffer
+    from rtsdm_tpu_torch.rendergraph.render_pass import RenderContext
+    from rtsdm_tpu_torch.scene.procedural import load_scene
+    scene = load_scene(scene_name, aspect=width / height, device="cuda")
+    g = raster_gbuffer(scene, width, height)
+    p = RTAO({})
+    p.set_scene(scene)
+    inputs = {"wPos": g["posW"], "faceNormal": g["faceNormalW"]}
+    ctx = RenderContext(width=width, height=height, scene=scene,
+                        frame_index=1, dictionary={"guardBand": 0})
+    p.execute(ctx, inputs)
+    with timed_rt_queries() as queries:
+        t0 = time.perf_counter()
+        out, _ = p.execute(ctx, inputs)
+        torch.cuda.synchronize()
+        frame_ms = (time.perf_counter() - t0) * 1e3
+    amb = out["ambient"]
+    check(tuple(amb.shape) == (height, width)
+          and bool(torch.isfinite(amb).all())
+          and 0.0 <= float(amb.min()) and float(amb.max()) <= 1.0,
+          "RTAO: ambient not finite in [0, 1]")
+    occluded = float((amb < 1.0).float().mean())
+    check(0.0 < occluded < 1.0, f"RTAO: occluded share {occluded}")
+    log(f"RTAO frame, {scene_name} {width}x{height}: {frame_ms:.3f} ms host "
+        f"clock, {occluded:.4f} of the pixels occluded")
+    return dict(scene=scene_name, width=width, height=height,
+                frame_ms=frame_ms, occluded_share=occluded,
+                rt_query=rt_query_row(queries[0], "RTAO"))
+
+
+def quality_row() -> dict:
+    """Phase 23: one row of the quality oracle on the card
+    (rtsdm_tpu_torch/tools/quality_ssim.py), BASELINE config 2 at the JAX
+    tool's 640x360 on Arcade@full: SSIM of the ray-traced and the raster SD
+    AO against SVAO's Raytraced reference mode, and their mean absolute
+    difference. Reported, not gated."""
+    from rtsdm_tpu_torch.tools import quality_ssim as Q
+    t0 = time.perf_counter()
+    with timed_rt_queries() as queries:
+        row = Q.run_config(Q.CONFIGS[0], "cuda", rtao_frames=0)
+    row["seconds_total"] = time.perf_counter() - t0
+    check(len(queries) == 1, f"quality row: {len(queries)} RT queries")
+    log(f"quality, config 2 ({row['scene']} {row['resolution']}, "
+        f"{row['triangles']} triangles): SSIM(ray_sd, Raytraced) "
+        f"{row['ssim_ray_sd_vs_raytraced']:.6f}, SSIM(raster_sd, Raytraced) "
+        f"{row['ssim_raster_sd_vs_raytraced']:.6f}, mean |ray_sd - "
+        f"Raytraced| {row['mean_abs_diff_ray_sd_vs_raytraced']:.6g}")
+    row["rt_query"] = rt_query_row(queries[0], "quality config 2 Raytraced")
+    return row
+
 
 def maxcount_on_main_path(scene):
     """One SVAO-path frame at SunTemple@full with stochMaxCount 8: K5 (the
@@ -2882,7 +3208,8 @@ MID_QUARTER_REF = dict(
     MID_REF, script="scripts/SVAO_quarter.py",
     outputs=["AmbientOcclusion.out", "ShadedTAA.colorOut"],
     pass_overrides={p: MID_RASTER_CAPS[p]
-                    for p in ("GBufferRaster", "ForwardLighting")})
+                    for p in ("GBufferRaster", "ForwardLighting")},
+    substituted=["GBufferRaster.depth", "GBufferRaster.faceNormalW"])
 MID_DUAL_REF = dict(
     MID_SVAO_FULL_REF, outputs=["AmbientRef.out"],
     pass_overrides={**MID_SVAO_FULL_REF["pass_overrides"],
@@ -2900,13 +3227,44 @@ MID_DUAL_REF = dict(
 # ratios of small local deviations.
 MID_QUARTER_BOUND = {"AmbientOcclusion.out": 7e-4, "ShadedTAA.colorOut": 2e-5}
 MID_DUAL_BOUND = {"AmbientRef.out": 7e-6}
+# scripts/SVAO_depth.py (SVAO under DualDepth over TemporalDepthPeel's
+# layer, SVAO_ref under the Raytraced secondary mode): no RayShadow and no
+# ForwardLighting, its two rasters capped, frame 1 kept
+MID_DEPTH_REF = dict(
+    script="scripts/SVAO_depth.py", scene="Arcade@full", width=480,
+    height=270, frames=2, frame=1, outputs=["Ambient.out", "AmbientRef.out"],
+    pass_overrides={p: MID_RASTER_CAPS[p]
+                    for p in ("GBufferRaster", "DepthPeeling")},
+    substituted=["GBufferRaster.depth", "GBufferRaster.faceNormalW",
+                 "GBufferRaster.mvec"])
+# Bounds fixed before its first chip run: twice the CPU port's MSE,
+# rounded up (Ambient 1.836e-5, AmbientRef 1.887e-5)
+MID_DEPTH_BOUND = {"Ambient.out": 4e-5, "AmbientRef.out": 4e-5}
 # file name prefix -> (settings, MSE bounds)
 MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
             "HBAO": (MID_HBAO_REF, MID_HBAO_BOUND),
             "SVAO_rasterSD": (MID_RASTER_SD_REF, MID_RASTER_SD_BOUND),
             "SVAO_full": (MID_SVAO_FULL_REF, MID_SVAO_FULL_BOUND),
             "SVAO_quarter": (MID_QUARTER_REF, MID_QUARTER_BOUND),
-            "SVAO_dual": (MID_DUAL_REF, MID_DUAL_BOUND)}
+            "SVAO_dual": (MID_DUAL_REF, MID_DUAL_BOUND),
+            "SVAO_depth": (MID_DEPTH_REF, MID_DEPTH_BOUND)}
+# The substituted holds: the port renders with the JAX package's G-buffer
+# channels (`substituted`, stored beside the reference in
+# <ref>.rasters.npz by make_refs.py) in place of its own raster's, so that
+# what is left comes from the passes after the rasters. Bounds: twice the
+# MSE of the port's CPU render so substituted, rounded up to one digit
+# (tests/torch_refs/port_mse.py; SVAO_depth.py's Ambient 1.419e-13 and
+# AmbientRef 1.930e-13 against 1.8e-5 with the port's own rasters;
+# SVAO_quarter.py's AO 6.580e-11 against 3.245e-4). The card is closer:
+# 8.2e-16, 5.1e-14 and 1.5e-12, once the shift phases divide by Python
+# numbers as IEEE divisions (hazard c; before, 1.0e-12, 1.1e-12 and
+# 5.7e-10). The quarter graph's gap with the port's own rasters is the
+# rasters' last bits, which AOGuidedBlur's depth weights and bright/dark
+# fusion amplify: no pass departs on equal inputs
+# (tests/torch_refs/compare_passes.py --config SVAO_quarter).
+MID_SUBSTITUTED_BOUND = {"SVAO_quarter": {"AmbientOcclusion.out": 2e-10},
+                         "SVAO_depth": {"Ambient.out": 3e-13,
+                                        "AmbientRef.out": 4e-13}}
 MID_ENTRIES = ("rtsdm_sd_trace", "rtsdm_sd_trace_resident",
                "rtsdm_fetch_taps_same_class", "rtsdm_raster_stochastic")
 
@@ -2930,15 +3288,61 @@ def mid_ref(name: str):
     return ref
 
 
-def mid_frame(settings: dict, sd_stream=None):
-    """The kept frame of `settings` through the port on the card: its
-    marked outputs (numpy) and the launches of every C entry point (and
-    mode) over the frames rendered. sd_stream sets the SD pass's pallasStream (SVAO_small.py:
-    'auto' traces resident, K7; True streams, K5)."""
+def mid_rasters(name: str) -> dict:
+    """The JAX package's G-buffer channels stored beside reference `name`
+    ({"GBufferRaster.<channel>": array}), checked to be the ones its
+    settings list."""
+    import numpy as np
+    path = mid_ref_file(name).with_suffix(".rasters.npz")
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in f.files}
+    want = MID_REFS[name][0]["substituted"]
+    check(sorted(arrays) == sorted(want),
+          f"{path.name} holds {sorted(arrays)}, not {want}")
+    return arrays
+
+
+@contextlib.contextmanager
+def substituted_rasters(arrays: dict | None):
+    """While it holds, the port's GBufferRaster returns `arrays`
+    ({"GBufferRaster.<channel>": array}) in place of those channels of its
+    own output (None: no change)."""
+    import torch
+    from rtsdm_tpu_torch.passes import gbuffer
+    if not arrays:
+        yield
+        return
+    real = gbuffer.GBufferRaster.execute
+
+    def execute(self, ctx, inputs, state=None):
+        out, st = real(self, ctx, inputs, state)
+        out = dict(out)
+        for key, a in arrays.items():
+            ch = key.split(".", 1)[1]
+            check(tuple(out[ch].shape) == a.shape,
+                  f"substituted {key}: {a.shape} for {tuple(out[ch].shape)}")
+            out[ch] = torch.as_tensor(a).to(out[ch].device, out[ch].dtype)
+        return out, st
+
+    gbuffer.GBufferRaster.execute = execute
+    try:
+        yield
+    finally:
+        gbuffer.GBufferRaster.execute = real
+
+
+def mid_frame(settings: dict, sd_stream=None, substitute: dict | None = None,
+              device: str = "cuda"):
+    """The kept frame of `settings` through the port (on the card unless
+    `device` says otherwise): its marked outputs (numpy) and the launches
+    of every C entry point (and mode) over the frames rendered. sd_stream
+    sets the SD pass's pallasStream (SVAO_small.py: 'auto' traces
+    resident, K7; True streams, K5); `substitute` hands the G-buffer
+    channels it holds to the graph (substituted_rasters)."""
     import torch
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
-    m = Renderer(settings["width"], settings["height"], device="cuda")
+    m = Renderer(settings["width"], settings["height"], device=device)
     run_script(str(ROOT / settings["script"]), m)
     for name, props in settings["pass_overrides"].items():
         m.active_graph.get_pass(name).cfg.update(props)
@@ -2949,15 +3353,19 @@ def mid_frame(settings: dict, sd_stream=None):
             _b()[0], {**_b()[1], "pallasStream": _s})
     m.loadScene(settings["scene"])
     m.clock.pause()
-    torch.cuda.synchronize()
+    cuda = m.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
     LAUNCHES.clear()
-    for f in range(settings["frames"]):
-        m.clock.frame = f
-        out = m.renderFrame()
-        if f == settings["frame"]:
-            kept = {k: out[k].float().cpu().numpy()
-                    for k in settings["outputs"]}
-    torch.cuda.synchronize()
+    with substituted_rasters(substitute):
+        for f in range(settings["frames"]):
+            m.clock.frame = f
+            out = m.renderFrame()
+            if f == settings["frame"]:
+                kept = {k: out[k].float().cpu().numpy()
+                        for k in settings["outputs"]}
+    if cuda:
+        torch.cuda.synchronize()
     return kept, collections.Counter(LAUNCHES)
 
 
@@ -2985,7 +3393,8 @@ def mid_rows(label: str, kept: dict, ref, bound: dict | None) -> dict:
             f"|diff| {row['max_abs']:.4g}")
     if bound is not None:
         bad = {k: v["mse"] for k, v in res.items()
-               if v["mse"] > bound[k.split(".", 1)[1]]}
+               if bound[k.split(".", 1)[1]] is not None
+               and v["mse"] > bound[k.split(".", 1)[1]]}
         check(not bad, f"mid size: MSE above its bound: {bad}")
     return res
 
@@ -3091,6 +3500,37 @@ def mid_new_graphs_against_jax(
               f"mid size {name}: launches {dict(launches)}, expected {want} "
               f"and {floor} floored K1")
         res.update(mid_rows(name, kept, ref, bound))
+    return res
+
+
+def mid_svao_depth_against_jax(bound=MID_DEPTH_BOUND,
+                               substituted=MID_SUBSTITUTED_BOUND) -> dict:
+    """Phase 17e: scripts/SVAO_depth.py at the scene, size, pass overrides
+    and frame of its reference (frames 0 and 1: TemporalDepthPeel holds
+    frame 0's layer in frame 1) through the port on the card, each output
+    held against the JAX package's render by MSE under its bound; per
+    frame DepthPeeling's floored K1 once, no SD trace, K6 or K9. Then the
+    substituted holds: SVAO_depth.py and SVAO_quarter.py rendered with the
+    JAX package's G-buffer channels (mid_rasters) in place of the port's,
+    their AO outputs held under MID_SUBSTITUTED_BOUND. This checkout
+    only."""
+    from rtsdm_tpu_torch.ops import raster_cuda
+    res = {}
+    settings = MID_REFS["SVAO_depth"][0]
+    ref = mid_ref("SVAO_depth")
+    kept, launches = mid_frame(settings)
+    n = settings["frames"]
+    got = {e: launches[e] for e in MID_ENTRIES}
+    check(got == dict.fromkeys(MID_ENTRIES, 0)
+          and launches[raster_cuda.RASTER_FLOOR_KEY] == n,
+          f"mid size SVAO_depth: launches {dict(launches)}, expected no SD "
+          f"trace, K6 or K9 and {n} floored K1")
+    res.update(mid_rows("SVAO_depth", kept, ref, bound))
+    for name, sub_bound in substituted.items():
+        kept, _ = mid_frame(MID_REFS[name][0], substitute=mid_rasters(name))
+        kept = {k: v for k, v in kept.items() if k in sub_bound}
+        res.update(mid_rows(f"{name}:substituted", kept, mid_ref(name),
+                            sub_bound))
     return res
 
 
@@ -3240,6 +3680,14 @@ def main(argv=None) -> int:
     # BASELINE configs 4 and 3 (phases 18-19), SVAO's depth modes (20)
     configs.update(run_new_configs())
     svao_modes = svao_modes_frames()
+    # scripts/SVAO_depth.py (21), SVAO's reference modes and RTAO (22)
+    new_phase_s = {}
+    t0 = time.perf_counter()
+    configs["svao_depth"] = run_svao_depth()
+    new_phase_s["21"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reference_modes = svao_reference_modes()
+    new_phase_s["22"] = time.perf_counter() - t0
     ab = parent_ab(args.parent.resolve()) if args.parent else None
     if ab is not None:
         log("phases 17d and 18-20 run on this checkout only: the parent "
@@ -3247,6 +3695,15 @@ def main(argv=None) -> int:
     mid_size = dict(mid_size_against_jax(), **mid_configs_against_jax(),
                     **mid_svao_full_against_jax(),
                     **mid_new_graphs_against_jax())
+    t0 = time.perf_counter()
+    mid_size.update(mid_svao_depth_against_jax())
+    new_phase_s["17e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quality = quality_row()
+    new_phase_s["23"] = time.perf_counter() - t0
+    log("new phases' seconds on the card: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in new_phase_s.items())
+        + f"; {sum(new_phase_s.values()):.1f} in all")
     if ab is not None:
         # every kernel is bit-exact with its plain version on both sides,
         # so the parent's MSEs are this checkout's to the last digit
@@ -3258,7 +3715,11 @@ def main(argv=None) -> int:
     for r in rows:
         r["launches_per_frame"] = {
             lb: config_launches(configs[lb], r["name"]) / CONFIG_FRAMES
-            for lb in ("config3", "config4")}
+            for lb in ("config3", "config4", "svao_depth")}
+        r["launches_per_frame"].update({
+            f"svao_full_{md}": config_launches(reference_modes[md],
+                                               r["name"])
+            for md, _, _ in REFERENCE_MODES})
     for r in config_rows:
         log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
@@ -3276,6 +3737,8 @@ def main(argv=None) -> int:
                       raster_calls=graph_raster),
         "configs": configs, "svao_full": svao_full,
         "svao_depth_modes": svao_modes,
+        "svao_reference_modes": reference_modes, "quality": quality,
+        "new_phase_seconds": new_phase_s,
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
         "sd_stage": sd_stage, "sd_trace_resources": resources,
         "mid_size_vs_jax": mid_size, "parent_ab": ab,

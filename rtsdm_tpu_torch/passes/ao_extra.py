@@ -1,16 +1,109 @@
-"""AO post-processing (counterpart of rtsdm_tpu/passes/ao_extra.py).
-Ported so far: AOGuidedBlur, the guided bilateral blur / upsample of the
-bright and dark AO channels with their deviation-weighted fusion (reference
-AOGuidedBlur/AOGuidedBlur.ps.slang). VAO, RTAO and AOVarianceFix are still
-to be ported (ROADMAP queue 1)."""
+"""AO baselines and post-processing (counterpart of rtsdm_tpu/passes/
+ao_extra.py). Ported so far: RTAO, the ray-traced AO ground truth
+(reference RTAO/Ray.rt.slang:100-128: a cosine-hemisphere ray a pixel
+through ops/rt.closest_hit, exponential falloff), and AOGuidedBlur, the
+guided bilateral blur / upsample of the bright and dark AO channels with
+their deviation-weighted fusion (reference AOGuidedBlur/
+AOGuidedBlur.ps.slang). VAO and AOVarianceFix are still to be ported
+(ROADMAP queue 1)."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..ops import rt
 from ..ops.ao import shift_axis_clamped
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
-from ..utils.math import true_div
+from ..utils.math import cross, normalize, true_div
 from .interleave import deinterleave_4x4, interleave_4x4
+
+
+def _cosine_dirs(n: int, seed: int = 11):
+    """The cosine-weighted hemisphere sample table [n, 3] (float32), drawn
+    from default_rng(seed) as the JAX package draws it."""
+    rng = np.random.default_rng(seed)
+    u1 = rng.uniform(size=n).astype(np.float32)
+    u2 = rng.uniform(size=n).astype(np.float32)
+    r = np.sqrt(u1)
+    phi = 2.0 * np.pi * u2
+    return np.stack([r * np.cos(phi), r * np.sin(phi), np.sqrt(1.0 - u1)],
+                    -1)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _jenkins(x):
+    """Jenkins' one-at-a-time mix on uint32 values held in int64 (PyTorch
+    has no full uint32 arithmetic): every step wraps to 32 bits and the
+    right shifts are logical."""
+    x = x & _U32
+    x = (x + (x << 10)) & _U32
+    x = x ^ (x >> 6)
+    x = (x + (x << 3)) & _U32
+    x = x ^ (x >> 11)
+    x = (x + (x << 15)) & _U32
+    return x
+
+
+@register_pass("RTAO")
+class RTAO(RenderPass):
+    """Ray-traced AO: one cosine-hemisphere ray a pixel from the G-buffer's
+    world position along its face normal's hemisphere, the sample picked
+    per pixel and frame by a Jenkins hash; a hit within maxAORayTHit
+    darkens the pixel by the exponential falloff of its distance."""
+
+    SCHEMA = dict(maxAORayTHit=0.5, maxTheoreticalTHit=0.5,
+                  applyExponentialFalloff=True,
+                  exponentialFalloffDecayConstant=2.0,
+                  minimumAmbientIllumination=0.07, normalScale=0.01,
+                  numSamples=1, sampleTableSize=256, chunk=256)
+
+    def reflect(self, ctx):
+        return (PassReflection().add_input("wPos").add_input("faceNormal")
+                .add_output("ambient").add_output("rayDistance"))
+
+    def execute(self, ctx, inputs, state=None):
+        pos = inputs["wPos"]
+        dev = pos.device
+        valid = pos[..., 3] > 0.0
+        p = pos[..., :3]
+        n = inputs["faceNormal"][..., :3]
+        h, w = valid.shape
+        # tangent frame (Ray.rt.slang getTangentVector)
+        helper = torch.where(torch.abs(n[..., 0:1]) > 0.9,
+                             torch.tensor([0.0, 1.0, 0.0], device=dev),
+                             torch.tensor([1.0, 0.0, 0.0], device=dev))
+        bitan = normalize(cross(n, helper))
+        tan = cross(bitan, n)
+
+        size = int(self.cfg["sampleTableSize"])
+        table = torch.as_tensor(_cosine_dirs(size), device=dev)
+        yy = torch.arange(h, device=dev)[:, None]
+        xx = torch.arange(w, device=dev)[None, :]
+        seed = _jenkins(torch.full_like(xx, int(ctx.frame_index) & _U32))
+        idx = _jenkins(xx * 449 + yy * 2857 + seed) % size
+        rd = table[idx]
+        dirs = normalize(tan * rd[..., 0:1] + bitan * rd[..., 1:2]
+                         + n * rd[..., 2:3])
+        origins = (p + n * float(self.cfg["normalScale"])).reshape(-1, 3)
+        tmax_v = float(self.cfg["maxAORayTHit"])
+        t, tid = rt.closest_hit(ctx.scene, origins, dirs.reshape(-1, 3),
+                                torch.full((h * w,), 1e-3, device=dev),
+                                torch.full((h * w,), tmax_v, device=dev),
+                                chunk=int(self.cfg["chunk"]))
+        hit = (tid >= 0).reshape(h, w)
+        t = t.reshape(h, w)
+        occl = torch.ones((h, w), device=dev)
+        if self.cfg["applyExponentialFalloff"]:
+            tt = true_div(t, float(self.cfg["maxTheoreticalTHit"]))
+            lam = float(self.cfg["exponentialFalloffDecayConstant"])
+            occl = torch.exp(-lam * tt * tt)
+        min_amb = float(self.cfg["minimumAmbientIllumination"])
+        amb = torch.where(hit, 1.0 - (1.0 - min_amb) * occl, 1.0)
+        amb = torch.where(valid, amb, 1.0)
+        dist = torch.where(hit, t, tmax_v)
+        return {"ambient": amb, "rayDistance": dist}, None
 
 
 def _gauss(offset, variance: float):

@@ -73,7 +73,7 @@ class GuardBand(RenderPass):
 class CompressNormals(RenderPass):
     """Octahedral 2x16 normal packing; viewSpace=True converts world->view
     first (what SVAO's loadNormal expects, Common.slang:98-103). The 2x8
-    packing is not ported (ROADMAP queue 1, item 5)."""
+    packing is not ported (ROADMAP queue 1, item 7)."""
 
     SCHEMA = dict(viewSpace=True, use16Bit=True)
 

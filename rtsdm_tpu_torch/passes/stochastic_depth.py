@@ -94,17 +94,17 @@ class StochasticDepthMapRT(RenderPass):
             raise NotImplementedError(
                 "StochasticDepthMapRT: usePallas=False selects the "
                 "reference's XLA tier (rtsdm_tpu/ops/rt.py:sd_trace), which "
-                "is not ported (ROADMAP queue 1, item 7)")
+                "is not ported (ROADMAP queue 1, item 9)")
         if impl == "coverage" and int(cfg["SampleCount"]) > rt.COVERAGE_MAX_K:
             raise NotImplementedError(
                 f"StochasticDepthMapRT: coverage with SampleCount > "
                 f"{rt.COVERAGE_MAX_K} takes the reference's XLA tier, which "
-                "is not ported (ROADMAP queue 1, item 7)")
+                "is not ported (ROADMAP queue 1, item 9)")
         for key, default in (("StoreNormals", False), ("depthFormat", None)):
             if cfg[key] != default:
                 raise NotImplementedError(
                     f"StochasticDepthMapRT: {key}={cfg[key]!r} is not ported "
-                    "(ROADMAP queue 1, item 7)")
+                    "(ROADMAP queue 1, item 9)")
         # 0 = uncapped; coverage ignores MaxCount (Common.slangh:117)
         max_count = 0 if impl == "coverage" else int(cfg["MaxCount"] or 0)
         return impl, max_count

@@ -6,11 +6,11 @@ everything runs in deinterleaved space: [16, qh, qw] planes in which the
 ring's screen directions and the dither rotation are per-class constants.
 The depth fetches of both phases go through K3 (ops/fetch_cuda.
 fetch_all_directions) and the SD fetch of phase 2 through K4
-(fetch_sd_packed). Only the VAO kernel is ported; the HBAO kernel stays in
-ROADMAP queue 1. Both phases take the primary depth mode (SingleDepth or
-DualDepth, a second layer `depth2`), phase 1 the secondary one
-(StochasticDepth, or SingleDepth: phase 1 alone), and cfg.dual_ao the
-bright/dark pair of channels.
+(fetch_sd_packed), with the ring tables of cfg's kernel (VAO or HBAO).
+Both phases take the primary depth mode (SingleDepth or DualDepth, a
+second layer `depth2`), phase 1 the secondary one (StochasticDepth, or
+any other: no SD ray intervals), and cfg.dual_ao the bright/dark pair of
+channels.
 """
 from __future__ import annotations
 
@@ -24,6 +24,8 @@ from ..ops import ao as A
 from ..ops import ao_shift as S
 from ..ops.fetch_cuda import (fetch_all_directions, fetch_sd_packed,
                               offs_tuple, unpack_sd16)
+from ..utils.math import true_div
+from ..utils.sampling import AO_KERNEL_VAO
 
 
 def _cam_consts(cam, cfg):
@@ -57,10 +59,10 @@ def _prep_planar(cam, cfg, depth, normal_v):
     normal_v = _pad_edge(normal_v, hp, wp)
     dev = depth.device
     sx, sy, kpx = _cam_consts(cam, cfg)
-    ux = ((torch.arange(wp, dtype=torch.float32, device=dev) + 0.5)
-          / w_full)[None, :].expand(hp, wp)
-    uy = ((torch.arange(hp, dtype=torch.float32, device=dev) + 0.5)
-          / h_full)[:, None].expand(hp, wp)
+    ux = true_div(torch.arange(wp, dtype=torch.float32, device=dev) + 0.5,
+                  w_full)[None, :].expand(hp, wp)
+    uy = true_div(torch.arange(hp, dtype=torch.float32, device=dev) + 0.5,
+                  h_full)[:, None].expand(hp, wp)
     noise = A.dither_noise_for(hp, wp, device=dev)
 
     radius_px = kpx * cfg.radius / torch.clamp(depth, min=1e-6)
@@ -95,20 +97,22 @@ def _prep_planar(cam, cfg, depth, normal_v):
     ty = bz * ax - bx * az
     tz = bx * ay - by * ax
     return dict(depth=depth, radius=radius, radius_px=radius_px, valid=valid,
-                pos_len=pos_len, a=(ax, ay, az),
+                px=px, py=py, pz=pz, pos_len=pos_len, n=(nx, ny, nz),
+                a=(ax, ay, az),
                 no=(nx * tx + ny * ty + nz * tz, nx * bx + ny * by + nz * bz,
                     nx * ax + ny * ay + nz * az),
                 sx=sx, sy=sy, hp=hp, wp=wp)
 
 
-_BQ_KEYS = ("depth", "radius", "radius_px", "valid", "pos_len")
+_BQ_KEYS = ("depth", "radius", "radius_px", "valid", "px", "py", "pz",
+            "pos_len")
 
 
 def _deint_b(b):
     """Deinterleave the per-pixel setup planes once; everything downstream
     is elementwise, so deint(f(x)) == f(deint(x))."""
     bq = {k: S.deinterleave(b[k]) for k in _BQ_KEYS}
-    for k in ("a", "no"):
+    for k in ("n", "a", "no"):
         bq[k] = tuple(S.deinterleave(x) for x in b[k])
     bq["sx"], bq["sy"] = b["sx"], b["sy"]
     return bq
@@ -145,11 +149,43 @@ def _visibility_vao(cfg, oz, s_start, s_end, pdf, radius):
     return sphere + halo
 
 
-def _eval_depth_affine(cfg, bq, oz_a, z, s_start, s_end, pdf):
+def _sample_coeffs(bq, cx, cy, kernel: int):
+    """Depth-affine coefficients of the view-space sample point v(z) =
+    (cx z, cy z, -z): oz = (v - p) . a = z * oz_a + |p| (a = -p/|p|) and,
+    for the HBAO kernel, |v - p|^2 = (z qa + qb) z + |p|^2 and
+    n . (v - p) = z na - n . p."""
+    ax, ay, az = bq["a"]
+    co = dict(oz_a=cx * ax + cy * ay - az)
+    if kernel != AO_KERNEL_VAO:
+        nx, ny, nz = bq["n"]
+        px, py, pz = bq["px"], bq["py"], bq["pz"]
+        co.update(qa=cx * cx + cy * cy + 1.0,
+                  qb=-2.0 * (cx * px + cy * py - pz),
+                  na=nx * cx + ny * cy - nz,
+                  np_=nx * px + ny * py + nz * pz)
+    return co
+
+
+def _hbao_affine(cfg, bq, co, z, pdf):
+    """HBAOKernel (Common.slang:421-430) of the sample at depth z through
+    the affine coefficients."""
+    plen = bq["pos_len"]
+    vv = torch.clamp((z * co["qa"] + co["qb"]) * z + plen * plen, min=1e-12)
+    ndotv = (z * co["na"] - co["np_"]) / torch.sqrt(vv)
+    angle = torch.clamp(ndotv - 0.1, 0.0, 1.0)
+    dist = torch.clamp(1.0 - true_div(vv, cfg.radius * cfg.radius), 0.0,
+                       1.0)
+    return torch.clamp(angle * dist / pdf, 0.0, 1.0)
+
+
+def _eval_depth_affine(cfg, bq, co, z, s_start, s_end, pdf):
     """(vis, oz) of the fetched depth plane z: UVToViewSpace at the sample
     uv is affine in z, oz = (v(z) - p) . (-p/|p|) = z * oz_a + |p|."""
-    oz = z * oz_a + bq["pos_len"]
-    return _visibility_vao(cfg, oz, s_start, s_end, pdf, bq["radius"]), oz
+    oz = z * co["oz_a"] + bq["pos_len"]
+    if cfg.kernel == AO_KERNEL_VAO:
+        return _visibility_vao(cfg, oz, s_start, s_end, pdf,
+                               bq["radius"]), oz
+    return _hbao_affine(cfg, bq, co, z, pdf), oz
 
 
 def _sample_dir_q(cfg, bq, xg_q, yg_q, levels, r_frac: float, alpha: float,
@@ -170,12 +206,15 @@ def _sample_dir_q(cfg, bq, xg_q, yg_q, levels, r_frac: float, alpha: float,
     sxp = xg_q + off_x
     syp = yg_q + off_y
     in_screen = (sxp >= 0) & (sxp < w) & (syp >= 0) & (syp < h)
-    uqx = (torch.clamp(sxp, 0, w - 1) + 0.5) / w
-    uqy = (torch.clamp(syp, 0, h - 1) + 0.5) / h
+    uqx = true_div(torch.clamp(sxp, 0, w - 1) + 0.5, w)
+    uqy = true_div(torch.clamp(syp, 0, h - 1) + 0.5, h)
 
     sphere_h = torch.sqrt(torch.clamp(bq["radius"] ** 2 - r_disc ** 2,
                                       min=1e-12))
-    pdf = 2.0 * sphere_h
+    if cfg.kernel == AO_KERNEL_VAO:
+        pdf = 2.0 * sphere_h
+    else:
+        pdf = torch.full_like(sphere_h, 0.9 * (1.0 - r_frac) ** 1.5)
     no_x, no_y, no_z = bq["no"]
     dxy_x = r_disc * math.sin(alpha)
     dxy_y = r_disc * math.cos(alpha)
@@ -183,17 +222,18 @@ def _sample_dir_q(cfg, bq, xg_q, yg_q, levels, r_frac: float, alpha: float,
     s_end = torch.clamp(z_int, min=-sphere_h, max=sphere_h)
     valid = (sphere_h - s_end) / (2.0 * sphere_h) > 0.1
 
-    ax, ay, az = bq["a"]
     cx = (2.0 * uqx - 1.0) * bq["sx"]
     cy = (1.0 - 2.0 * uqy) * bq["sy"]
-    oz_a = cx * ax + cy * ay - az
-    vis, oz = _eval_depth_affine(cfg, bq, oz_a, fetched_q, sphere_h, s_end,
+    co = _sample_coeffs(bq, cx, cy, cfg.kernel)
+    vis, oz = _eval_depth_affine(cfg, bq, co, fetched_q, sphere_h, s_end,
                                  pdf)
     vis2 = oz2 = None
     if fetched2_q is not None:
-        v2, o2 = _eval_depth_affine(cfg, bq, oz_a, fetched2_q, sphere_h,
+        v2, o2 = _eval_depth_affine(cfg, bq, co, fetched2_q, sphere_h,
                                     s_end, pdf)
-        vis2, oz2 = torch.minimum(vis, v2), torch.minimum(oz, o2)
+        vis_best = torch.minimum if cfg.kernel == AO_KERNEL_VAO \
+            else torch.maximum
+        vis2, oz2 = vis_best(vis, v2), torch.minimum(oz, o2)
     return dict(off_x=off_x, off_y=off_y, same_pix=same_pix,
                 in_screen=in_screen, sphere_start=sphere_h, sphere_end=s_end,
                 pdf=pdf, valid=valid, ss_radius=r_eff, vis=vis, oz=oz,
@@ -201,9 +241,13 @@ def _sample_dir_q(cfg, bq, xg_q, yg_q, levels, r_frac: float, alpha: float,
 
 
 def _require_ray(cfg, bq, s, oz):
-    """requireRay, VAO (Common.slang:455-461)."""
-    cr = (1.0 + cfg.thickness) * bq["radius"] - s["sphere_start"]
-    return (oz > s["sphere_start"] + cr) & (s["ss_radius"] > cfg.ss_radius_cutoff)
+    """requireRay (Common.slang:455-461)."""
+    if cfg.kernel == AO_KERNEL_VAO:
+        cr = (1.0 + cfg.thickness) * bq["radius"] - s["sphere_start"]
+        return ((oz > s["sphere_start"] + cr)
+                & (s["ss_radius"] > cfg.ss_radius_cutoff))
+    return ((oz > torch.maximum(s["sphere_start"], bq["radius"] * 0.1))
+            & (s["ss_radius"] > cfg.ss_radius_cutoff))
 
 
 def _ring(cfg):
@@ -226,13 +270,6 @@ def _ring_tables(num_directions: int, kernel: int, max_radius: float):
             int(-(-float(levels[-1]) // 4)) + 1)
 
 
-def _check_cfg(cfg):
-    if cfg.kernel != A.AO_KERNEL_VAO:
-        raise NotImplementedError("shift-mode SVAO: only the VAO kernel is "
-                                  "ported (ROADMAP queue 1, SVAO's "
-                                  "reference modes)")
-
-
 def _depth_planes(depth, hp: int, wp: int, pad: int):
     """A depth layer edge-padded to [hp, wp], deinterleaved and its planes
     padded for the shift fetch."""
@@ -242,17 +279,19 @@ def _depth_planes(depth, hp: int, wp: int, pad: int):
 def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
                       use_ray_interval: bool = True, *, depth2=None,
                       primary: str = "SingleDepth",
-                      secondary: str = "StochasticDepth"):
+                      secondary: str = "StochasticDepth",
+                      trace_out_of_screen: bool = False):
     """Phase 1 (SVAORaster.ps.slang): returns ao_raw [H,W] ([H,W,2] bright
     and dark under cfg.dual_ao), stencil [H,W] int32 (bit i = direction i
     needs the secondary depth), ray_min / ray_max [sd_h, sd_w] (the
     guard-banded SD grid; empty, FLT_MAX and 0, unless the secondary mode
     is StochasticDepth). Under DualDepth, depth2 is the second layer: both
     layers are fetched by one K3 call, and where the first layer's sample
-    needs a ray the second's min-combined visibility is taken."""
-    from .svao import (DEPTH_MODE_DUAL, DEPTH_MODE_STOCHASTIC,
-                       _intervals_to_sd_grid)
-    _check_cfg(cfg)
+    needs a ray the second's combined visibility is taken (min under VAO,
+    max under HBAO). With the Raytraced secondary mode and
+    trace_out_of_screen, off-screen samples always ask for a ray."""
+    from .svao import (DEPTH_MODE_DUAL, DEPTH_MODE_RAYTRACED,
+                       DEPTH_MODE_STOCHASTIC, _intervals_to_sd_grid)
     h, w = depth.shape
     w_full, h_full = cfg.resolution
     b = _prep_planar(cam, cfg, depth, normal_v)
@@ -263,6 +302,7 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
     if dual:
         sets.append(_depth_planes(depth2, hp, wp, pad))
     stochastic = secondary == DEPTH_MODE_STOCHASTIC
+    vao = cfg.kernel == AO_KERNEL_VAO
     nd = cfg.num_directions
     qh, qw = hp // 4, wp // 4
     bq = _deint_b(b)
@@ -288,12 +328,15 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
             need2 = _require_ray(cfg, bq, s, oz)
             vis = torch.where(need2, s["vis2"], vis)
             oz = torch.where(need2, s["oz2"], oz)
-        same_contrib = (s["sphere_start"] - s["sphere_end"]) / s["pdf"]
+        same_contrib = ((s["sphere_start"] - s["sphere_end"]) / s["pdf"]
+                        if vao else torch.zeros_like(vis))
         contrib = torch.where(s["same_pix"], same_contrib, vis)
         bright = bright + torch.where(s["valid"], contrib, 0.0)
 
         force_ray = torch.zeros_like(s["same_pix"])
         oz_int = oz
+        if secondary == DEPTH_MODE_RAYTRACED and trace_out_of_screen:
+            force_ray = force_ray | ~s["in_screen"]
         if cfg.sd_guard > 0:
             off = ~s["in_screen"]
             force_ray = force_ray | off
@@ -303,8 +346,11 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
         stencil = stencil | torch.where(need, 1 << i, 0).to(torch.int32)
 
         if stochastic:
-            oz_min = torch.minimum(oz_int, bq["radius"] + cfg.thickness
-                                   * bq["radius"] + s["sphere_start"])
+            if vao:
+                oz_min = torch.minimum(oz_int, bq["radius"] + cfg.thickness
+                                       * bq["radius"] + s["sphere_start"])
+            else:
+                oz_min = torch.minimum(oz_int, s["sphere_start"])
             rmin_v = torch.clamp(bq["pos_len"] - oz_min, min=0.0)
             rmax_v = torch.clamp(bq["pos_len"] - s["sphere_end"], min=0.0)
             if not use_ray_interval:
@@ -326,10 +372,11 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
         return S.interleave(a, hp, wp)[:h, :w]
 
     bg = ~b["valid"][:h, :w]
-    ao_raw = torch.where(bg, 1.0, crop(bright) * (2.0 / nd))
+    scale = (2.0 if vao else 1.0) / nd
+    ao_raw = torch.where(bg, 1.0, crop(bright) * scale)
     if cfg.dual_ao:
         ao_raw = torch.stack(
-            [ao_raw, torch.where(bg, 1.0, crop(dark) * (2.0 / nd))], -1)
+            [ao_raw, torch.where(bg, 1.0, crop(dark) * scale)], -1)
     stencil = torch.where(bg, 0, crop(stencil))
     sd_w = cfg.low_resolution[0] + 2 * cfg.sd_guard
     sd_h = cfg.low_resolution[1] + 2 * cfg.sd_guard
@@ -347,26 +394,31 @@ def svao_phase1_shift(cam, cfg, depth, normal_v, guard: int,
 def _sd_eval_deint(cfg, bq, sd_p, s, jqx, jqy, xg_q, yg_q, divisor: int,
                    low_w: int, low_h: int, depth_range, near_z, k: int,
                    packed16: bool):
-    """calcAO2's stochastic-depth branch (Common.slang:562-597), VAO, in
+    """calcAO2's stochastic-depth branch (Common.slang:562-597) in
     deinterleaved space. sd_p: [16, k, qh, qw] fetched SD slots, or with
     packed16 the [16, ceil(k/2), qh, qw] int32 16-bit pairs of K4. Returns
-    the min visibility over the k layers, [16, qh, qw]."""
+    the visibility over the k layers, [16, qh, qw]: their min under the VAO
+    kernel, their max under HBAO."""
     tex_x = torch.floor((xg_q + s["off_x"]) / float(divisor))
     tex_y = torch.floor((yg_q + s["off_y"]) / float(divisor))
-    suv_x = (tex_x + jqx) / low_w
-    suv_y = (tex_y + jqy) / low_h
+    suv_x = true_div(tex_x + jqx, low_w)
+    suv_y = true_div(tex_y + jqy, low_h)
     cxs = (2.0 * suv_x - 1.0) * bq["sx"]
     cys = (1.0 - 2.0 * suv_y) * bq["sy"]
-    ax, ay, az = bq["a"]
-    oz_a = cxs * ax + cys * ay - az
+    co = _sample_coeffs(bq, cxs, cys, cfg.kernel)
+    vao = cfg.kernel == AO_KERNEL_VAO
     acc = None
     for kk in range(k):
         sd_val = unpack_sd16(sd_p, kk) if packed16 else sd_p[:, kk]
         lin = sd_val * depth_range + near_z
-        v_k = _visibility_vao(cfg, lin * oz_a + bq["pos_len"],
-                              s["sphere_start"], s["sphere_end"], s["pdf"],
-                              bq["radius"])
-        acc = v_k if acc is None else torch.minimum(acc, v_k)
+        if vao:
+            v_k = _visibility_vao(cfg, lin * co["oz_a"] + bq["pos_len"],
+                                  s["sphere_start"], s["sphere_end"],
+                                  s["pdf"], bq["radius"])
+            acc = v_k if acc is None else torch.minimum(acc, v_k)
+        else:
+            v_k = _hbao_affine(cfg, bq, co, lin, s["pdf"])
+            acc = v_k if acc is None else torch.maximum(acc, v_k)
     return acc
 
 
@@ -379,7 +431,6 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
     DualDepth the primary visibility is read from depth2's layer.
     stochMapDivisor must be 1, 2 or 4."""
     from .svao import DEPTH_MODE_DUAL
-    _check_cfg(cfg)
     h, w = depth.shape
     b = _prep_planar(cam, cfg, depth, normal_v)
     hp, wp = b["hp"], b["wp"]
@@ -413,7 +464,8 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
         s = _sample_dir_q(cfg, bq, xg_q, yg_q, levels, float(radii[i]),
                           alpha, fetched[i])
         old_vis = s["vis"]
-        vis = torch.where(s["in_screen"], s["vis"], 1.0)
+        vao = cfg.kernel == AO_KERNEL_VAO
+        vis = torch.where(s["in_screen"], s["vis"], 1.0 if vao else 0.0)
         if sd_pre is not None:
             sd_p = sd_pre[i]
         else:
@@ -423,9 +475,11 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
         vis_sd = _sd_eval_deint(cfg, bq, sd_p, s, jqx, jqy, xg_q, yg_q,
                                 divisor, low_w, low_h, depth_range,
                                 cam.near_z, k_sd, sd_pre is not None)
-        vis = torch.minimum(vis, vis_sd)
+        vis = torch.minimum(vis, vis_sd) if vao \
+            else torch.maximum(vis, vis_sd)
         delta_q = delta_q + torch.where(bit, vis - old_vis, 0.0)
-    delta = S.interleave(delta_q, hp, wp)[:h, :w] * (2.0 / nd)
+    scale = (2.0 if cfg.kernel == AO_KERNEL_VAO else 1.0) / nd
+    delta = S.interleave(delta_q, hp, wp)[:h, :w] * scale
     if cfg.dual_ao:
         delta = torch.stack([delta, torch.zeros_like(delta)], -1)
     return delta

@@ -95,6 +95,12 @@ class Camera:
         xy = ndc * view_depth[..., None] * self.image_scale()
         return torch.cat([xy, -view_depth[..., None]], -1)
 
+    def view_space_to_uv(self, pos_v):
+        """View position [..., 3] (negative z) -> uv [..., 2]
+        (SVAO/Common.slang:148-153)."""
+        ndc = pos_v[..., :2] / (self.image_scale() * pos_v[..., 2:3])
+        return ndc * torch.tensor([-0.5, 0.5], device=ndc.device) + 0.5
+
     def view_space_radius_to_uv_radius(self, z, r: float):
         """Positive view depth z [...], world radius r -> uv radius
         [..., 2] (SVAO/Common.slang:247-253)."""

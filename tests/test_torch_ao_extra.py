@@ -1,12 +1,16 @@
 """DownsamplePass and AOGuidedBlur (the quarter-res AO path of BASELINE
 config 4, scripts/SVAO_quarter.py) against rtsdm_tpu on the CPU, on seeded
-numpy inputs.
+numpy inputs, and RTAO on CornellBox's G-buffer at three frame indices
+(its per-pixel sample is a Jenkins hash of the pixel and the frame, in
+uint32 there and in masked int64 here).
 
 Tolerances: DownsamplePass's point and min modes are bit-exact, its mean
 within 5e-7 relative (a float32 sum of a block in another order; measured
 2.2e-7); AOGuidedBlur within 5e-6 (float32 sums of nine weighted taps in
 each direction, exp of the depth weights and, without localDeviation, the
-square root of the blurred moments; measured max 2.0e-6).
+square root of the blurred moments; measured max 2.0e-6). RTAO: the hit
+pattern exact, ambient and rayDistance within 1e-5 (the nearest hit's t
+within a few ulp: tests/test_torch_rt.py).
 """
 import numpy as np
 import pytest
@@ -131,3 +135,60 @@ def test_guided_blur_needs_both_inputs():
     with pytest.raises(KeyError):
         AOGuidedBlur({}).execute(RenderContext(width=4, height=4),
                                  {"in": torch.as_tensor(ao)})
+
+
+@pytest.fixture(scope="module")
+def rtao_case():
+    """CornellBox 40x40: the JAX package's G-buffer (world position with
+    its validity in w, face normals) and the scene in both packages."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).parent))
+    from test_torch_scene import carry
+    from rtsdm_tpu.passes.gbuffer import raster_gbuffer
+    from rtsdm_tpu.scene.procedural import cornell_box
+    sj = cornell_box()
+    g = raster_gbuffer(sj, 40, 40)
+    return sj, carry(sj), {"wPos": np.array(g["posW"]),
+                           "faceNormal": np.array(g["faceNormalW"])}
+
+
+@pytest.mark.parametrize("frame", [0, 7, 4_000_000_005])
+def test_rtao_matches_reference(rtao_case, frame):
+    from rtsdm_tpu.passes.ao_extra import RTAO as RTAO_J
+    from rtsdm_tpu_torch.passes.ao_extra import RTAO
+    sj, st, inputs = rtao_case
+    props = {"maxAORayTHit": 0.5, "maxTheoreticalTHit": 0.5}
+    pj, pt = RTAO_J(dict(props)), RTAO(dict(props))
+    pj.set_scene(sj)
+    pt.set_scene(st)
+    want, _ = pj.execute(RC_J(width=40, height=40, scene=sj,
+                              frame_index=frame),
+                         {k: jnp.asarray(v) for k, v in inputs.items()})
+    got, _ = pt.execute(RenderContext(width=40, height=40, scene=st,
+                                      frame_index=frame),
+                        {k: torch.as_tensor(v) for k, v in inputs.items()})
+    amb, amb_j = got["ambient"].numpy(), np.asarray(want["ambient"])
+    np.testing.assert_array_equal(amb < 1.0, amb_j < 1.0)
+    assert 0.05 < (amb_j < 1.0).mean() < 0.95
+    np.testing.assert_allclose(amb, amb_j, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got["rayDistance"].numpy(),
+                               np.asarray(want["rayDistance"]), atol=1e-5,
+                               rtol=0)
+
+
+def test_jenkins_wraps_as_uint32():
+    """The int64 Jenkins mix equals numpy's uint32 arithmetic, which wraps,
+    on values that overflow every step."""
+    from rtsdm_tpu_torch.passes.ao_extra import _jenkins
+    x = np.array([0, 1, 449, 2857, 2**31 - 1, 2**31, 2**32 - 1, 123456789],
+                 np.uint32)
+    with np.errstate(over="ignore"):
+        y = x.copy()
+        y = y + (y << np.uint32(10))
+        y = y ^ (y >> np.uint32(6))
+        y = y + (y << np.uint32(3))
+        y = y ^ (y >> np.uint32(11))
+        y = y + (y << np.uint32(15))
+    got = _jenkins(torch.as_tensor(x.astype(np.int64))).numpy()
+    np.testing.assert_array_equal(got, y.astype(np.int64))

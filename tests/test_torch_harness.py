@@ -125,14 +125,19 @@ def _render_golden(test_file):
 @pytest.mark.parametrize("golden", [
     "renderpasses/test_Forward.py", "renderpasses/test_Forward_arcade.py",
     "renderscripts/test_TAA_sweep.py", "renderpasses/test_SVAO_guardband.py",
-    "renderpasses/test_SVAO_dualAO.py"])
+    "renderpasses/test_SVAO_dualAO.py", "renderpasses/test_ShaderToy.py",
+    "renderpasses/test_SVAO_depth.py",
+    pytest.param("renderpasses/test_HBAO_512.py", marks=pytest.mark.slow)])
 def test_port_renders_golden(golden):
     """Goldens the port renders that no other port test holds (the JAX
     package's output of the same script and settings), by the golden
     runner's MSE bound: Forward.py (RayShadow's K8, ForwardLighting, TAA;
     CornellBox and Arcade), its TAA sweep at frame 2, SVAO_small.py
     with a 32-pixel guard band on 256x256, and with SVAO's dualAO on
-    128x128 (measured MSE 1.5e-6)."""
+    128x128 (measured MSE 1.5e-6), samples/ShaderToy.py (2.0e-8),
+    SVAO_depth.py at frame 1 (SVAO under DualDepth over
+    TemporalDepthPeel's layer and SVAO_ref under Raytraced: 4.8e-5 each)
+    and, as a slow case (32 s), HBAO.py at 512x512 (2.2e-8)."""
     path = GOLDENS / golden
     cfg, images = _render_golden(path)
     assert cfg["tolerance"] == MSE_BOUND
@@ -186,6 +191,32 @@ def test_port_renders_svao_quarter_golden():
         assert mse_golden == pytest.approx(recorded["mse_vs_golden"][key],
                                            rel=1e-3), key
     assert recorded["mse_vs_golden"]["ShadedTAA.colorOut.1"] <= MSE_BOUND
+
+
+DEPTH = GOLDENS / "renderpasses" / "test_SVAO_depth.py"
+DEPTH_NOFMA = ROOT / "tests" / "torch_refs" / "test_SVAO_depth.nofma.npz"
+
+
+def test_port_renders_svao_depth_golden_without_fma():
+    """scripts/SVAO_depth.py at its golden settings (CornellBox 96x96,
+    frame 1): both outputs lie within MSE 1e-9 (measured 8.0e-15) of the
+    JAX package's render with XLA's fused multiply-adds off (make_refs.py
+    --golden test_SVAO_depth), which is as far from the committed goldens
+    as the port (4.794e-5 each, recorded in the file; hazard n)."""
+    cfg, images = _render_golden(DEPTH)
+    with np.load(DEPTH_NOFMA) as f:
+        want = {k: f[k] for k in f.files if k != "settings"}
+        recorded = json.loads(str(f["settings"]))
+    assert recorded["test"] == DEPTH.stem
+    assert "--xla_cpu_max_isa=AVX" in recorded["xla_flags"]
+    assert sorted(images) == sorted(want) == ["Ambient.out.1",
+                                              "AmbientRef.out.1"]
+    for key, img in images.items():
+        golden = np.load(REFS / f"{DEPTH.stem}.{key}.npy").astype(np.float32)
+        assert img.shape == want[key].shape == golden.shape, key
+        assert float(((img - want[key]) ** 2).mean()) <= NOFMA_BOUND, key
+        assert float(((img - golden) ** 2).mean()) == pytest.approx(
+            recorded["mse_vs_golden"][key], rel=1e-3), key
 
 
 HARNESS_ORDERS = """

@@ -263,10 +263,7 @@ def _svao_small_renderer(w=32, h=32):
     return m
 
 
-@pytest.mark.parametrize("props", [{"kernel": "HBAO"},
-                                   {"secondaryDepthMode": "Raytraced"},
-                                   {"samplingMode": "gather"},
-                                   {"stochasticDepthImpl": "Coverage"}])
+@pytest.mark.parametrize("props", [{"stochasticDepthImpl": "Coverage"}])
 def test_svao_mode_set_after_construction_raises(props):
     """A graph script may change SVAO's modes after the pass was built
     (bench_configs.py:48-49 does so through cfg.update): a mode the port
@@ -277,6 +274,79 @@ def test_svao_mode_set_after_construction_raises(props):
     m.active_graph.get_pass("SVAO").cfg.update(props)
     with pytest.raises(NotImplementedError):
         m.renderFrame()
+
+
+@pytest.mark.parametrize("props,fn", [
+    ({"kernel": "HBAO"}, "svao_phase1_shift"),
+    ({"secondaryDepthMode": "Raytraced"}, "_phase2_raytraced"),
+    ({"samplingMode": "gather"}, "svao_phase1")])
+def test_svao_mode_set_after_construction_renders_it(props, fn):
+    """The reference modes set after the first frame render through their
+    own path (the HBAO kernel's configuration reaches phase 1; Raytraced
+    traces its rays; gather takes the per-pixel phases) and give another
+    AO field, finite and in [0, 1]."""
+    from rtsdm_tpu_torch.passes import svao as SV
+    from rtsdm_tpu_torch.passes import svao_shift as SS
+    from rtsdm_tpu_torch.utils.sampling import AO_KERNEL_HBAO
+    m = _svao_small_renderer()
+    ao0 = m.renderFrame()["AmbientOcclusion.out"][..., 0]
+    m.active_graph.get_pass("SVAO").cfg.update(props)
+    kernels = []
+    mod = SS if fn == "svao_phase1_shift" else SV
+    real = getattr(mod, fn)
+
+    def spy(*a, **kw):
+        kernels.append(next(x.kernel for x in a if hasattr(x, "kernel")))
+        return real(*a, **kw)
+
+    with mock.patch.object(mod, fn, spy):
+        ao = m.renderFrame()["AmbientOcclusion.out"][..., 0]
+    assert len(kernels) == 1
+    assert (kernels[0] == AO_KERNEL_HBAO) == ("kernel" in props)
+    assert bool(torch.isfinite(ao).all())
+    assert 0.0 <= float(ao.min()) and float(ao.max()) <= 1.0
+    assert not torch.equal(ao, ao0)
+
+
+def test_temporal_depth_peel_two_frames():
+    """TemporalDepthPeel over two frames with a seeded motion field: the
+    first frame has no history (the far plane), the second reprojects the
+    first's linear depth; then the port started from the JAX package's
+    state (state_from_numpy). Within 1e-6 (the bilinear fetch sums its
+    four taps in another order; measured max 1.2e-7)."""
+    from rtsdm_tpu.passes import pipeline_misc as PMJ
+    from rtsdm_tpu_torch.passes import pipeline_misc as PMT
+    rng = np.random.default_rng(12)
+    h, w = 24, 40
+    sj = PJ.cornell_box()
+    st = carry(sj)
+    props = dict(minSeparationDistance=0.3)
+    pj, pt = PMJ.TemporalDepthPeel(dict(props)), PMT.TemporalDepthPeel(
+        dict(props))
+    cj = RCJ(width=w, height=h, scene=sj)
+    ct = RenderContext(width=w, height=h, scene=st)
+    state_j, state_t = pj.init_state(cj), pt.init_state(ct)
+    outs = []
+    for _ in range(2):
+        z = rng.uniform(1.0, 6.0, (h, w)).astype(np.float32)
+        mvec = (rng.uniform(-2, 2, (h, w, 2))
+                / np.asarray([w, h])).astype(np.float32)
+        inputs = {"linearZ": z, "mvec": mvec}
+        oj, new_j = pj.execute(cj, {k: jnp.asarray(v) for k, v in
+                                    inputs.items()}, state_j)
+        ot, state_t = pt.execute(ct, {k: torch.as_tensor(v) for k, v in
+                                      inputs.items()}, state_t)
+        _close(ot["depth2"].numpy(), np.asarray(oj["depth2"]), 1e-6)
+        outs.append(np.asarray(oj["depth2"]))
+        from_j, _ = pt.execute(ct, {k: torch.as_tensor(v) for k, v in
+                                    inputs.items()},
+                               PMT.TemporalDepthPeel.state_from_numpy(
+                                   {k: np.asarray(v) for k, v in
+                                    state_j.items()}, "cpu"))
+        _close(from_j["depth2"].numpy(), np.asarray(oj["depth2"]), 1e-6)
+        state_j = new_j
+    assert (outs[0] == 1.0).all()
+    assert (outs[1] < 1.0).mean() > 0.2
 
 
 def test_svao_raster_set_after_construction_renders_raster_sd():

@@ -1,12 +1,14 @@
 """The mid-size references of tests/torch_refs/ (the JAX package's renders
 of scripts/SVAO_small.py, scripts/HBAO.py, BASELINE config 2,
-scripts/SVAO.py, scripts/SVAO.py under DualDepth and scripts/
-SVAO_quarter.py above every golden's size, made by
-tests/torch_refs/make_refs.py): they load,
+scripts/SVAO.py, scripts/SVAO.py under DualDepth, scripts/
+SVAO_quarter.py and scripts/SVAO_depth.py above every golden's size, made
+by tests/torch_refs/make_refs.py): they load,
 hold finite float32 images of the size they record, and record the
 settings chip_smoke.py renders the port with when it holds the card
 against them, the JAX package's accelerator branches included (hazards f,
-k, l and m of ROADMAP.md). Nothing is rendered here.
+k, l and m of ROADMAP.md); the G-buffer channels stored beside two of them
+for the substituted holds are the ones their settings list, whole. Nothing
+is rendered here.
 
 This file imports neither jax nor rtsdm_tpu.
 """
@@ -24,7 +26,11 @@ import chip_smoke  # noqa: E402
 # each reference's AO output (its first channel lies in [0, 1])
 AO = {"SVAO_small": "AmbientOcclusion.out", "HBAO": "Ambient.out",
       "SVAO_rasterSD": "AmbientOcclusion.out", "SVAO_full": "AmbientRef.out",
-      "SVAO_quarter": "AmbientOcclusion.out", "SVAO_dual": "AmbientRef.out"}
+      "SVAO_quarter": "AmbientOcclusion.out", "SVAO_dual": "AmbientRef.out",
+      "SVAO_depth": "Ambient.out"}
+# the raster passes of each script (all capped)
+RASTERS = {"scripts/SVAO_quarter.py": ("GBufferRaster", "ForwardLighting"),
+           "scripts/SVAO_depth.py": ("GBufferRaster", "DepthPeeling")}
 
 
 @pytest.fixture(scope="module", params=sorted(chip_smoke.MID_REFS))
@@ -73,10 +79,14 @@ def test_mid_size_refs_take_the_accelerator_branches():
         base, pass_overrides={**base["pass_overrides"],
                               "SVAO": sd["pass_overrides"]["SVAO"]})
     for settings, _ in refs.values():
-        assert "any_hit_pallas" in settings["shadows"]
-        # scripts/SVAO_quarter.py has no DepthPeeling pass
-        rasters = ("GBufferRaster", "ForwardLighting") + (
-            () if "quarter" in settings["script"] else ("DepthPeeling",))
+        # scripts/SVAO_depth.py has no RayShadow (and no ForwardLighting),
+        # scripts/SVAO_quarter.py no DepthPeeling pass
+        if settings["script"] != "scripts/SVAO_depth.py":
+            assert "any_hit_pallas" in settings["shadows"]
+        else:
+            assert "shadows" not in settings
+        rasters = RASTERS.get(settings["script"], (
+            "GBufferRaster", "ForwardLighting", "DepthPeeling"))
         for p in rasters:
             assert settings["pass_overrides"][p] == {"maxPerTile": 4096}
 
@@ -129,3 +139,44 @@ def test_quarter_and_dual_refs_record_their_graphs():
         with np.load(chip_smoke.mid_ref_file(name)) as f:
             settings = json.loads(str(f["settings"]))
         assert settings["raster_overflow"] == dict.fromkeys(ran, 0)
+
+
+def test_svao_depth_ref_records_frame_one_of_two():
+    """scripts/SVAO_depth.py's reference keeps frame 1 of two (so that
+    TemporalDepthPeel holds frame 0's layer), both outputs, its two
+    rasters capped and overflowing nothing; the JAX package ran no
+    accelerator branch (the graph has no RayShadow and no raster SD)."""
+    depth, bound = chip_smoke.MID_REFS["SVAO_depth"]
+    assert (depth["frames"], depth["frame"]) == (2, 1)
+    assert depth["outputs"] == ["Ambient.out", "AmbientRef.out"]
+    assert set(bound) == set(depth["outputs"])
+    assert all(isinstance(b, float) and b > 0 for b in bound.values())
+    with np.load(chip_smoke.mid_ref_file("SVAO_depth")) as f:
+        settings = json.loads(str(f["settings"]))
+    assert settings["raster_overflow"] == {"GBufferRaster": 0,
+                                           "DepthPeeling": 0}
+    assert "raster_sd" not in settings and "shadows" not in settings
+
+
+@pytest.mark.parametrize("name", sorted(chip_smoke.MID_SUBSTITUTED_BOUND))
+def test_substituted_rasters_stored_beside_their_refs(name):
+    """The JAX package's G-buffer channels that chip_smoke.py substitutes
+    for the port's (<ref>.rasters.npz): those the reference's settings
+    list, whole (the 64-pixel guard band of both scripts included),
+    finite float32; each substituted hold bounds outputs of the reference
+    by a positive MSE far below the reference's own bound."""
+    settings, bound = chip_smoke.MID_REFS[name]
+    sub_bound = chip_smoke.MID_SUBSTITUTED_BOUND[name]
+    path = chip_smoke.mid_ref_file(name).with_suffix(".rasters.npz")
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in f.files}
+    assert sorted(arrays) == sorted(settings["substituted"])
+    h, w = settings["height"] + 128, settings["width"] + 128
+    for key, a in arrays.items():
+        assert a.dtype == np.float32 and a.shape[:2] == (h, w), key
+        assert np.isfinite(a).all(), key
+    depth = arrays["GBufferRaster.depth"]
+    assert 0.0 < depth.min() and depth.max() <= 1.0
+    assert set(sub_bound) <= set(settings["outputs"])
+    for out, b in sub_bound.items():
+        assert 0.0 < b < bound[out] / 1e3, out

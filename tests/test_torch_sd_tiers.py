@@ -273,7 +273,9 @@ def test_pass_takes_the_reference_tier(stream, impl, max_count):
 
 def test_svao_gives_its_sd_pass_alpha_and_use_pallas():
     """SVAO hands the nested StochasticDepthMapRT Alpha = 1.5 / stochSamples
-    and its usePallas, as the reference package does (svao.py:135-152)."""
+    and its usePallas, as the reference package does (svao.py:135-152);
+    the Raytraced mode's traceOutOfScreen and maxRayBudgetFraction, read
+    since that mode is ported, are accepted."""
     from rtsdm_tpu_torch.passes.svao import SVAO
     st = carry(PJ.cornell_box())
     svao = SVAO(dict(stochSamples=3, usePallas=False, stochMaxCount=8))
@@ -283,7 +285,8 @@ def test_svao_gives_its_sd_pass_alpha_and_use_pallas():
     assert sd.cfg["Alpha"] == 1.5 / 3
     assert sd.cfg["usePallas"] is False
     assert sd.cfg["MaxCount"] == 8
-    for key, bad in (("traceOutOfScreen", True),
-                     ("maxRayBudgetFraction", 0.25)):
-        with pytest.raises(NotImplementedError):
-            SVAO({key: bad})
+    for key, value in (("traceOutOfScreen", True),
+                       ("maxRayBudgetFraction", 0.25)):
+        p = SVAO({key: value, "secondaryDepthMode": "Raytraced"})
+        p._check_supported()
+        assert p.cfg[key] == value

@@ -1,28 +1,33 @@
 #!/usr/bin/env python3
-"""Pass-by-pass comparison of scripts/SVAO_small.py between the JAX package
-(rtsdm_tpu) and the port (rtsdm_tpu_torch) at the mid-size references'
-settings (make_refs.py: SETTINGS): the intermediate channels the marked
-outputs depend on, RayShadow's visibility (one plane a light, taken from
-the pass, since the harness crops marked outputs as images) and the
-stochastic-depth map SVAO publishes (ctx.dictionary["SD_MAP"]), so that a
-difference in the outputs can be traced to the first pass that shows it.
-Integer channels (CompressNormals' packed normals) are compared as the
-unsigned bit patterns they hold.
+"""Pass-by-pass comparison of a graph between the JAX package (rtsdm_tpu)
+and the port (rtsdm_tpu_torch) at a mid-size reference's settings
+(make_refs.py): --config SVAO_small (the default; scripts/SVAO_small.py)
+or SVAO_quarter (scripts/SVAO_quarter.py, BASELINE config 4's graph). It
+records the intermediate channels the marked outputs depend on,
+RayShadow's visibility (one plane a light, taken from the pass, since the
+harness crops marked outputs as images), the quarter-res channels
+(DownsamplePass's outputs, CompressNormals' and SVAO's, taken whole from
+their passes) and the stochastic-depth map SVAO publishes
+(ctx.dictionary["SD_MAP"]), so that a difference in the outputs can be
+traced to the first pass that shows it. Integer channels (CompressNormals'
+packed normals) are compared as the unsigned bit patterns they hold.
 
     JAX_PLATFORMS=cpu python tests/torch_refs/compare_passes.py save F.npz
+            [--config NAME]
         renders through the JAX package on the CPU as make_refs.py renders
         (use_jit=False; RayShadow through the package's accelerator
         branch, make_refs.py: reference_shadows) and writes every channel
-        of INTERMEDIATES of the kept frame, cropped as the harness crops
+        of the config's intermediates in the kept frame, cropped as the harness crops
         marked outputs; with --port, through the port on --device instead
     python tests/torch_refs/compare_passes.py compare F.npz --device cuda
         renders the same through the port (on the card, or with --device
-        cpu through the kernels' plain versions) and prints, channel by
+        cpu through the kernels' plain versions; the config is the one
+        F.npz records) and prints, channel by
         channel in graph order, the MSE against F.npz, the share of pixels
         that differ at all, by more than 1e-3 and by more than 0.1, and the
         largest difference; --json writes them. Imports no JAX. With
         --substitute, the port's G-buffer and depth-peeling passes
-        (SUBSTITUTED) hand on the outputs F.npz recorded for them, whole
+        (the config's `substituted`) hand on the outputs F.npz recorded for them, whole
         (guard band included), in place of their own: what is left of a
         difference then comes from the passes after them.
 
@@ -39,84 +44,129 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from make_refs import SETTINGS  # noqa: E402
-
-# in graph order: G-buffer, shadows and lighting, the SVAO inputs, the AO
-# and the outputs
-INTERMEDIATES = [
-    "GBufferRaster.depth", "GBufferRaster.posW", "GBufferRaster.normW",
-    "GBufferRaster.faceNormalW", "GBufferRaster.mvec",
-    "LinearizeDepth.linearDepth", "RayShadow.visibility", "EnvMapPass.color",
-    "ForwardLighting.color", "ToneMapper.dst", "DepthPeeling.depth2",
-    "LinearizeDepth0.linearDepth", "CompressNormals.normalOut", "SD_MAP",
-    "SVAO.ao", "CrossBilateralBlur0.colorOut", "AmbientOcclusion.out",
-    "Shaded.out", "AmbientOcclusionTAA.colorOut", "ShadedTAA.colorOut"]
-# channels taken from a pass as it runs: (module of the pass, its class,
-# what to keep of (ctx, outputs))
-CAPTURED = {
-    "RayShadow.visibility": ("lighting", "RayShadow",
-                             lambda ctx, out: out["visibility"]),
-    "SD_MAP": ("svao", "SVAO", lambda ctx, out: ctx.dictionary["SD_MAP"])}
-# the raster passes whose whole outputs are recorded ("raw/<pass>/<channel>")
-# and, with --substitute, handed to the port's passes after them
-SUBSTITUTED = (("gbuffer", "GBufferRaster"), ("depth_chain", "DepthPeeling"))
+from make_refs import QUARTER_SETTINGS, SETTINGS  # noqa: E402
 
 
-def render(pkg, device=None, substitute: dict | None = None):
-    """({channel: array} of SETTINGS' kept frame through `pkg` ("rtsdm_tpu"
-    or "rtsdm_tpu_torch"), float32 or, for integer channels, int64; the
-    whole outputs of SUBSTITUTED's passes in that frame, "raw/..."). With
-    `substitute` (such raw outputs), the port's SUBSTITUTED passes return
-    those in place of their own."""
+def _whole(channel):
+    """Keep one output of a pass whole (not cropped as the harness crops
+    the graph's marked outputs)."""
+    return lambda ctx, out: out[channel]
+
+
+# per config: the channels in graph order (G-buffer, shadows and lighting,
+# the SVAO inputs, the AO and the outputs); the channels taken from a pass
+# as it runs, {channel: (module of the pass, its class, the pass's name in
+# the graph or None for any, what to keep of (ctx, outputs))}; the raster
+# passes whose whole outputs are recorded ("raw/<pass>/<channel>") and,
+# with --substitute, handed to the port's passes after them
+CONFIGS = {
+    "SVAO_small": dict(
+        settings=SETTINGS,
+        intermediates=[
+            "GBufferRaster.depth", "GBufferRaster.posW",
+            "GBufferRaster.normW", "GBufferRaster.faceNormalW",
+            "GBufferRaster.mvec", "LinearizeDepth.linearDepth",
+            "RayShadow.visibility", "EnvMapPass.color",
+            "ForwardLighting.color", "ToneMapper.dst", "DepthPeeling.depth2",
+            "LinearizeDepth0.linearDepth", "CompressNormals.normalOut",
+            "SD_MAP", "SVAO.ao", "CrossBilateralBlur0.colorOut",
+            "AmbientOcclusion.out", "Shaded.out",
+            "AmbientOcclusionTAA.colorOut", "ShadedTAA.colorOut"],
+        captured={
+            "RayShadow.visibility": ("lighting", "RayShadow", None,
+                                     _whole("visibility")),
+            "SD_MAP": ("svao", "SVAO", None,
+                       lambda ctx, out: ctx.dictionary["SD_MAP"])},
+        substituted=(("gbuffer", "GBufferRaster"),
+                     ("depth_chain", "DepthPeeling"))),
+    "SVAO_quarter": dict(
+        settings=QUARTER_SETTINGS,
+        intermediates=[
+            "GBufferRaster.depth", "GBufferRaster.posW",
+            "GBufferRaster.normW", "GBufferRaster.faceNormalW",
+            "GBufferRaster.mvec", "LinearizeDepth.linearDepth",
+            "RayShadow.visibility", "EnvMapPass.color",
+            "ForwardLighting.color", "ToneMapper.dst", "DownZ.output",
+            "DownN.output", "DownGZ.output", "CompressNormals.normalOut",
+            "SD_MAP", "SVAO.ao", "AOGuidedBlur.out", "AmbientOcclusion.out",
+            "Shaded.out", "ShadedTAA.colorOut"],
+        captured={
+            "RayShadow.visibility": ("lighting", "RayShadow", None,
+                                     _whole("visibility")),
+            **{f"{name}.output": ("pipeline_misc", "DownsamplePass", name,
+                                  _whole("output"))
+               for name in ("DownZ", "DownN", "DownGZ")},
+            "CompressNormals.normalOut": ("depth_chain", "CompressNormals",
+                                          None, _whole("normalOut")),
+            "SD_MAP": ("svao", "SVAO", None,
+                       lambda ctx, out: ctx.dictionary["SD_MAP"]),
+            "SVAO.ao": ("svao", "SVAO", None, _whole("ao"))},
+        substituted=(("gbuffer", "GBufferRaster"),))}
+
+
+def render(pkg, config: str, device=None, substitute: dict | None = None):
+    """({channel: array} of the config's kept frame through `pkg`
+    ("rtsdm_tpu" or "rtsdm_tpu_torch"), float32 or, for integer channels,
+    int64; the whole outputs of its substituted passes in that frame,
+    "raw/..."). With `substitute` (such raw outputs), the port's
+    substituted passes return those in place of their own."""
     import importlib
     import numpy as np
+    cfg = CONFIGS[config]
+    settings, intermediates = cfg["settings"], cfg["intermediates"]
+    substituted = cfg["substituted"]
     mog = importlib.import_module(f"{pkg}.mogwai")
     kw = dict(use_jit=False) if pkg == "rtsdm_tpu" else dict(device=device)
-    m = mog.Renderer(SETTINGS["width"], SETTINGS["height"], **kw)
-    mog.run_script(str(ROOT / SETTINGS["script"]), m)
-    for name, props in SETTINGS["pass_overrides"].items():
+    m = mog.Renderer(settings["width"], settings["height"], **kw)
+    mog.run_script(str(ROOT / settings["script"]), m)
+    for name, props in settings["pass_overrides"].items():
         m.active_graph.get_pass(name).cfg.update(props)
-    for name in INTERMEDIATES:
-        if name not in CAPTURED:
+    for name in intermediates:
+        if name not in cfg["captured"]:
             m.active_graph.mark_output(name)
-    raster = [(module, cls_name, lambda ctx, out: out)
-              for module, cls_name in SUBSTITUTED]
-    captured = dict(CAPTURED, **{cls_name: r for r, (_, cls_name) in
-                                 zip(raster, SUBSTITUTED)})
+    captured = dict(cfg["captured"], **{
+        cls_name: (module, cls_name, None, lambda ctx, out: out)
+        for module, cls_name in substituted})
     seen = {name: [] for name in captured}
+    by_class = {}
+    for name, (module, cls_name, pass_name, keep) in captured.items():
+        by_class.setdefault((module, cls_name), []).append(
+            (pass_name, keep, seen[name]))
+    substituted_classes = {c for _, c in substituted}
     patched = []
-    for name, (module, cls_name, keep) in captured.items():
+    for (module, cls_name), keeps in by_class.items():
         cls = getattr(importlib.import_module(f"{pkg}.passes.{module}"),
                       cls_name)
 
         def capture(self, ctx, inputs, state=None, _real=cls.execute,
-                    _keep=keep, _seen=seen[name], _name=cls_name):
+                    _keeps=keeps, _name=cls_name):
             out, st = _real(self, ctx, inputs, state)
-            if substitute is not None and _name in dict(
-                    (c, m) for m, c in SUBSTITUTED):
+            if substitute is not None and _name in substituted_classes:
                 import torch
                 out = {k: torch.as_tensor(substitute[f"raw/{_name}/{k}"])
                        .to(v.device, v.dtype) for k, v in out.items()}
-            _seen.append(_keep(ctx, out))
+            for pass_name, keep, kept_list in _keeps:
+                if pass_name in (None, self.name):
+                    kept_list.append(keep(ctx, out))
             return out, st
 
         patched.append((cls, cls.execute))
         cls.execute = capture
     try:
-        m.loadScene(SETTINGS["scene"])
+        m.loadScene(settings["scene"])
         m.clock.pause()
-        for f in range(SETTINGS["frames"]):
+        for f in range(settings["frames"]):
             m.clock.frame = f
             out = m.renderFrame()
-            if f == SETTINGS["frame"]:
+            if f == settings["frame"]:
                 kept = dict(out, **{k: v[-1] for k, v in seen.items()})
     finally:
         for cls, real in patched:
             cls.execute = real
     gb = m._render_res()[2]
     vis = kept["RayShadow.visibility"]     # [lights, H, W] -> [h, w, lights]
-    kept["RayShadow.visibility"] = vis[:, gb:gb + SETTINGS["height"],
-                                       gb:gb + SETTINGS["width"]]
+    kept["RayShadow.visibility"] = vis[:, gb:gb + settings["height"],
+                                       gb:gb + settings["width"]]
 
     def host(name, v):
         if hasattr(v, "detach"):
@@ -130,18 +180,18 @@ def render(pkg, device=None, substitute: dict | None = None):
 
     raw = {f"raw/{cls_name}/{k}": np.asarray(
         v.detach().cpu().numpy() if hasattr(v, "detach") else v)
-        for _, cls_name in SUBSTITUTED
+        for _, cls_name in substituted
         for k, v in kept[cls_name].items()}
-    return {k: host(k, kept[k]) for k in INTERMEDIATES}, raw
+    return {k: host(k, kept[k]) for k in intermediates}, raw
 
 
 def differences(got: dict, want: dict) -> dict:
-    """Per channel: MSE, shares of pixels differing (at all, > 1e-3,
-    > 0.1; the largest difference over a pixel's channels) and the
+    """Per channel of `want`: MSE, shares of pixels differing (at all,
+    > 1e-3, > 0.1; the largest difference over a pixel's channels) and the
     largest difference."""
     import numpy as np
     res = {}
-    for name in INTERMEDIATES:
+    for name in want:
         a, b = got[name], want[name]
         if a.shape != b.shape or a.size == 0:
             res[name] = dict(shape=list(a.shape), want_shape=list(b.shape))
@@ -162,6 +212,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("command", choices=("save", "compare"))
     ap.add_argument("file", type=Path)
+    ap.add_argument("--config", choices=sorted(CONFIGS),
+                    default="SVAO_small", help="save: the graph to render")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--port", action="store_true",
                     help="save: render through the port on --device")
@@ -176,15 +228,18 @@ def main(argv=None) -> int:
     if args.command == "save":
         if args.port:
             made_by = f"port on {args.device}"
-            chans, raw = render("rtsdm_tpu_torch", args.device)
+            chans, raw = render("rtsdm_tpu_torch", args.config,
+                                args.device)
         else:
             os.environ.setdefault("JAX_PLATFORMS", "cpu")
             from make_refs import reference_shadows
             made_by = "rtsdm_tpu on the CPU"
             with reference_shadows():
-                chans, raw = render("rtsdm_tpu")
+                chans, raw = render("rtsdm_tpu", args.config)
         np.savez_compressed(args.file, made_by=np.asarray(made_by),
-                            settings=np.asarray(json.dumps(SETTINGS)),
+                            config=np.asarray(args.config),
+                            settings=np.asarray(json.dumps(
+                                CONFIGS[args.config]["settings"])),
                             **chans, **raw)
         print(f"{args.file}: {len(chans)} channels by {made_by}, "
               f"{time.perf_counter() - t0:.1f} s")
@@ -192,14 +247,15 @@ def main(argv=None) -> int:
     with np.load(args.file) as f:
         check = json.loads(str(f["settings"]))
         made_by = str(f["made_by"])
-        want = {k: f[k] for k in INTERMEDIATES}
+        config = str(f["config"]) if "config" in f.files else "SVAO_small"
+        want = {k: f[k] for k in CONFIGS[config]["intermediates"]}
         raw = {k: f[k] for k in f.files if k.startswith("raw/")}
-    if check != SETTINGS:
+    if check != CONFIGS[config]["settings"]:
         raise SystemExit(f"{args.file} was made with {check}")
-    got, _ = render("rtsdm_tpu_torch", args.device,
+    got, _ = render("rtsdm_tpu_torch", config, args.device,
                     raw if args.substitute else None)
     res = differences(got, want)
-    print(f"port on {args.device}"
+    print(f"{config}: port on {args.device}"
           f"{', rasters substituted' if args.substitute else ''} "
           f"against {args.file.name} ({made_by}; "
           f"{time.perf_counter() - t0:.1f} s)")
@@ -211,7 +267,7 @@ def main(argv=None) -> int:
               .format(**r)))
     if args.json:
         args.json.write_text(json.dumps(dict(
-            device=args.device, substitute=args.substitute, against=made_by,
+            config=config, device=args.device, substitute=args.substitute, against=made_by,
             channels=res)))
     return 0
 

@@ -9,7 +9,18 @@ config 1); scripts/SVAO_small.py with SVAO's stochasticDepthImpl set to
 bench_configs.py:20-23 sets it); scripts/SVAO.py, the shipped research
 graph (SVAO_full), and with SVAO's primaryDepthMode set to DualDepth after
 the graph was built (SVAO_dual); scripts/SVAO_quarter.py (BASELINE config
-4's graph: quarter-res SVAO with dualAO, DownsamplePass, AOGuidedBlur).
+4's graph: quarter-res SVAO with dualAO, DownsamplePass, AOGuidedBlur);
+scripts/SVAO_depth.py (SVAO under DualDepth over TemporalDepthPeel's
+second layer beside SVAO_ref under the Raytraced secondary mode), frames
+0 and 1, frame 1 kept.
+
+A configuration that lists `substituted` G-buffer channels also writes
+them, whole (guard band included) and as GBufferRaster returned them in
+the kept frame, to <file>.rasters.npz: chip_smoke.py hands them to the
+port in place of its own raster's, so that the passes after the rasters
+are held to a bound far below the rasters' last bits. With frames > 1 the
+script fails unless every frame's raster gave the same channels (a paused
+clock and a still camera).
 
 Wherever a CPU tier of the JAX package departs from its accelerator path,
 which the port follows, the reference takes the accelerator's behaviour:
@@ -124,10 +135,22 @@ DUAL_SETTINGS = dict(
               "AmbientTAA.colorOut": "kept small: SVAO_full holds it",
               "DiffuseTAA.colorOut": "kept small: SVAO_full holds it",
               **SVAO_FULL_SETTINGS["left_out"]})
+# scripts/SVAO_depth.py: no RayShadow and no ForwardLighting; its two
+# rasters capped; frame 1, so that TemporalDepthPeel holds frame 0's layer
+DEPTH_SETTINGS = dict(
+    script="scripts/SVAO_depth.py", scene="Arcade@full", width=480,
+    height=270, frames=2, frame=1, outputs=["Ambient.out", "AmbientRef.out"],
+    pass_overrides={p: {"maxPerTile": MAX_PER_TILE}
+                    for p in ("GBufferRaster", "DepthPeeling")},
+    substituted=["GBufferRaster.depth", "GBufferRaster.faceNormalW",
+                 "GBufferRaster.mvec"])
+QUARTER_SETTINGS["substituted"] = ["GBufferRaster.depth",
+                                   "GBufferRaster.faceNormalW"]
 # file name prefix -> settings
 REFS = {"SVAO_small": SETTINGS, "HBAO": HBAO_SETTINGS,
         "SVAO_rasterSD": RASTER_SD_SETTINGS, "SVAO_full": SVAO_FULL_SETTINGS,
-        "SVAO_quarter": QUARTER_SETTINGS, "SVAO_dual": DUAL_SETTINGS}
+        "SVAO_quarter": QUARTER_SETTINGS, "SVAO_dual": DUAL_SETTINGS,
+        "SVAO_depth": DEPTH_SETTINGS}
 
 
 # Pallas kernels run in interpret mode, per pass whose branch was patched
@@ -169,13 +192,14 @@ def reference_shadows():
 
 @contextlib.contextmanager
 def reference_branches(settings: dict):
-    """The accelerator branches `settings` records: the shadows always, the
-    raster stochastic depth through raster_stochastic_pallas where the
-    settings name it."""
+    """The accelerator branches `settings` records: the shadows where the
+    graph has RayShadow, the raster stochastic depth through
+    raster_stochastic_pallas where the settings name it."""
     from rtsdm_tpu.ops import raster_pallas
     from rtsdm_tpu.passes.stochastic_depth import StochasticDepthMap
     with contextlib.ExitStack() as st:
-        st.enter_context(reference_shadows())
+        if "shadows" in settings:
+            st.enter_context(reference_shadows())
         if "raster_sd" in settings:
             st.enter_context(accelerator_branch(StochasticDepthMap,
                                                 raster_pallas))
@@ -221,6 +245,26 @@ def raster_overflow():
             st.enter_context(mock.patch.object(mod, "rasterize", rasterize))
         for cls in classes:
             st.enter_context(tracked(cls))
+        yield seen
+
+
+@contextlib.contextmanager
+def raster_channels(channels):
+    """While it holds, the yielded list gets, per GBufferRaster run, the
+    whole outputs `channels` ("GBufferRaster.<channel>") as numpy."""
+    from unittest import mock
+    from rtsdm_tpu.passes import gbuffer
+    import numpy as np
+    seen = []
+    real = gbuffer.GBufferRaster.execute
+
+    def execute(self, ctx, inputs, state=None):
+        out, st = real(self, ctx, inputs, state)
+        seen.append({c: np.asarray(out[c.split(".", 1)[1]])
+                     for c in channels})
+        return out, st
+
+    with mock.patch.object(gbuffer.GBufferRaster, "execute", execute):
         yield seen
 
 
@@ -339,10 +383,11 @@ def main(argv=None) -> int:
     settings.update({k: v for k, v in (("width", args.width),
                                        ("height", args.height)) if v})
     t0 = time.perf_counter()
-    with reference_branches(settings), raster_overflow() as overflow:
+    with reference_branches(settings), raster_overflow() as overflow, \
+            raster_channels(settings.get("substituted", ())) as rasters:
         images, m = render(settings)
-    want = {"RayShadow"} | ({"StochasticDepthMap"} if "raster_sd" in settings
-                            else set())
+    want = ({"RayShadow"} if "shadows" in settings else set()) | (
+        {"StochasticDepthMap"} if "raster_sd" in settings else set())
     if set(INTERPRETED) != want:
         raise SystemExit(f"Pallas kernels ran in {dict(INTERPRETED)}, not "
                          f"in each of {sorted(want)}")
@@ -360,6 +405,14 @@ def main(argv=None) -> int:
     path = ref_path(args.config, settings)
     np.savez_compressed(path, settings=np.asarray(json.dumps(settings)),
                         **images)
+    if settings.get("substituted"):
+        for later in rasters[1:]:
+            if any(not np.array_equal(later[c], rasters[0][c])
+                   for c in settings["substituted"]):
+                raise SystemExit("the G-buffer raster differs between "
+                                 "frames: no one substitute holds")
+        np.savez_compressed(path.with_suffix(".rasters.npz"),
+                            **rasters[settings["frame"]])
     print(f"{path.relative_to(ROOT)}: "
           + ", ".join(f"{k} {v.shape}" for k, v in images.items())
           + f"; {settings['seconds']} s; G-buffer overflow at 256: "
