@@ -149,23 +149,46 @@ Phases, each of which raises on failure (the script then exits non-zero):
    after the build, each frame's calls held bit-exact; then one RTAO frame
    at that size (closest_hit, timed);
 17e. scripts/SVAO_depth.py at Arcade@full 480x270, frame 1, against the JAX
-   package's render (tests/torch_refs/SVAO_depth.*); then SVAO_depth.py
-   and SVAO_quarter.py with the JAX package's G-buffer channels substituted
-   for the port's (<ref>.rasters.npz), their AO held under a bound far
-   below the rasters' last bits; this checkout only;
+   package's render (tests/torch_refs/SVAO_depth.*); then every mid-size
+   graph (SVAO_small.py through K7 and K5, config 2, HBAO.py, SVAO.py and
+   SVAO.py under DualDepth, SVAO_quarter.py, SVAO_depth.py) with the JAX
+   package's raster channels substituted for the port's (<ref>.rasters.npz:
+   the G-buffer's and DepthPeeling's that its AO reads), its AO outputs
+   held under a bound far below the rasters' last bits; this checkout
+   only;
 23. one row of the quality oracle (rtsdm_tpu_torch/tools/quality_ssim.py):
    BASELINE config 2 at 640x360, SSIM of the ray-traced and the raster SD
    AO against SVAO's Raytraced mode and their mean absolute difference,
-   reported, not gated.
+   reported, not gated;
+24. BASELINE config 5 (bench_configs.py:31-33, animated as :51-66):
+   scripts/SVAO_small.py on EmeraldSquare@full (1,036,922 triangles) at
+   1280x720, the camera orbiting and the tallest 2% of the triangles
+   oscillating, the clock playing, 3 frames: per frame K1 and K2 twice (K2
+   interpolating last frame's positions too: (nci, nflat) = (11, 4)), K3
+   twice, K4 once, K5 once, K8 once a light, K10 at least 6 times, no
+   plain version; the outputs finite, AO in [0, 1], the motion vectors
+   showing the camera's motion and the node's own; the last frame's calls
+   held bit-exact (K5 and K8 on spread tile subsets), each kernel timed
+   with its bound (K2 beside its (8, 4) template), the frame timed as in
+   10, the animation step timed, peak device memory, and the quality
+   oracle's config-5 row (ShadedTAA's temporal stability);
+24b. the same animation on EmeraldSquare's small tier (K7) at 480x270,
+   frames 0-2, against the JAX package's render
+   (tests/torch_refs/SVAO_anim.*), with the port's own rasters and with
+   the JAX package's per-frame G-buffer channels substituted;
+24c. the golden test_MultiSampling (samples/MultiSampling.py: the Halton
+   sample pattern, CornellBox 96x96, frame 2) within the golden runner's
+   bound, every jittered K1 call held bit-exact.
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound, library yardstick and launches per
-frame in configs 3 and 4), and {"ok": true, "device": {...}}.
+frame in configs 3, 4 and 5), and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import inspect
 import json
 import math
@@ -1194,20 +1217,20 @@ def spread_tiles(live, n: int, what: str):
     return live_tiles[pick]
 
 
-def any_hit_subset(tri, boxes, lists, counts, rays):
-    """(sel, inputs): up to ANY_HIT_TILES whole 8x32 tiles spread evenly
-    over the tiles that hold a live ray, and K8's inputs cut to them."""
+def any_hit_subset(tri, boxes, lists, counts, rays, tiles=ANY_HIT_TILES):
+    """(sel, inputs): up to `tiles` whole 8x32 tiles spread evenly over the
+    tiles that hold a live ray, and K8's inputs cut to them."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     nb = counts.shape[0]
     sel = spread_tiles((rays[7] > rays[6]).reshape(nb, RT.RB),
-                       ANY_HIT_TILES, "K8")
+                       tiles, "K8")
     return sel, (tri, boxes, lists[sel].contiguous(),
                  counts[sel].contiguous(),
                  rays.reshape(8, nb, RT.RB)[:, sel].reshape(8, -1)
                  .contiguous())
 
 
-def hold_any_hit(args):
+def hold_any_hit(args, tiles=ANY_HIT_TILES):
     """K8 on the spread tile subset (any_hit_subset) against its plain
     version: hits against the walk without the cull (boxes None, the
     contract), pairs against the replay of K8's cull; and the launch over
@@ -1217,7 +1240,7 @@ def hold_any_hit(args):
     tri, boxes, lists, counts, rays = args
     nb = counts.shape[0]
     full = RT.any_hit_blocks(*args)
-    sel, sub = any_hit_subset(*args)
+    sel, sub = any_hit_subset(*args, tiles=tiles)
     got = RT.any_hit_blocks(*sub)
     hit_p, _ = RT.any_hit_blocks_plain(tri, None, *sub[2:])
     _, pairs_p = RT.any_hit_blocks_plain(*sub)
@@ -1243,7 +1266,8 @@ def warp_directions(rays):
     return warp, tile
 
 
-def k8_walk(tri, boxes, lists, counts, rays, pairs_free, batch=1024):
+def k8_walk(tri, boxes, lists, counts, rays, pairs_free,
+            budget: int = 1 << 16):
     """K8's cull replayed over the walk (its yield, and the work its bound
     counts): a live ray walks its tile's list up to the chunk of its first
     hit, ceil(pairs_free / 128) chunks (pairs_free from
@@ -1252,49 +1276,52 @@ def k8_walk(tri, boxes, lists, counts, rays, pairs_free, batch=1024):
     meets the chunk's box (the union of its four) and the (ray, chunk, box)
     triples that meet under K8's slab test; per warp (a tile row), the
     chunk visits and the boxes it stages (some lane meets), split by
-    whether the warp hoists."""
+    whether the warp hoists. Each step takes a block of list positions for
+    every tile still walking, about `budget` (tile, position) pairs."""
     import torch
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     nb, list_w = lists.shape
-    n_chunks = tri.shape[0]
     full = counts > list_w
     live = (rays[7] > rays[6]).reshape(nb, RT.RB)
     walk = torch.div(pairs_free.reshape(nb, RT.RB) + RT.TC - 1, RT.TC,
                      rounding_mode="floor")
     walk = torch.where(live, walk, 0)
+    longest = walk.max(1).values                    # per tile
     hoist, _ = warp_directions(rays)
     o, inv, flat, tmin, tmax = (a.reshape(a.shape[:-1] + (nb, RT.RB))
                                 for a in RT.slab_rows(rays))
     union = torch.cat([boxes[:, 0:3].amin(-1), boxes[:, 3:6].amax(-1)], 1)
     tot = collections.Counter()
-    for j in range(int(walk.max()) if nb else 0):
-        act = walk > j
-        rows_all = torch.nonzero(act.any(1)).squeeze(1)
-        for s in range(0, rows_all.numel(), batch):
-            rows = rows_all[s:s + batch]
-            ci = torch.where(full[rows], j,
-                             lists[rows, min(j, list_w - 1)]).long()
-            a = act[rows]                                   # [na, RB]
-            ray = [x[:, rows] for x in (o, inv, flat)]       # [3, na, RB]
-            tn, tf = tmin[rows], tmax[rows]
-            u = union[ci]                                   # [na, 6]
-            meet_c = RT.segment_overlaps(
-                *ray, tn, tf, [u[:, c, None] for c in range(3)],
-                [u[:, 3 + c, None] for c in range(3)]) & a
-            bx = boxes[ci]                                  # [na, 6, 4]
-            meet = RT.segment_overlaps(
-                *[x[..., None] for x in ray], tn[..., None], tf[..., None],
-                [bx[:, c, None, :] for c in range(3)],
-                [bx[:, 3 + c, None, :] for c in range(3)]) & a[..., None]
-            warp_on = a.reshape(-1, 8, 32).any(-1)          # [na, 8]
-            staged = meet.reshape(-1, 8, 32, RT.N_CULL).any(2).sum(-1)
-            h = hoist[rows]
-            tot["ray_chunks"] += int(a.sum())
-            tot["chunk_meets"] += int(meet_c.sum())
-            tot["box_meets"] += int(meet.sum())
-            tot["warp_visits"] += int(warp_on.sum())
-            tot["staged_hoisted"] += int(staged[h].sum())
-            tot["staged_per_pair"] += int(staged[~h].sum())
+    j0, end = 0, int(longest.max()) if nb else 0
+    while j0 < end:
+        rows = torch.nonzero(longest > j0).squeeze(1)
+        nj = max(1, min(end - j0, budget // rows.numel()))
+        js = torch.arange(j0, j0 + nj, device=lists.device)
+        ci = torch.where(full[rows, None], js[None],
+                         lists[rows][:, js.clamp(max=list_w - 1)]).long()
+        a = walk[rows][..., None] > js                  # [na, RB, nj]
+        ray = [x[:, rows, :, None] for x in (o, inv, flat)]
+        tn, tf = tmin[rows][..., None], tmax[rows][..., None]
+        u = union[ci]                                   # [na, nj, 6]
+        meet_c = RT.segment_overlaps(
+            *ray, tn, tf, [u[:, None, :, c] for c in range(3)],
+            [u[:, None, :, 3 + c] for c in range(3)]) & a
+        bx = boxes[ci]                                  # [na, nj, 6, 4]
+        meet = RT.segment_overlaps(
+            *[x[..., None] for x in ray], tn[..., None], tf[..., None],
+            [bx[:, None, :, c, :] for c in range(3)],
+            [bx[:, None, :, 3 + c, :] for c in range(3)]) & a[..., None]
+        na = rows.numel()
+        warp_on = a.reshape(na, 8, 32, nj).any(2)       # [na, 8, nj]
+        staged = meet.reshape(na, 8, 32, nj, RT.N_CULL).any(2).sum(-1)
+        h = hoist[rows]
+        tot["ray_chunks"] += int(a.sum())
+        tot["chunk_meets"] += int(meet_c.sum())
+        tot["box_meets"] += int(meet.sum())
+        tot["warp_visits"] += int(warp_on.sum())
+        tot["staged_hoisted"] += int(staged[h].sum())
+        tot["staged_per_pair"] += int(staged[~h].sum())
+        j0 += nj
     return dict(tot)
 
 
@@ -1684,18 +1711,31 @@ CONFIGS = {
                 ("ShadedTAA.colorOut", "AmbientOcclusion.out")),
     "svao_depth": (SVAO_DEPTH_SCRIPT, "Arcade@full", 1280, 720, {},
                    ("Ambient.out", "AmbientRef.out")),
+    # BASELINE config 5 (bench_configs.py:31-33), animated as :51-66
+    # (config_renderer); the G-buffer's motion vectors marked as well
+    "config5": (GRAPH_SCRIPT, "EmeraldSquare@full", 1280, 720, {},
+                GRAPH_OUTPUTS + ("GBufferRaster.mvec",)),
 }
+ANIMATED = ("config5",)
 # each graph's AO output (its first channel is checked to lie in [0, 1])
 AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
              "config1_suntemple": "Ambient.out", "svao_full": "AmbientRef.out",
              "config3": "AmbientOcclusion.out",
-             "config4": "AmbientOcclusion.out", "svao_depth": "Ambient.out"}
+             "config4": "AmbientOcclusion.out", "svao_depth": "Ambient.out",
+             "config5": "AmbientOcclusion.out"}
 # AOGuidedBlur's fusion (config 4) weighs bright and dark by two ratios
 # that sum to 1 only up to float32 rounding, as in the JAX package (whose
 # clampResults is a no-op, as upstream): its AO may pass 1 by two ulps
 AO_ROUNDING = {"config4": 2.0 ** -22}
 # K10's Catmull-Rom launches a frame: one per TAA pass of the graph
-TAA_PASSES = {"config2": 2, "svao_full": 2, "config3": 2, "config4": 1}
+TAA_PASSES = {"config2": 2, "svao_full": 2, "config3": 2, "config4": 1,
+              "config5": 2}
+# K10's launches a frame at least (TAA, the env map, the texture pages)
+WARP_AT_LEAST = {"config5": 6}
+# K2's (interpolated components, flat entries): positions, normals,
+# texcoords and, where the geometry moves, last frame's positions; face
+# normals and material id
+K2_STATIC, K2_ANIMATED = (8, 4), (11, 4)
 FLOOR = "raster:floor"          # K1 launched with its depth floor
 RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
                                 # and the w plane (4 each), evaluated for
@@ -1743,6 +1783,9 @@ def config_renderer(label):
         m.active_graph.get_pass(pname).cfg.update(props)
     m.loadScene(scene)
     m.clock.pause()
+    if label in ANIMATED:
+        m.active_graph.mark_output("GBufferRaster.mvec")
+        config5_animation(m)
     return m
 
 
@@ -1776,15 +1819,16 @@ def config_want(label, n_lights):
                 "sd_trace": 0, "raster_stochastic": 0,
                 "sd_trace_resident": 0, "fetch_taps_same_class": 0,
                 "any_hit": 0}
-    if label in ("config3", "config4"):
+    if label in ("config3", "config4", "config5"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 and phase 2
-        # fetch once each; the SD trace streams (K5: SunTemple's 323,202
-        # and Bistro's 681,562 triangles are above 65,536); phase 2 reads
-        # the packed SD map through K4 at divisor 4 (config 4) and through
-        # the plain fetch_sd_direction at divisor 1 (config 3)
+        # fetch once each; the SD trace streams (K5: SunTemple's 323,202,
+        # Bistro's 681,562 and EmeraldSquare's 1,036,922 triangles are
+        # above 65,536); phase 2 reads the packed SD map through K4 at
+        # divisor 4 (configs 4 and 5) and through the plain
+        # fetch_sd_direction at divisor 1 (config 3)
         return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
                 "fetch_all_directions": 2,
-                "fetch_sd_packed": int(label == "config4"), "sd_trace": 1,
+                "fetch_sd_packed": int(label != "config3"), "sd_trace": 1,
                 "raster_stochastic": 0, "sd_trace_resident": 0,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
     if label in ("config2", "svao_full"):
@@ -1806,10 +1850,12 @@ def config_want(label, n_lights):
             "fetch_taps_same_class": 1, "any_hit": n_lights}
 
 
-def drive_config(label, kernels):
+def drive_config(label, kernels, per_frame=None):
     """Run a config for CONFIG_FRAMES frames; counts are zeroed just before
-    and read just after every frame, and no plain version may run. Returns
-    (renderer, launches summed over the frames, K10's by mode)."""
+    and read just after every frame, and no plain version may run; K2
+    interpolates K2_ANIMATED components where the geometry moves,
+    K2_STATIC elsewhere. per_frame(f, out) sees each frame's outputs.
+    Returns (renderer, launches summed over the frames, K10's by mode)."""
     import torch
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
@@ -1850,6 +1896,16 @@ def drive_config(label, kernels):
             check(by_mode["catmull_rom"] == TAA_PASSES.get(label, 0),
                   f"K10: {TAA_PASSES.get(label, 0)} TAA launch(es) a frame "
                   f"expected in {label}")
+            check(sum(by_mode.values()) >= WARP_AT_LEAST.get(label, 0),
+                  f"K10: at least {WARP_AT_LEAST.get(label, 0)} launches a "
+                  f"frame expected in {label}")
+            k2 = [(a[3], a[4]) for a, _ in
+                  kernels_by_name(kernels)["fetch_attributes"].calls]
+            k2_want = K2_ANIMATED if label in ANIMATED else K2_STATIC
+            check(k2 and set(k2) == {k2_want},
+                  f"{label}: K2 at (nci, nflat) {k2}, expected {k2_want}")
+            if per_frame is not None:
+                per_frame(f, out)
             totals.update(counts)
             modes.update(by_mode)
     return m, dict(totals), dict(modes)
@@ -1888,9 +1944,9 @@ def _pair_fetch_sd_packed(args, kwargs):
         radii),)
 
 
-def _pair_any_hit(args, kwargs):
+def _pair_any_hit(args, kwargs, tiles=ANY_HIT_TILES):
     """On the spread tile subset (hold_any_hit)."""
-    return hold_any_hit(args)
+    return hold_any_hit(args, tiles)
 
 
 def _pair_sd_trace_resident(args, kwargs):
@@ -1943,7 +1999,11 @@ def _pair_sd_trace(args, kwargs):
 
 
 # kernel -> (args, kwargs) -> (kernel outputs, plain outputs), for the
-# configs' last-frame check; K6 and K9 are held by their own phases
+# configs' last-frame check; K6 and K9 are held by their own phases. K8's
+# plain version walks every chunk of a tile's list in turn, up to all
+# 8,101 at config 5: 58 s on 128 tiles, 48 s on 32 (H100 80GB HBM3), so it
+# holds 32 there to keep the new phases under 90 s
+K8_HOLD_TILES = {"config5": 32}
 CONFIG_PAIRS = {"raster": _pair_raster,
                 "fetch_attributes": _pair_fetch_attributes,
                 "fetch_all_directions": _pair_fetch_directions,
@@ -1954,20 +2014,68 @@ CONFIG_PAIRS = {"raster": _pair_raster,
                 "sd_trace": _pair_sd_trace}
 
 
+def same_call(a, b) -> bool:
+    """Two recorded (args, kwargs) of one wrapper with equal arguments."""
+    import torch
+
+    def eq(x, y):
+        if isinstance(x, torch.Tensor) or isinstance(y, torch.Tensor):
+            return (isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor)
+                    and x.shape == y.shape and x.dtype == y.dtype
+                    and bool(torch.equal(x, y)))
+        if isinstance(x, (tuple, list)) or isinstance(y, (tuple, list)):
+            return (type(x) is type(y) and len(x) == len(y)
+                    and all(eq(u, v) for u, v in zip(x, y)))
+        return x == y
+
+    return (len(a[0]) == len(b[0]) and a[1].keys() == b[1].keys()
+            and eq(tuple(a[0]), tuple(b[0]))
+            and eq(tuple(a[1].values()), tuple(b[1][k] for k in a[1])))
+
+
+def distinct_calls(calls) -> list:
+    """The recorded calls whose arguments differ from every earlier one."""
+    out = []
+    for c in calls:
+        if not any(same_call(c, d) for d in out):
+            out.append(c)
+    return out
+
+
+def _raster_only(args, kwargs):
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    return RC.raster_blocks(*args, **kwargs)
+
+
 def check_config_calls(label, kernels):
     """Every call of the config's last frame, at the config's own shapes
     and settings (K1 with and without its floor, K4 at guard 0 in config 2,
     K7 in SVAO.py, K5 in configs 3 and 4),
     against its plain version on the card: bit-exact (--fmad=false, the
     plain versions' operation order; K8 and K5 on a spread subset of whole
-    tiles, as in compare_any_hit). Returns {kernel: calls held}."""
+    tiles, as in compare_any_hit). A K1 call with the arguments of an
+    earlier one (config 5's G-buffer and ForwardLighting raster the same
+    scene from the same camera) is held against that call's plain output,
+    which the plain version would give again. Returns {kernel: calls
+    held}."""
     import torch
     by_name = kernels_by_name(kernels)
-    held = {}
+    held, seconds = {}, {}
     for name, pair in CONFIG_PAIRS.items():
         calls = by_name[name].calls
+        done = []        # (call, plain outputs) of the K1 calls held so far
+        t0 = time.perf_counter()
+        if name == "any_hit" and label in K8_HOLD_TILES:
+            pair = functools.partial(pair, tiles=K8_HOLD_TILES[label])
         for args, kwargs in calls:
-            got, want = pair(args, kwargs)
+            prior = next((w for c, w in done
+                          if same_call(c, (args, kwargs))), None) \
+                if name == "raster" else None
+            if prior is None:
+                got, want = pair(args, kwargs)
+                done.append(((args, kwargs), want))
+            else:
+                got, want = _raster_only(args, kwargs), prior
             for g, w in zip(got, want):
                 check(g.shape == w.shape, f"{label}: {name} output shape "
                                           f"{tuple(g.shape)} vs plain "
@@ -1977,6 +2085,9 @@ def check_config_calls(label, kernels):
                                          f"{tuple(g.shape)} is not "
                                          f"bit-exact ({mism} mismatches)")
         held[name] = len(calls)
+        seconds[name] = time.perf_counter() - t0
+    log(f"{label}: seconds holding each kernel's calls: " + ", ".join(
+        f"{n} {v:.1f}" for n, v in seconds.items()))
     log(f"{label}: the last frame's calls held bit-exact against their plain "
         f"versions: {held}")
     return held
@@ -3152,21 +3263,45 @@ def parent_ab(parent: Path) -> dict:
 MID_RASTER_CAPS = {p: {"maxPerTile": 4096}
                    for p in ("GBufferRaster", "DepthPeeling",
                              "ForwardLighting")}
+# the raster channels each graph's AO outputs read (make_refs.py stores
+# the JAX package's beside the reference): the G-buffer's depth and face
+# normals, its motion vectors where a temporal pass of the AO reads them,
+# DepthPeeling's floored raster where the graph keeps that pass
+MID_GBUFFER_AO = ["GBufferRaster.depth", "GBufferRaster.faceNormalW"]
+MID_GBUFFER_TAA = MID_GBUFFER_AO + ["GBufferRaster.mvec"]
+MID_PEELED = ["DepthPeeling.depth2"]
+# Graphs with a ray-traced SD map are rendered by the JAX package through
+# its SD trace's Pallas kernels (its CPU tier keys and orders the samples
+# otherwise) with XLA's fused multiply-adds off (they flip the samples'
+# hash keys): hazard q
 MID_REF = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
                width=480, height=270, frames=1, frame=0,
                outputs=["AmbientOcclusion.out", "Shaded.out",
                         "AmbientOcclusionTAA.colorOut",
                         "ShadedTAA.colorOut"],
                pass_overrides=MID_RASTER_CAPS,
-               shadows="RayShadow through any_hit_pallas (interpret mode)")
-MID_HBAO_REF = dict(MID_REF, script="scripts/HBAO.py",
+               shadows="RayShadow through any_hit_pallas (interpret mode)",
+               ray_sd="StochasticDepthMapRT through sd_trace_pallas or "
+                      "sd_trace_pallas_stream (interpret mode)",
+               xla_flags="--xla_cpu_max_isa=AVX", substituted=MID_GBUFFER_TAA)
+MID_HBAO_REF = dict({k: v for k, v in MID_REF.items()
+                     if k not in ("ray_sd", "xla_flags")},
+                    script="scripts/HBAO.py",
                     outputs=["Ambient.out", "Diffuse.out"],
                     pass_overrides={**MID_RASTER_CAPS,
-                                    "HBAO": {"samplingMode": "Shift"}})
+                                    "HBAO": {"samplingMode": "Shift"}},
+                    substituted=MID_GBUFFER_AO + MID_PEELED)
+# config 2's AO also reads the raster SD map, a raster of its own; its
+# reference's SVAO fetches through the fused Pallas fetches, whose phase 2
+# reads the SD map packed to 16 bits as K4 does (hazard r)
 MID_RASTER_SD_REF = dict(
-    MID_REF, pass_overrides={**MID_RASTER_CAPS, **RASTER_SD},
+    {k: v for k, v in MID_REF.items() if k not in ("ray_sd", "xla_flags")},
+    pass_overrides={**MID_RASTER_CAPS, **RASTER_SD},
     raster_sd="StochasticDepthMap through raster_stochastic_pallas "
-              "(interpret mode)")
+              "(interpret mode)",
+    fused_fetch="SVAO through fetch_all_directions and fetch_sd_packed "
+                "(interpret mode)",
+    substituted=MID_GBUFFER_TAA + ["StochasticDepthMap.stochasticDepth"])
 # MSE bound of each output against the JAX package's render: the MSE
 # measured on the card through the parent commit's kernels (PERF.md section
 # 6), doubled and rounded up to one digit. SVAO_small.py's (AO 3.69e-6, its
@@ -3179,6 +3314,10 @@ MID_RASTER_SD_REF = dict(
 # SVAO.py's (AmbientRef 3.69e-6, DiffuseRef 2.545e-6, AmbientTAA
 # 4.703e-6, DiffuseTAA 6.281e-7): SVAO_small.py's through K7 to the last
 # digit (frame 0, TemporalAO disabled: the same AO, shading and TAA).
+# The references of SVAO_small.py, config 2 and SVAO.py now take
+# the accelerator's branches of hazards q and r, and the card equals the
+# CPU port to the last digit: AO 2.276e-6 (config 2 2.785e-6), HBAO.py's
+# Ambient 1.65e-6, each under its bound.
 MID_MSE_BOUND = {"AmbientOcclusion.out": 8e-6,
                  "AmbientOcclusionTAA.colorOut": 1e-5,
                  "Shaded.out": 6e-6, "ShadedTAA.colorOut": 2e-6}
@@ -3209,7 +3348,7 @@ MID_QUARTER_REF = dict(
     outputs=["AmbientOcclusion.out", "ShadedTAA.colorOut"],
     pass_overrides={p: MID_RASTER_CAPS[p]
                     for p in ("GBufferRaster", "ForwardLighting")},
-    substituted=["GBufferRaster.depth", "GBufferRaster.faceNormalW"])
+    substituted=MID_GBUFFER_AO)
 MID_DUAL_REF = dict(
     MID_SVAO_FULL_REF, outputs=["AmbientRef.out"],
     pass_overrides={**MID_SVAO_FULL_REF["pass_overrides"],
@@ -3217,7 +3356,8 @@ MID_DUAL_REF = dict(
     left_out={**{o: "kept small: SVAO_full holds it"
                  for o in ("DiffuseRef.out", "AmbientTAA.colorOut",
                            "DiffuseTAA.colorOut")},
-              **MID_SVAO_FULL_REF["left_out"]})
+              **MID_SVAO_FULL_REF["left_out"]},
+    substituted=MID_GBUFFER_TAA + MID_PEELED)
 # Bounds fixed before the first chip run of these graphs: twice the MSE of
 # the port's own CPU render against the reference, rounded up to one digit
 # (SVAO_quarter.py: AO 3.245e-4, ShadedTAA 5.383e-6; SVAO.py under
@@ -3235,11 +3375,34 @@ MID_DEPTH_REF = dict(
     height=270, frames=2, frame=1, outputs=["Ambient.out", "AmbientRef.out"],
     pass_overrides={p: MID_RASTER_CAPS[p]
                     for p in ("GBufferRaster", "DepthPeeling")},
-    substituted=["GBufferRaster.depth", "GBufferRaster.faceNormalW",
-                 "GBufferRaster.mvec"])
+    substituted=MID_GBUFFER_TAA)
 # Bounds fixed before its first chip run: twice the CPU port's MSE,
 # rounded up (Ambient 1.836e-5, AmbientRef 1.887e-5)
 MID_DEPTH_BOUND = {"Ambient.out": 4e-5, "AmbientRef.out": 4e-5}
+# BASELINE config 5's animation (bench_configs.py:51-66): the camera
+# orbits (0, 2, 0) at radius 45 and height 14 in 8 s; the tallest 2% of
+# the triangles by centroid height (node 1) oscillate 0.5 along y in 4 s;
+# the clock plays. Phase 24b holds scripts/SVAO_small.py on the small
+# EmeraldSquare tier (7,322 triangles: K7) so animated, frames 0-2, frame
+# 2 kept (every frame's G-buffer channels stored for its substituted hold)
+CONFIG5_ANIMATION = dict(
+    camera_orbit=dict(center=[0.0, 2.0, 0.0], radius=45.0, height=14.0,
+                      duration=8.0),
+    node=1, tallest_share=50,
+    node_track=dict(axis=[0.0, 1.0, 0.0], amplitude=0.5, period=4.0),
+    clock="playing")
+MID_ANIM_REF = dict(
+    MID_REF, scene="EmeraldSquare", frames=3, frame=2,
+    outputs=["AmbientOcclusion.out", "AmbientOcclusionTAA.colorOut",
+             "ShadedTAA.colorOut"],
+    animation=CONFIG5_ANIMATION, substituted=MID_GBUFFER_TAA)
+# Bounds: twice the card's MSE, rounded up to one digit (AO 2.074e-4, its
+# TAA 8.923e-5, ShadedTAA 5.089e-6; the CPU port's to the last digit):
+# raster edges of a far camera over small geometry, which its substituted
+# hold removes
+MID_ANIM_BOUND = {"AmbientOcclusion.out": 5e-4,
+                  "AmbientOcclusionTAA.colorOut": 2e-4,
+                  "ShadedTAA.colorOut": 2e-5}
 # file name prefix -> (settings, MSE bounds)
 MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
             "HBAO": (MID_HBAO_REF, MID_HBAO_BOUND),
@@ -3247,24 +3410,39 @@ MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
             "SVAO_full": (MID_SVAO_FULL_REF, MID_SVAO_FULL_BOUND),
             "SVAO_quarter": (MID_QUARTER_REF, MID_QUARTER_BOUND),
             "SVAO_dual": (MID_DUAL_REF, MID_DUAL_BOUND),
-            "SVAO_depth": (MID_DEPTH_REF, MID_DEPTH_BOUND)}
-# The substituted holds: the port renders with the JAX package's G-buffer
-# channels (`substituted`, stored beside the reference in
-# <ref>.rasters.npz by make_refs.py) in place of its own raster's, so that
-# what is left comes from the passes after the rasters. Bounds: twice the
-# MSE of the port's CPU render so substituted, rounded up to one digit
-# (tests/torch_refs/port_mse.py; SVAO_depth.py's Ambient 1.419e-13 and
-# AmbientRef 1.930e-13 against 1.8e-5 with the port's own rasters;
-# SVAO_quarter.py's AO 6.580e-11 against 3.245e-4). The card is closer:
-# 8.2e-16, 5.1e-14 and 1.5e-12, once the shift phases divide by Python
-# numbers as IEEE divisions (hazard c; before, 1.0e-12, 1.1e-12 and
-# 5.7e-10). The quarter graph's gap with the port's own rasters is the
-# rasters' last bits, which AOGuidedBlur's depth weights and bright/dark
-# fusion amplify: no pass departs on equal inputs
-# (tests/torch_refs/compare_passes.py --config SVAO_quarter).
+            "SVAO_depth": (MID_DEPTH_REF, MID_DEPTH_BOUND),
+            "SVAO_anim": (MID_ANIM_REF, MID_ANIM_BOUND)}
+# The substituted holds: the port renders with the JAX package's raster
+# channels (`substituted`, stored beside the reference in <ref>.rasters.npz
+# by make_refs.py) in place of its own rasters', so that what is left
+# comes from the passes after the rasters. Bounds: twice the MSE measured
+# on the card, rounded up to one digit. SVAO_depth.py's (Ambient 8.2e-16,
+# AmbientRef 5.1e-14) and SVAO_quarter.py's (1.5e-12) kept from before;
+# the others (AO 2.7e-15 to 3.8e-15, the AO TAA outputs 4.0e-10
+# to 7.5e-10, where the TAA's history clamp turns last bits into more),
+# once the references take the accelerator's branches of hazards q and r
+# and the card evaluates its camera, the dither rotation and the shift
+# radii on the host (before: 1.4e-6 and 1.3e-7). The shaded outputs are
+# not held so: ForwardLighting rasters the scene again on its own
+# (rtsdm_tpu_torch/passes/lighting.py), a raster no substitute reaches, so
+# they keep the bounds above. SVAO_small.py is held through both SD tiers,
+# as phase 17 renders it (MID_SUBSTITUTED_TIERS).
 MID_SUBSTITUTED_BOUND = {"SVAO_quarter": {"AmbientOcclusion.out": 2e-10},
                          "SVAO_depth": {"Ambient.out": 3e-13,
-                                        "AmbientRef.out": 4e-13}}
+                                        "AmbientRef.out": 4e-13},
+                         "SVAO_small": {"AmbientOcclusion.out": 8e-15,
+                                        "AmbientOcclusionTAA.colorOut": 2e-9},
+                         "SVAO_rasterSD": {
+                             "AmbientOcclusion.out": 8e-15,
+                             "AmbientOcclusionTAA.colorOut": 2e-9},
+                         "HBAO": {"Ambient.out": 6e-15},
+                         "SVAO_full": {"AmbientRef.out": 8e-15,
+                                       "AmbientTAA.colorOut": 2e-9},
+                         "SVAO_dual": {"AmbientRef.out": 8e-15},
+                         "SVAO_anim": {"AmbientOcclusion.out": 6e-15,
+                                       "AmbientOcclusionTAA.colorOut": 8e-10}}
+# the SD tiers (pallasStream) a substituted hold renders through
+MID_SUBSTITUTED_TIERS = {"SVAO_small": {"K7": "auto", "K5": True}}
 MID_ENTRIES = ("rtsdm_sd_trace", "rtsdm_sd_trace_resident",
                "rtsdm_fetch_taps_same_class", "rtsdm_raster_stochastic")
 
@@ -3289,14 +3467,18 @@ def mid_ref(name: str):
 
 
 def mid_rasters(name: str) -> dict:
-    """The JAX package's G-buffer channels stored beside reference `name`
-    ({"GBufferRaster.<channel>": array}), checked to be the ones its
+    """The JAX package's raster channels stored beside reference `name`
+    ({"<Pass>.<channel>": array}, or {"f<frame>/<Pass>.<channel>": array}
+    where it renders more than one frame), checked to be the ones its
     settings list."""
     import numpy as np
     path = mid_ref_file(name).with_suffix(".rasters.npz")
     with np.load(path) as f:
         arrays = {k: f[k] for k in f.files}
-    want = MID_REFS[name][0]["substituted"]
+    settings = MID_REFS[name][0]
+    want = settings["substituted"]
+    if settings["frames"] > 1:
+        want = [f"f{f}/{c}" for f in range(settings["frames"]) for c in want]
     check(sorted(arrays) == sorted(want),
           f"{path.name} holds {sorted(arrays)}, not {want}")
     return arrays
@@ -3304,31 +3486,82 @@ def mid_rasters(name: str) -> dict:
 
 @contextlib.contextmanager
 def substituted_rasters(arrays: dict | None):
-    """While it holds, the port's GBufferRaster returns `arrays`
-    ({"GBufferRaster.<channel>": array}) in place of those channels of its
-    own output (None: no change)."""
+    """While it holds, the port's GBufferRaster, DepthPeeling and
+    StochasticDepthMap (the raster SD map) return `arrays` in place of
+    those channels of their own outputs: keys
+    "<Pass>.<channel>" for every frame, "f<frame>/<Pass>.<channel>" for
+    the frame of that ctx.frame_index (None: no change)."""
     import torch
-    from rtsdm_tpu_torch.passes import gbuffer
+    from rtsdm_tpu_torch.passes import depth_chain, gbuffer, stochastic_depth
     if not arrays:
         yield
         return
-    real = gbuffer.GBufferRaster.execute
+    classes = {"GBufferRaster": gbuffer.GBufferRaster,
+               "DepthPeeling": depth_chain.DepthPeeling,
+               "StochasticDepthMap": stochastic_depth.StochasticDepthMap}
+    subs = collections.defaultdict(dict)     # pass -> {(frame, ch): array}
+    for key, a in arrays.items():
+        head, _, name = key.rpartition("/")
+        pass_name, ch = name.split(".", 1)
+        subs[pass_name][(int(head[1:]) if head else None, ch)] = a
+    saved = []
 
-    def execute(self, ctx, inputs, state=None):
-        out, st = real(self, ctx, inputs, state)
-        out = dict(out)
-        for key, a in arrays.items():
-            ch = key.split(".", 1)[1]
-            check(tuple(out[ch].shape) == a.shape,
-                  f"substituted {key}: {a.shape} for {tuple(out[ch].shape)}")
-            out[ch] = torch.as_tensor(a).to(out[ch].device, out[ch].dtype)
-        return out, st
+    def wrap(cls, mine):
+        real = cls.execute
 
-    gbuffer.GBufferRaster.execute = execute
+        def execute(self, ctx, inputs, state=None):
+            out, st = real(self, ctx, inputs, state)
+            out = dict(out)
+            now = {ch: a for (f, ch), a in mine.items()
+                   if f is None or f == ctx.frame_index}
+            check(now, f"substituted {cls.__name__}: no channel for frame "
+                       f"{ctx.frame_index}")
+            for ch, a in now.items():
+                check(tuple(out[ch].shape) == a.shape,
+                      f"substituted {cls.__name__}.{ch}: {a.shape} for "
+                      f"{tuple(out[ch].shape)}")
+                out[ch] = torch.as_tensor(a).to(out[ch].device,
+                                                out[ch].dtype)
+            return out, st
+
+        saved.append((cls, real))
+        cls.execute = execute
+
+    for pass_name, mine in subs.items():
+        wrap(classes[pass_name], mine)
     try:
         yield
     finally:
-        gbuffer.GBufferRaster.execute = real
+        for cls, real in saved:
+            cls.execute = real
+
+
+def config5_animation(m, animation: dict = CONFIG5_ANIMATION):
+    """Config 5's camera path and node track on renderer `m` after its
+    scene loaded (bench_configs.py:51-66): the tallest 1/tallest_share of
+    the triangles by centroid height become node 1 (the JAX package's
+    numpy selection on the same float32 positions), the clock plays."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from rtsdm_tpu_torch.scene.animation import (AnimationController,
+                                                 CameraPath, NodeTrack)
+    m.cameraPath = CameraPath.orbit(**animation["camera_orbit"])
+    cent = m.scene.positions.cpu().numpy().mean(1)
+    sel = np.argsort(cent[:, 1])[-len(cent) // animation["tallest_share"]:]
+    node = np.zeros(len(cent), np.int32)
+    node[sel] = 1
+    m.scene = dataclasses.replace(
+        m.scene, node_id=torch.as_tensor(node, device=m.device))
+    for g in m.graphs:
+        g.set_scene(m.scene)
+    track = animation["node_track"]
+    m.animationController = AnimationController(
+        {animation["node"]: NodeTrack.oscillate(
+            tuple(track["axis"]), amplitude=track["amplitude"],
+            period=track["period"])})
+    m.clock.play()
 
 
 def mid_frame(settings: dict, sd_stream=None, substitute: dict | None = None,
@@ -3353,6 +3586,8 @@ def mid_frame(settings: dict, sd_stream=None, substitute: dict | None = None,
             _b()[0], {**_b()[1], "pallasStream": _s})
     m.loadScene(settings["scene"])
     m.clock.pause()
+    if "animation" in settings:
+        config5_animation(m, settings["animation"])
     cuda = m.device.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
@@ -3510,10 +3745,10 @@ def mid_svao_depth_against_jax(bound=MID_DEPTH_BOUND,
     frame 0's layer in frame 1) through the port on the card, each output
     held against the JAX package's render by MSE under its bound; per
     frame DepthPeeling's floored K1 once, no SD trace, K6 or K9. Then the
-    substituted holds: SVAO_depth.py and SVAO_quarter.py rendered with the
-    JAX package's G-buffer channels (mid_rasters) in place of the port's,
-    their AO outputs held under MID_SUBSTITUTED_BOUND. This checkout
-    only."""
+    substituted holds of every reference but SVAO_anim's (phase 24b):
+    rendered with the JAX package's raster channels (mid_rasters) in place
+    of the port's, their AO outputs held under MID_SUBSTITUTED_BOUND. This
+    checkout only."""
     from rtsdm_tpu_torch.ops import raster_cuda
     res = {}
     settings = MID_REFS["SVAO_depth"][0]
@@ -3526,11 +3761,325 @@ def mid_svao_depth_against_jax(bound=MID_DEPTH_BOUND,
           f"mid size SVAO_depth: launches {dict(launches)}, expected no SD "
           f"trace, K6 or K9 and {n} floored K1")
     res.update(mid_rows("SVAO_depth", kept, ref, bound))
-    for name, sub_bound in substituted.items():
-        kept, _ = mid_frame(MID_REFS[name][0], substitute=mid_rasters(name))
-        kept = {k: v for k, v in kept.items() if k in sub_bound}
-        res.update(mid_rows(f"{name}:substituted", kept, mid_ref(name),
-                            sub_bound))
+    res.update(substituted_holds(
+        {k: v for k, v in substituted.items() if k != "SVAO_anim"}))
+    return res
+
+
+def substituted_holds(bounds: dict) -> dict:
+    """Each reference of `bounds` ({name: {output: MSE bound or None}})
+    rendered through the port on the card with the JAX package's raster
+    channels (mid_rasters) in place of the port's, through each SD tier of
+    MID_SUBSTITUTED_TIERS; its outputs in `bounds` held by MSE (None:
+    measured only)."""
+    res = {}
+    for name, sub_bound in bounds.items():
+        tiers = MID_SUBSTITUTED_TIERS.get(name, {"": None})
+        for tier, stream in tiers.items():
+            kept, _ = mid_frame(MID_REFS[name][0], stream,
+                                substitute=mid_rasters(name))
+            kept = {k: v for k, v in kept.items() if k in sub_bound}
+            label = f"{name}:substituted" + (f":{tier}" if tier else "")
+            res.update(mid_rows(label, kept, mid_ref(name), sub_bound))
+    return res
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 5: scene animation, motion vectors from previous
+# positions, and the sample patterns (phases 24-24c)
+# ---------------------------------------------------------------------------
+
+def k2_animated_row(k) -> dict:
+    """K2 at config 5's first call of the last frame, (nci, nflat) =
+    K2_ANIMATED, which takes the kernel's run-time path (only K2_STATIC is
+    a template): held, timed and bounded as compare_fetch_attributes does,
+    then timed beside the K2_STATIC template on the same pixels (the same
+    table without its previous positions), in turns, with the time per
+    output float of each."""
+    import torch
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    row = compare_fetch_attributes(k)
+    (tri_id, bary, table, nci, nflat), kwargs = k.calls[0]
+    check((nci, nflat) == K2_ANIMATED, f"K2 at {(nci, nflat)}")
+    static = torch.cat([table[:, :3 * K2_STATIC[0]],
+                        table[:, 3 * nci:]], 1).contiguous()
+    runs = {K2_ANIMATED: [], K2_STATIC: []}
+    args = {K2_ANIMATED: (tri_id, bary, table, nci, nflat),
+            K2_STATIC: (tri_id, bary, static) + K2_STATIC}
+    for order in ((K2_ANIMATED, K2_STATIC), (K2_STATIC, K2_ANIMATED)):
+        for key in order:
+            runs[key].append(cuda_ms(lambda: RC.fetch_attributes(*args[key]),
+                                     50, 3))
+    per_float = {key: min(v) / (tri_id.numel() * sum(key))
+                 for key, v in runs.items()}
+    ratio = per_float[K2_ANIMATED] / per_float[K2_STATIC]
+    log(f"K2 at {K2_ANIMATED} {tuple(tri_id.shape)} (run-time path) "
+        f"{runs[K2_ANIMATED]} ms, at {K2_STATIC} (template) "
+        f"{runs[K2_STATIC]} ms by CUDA events in turns; per output float "
+        f"{ratio:.3f}x the template's")
+    return dict(row, ms_static_template=runs[K2_STATIC],
+                ms_animated_turns=runs[K2_ANIMATED],
+                per_float_vs_static=ratio, nci=nci, nflat=nflat)
+
+
+def fetch_rows(by_name) -> dict:
+    """K3 and K4 at the path's first recorded call (held bit-exact by
+    check_config_calls): CUDA-event times of the kernel and of its plain
+    version, bounds as compare_fetch_directions and compare_fetch_sd_packed
+    count them."""
+    import torch
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    (sets, pad, radius, levels, offs, radii), kw = \
+        by_name["fetch_all_directions"].calls[0]
+    planes = torch.stack(list(sets)).contiguous()
+    k3_args = (sets, pad, radius, levels, offs, radii)
+    out = torch.stack(F.fetch_all_directions(*k3_args, **kw))
+    rows = {"fetch_all_directions": with_bound(
+        dict(ms=cuda_ms(lambda: F.fetch_all_directions(*k3_args, **kw), 50,
+                        3),
+             plain_ms=cuda_ms(lambda: F.fetch_all_directions_plain(
+                 planes, pad, radius.contiguous(), levels, offs, radii), 3,
+                 1), timed_at=f"{tuple(out.shape)}"),
+        nbytes(planes, radius, out), float(out.numel()))}
+    k4_args, kw = by_name["fetch_sd_packed"].calls[0]
+    sd_map, guard, radius, levels, offs, radii, _ = k4_args
+    got = F.fetch_sd_packed(*k4_args, **kw)
+    sd_pl = F.pack_sd16(sd_map)
+    rows["fetch_sd_packed"] = with_bound(
+        dict(ms=cuda_ms(lambda: F.fetch_sd_packed(*k4_args, **kw), 50, 3),
+             plain_ms=cuda_ms(lambda: F.fetch_sd_packed_plain(
+                 sd_pl, guard, radius.contiguous(), levels, offs, radii), 3,
+                 1), timed_at=f"{tuple(got.shape)}"),
+        nbytes(sd_map, radius, got), float(got.numel()))
+    for n, r in rows.items():
+        log(f"config5 {n} {r['timed_at']}: {r['ms']:.4f} ms by CUDA events "
+            f"(plain {r['plain_ms']:.3f} ms), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']})")
+    return rows
+
+
+def node_motion(m) -> dict:
+    """The G-buffer of the last frame's animated geometry seen from a
+    camera that did not move (its prev matrices its own): the motion
+    vectors are the node's own motion. Their median magnitude on the
+    moving node's pixels against the rest's."""
+    import dataclasses
+
+    import torch
+    from rtsdm_tpu_torch.passes.gbuffer import raster_gbuffer
+    t = (CONFIG_FRAMES - 1) / m.clock.framerate
+    base = m._scene_comp.camera
+    scene = m.animationController.animate(m._scene_comp, t)
+    cam = m.cameraPath.camera_at(t, base, dt=1.0 / m.clock.framerate,
+                                 aspect=float(base.aspect),
+                                 focal=float(base.focal_length))
+    still = dataclasses.replace(
+        cam, prev_view_mat=cam.view_mat, prev_pos_w=cam.pos_w,
+        prev_view_proj_no_jitter=cam.view_proj_no_jitter)
+    rw, rh, _ = m._render_res()
+    g = raster_gbuffer(scene.with_camera(still), rw, rh)
+    tid = g["tri_id"]
+    hit = tid >= 0
+    on_node = hit & (scene.node_id[tid.clamp(min=0).long()] == 1)
+    mag = g["mvec"].norm(dim=-1)
+    res = dict(node_pixels=int(on_node.sum()),
+               static_pixels=int((hit & ~on_node).sum()))
+    check(res["node_pixels"] > 0, "config5: the moving node shows no pixel")
+    res.update(node_median=float(mag[on_node].median()),
+               static_median=float(mag[hit & ~on_node].median()))
+    log(f"config5 node motion (a still camera at t = {t:.4f} s): |mvec| "
+        f"median {res['node_median']:.4g} on {res['node_pixels']} pixels "
+        f"of the moving node, {res['static_median']:.4g} on "
+        f"{res['static_pixels']} static pixels")
+    check(res["node_median"] > 10.0 * res["static_median"],
+          "config5: the moving node's motion vectors do not stand out")
+    torch.cuda.synchronize()
+    return res
+
+
+def animation_step(m) -> dict:
+    """The animation step of one frame on its own (AnimationController.
+    animate of the bind pose and CameraPath.camera_at): host clock ending
+    in a synchronize, CUDA events, host enqueue, device time by
+    torch.profiler."""
+    t = m.clock.time
+    base = m._scene_comp.camera
+
+    def step():
+        return (m.animationController.animate(m._scene_comp, t),
+                m.cameraPath.camera_at(t, base, dt=1.0 / m.clock.framerate,
+                                       aspect=float(base.aspect),
+                                       focal=float(base.focal_length)))
+
+    acts = profiled(step)
+    res = dict(host_ms=synced_ms(step, 10), event_ms=cuda_ms(step, 10),
+               host_enqueue_us=host_us(step, 10),
+               device_ms=sum(ms for ms, _ in acts.values()),
+               device_activities=sum(n for _, n in acts.values()))
+    log(f"config5 animation step: host clock {res['host_ms']:.3f} ms "
+        f"(synchronized), CUDA events {res['event_ms']:.3f} ms, device "
+        f"{res['device_ms']:.3f} ms in {res['device_activities']} "
+        f"activities")
+    return res
+
+
+def run_config5(ident: str) -> dict:
+    """Phase 24: BASELINE config 5, scripts/SVAO_small.py on
+    EmeraldSquare@full (1,036,922 triangles) at 1280x720 (1408x848 with
+    the 64-pixel guard band), the camera orbiting and node 1 oscillating
+    as bench_configs.py:51-66 sets them, the clock playing. Per frame the
+    launches of config_want (K5 streams; K2 at K2_ANIMATED), K10 at least
+    WARP_AT_LEAST; the outputs finite and AO in [0, 1]; the motion
+    vectors' mean magnitude far above frame 0's (the camera moved), and
+    the node's own motion (node_motion). The last frame's calls held
+    bit-exact against their plain versions (K5 and K8 on spread tile
+    subsets); each kernel timed with its bound; the frame timed as in 10;
+    the animation step; peak device memory."""
+    import torch
+    label = "config5"
+    kernels = kernels_of_configs()
+    by_name = kernels_by_name(kernels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    motion = []
+    seconds = {}
+    t0 = [time.perf_counter()]
+
+    def took(what):
+        now = time.perf_counter()
+        seconds[what] = now - t0[0]
+        t0[0] = now
+
+    def per_frame(f, out):
+        motion.append(float(out["GBufferRaster.mvec"].norm(dim=-1).mean()))
+
+    m, totals, modes = drive_config(label, kernels, per_frame)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"config5 ({ident}): peak device memory over the frames "
+        f"{peak:.3f} GiB")
+    log(f"config5 mean |mvec| per frame: {motion}")
+    check(all(v > 100.0 * motion[0] for v in motion[1:]),
+          "config5: the motion vectors do not show the camera's motion")
+    took("frames")
+    held = check_config_calls(label, kernels)
+    took("held")
+    node = node_motion(m)
+    took("node_motion")
+    rows = {"fetch_attributes": k2_animated_row(by_name["fetch_attributes"]),
+            **fetch_rows(by_name)}
+    took("k2_k3_k4")
+    rows["sd_trace"] = sd_trace_timing(label, by_name["sd_trace"])
+    took("k5")
+    rows["any_hit"] = k8_bound_at(label, by_name["any_hit"])
+    took("k8")
+    rows.update({r["name"]: r for r in compare_warp(
+        by_name["warp_resample"], modes)})
+    took("k10")
+    # the G-buffer's and ForwardLighting's K1 calls raster the same scene
+    # from the same camera: one is timed
+    raster_calls = time_raster_calls(label,
+                                     distinct_calls(by_name["raster"].calls))
+    took("k1")
+    times, _ = graph_timing(m)
+    took("frame_timing")
+    step = animation_step(m)
+    took("animation_step")
+    script, scene, width, height, overrides, _ = CONFIGS[label]
+    report = dict(times, script=str(script.relative_to(ROOT)), scene=scene,
+                  width=width, height=height,
+                  triangles=int(m.scene.num_triangles),
+                  animation=CONFIG5_ANIMATION, launches=totals,
+                  warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
+                  bit_exact_calls=held, mvec_mean_abs=motion,
+                  node_motion=node, kernel_rows=rows,
+                  raster_calls=raster_calls, animation_step=step,
+                  peak_device_gib=peak, gpu=ident, seconds=seconds)
+    del m
+    from rtsdm_tpu_torch.tools import quality_ssim as Q
+    report["taa_stability"] = Q.run_config5_taa_stability("cuda")
+    took("taa_stability")
+    log("config5 seconds: " + ", ".join(f"{k} {v:.1f}"
+                                        for k, v in seconds.items()))
+    log(f"quality, config 5 ({ident}): mean SSIM of consecutive ShadedTAA "
+        f"frames 4-7 {report['taa_stability']['mean_frame_ssim']:.6f} "
+        f"{report['taa_stability']['consecutive_frame_ssim']} (the JAX "
+        f"tool's target {Q.TAA_STABILITY_TARGET})")
+    return report
+
+
+def mid_anim_against_jax(bound=MID_ANIM_BOUND,
+                         sub_bound=MID_SUBSTITUTED_BOUND["SVAO_anim"]):
+    """Phase 24b: SVAO_anim (config 5's animation on EmeraldSquare's
+    7,322 triangles, 480x270, frames 0-2, frame 2 kept) through the port
+    on the card, held against the JAX package's render by MSE, then with
+    the JAX package's per-frame G-buffer channels substituted (its AO
+    outputs). Per frame K7 once, K5, K6 and K9 never, K2 twice."""
+    settings = MID_REFS["SVAO_anim"][0]
+    kept, launches = mid_frame(settings)
+    n = settings["frames"]
+    got = {e: launches[e] for e in MID_ENTRIES + ("rtsdm_fetch_attributes",)}
+    want = dict({e: 0 for e in MID_ENTRIES}, rtsdm_sd_trace_resident=n,
+                rtsdm_fetch_attributes=2 * n)
+    check(got == want, f"mid size SVAO_anim: launches {got}, expected "
+                       f"{want}")
+    res = mid_rows("SVAO_anim", kept, mid_ref("SVAO_anim"), bound)
+    res.update(substituted_holds({"SVAO_anim": sub_bound}))
+    return res
+
+
+MULTISAMPLING = ("test_MultiSampling", ROOT / "samples" / "MultiSampling.py")
+
+
+def multisampling_golden() -> dict:
+    """Phase 24c: the golden test_MultiSampling (samples/MultiSampling.py:
+    GBufferRaster with the Halton pattern of 8, AccumulatePass; CornellBox
+    96x96, frame 2) on the card against the committed golden, by the
+    golden runner's MSE bound (2e-4); every K1 call of its frames, whose
+    G-buffer cameras carry the pattern's jitter, held bit-exact against
+    its plain version."""
+    import numpy as np
+    import torch
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    from rtsdm_tpu_torch.utils.sampling import sample_pattern_offsets
+    test, script = MULTISAMPLING
+    ns = {}
+    exec((ROOT / "tests" / "image_tests" / "renderpasses"
+          / f"{test}.py").read_text(), ns)
+    cfg = ns["IMAGE_TEST"]
+    m = Renderer(cfg["width"], cfg["height"], device="cuda")
+    run_script(str(script), m)
+    gb = m.active_graph.get_pass("GBufferRaster").cfg
+    m.loadScene(cfg["scene"])
+    m.clock.pause()
+    kernels = kernels_of_graph()
+    k1 = kernels_by_name(kernels)["raster"]
+    frames = max(cfg["frames"]) + 1
+    with record_main_path(kernels) as plain_calls:
+        for f in range(frames):
+            m.clock.frame = f
+            out = m.renderFrame()
+    check(not plain_calls, f"plain versions ran: {plain_calls}")
+    offs = sample_pattern_offsets(gb["samplePattern"], gb["sampleCount"])
+    log(f"{test}: {gb['samplePattern']} pattern of {gb['sampleCount']}, "
+        f"frames 0-{frames - 1} jittered by "
+        f"{[tuple(float(x) for x in offs[f % len(offs)]) for f in range(frames)]}"
+        " pixels; K1 calls " + str(len(k1.calls)))
+    check(len(k1.calls) == 2 * frames, f"{test}: {len(k1.calls)} K1 calls")
+    for args, kwargs in k1.calls:
+        got, want = _pair_raster(args, kwargs)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"{test}: K1 is not bit-exact")
+    res = {"k1_calls_held": len(k1.calls)}
+    for name in ns.get("OUTPUTS", sorted(out)):
+        ref = np.load(ROOT / "tests" / "image_refs"
+                      / f"{test}.{name}.{frames - 1}.npy")
+        img = out[name].float().cpu().numpy()
+        check(img.shape == ref.shape, f"{test} {name}: shape")
+        mse = float(((img - ref.astype(np.float32)) ** 2).mean())
+        res[f"{test}.{name}"] = mse
+        log(f"{test} {name} on the card vs the committed golden: MSE "
+            f"{mse:.4g} (bound 2e-4)")
+        check(mse <= 2e-4, f"{test} {name}: MSE {mse} above 2e-4")
     return res
 
 
@@ -3681,13 +4230,13 @@ def main(argv=None) -> int:
     configs.update(run_new_configs())
     svao_modes = svao_modes_frames()
     # scripts/SVAO_depth.py (21), SVAO's reference modes and RTAO (22)
-    new_phase_s = {}
+    phase_s = {}
     t0 = time.perf_counter()
     configs["svao_depth"] = run_svao_depth()
-    new_phase_s["21"] = time.perf_counter() - t0
+    phase_s["21"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reference_modes = svao_reference_modes()
-    new_phase_s["22"] = time.perf_counter() - t0
+    phase_s["22"] = time.perf_counter() - t0
     ab = parent_ab(args.parent.resolve()) if args.parent else None
     if ab is not None:
         log("phases 17d and 18-20 run on this checkout only: the parent "
@@ -3697,10 +4246,24 @@ def main(argv=None) -> int:
                     **mid_new_graphs_against_jax())
     t0 = time.perf_counter()
     mid_size.update(mid_svao_depth_against_jax())
-    new_phase_s["17e"] = time.perf_counter() - t0
+    phase_s["17e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     quality = quality_row()
-    new_phase_s["23"] = time.perf_counter() - t0
+    phase_s["23"] = time.perf_counter() - t0
+    # BASELINE config 5 (24), its animation at mid size (24b), the golden
+    # of the sample patterns (24c)
+    new_phase_s = {}
+    t0 = time.perf_counter()
+    configs["config5"] = run_config5(ident)
+    new_phase_s["24"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mid_size.update(mid_anim_against_jax())
+    new_phase_s["24b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    multisampling = multisampling_golden()
+    new_phase_s["24c"] = time.perf_counter() - t0
+    log("earlier phases' seconds on the card: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in phase_s.items()))
     log("new phases' seconds on the card: " + ", ".join(
         f"{k} {v:.1f}" for k, v in new_phase_s.items())
         + f"; {sum(new_phase_s.values()):.1f} in all")
@@ -3715,7 +4278,7 @@ def main(argv=None) -> int:
     for r in rows:
         r["launches_per_frame"] = {
             lb: config_launches(configs[lb], r["name"]) / CONFIG_FRAMES
-            for lb in ("config3", "config4", "svao_depth")}
+            for lb in ("config3", "config4", "svao_depth", "config5")}
         r["launches_per_frame"].update({
             f"svao_full_{md}": config_launches(reference_modes[md],
                                                r["name"])
@@ -3738,7 +4301,8 @@ def main(argv=None) -> int:
         "configs": configs, "svao_full": svao_full,
         "svao_depth_modes": svao_modes,
         "svao_reference_modes": reference_modes, "quality": quality,
-        "new_phase_seconds": new_phase_s,
+        "multisampling_golden": multisampling,
+        "new_phase_seconds": new_phase_s, "phase_seconds": phase_s,
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
         "sd_stage": sd_stage, "sd_trace_resources": resources,
         "mid_size_vs_jax": mid_size, "parent_ab": ab,

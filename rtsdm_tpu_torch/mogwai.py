@@ -10,8 +10,10 @@ torch.cuda.synchronize(); `m.profiler` (off by default) times the frame
 and each pass on the host clock. A GuardBand pass in the graph grows the render
 target by 2 * guardBand on each axis and widens the camera's field of view
 so the interior keeps the requested one (GuardBand.cpp:74-100); marked
-outputs are cropped back to the requested size. Runs on the GPU unless
-the renderer is given device="cpu".
+outputs are cropped back to the requested size. `m.cameraPath` (a
+scene/animation.py CameraPath) moves the camera and `m.animationController`
+(an AnimationController) the geometry, by the clock's time. Runs on the
+GPU unless the renderer is given device="cpu".
 """
 from __future__ import annotations
 
@@ -52,11 +54,13 @@ class Renderer:
         self.graphs: list[RenderGraph] = []
         self.active_graph: RenderGraph | None = None
         self.scene = None
+        self.cameraPath = None           # scene/animation.py CameraPath
+        self.animationController = None  # scene/animation.py controller
         self.last_frame_ms = None      # host clock of the last renderFrame
         self._scene_name = None
         self._state = None
         self._frame_fn = None
-        self._scene_comp = None        # guard-band-compensated scene
+        self._scene_comp = None        # guard-band-compensated bind pose
         self._last_outputs = None
 
     # --- script API -----------------------------------------------------
@@ -179,9 +183,20 @@ class Renderer:
         if self._frame_fn is None:
             self._build_frame_fn()
         t0 = time.perf_counter()
+        # _scene_comp stays the bind pose: node tracks are absolute, so
+        # each frame animates it afresh (never last frame's soup, which
+        # would compound the transforms)
+        scene = self._scene_comp
+        if self.animationController is not None:
+            scene = self.animationController.animate(scene, self.clock.time)
+        if self.cameraPath is not None:
+            base = self._scene_comp.camera
+            scene = scene.with_camera(self.cameraPath.camera_at(
+                self.clock.time, base, dt=1.0 / self.clock.framerate,
+                aspect=float(base.aspect), focal=float(base.focal_length)))
         with self.profiler.event("renderFrame"):
             marked, self._state = self._frame_fn(
-                self._scene_comp, self._state, frame_index=self.clock.frame,
+                scene, self._state, frame_index=self.clock.frame,
                 time=self.clock.time)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

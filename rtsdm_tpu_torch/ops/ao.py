@@ -6,6 +6,7 @@ SVAO/Common.slang)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -283,6 +284,19 @@ def shift_level_index(levels, r_px):
     for b in level_bounds(levels):
         idx += (r_px > float(b)).to(torch.int32)
     return idx
+
+
+@functools.lru_cache(maxsize=8)
+def dither_rotation_for(height: int, width: int, device):
+    """(sin, cos) [height, width] of the tiled dither rotation angle
+    noise * 2 * 3.141, evaluated on the host for the 16 entries of the
+    4x4 table (CUDA's sin and cos round otherwise than the CPU's in the
+    last bit) and tiled on `device`."""
+    rot = torch.as_tensor(np.asarray(DITHER_4X4, np.float32)) * 2.0 * 3.141
+    reps = (-(-height // 4), -(-width // 4))
+    return tuple(torch.as_tensor(np.tile(f(rot).numpy(), reps)[
+        :height, :width].copy(), device=device)
+        for f in (torch.sin, torch.cos))
 
 
 def dither_noise_for(height: int, width: int, *, device):

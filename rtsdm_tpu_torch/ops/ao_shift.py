@@ -13,6 +13,7 @@ its plain versions.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -99,9 +100,7 @@ def fetch_direction(padded_planes, pad: int, lvl_planes, offs_i, qh: int,
     return torch.stack(out)
 
 
-def level_radius(levels, lvl):
-    """Quantized radius of a level index (inverse of shift_level_index):
-    exact integers, then the geometric region."""
+def _level_radius_formula(levels, lvl):
     exact_n = A.SHIFT_EXACT_RADII
     if len(levels) <= exact_n:
         return (lvl + 1).to(torch.float32)
@@ -110,6 +109,22 @@ def level_radius(levels, lvl):
     log_step = math.log(ratio)
     r_log = torch.exp(log_r0 + (lvl - exact_n).to(torch.float32) * log_step)
     return torch.where(lvl < exact_n, (lvl + 1).to(torch.float32), r_log)
+
+
+@functools.lru_cache(maxsize=16)
+def _level_radius_table(levels: tuple, device) -> torch.Tensor:
+    """Every level's radius, evaluated on the host and moved to `device`."""
+    lvl = torch.arange(len(levels), dtype=torch.int32)
+    return _level_radius_formula(levels, lvl).to(device)
+
+
+def level_radius(levels, lvl):
+    """Quantized radius of a level index (inverse of shift_level_index):
+    exact integers, then the geometric region. The geometric radii come
+    from exp, which CUDA's math library rounds otherwise than the CPU's in
+    the last bit: every device reads the host's table."""
+    tab = _level_radius_table(tuple(float(v) for v in levels), lvl.device)
+    return tab[lvl.long()]
 
 
 def sd_slice_origins(offs_i, guard: int, sd_h: int, sd_w: int, qh: int,

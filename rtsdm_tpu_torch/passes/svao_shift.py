@@ -63,7 +63,6 @@ def _prep_planar(cam, cfg, depth, normal_v):
                   w_full)[None, :].expand(hp, wp)
     uy = true_div(torch.arange(hp, dtype=torch.float32, device=dev) + 0.5,
                   h_full)[:, None].expand(hp, wp)
-    noise = A.dither_noise_for(hp, wp, device=dev)
 
     radius_px = kpx * cfg.radius / torch.clamp(depth, min=1e-6)
     radius = torch.full_like(depth, cfg.radius)
@@ -82,8 +81,7 @@ def _prep_planar(cam, cfg, depth, normal_v):
     flip = (px * nx + py * ny + pz * nz) > 0.0
     nx, ny, nz = (torch.where(flip, -c, c) for c in (nx, ny, nz))
 
-    rot = noise * 2.0 * 3.141
-    rx, ry = torch.sin(rot), torch.cos(rot)
+    rx, ry = A.dither_rotation_for(hp, wp, dev)
     # frame: normal = -pos/len; bitangent = norm(cross(normal, (rx, ry, 0)));
     # tangent = cross(bitangent, normal) (Common.slang:314-317)
     inv_l = 1.0 / pos_len

@@ -48,14 +48,20 @@ class Camera:
     def create(position=(0.0, 0.0, 3.0), target=(0.0, 0.0, 0.0),
                up=(0.0, 1.0, 0.0), focal_length=21.0, frame_height=24.0,
                aspect=1.0, near_z=0.1, far_z=1000.0, jitter=(0.0, 0.0),
-               device="cuda") -> "Camera":
+               prev=None, device="cuda") -> "Camera":
         """Camera::calculateCameraParameters: fovY = 2 atan(frameHeight /
-        (2 focalLength)); cameraU/V/W are the computeRayPinhole basis. On
-        the GPU unless device="cpu" (utils/device.py)."""
+        (2 focalLength)); cameraU/V/W are the computeRayPinhole basis.
+        `prev`, last frame's Camera, gives the prev view, prev no-jitter
+        view-projection and prev position (motion vectors); without it
+        they are this frame's. On the GPU unless device="cpu"
+        (utils/device.py). The camera is evaluated on the host and then
+        moved: CUDA's arctan, tan and 4x4 products round otherwise than
+        the CPU's in the last bit, and the rays and rasters of every pass
+        start here."""
         device = resolve_device(device)
 
         def f32(x):
-            return torch.as_tensor(x, dtype=torch.float32, device=device)
+            return torch.as_tensor(x, dtype=torch.float32)
 
         pos, tgt, upv = f32(position), f32(target), f32(up)
         focal_length, frame_height = f32(focal_length), f32(frame_height)
@@ -69,16 +75,21 @@ class Camera:
         view = look_at(pos, tgt, upv)
         proj = perspective(fov_y, aspect, near_z, far_z)
         vp = proj @ view
-        return Camera(
+        host = dict(
             view_mat=view, prev_view_mat=view, proj_mat=proj,
             view_proj_mat=vp, view_proj_no_jitter=vp,
-            prev_view_proj_no_jitter=vp,
-            pos_w=pos, prev_pos_w=pos, up=upv, target=tgt,
-            camera_u=u, camera_v=v, camera_w=w,
+            prev_view_proj_no_jitter=vp, pos_w=pos, prev_pos_w=pos,
+            up=upv, target=tgt, camera_u=u, camera_v=v, camera_w=w,
             focal_length=focal_length, frame_height=frame_height,
             frame_width=frame_height * aspect, aspect=aspect,
             near_z=near_z, far_z=far_z,
             jitter_x=f32(jitter[0]), jitter_y=f32(jitter[1]))
+        cam = {k: t.to(device) for k, t in host.items()}
+        if prev is not None:
+            cam.update(prev_view_mat=prev.view_mat,
+                       prev_view_proj_no_jitter=prev.view_proj_no_jitter,
+                       prev_pos_w=prev.pos_w)
+        return Camera(**cam)
 
     # ------------------------------------------------------------------
     # the shared view <-> uv math of the AO shaders

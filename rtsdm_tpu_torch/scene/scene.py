@@ -1,7 +1,7 @@
 """Scene (counterpart of rtsdm_tpu/scene/scene.py): a flat triangle soup
-plus the material, light, texture and environment tables the passes read.
-Animation (node ids, previous positions, skinning) stays with the reference
-package until a camera path or animated scene is ported.
+plus the material, light, texture and environment tables the passes read,
+and the geometry-animation fields scene/animation.py drives (node ids,
+previous positions, skinning).
 """
 from __future__ import annotations
 
@@ -23,12 +23,14 @@ LIGHT_POINT = 0
 LIGHT_DIRECTIONAL = 1
 
 SCENE_FIELDS = ("positions", "normals", "texcoords", "material_id",
-                "tri_alpha_mask", "mat_base_color", "mat_roughness",
+                "tri_alpha_mask", "node_id", "prev_positions", "skin_joints",
+                "skin_weights", "mat_base_color", "mat_roughness",
                 "mat_metallic", "mat_ior", "mat_emissive", "mat_double_sided",
                 "mat_alpha_mode", "mat_opacity", "mat_tex", "light_type",
                 "light_pos", "light_dir", "light_intensity", "env_radiance",
                 "tex_pages", "env_map")
-OPTIONAL_FIELDS = ("tex_pages", "env_map")
+OPTIONAL_FIELDS = ("prev_positions", "skin_joints", "skin_weights",
+                   "tex_pages", "env_map")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +44,15 @@ class Scene:
     # floor(u*4) + 4*floor(v*4); 0xFFFF = opaque (the baked stand-in for
     # hashed-alpha testing inside traversal, StochasticDepthMapRT.rt.slang)
     tri_alpha_mask: torch.Tensor    # [T] int32
+    # geometry animation (reference AnimationController.h:43): node_id maps
+    # triangles to animated nodes (0 = static); prev_positions holds last
+    # frame's animated vertices for object motion vectors (None: static)
+    node_id: torch.Tensor                 # [T] int32
+    prev_positions: torch.Tensor | None   # [T,3,3]
+    # linear-blend skinning (reference Skinning.slang): up to 4 (joint,
+    # weight) influences a vertex; None = unskinned
+    skin_joints: torch.Tensor | None      # [T,3,4] int32
+    skin_weights: torch.Tensor | None     # [T,3,4]
     # materials [M, ...] (StandardMaterial metallic workflow)
     mat_base_color: torch.Tensor    # [M,3]
     mat_roughness: torch.Tensor     # [M]
@@ -105,6 +116,7 @@ def make_scene(name, positions, normals=None, texcoords=None,
                material_id=None, materials=None, lights=None,
                env_radiance=(0.0, 0.0, 0.0), camera: Camera | None = None,
                morton_sort: bool = True, tri_alpha_mask=None, env_map=None,
+               node_id=None, skin_joints=None, skin_weights=None,
                device="cuda") -> Scene:
     """Assemble a Scene from host data (the SceneBuilder equivalent). With
     morton_sort, triangles are ordered along a morton curve of their
@@ -112,7 +124,9 @@ def make_scene(name, positions, normals=None, texcoords=None,
     tight). Materials are dicts (base_color, roughness, metallic, ior,
     emissive, double_sided, alpha_mode, opacity, texture: a host image baked
     into the page stack); lights are dicts (type "point" or "directional",
-    position, direction, intensity). On the GPU unless device="cpu"."""
+    position, direction, intensity). node_id [T] (default 0: static) and
+    the skin's joints and weights [T,3,4] follow their triangles' order.
+    On the GPU unless device="cpu"."""
     from .textures import build_texture_pages
     device = resolve_device(device)
     positions = np.asarray(positions, np.float32)
@@ -130,6 +144,11 @@ def make_scene(name, positions, normals=None, texcoords=None,
             texcoords = np.asarray(texcoords, np.float32)[order]
         if tri_alpha_mask is not None:
             tri_alpha_mask = np.asarray(tri_alpha_mask, np.int32)[order]
+        if node_id is not None:
+            node_id = np.asarray(node_id, np.int32)[order]
+        if skin_joints is not None:
+            skin_joints = np.asarray(skin_joints, np.int32)[order]
+            skin_weights = np.asarray(skin_weights, np.float32)[order]
 
     materials = materials or [dict(base_color=(0.8, 0.8, 0.8))]
     m = len(materials)
@@ -195,6 +214,13 @@ def make_scene(name, positions, normals=None, texcoords=None,
         name=name, positions=pos, normals=nrm, texcoords=tex,
         material_id=dev(material_id),
         tri_alpha_mask=dev(tri_alpha_mask, np.int32),
+        node_id=dev(np.zeros((t,), np.int32) if node_id is None
+                    else node_id, np.int32),
+        prev_positions=None,
+        skin_joints=None if skin_joints is None else dev(skin_joints,
+                                                         np.int32),
+        skin_weights=None if skin_weights is None else dev(skin_weights,
+                                                           np.float32),
         mat_base_color=dev(base), mat_roughness=dev(rough),
         mat_metallic=dev(metal), mat_ior=dev(ior), mat_emissive=dev(emis),
         mat_double_sided=dev(dbl), mat_alpha_mode=dev(amode),

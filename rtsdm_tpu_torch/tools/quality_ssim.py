@@ -15,7 +15,10 @@ SSIM(raster_sd, ray_ref), the configuration's own SD implementation
 against ray_ref, ray_sd against the accumulated RTAO, the baked alpha test
 against none, and the mean absolute difference of ray_sd and ray_ref.
 Config 1 (HBAO on CornellBox 256x256) is held against the accumulated
-RTAO, as the JAX tool holds it.
+RTAO, as the JAX tool holds it. Config 5 (scripts/SVAO_small.py on
+EmeraldSquare@full at 1280x720 along the orbiting camera) reports the
+temporal stability of ShadedTAA: the mean SSIM of consecutive frames 4-7
+(the JAX tool's target >= 0.9).
 
 The sizes are the JAX tool's: config 1 at 256x256, config 2 at 640x360,
 configs 3 and 4 at 480x270 (the Raytraced reference is O(rays x
@@ -25,8 +28,8 @@ triangles)). Everything runs in this one process.
         [--configs NAME ...] [--rtao-frames N] [--device cuda|cpu]
 
 writes FILE (default build/quality_ssim.json, under the ignored build/)
-and prints it. Rows the port cannot produce yet name the ROADMAP item
-they wait for.
+and prints it. A row the port cannot produce yet names the ROADMAP item
+it waits for.
 """
 from __future__ import annotations
 
@@ -47,14 +50,13 @@ CONFIGS = [
          width=1920, height=1080, divisor=4, impl="Ray", ref_scale=4),
 ]
 CONFIG1 = "config1_hbao_cornell_256"
+CONFIG5 = "config5_shaded_taa_stability"
 WAITING = {
     "ssim_pallas_vs_xla_oracle": "waits for ROADMAP queue 1 item 9 (the SD "
                                  "trace's XLA tier, usePallas=False)",
-    "config5_shaded_taa_stability": "waits for ROADMAP queue 1 item 5 "
-                                    "(animation: CameraPath, "
-                                    "EmeraldSquare@full)",
 }
 TARGET = 0.98
+TAA_STABILITY_TARGET = 0.9
 
 
 def _sync(device):
@@ -184,9 +186,39 @@ def run_config1_hbao(device: str, rtao_frames: int) -> dict:
             "rtao_frames": rtao_frames}
 
 
+def run_config5_taa_stability(device: str, scene: str = "EmeraldSquare@full",
+                              width: int = 1280, height: int = 720,
+                              frames: int = 8) -> dict:
+    """Config 5's temporal stability: scripts/SVAO_small.py along the
+    orbiting camera (CameraPath.orbit around (0, 2, 0), radius 45, height
+    14, 8 s), the clock playing; the SSIM of each pair of consecutive
+    ShadedTAA frames from frame 4 on, and their mean. A flickering
+    pipeline scores low."""
+    from ..mogwai import Renderer, run_script
+    from ..scene.animation import CameraPath
+    from ..utils.compare import ssim
+    m = Renderer(width=width, height=height, device=device)
+    run_script(str(ROOT / "scripts" / "SVAO_small.py"), m)
+    m.loadScene(scene)
+    m.cameraPath = CameraPath.orbit(center=(0, 2, 0), radius=45.0,
+                                    height=14.0, duration=8.0)
+    m.clock.play()
+    kept = []
+    for f in range(frames):
+        out = m.renderFrame()
+        if f >= 4:
+            kept.append(out["ShadedTAA.colorOut"][..., :3])
+    sims = [float(ssim(a, b)) for a, b in zip(kept, kept[1:])]
+    return {"scene": scene, "triangles": int(m.scene.num_triangles),
+            "resolution": f"{width}x{height}",
+            "consecutive_frame_ssim": sims,
+            "mean_frame_ssim": sum(sims) / len(sims),
+            "target": TAA_STABILITY_TARGET}
+
+
 def main(argv=None) -> int:
     import torch
-    names = [CONFIG1] + [c["name"] for c in CONFIGS]
+    names = [CONFIG1] + [c["name"] for c in CONFIGS] + [CONFIG5]
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "quality_ssim.json")
@@ -207,14 +239,14 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         if name == CONFIG1:
             row = run_config1_hbao(device, args.rtao_frames)
+        elif name == CONFIG5:
+            row = run_config5_taa_stability(device)
         else:
             (c,) = [c for c in CONFIGS if c["name"] == name]
             row = run_config(c, device, args.rtao_frames)
         row["total_seconds"] = time.perf_counter() - t0
         report["configs"][name] = row
         print(name, json.dumps(row), flush=True)
-    report["configs"]["config5_shaded_taa_stability"] = {
-        "waiting": WAITING["config5_shaded_taa_stability"]}
     vals = [v["ssim_ray_sd_vs_raytraced"] for v in report["configs"].values()
             if isinstance(v.get("ssim_ray_sd_vs_raytraced"), float)]
     report["min_ssim_ray_sd_vs_raytraced"] = min(vals) if vals else None

@@ -112,9 +112,11 @@ def encode_normal_2x16(n):
 
 
 def decode_normal_2x16(packed):
-    """int32 [...] (uint32 bits) -> unit normal [..., 3]."""
-    x = (packed & 0xFFFF).to(torch.float32) / 65535.0 * 2.0 - 1.0
-    y = ((packed >> 16) & 0xFFFF).to(torch.float32) / 65535.0 * 2.0 - 1.0
+    """int32 [...] (uint32 bits) -> unit normal [..., 3]; each code over
+    65535 as an IEEE division (true_div) on every device."""
+    x = true_div((packed & 0xFFFF).to(torch.float32), 65535.0) * 2.0 - 1.0
+    y = true_div(((packed >> 16) & 0xFFFF).to(torch.float32), 65535.0) \
+        * 2.0 - 1.0
     return oct_snorm_to_ndir(torch.stack([x, y], -1))
 
 

@@ -4,7 +4,8 @@
     (reference SVAO/GenPoints.py:22-27),
   - dither rotation noise: 4x4 ordered-dither matrix (SVAO.cpp:663-688),
   - SD-map sub-texel jitter: 16-entry table (StochasticDepthMapRT/
-    Jitter.slangh:20-50).
+    Jitter.slangh:20-50),
+  - camera sample patterns of the G-buffer passes (SampleGenerators).
 """
 from __future__ import annotations
 
@@ -91,6 +92,41 @@ def jitter_grid(h: int, w: int, enabled: bool = True, x0: int = 0,
     tile = np.tile(tab, ((h + 7) // 4, (w + 3) // 4, 1))
     o = int(y0) % 4
     return torch.as_tensor(tile[o:o + h, :w].copy(), device=device)
+
+
+_DX8_PATTERN = np.asarray(
+    [[1, -3], [-1, 3], [5, 1], [-3, -5],
+     [-5, 5], [-7, -1], [3, 7], [7, -7]], np.float32) / 16.0
+
+
+def sample_pattern_offsets(pattern: str, sample_count: int) -> np.ndarray:
+    """[N, 2] per-frame camera sub-pixel offsets in pixels, in [-0.5, 0.5)
+    (reference Utils/SampleGenerators: DxSamplePattern.cpp kPattern,
+    HaltonSamplePattern halton(i, 2/3) - 0.5, StratifiedSamplePattern's
+    jittered bins from a fixed seed). The G-buffer passes take offset
+    frame_index % N as the camera jitter."""
+    if pattern in ("Center", None, ""):
+        return np.zeros((1, 2), np.float32)
+    if pattern == "DirectX":
+        return _DX8_PATTERN.copy()
+    n = max(1, int(sample_count))
+    if pattern == "Halton":
+        return np.asarray([[van_der_corput(i + 1, 2) - 0.5,
+                            van_der_corput(i + 1, 3) - 0.5]
+                           for i in range(n)], np.float32)
+    if pattern == "Stratified":
+        bx = int(np.sqrt(n))
+        by = n // bx
+        while bx * by != n:
+            bx += 1
+            by = n // bx
+        rng = np.random.default_rng(0)
+        i = np.arange(n)
+        jit = rng.random((n, 2)).astype(np.float32)
+        x = ((i % bx) + jit[:, 0]) / bx - 0.5
+        y = ((i // bx) + jit[:, 1]) / by - 0.5
+        return np.stack([x, y], -1).astype(np.float32)
+    raise ValueError(f"unknown samplePattern '{pattern}'")
 
 
 def stratified_coverage_tables(num_samples: int) -> tuple[np.ndarray,

@@ -81,7 +81,7 @@ def test_quality_tool_row_on_a_small_config():
     """rtsdm_tpu_torch.tools.quality_ssim's per-configuration row, on
     CornellBox 64x64 with two RTAO frames: every SSIM in [-1, 1], and the
     oracle row that needs the SD trace's XLA tier naming the ROADMAP item
-    it waits for."""
+    it waits for; config 5's row no longer waits."""
     from rtsdm_tpu_torch.tools import quality_ssim as Q
     row = Q.run_config(dict(name="small", scene="CornellBox", width=64,
                             height=64, divisor=4, impl="Ray", ref_scale=1),
@@ -94,4 +94,19 @@ def test_quality_tool_row_on_a_small_config():
     assert row["ssim_config_impl_vs_raytraced"] == \
         row["ssim_ray_sd_vs_raytraced"]
     assert 0.0 <= row["mean_abs_diff_ray_sd_vs_raytraced"] < 0.5
-    assert "item 5" in Q.WAITING["config5_shaded_taa_stability"]
+    assert set(Q.WAITING) == {"ssim_pallas_vs_xla_oracle"}
+
+
+def test_quality_tool_config5_row_on_a_small_scene():
+    """Config 5's row (run_config5_taa_stability: scripts/SVAO_small.py
+    along the orbiting camera, the clock playing) on CornellBox 48x48 for
+    six frames: the SSIM of ShadedTAA's consecutive frames from frame 4 on,
+    each in [-1, 1], and their mean."""
+    from rtsdm_tpu_torch.tools import quality_ssim as Q
+    row = Q.run_config5_taa_stability("cpu", scene="CornellBox", width=48,
+                                      height=48, frames=6)
+    assert row["resolution"] == "48x48" and row["triangles"] == 36
+    sims = row["consecutive_frame_ssim"]
+    assert len(sims) == 1 and all(-1.0 <= v <= 1.0 for v in sims)
+    assert row["mean_frame_ssim"] == sum(sims) / len(sims)
+    assert row["target"] == 0.9

@@ -126,7 +126,7 @@ def _render_golden(test_file):
     "renderpasses/test_Forward.py", "renderpasses/test_Forward_arcade.py",
     "renderscripts/test_TAA_sweep.py", "renderpasses/test_SVAO_guardband.py",
     "renderpasses/test_SVAO_dualAO.py", "renderpasses/test_ShaderToy.py",
-    "renderpasses/test_SVAO_depth.py",
+    "renderpasses/test_SVAO_depth.py", "renderpasses/test_MultiSampling.py",
     pytest.param("renderpasses/test_HBAO_512.py", marks=pytest.mark.slow)])
 def test_port_renders_golden(golden):
     """Goldens the port renders that no other port test holds (the JAX
@@ -136,8 +136,10 @@ def test_port_renders_golden(golden):
     with a 32-pixel guard band on 256x256, and with SVAO's dualAO on
     128x128 (measured MSE 1.5e-6), samples/ShaderToy.py (2.0e-8),
     SVAO_depth.py at frame 1 (SVAO under DualDepth over
-    TemporalDepthPeel's layer and SVAO_ref under Raytraced: 4.8e-5 each)
-    and, as a slow case (32 s), HBAO.py at 512x512 (2.2e-8)."""
+    TemporalDepthPeel's layer and SVAO_ref under Raytraced: 4.8e-5 each),
+    samples/MultiSampling.py at frame 2 (GBufferRaster's Halton pattern
+    jittering the camera, AccumulatePass: 3.6e-6) and, as a slow case
+    (32 s), HBAO.py at 512x512 (2.2e-8)."""
     path = GOLDENS / golden
     cfg, images = _render_golden(path)
     assert cfg["tolerance"] == MSE_BOUND

@@ -191,6 +191,8 @@ def test_chip_smoke_imports_nothing_of_jax():
 def _entry_points():
     from rtsdm_tpu_torch.mogwai import Renderer
     from rtsdm_tpu_torch.scene import procedural as P
+    from rtsdm_tpu_torch.scene.animation import (AnimationController,
+                                                 CameraPath, NodeTrack)
     from rtsdm_tpu_torch.scene.camera import CAMERA_FIELDS, Camera
     from rtsdm_tpu_torch.scene.scene import (SCENE_FIELDS, make_scene,
                                              scene_from_numpy)
@@ -213,13 +215,22 @@ def _entry_points():
         "make_scene": lambda **kw: make_scene("tri", tri, **kw),
         "scene_from_numpy": from_numpy,
         "Camera.create": Camera.create,
+        "Camera.create(prev=)": lambda **kw: Camera.create(
+            position=(0.0, 1.0, 3.0), prev=Camera.create(**kw), **kw),
+        "CameraPath.camera_at": lambda **kw: CameraPath.orbit(
+            (0.0, 0.0, 0.0), 3.0, 1.0).camera_at(0.5, Camera.create(**kw)),
+        "AnimationController.animate": lambda **kw: AnimationController(
+            {1: NodeTrack.oscillate((0.0, 1.0, 0.0), 0.5, 4.0)}).animate(
+            P.cornell_box(**kw), 0.5),
         "Renderer": lambda **kw: Renderer(64, 64, **kw),
     }
 
 
 ENTRY_POINTS = ("cornell_box", "arcade", "sun_temple", "bistro",
                 "emerald_square", "load_scene", "make_scene",
-                "scene_from_numpy", "Camera.create", "Renderer")
+                "scene_from_numpy", "Camera.create", "Camera.create(prev=)",
+                "CameraPath.camera_at", "AnimationController.animate",
+                "Renderer")
 
 
 @pytest.mark.parametrize("entry", ENTRY_POINTS)

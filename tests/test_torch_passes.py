@@ -225,7 +225,9 @@ def test_gbuffer_schema_matches_reference(caplog):
     """GBufferRaster takes the reference's keys: the script's sampleCount
     and useAlphaTest log no 'Unknown field'; useAlphaTest and maxPerTile
     change nothing, as in the reference package (whose raster neither
-    alpha-tests nor caps tiles); what the port cannot do raises."""
+    alpha-tests nor caps tiles); a sample pattern jitters the camera by
+    the frame's offset (tests/test_torch_animation.py holds the jitter);
+    what the port cannot do raises."""
     assert set(GT.GBufferRaster.SCHEMA) == set(GJ.GBufferRaster.SCHEMA)
     assert GT.GBufferRaster.SCHEMA == GJ.GBufferRaster.SCHEMA
     st = carry(PJ.arcade(aspect=1.0))
@@ -242,10 +244,12 @@ def test_gbuffer_schema_matches_reference(caplog):
     for o in outs[1:]:
         for k in outs[0]:
             assert torch.equal(o[k], outs[0][k]), k
-    for bad in (dict(outputSize="Half"), dict(samplePattern="Halton")):
-        with pytest.raises(NotImplementedError):
-            GT.GBufferRaster(bad).execute(
-                RenderContext(width=32, height=32, scene=st), {})
+    halton, _ = GT.GBufferRaster(dict(samplePattern="Halton")).execute(
+        RenderContext(width=32, height=32, scene=st, frame_index=1), {})
+    assert not torch.equal(halton["depth"], outs[0]["depth"])
+    with pytest.raises(NotImplementedError):
+        GT.GBufferRaster(dict(outputSize="Half")).execute(
+            RenderContext(width=32, height=32, scene=st), {})
 
 
 def _svao_small_renderer(w=32, h=32):

@@ -1,14 +1,14 @@
 """The mid-size references of tests/torch_refs/ (the JAX package's renders
 of scripts/SVAO_small.py, scripts/HBAO.py, BASELINE config 2,
 scripts/SVAO.py, scripts/SVAO.py under DualDepth, scripts/
-SVAO_quarter.py and scripts/SVAO_depth.py above every golden's size, made
-by tests/torch_refs/make_refs.py): they load,
-hold finite float32 images of the size they record, and record the
+SVAO_quarter.py, scripts/SVAO_depth.py and BASELINE config 5's animation
+above every golden's size, made by tests/torch_refs/make_refs.py): they
+load, hold finite float32 images of the size they record, and record the
 settings chip_smoke.py renders the port with when it holds the card
 against them, the JAX package's accelerator branches included (hazards f,
-k, l and m of ROADMAP.md); the G-buffer channels stored beside two of them
-for the substituted holds are the ones their settings list, whole. Nothing
-is rendered here.
+k, l and m of ROADMAP.md); the raster channels stored beside each of them
+for the substituted holds are the ones their settings list, whole, one
+set a frame where they render more than one. Nothing is rendered here.
 
 This file imports neither jax nor rtsdm_tpu.
 """
@@ -27,7 +27,7 @@ import chip_smoke  # noqa: E402
 AO = {"SVAO_small": "AmbientOcclusion.out", "HBAO": "Ambient.out",
       "SVAO_rasterSD": "AmbientOcclusion.out", "SVAO_full": "AmbientRef.out",
       "SVAO_quarter": "AmbientOcclusion.out", "SVAO_dual": "AmbientRef.out",
-      "SVAO_depth": "Ambient.out"}
+      "SVAO_depth": "Ambient.out", "SVAO_anim": "AmbientOcclusion.out"}
 # the raster passes of each script (all capped)
 RASTERS = {"scripts/SVAO_quarter.py": ("GBufferRaster", "ForwardLighting"),
            "scripts/SVAO_depth.py": ("GBufferRaster", "DepthPeeling")}
@@ -62,10 +62,14 @@ def test_mid_size_refs_record_what_chip_smoke_renders(ref):
 
 
 def test_mid_size_refs_take_the_accelerator_branches():
-    """HBAO's reference shifts (hazard l) and config 2's rasters its SD map
-    through the Pallas kernel (hazard m), as the port does on the card;
-    every reference takes the accelerator's shadows (hazard k) and raster
-    caps (hazard f); config 2 differs from SVAO_small.py only there."""
+    """HBAO's reference shifts (hazard l), config 2's rasters its SD map
+    through the Pallas kernel (hazard m) and the graphs with a ray-traced
+    SD map trace it through the Pallas kernels with XLA's fused
+    multiply-adds off (hazard q), and config 2's SVAO reads its SD map
+    packed to 16 bits (hazard r), as the port does on the card; every
+    reference takes the accelerator's shadows (hazard k) and raster caps
+    (hazard f); config 2 differs from SVAO_small.py only there and in its
+    SD raster, which it stores for its substituted hold."""
     refs = chip_smoke.MID_REFS
     hbao, sd = refs["HBAO"][0], refs["SVAO_rasterSD"][0]
     assert hbao["script"] == "scripts/HBAO.py"
@@ -74,10 +78,23 @@ def test_mid_size_refs_take_the_accelerator_branches():
     assert sd["pass_overrides"]["SVAO"] == \
         chip_smoke.CONFIGS["config2"][4]["SVAO"]
     assert "raster_stochastic_pallas" in sd["raster_sd"]
+    assert "fetch_sd_packed" in sd["fused_fetch"]
     base = refs["SVAO_small"][0]
-    assert {k: v for k, v in sd.items() if k != "raster_sd"} == dict(
-        base, pass_overrides={**base["pass_overrides"],
-                              "SVAO": sd["pass_overrides"]["SVAO"]})
+    differ = ("raster_sd", "ray_sd", "xla_flags", "fused_fetch",
+              "substituted")
+    assert {k: v for k, v in sd.items() if k not in differ} == dict(
+        {k: v for k, v in base.items() if k not in differ},
+        pass_overrides={**base["pass_overrides"],
+                        "SVAO": sd["pass_overrides"]["SVAO"]})
+    assert sd["substituted"] == base["substituted"] + [
+        "StochasticDepthMap.stochasticDepth"]
+    for name in ("SVAO_small", "SVAO_full", "SVAO_dual", "SVAO_quarter",
+                 "SVAO_anim"):
+        settings = refs[name][0]
+        assert "sd_trace_pallas" in settings["ray_sd"], name
+        assert settings["xla_flags"] == "--xla_cpu_max_isa=AVX", name
+    for name in ("HBAO", "SVAO_rasterSD", "SVAO_depth"):
+        assert not {"ray_sd", "xla_flags"} & set(refs[name][0]), name
     for settings, _ in refs.values():
         # scripts/SVAO_depth.py has no RayShadow (and no ForwardLighting),
         # scripts/SVAO_quarter.py no DepthPeeling pass
@@ -158,25 +175,76 @@ def test_svao_depth_ref_records_frame_one_of_two():
     assert "raster_sd" not in settings and "shadows" not in settings
 
 
+def test_every_ref_has_a_substituted_hold():
+    """Every reference stores the raster channels its AO reads, and
+    chip_smoke.py holds each AO output it keeps with them substituted
+    (the shaded outputs read ForwardLighting's own raster)."""
+    assert set(chip_smoke.MID_SUBSTITUTED_BOUND) == set(chip_smoke.MID_REFS)
+    for name, (settings, _) in chip_smoke.MID_REFS.items():
+        ao = {o for o in settings["outputs"]
+              if o.startswith(("AmbientOcclusion", "Ambient."))
+              or o in ("AmbientRef.out", "AmbientTAA.colorOut")}
+        assert set(chip_smoke.MID_SUBSTITUTED_BOUND[name]) == ao, name
+
+
 @pytest.mark.parametrize("name", sorted(chip_smoke.MID_SUBSTITUTED_BOUND))
 def test_substituted_rasters_stored_beside_their_refs(name):
-    """The JAX package's G-buffer channels that chip_smoke.py substitutes
+    """The JAX package's raster channels that chip_smoke.py substitutes
     for the port's (<ref>.rasters.npz): those the reference's settings
-    list, whole (the 64-pixel guard band of both scripts included),
-    finite float32; each substituted hold bounds outputs of the reference
-    by a positive MSE far below the reference's own bound."""
+    list, one set a frame where it renders more than one (keys
+    f<frame>/<Pass>.<channel>), whole (the scripts' 64-pixel guard band
+    included), finite float32; each substituted hold bounds outputs of
+    the reference by a positive MSE far below the reference's own bound
+    (where it has one)."""
     settings, bound = chip_smoke.MID_REFS[name]
     sub_bound = chip_smoke.MID_SUBSTITUTED_BOUND[name]
     path = chip_smoke.mid_ref_file(name).with_suffix(".rasters.npz")
     with np.load(path) as f:
         arrays = {k: f[k] for k in f.files}
-    assert sorted(arrays) == sorted(settings["substituted"])
+    frames = [""] if settings["frames"] == 1 else [
+        f"f{i}/" for i in range(settings["frames"])]
+    assert sorted(arrays) == sorted(f + c for f in frames
+                                    for c in settings["substituted"])
     h, w = settings["height"] + 128, settings["width"] + 128
     for key, a in arrays.items():
-        assert a.dtype == np.float32 and a.shape[:2] == (h, w), key
+        # the raster SD map has the SD grid's texels and k samples each
+        whole = ((h, w) if "StochasticDepthMap." not in key else
+                 (-(-h // 4), -(-w // 4)))
+        assert a.dtype == np.float32 and a.shape[:2] == whole, key
         assert np.isfinite(a).all(), key
-    depth = arrays["GBufferRaster.depth"]
-    assert 0.0 < depth.min() and depth.max() <= 1.0
+    for f in frames:
+        depth = arrays[f + "GBufferRaster.depth"]
+        assert 0.0 < depth.min() and depth.max() <= 1.0
     assert set(sub_bound) <= set(settings["outputs"])
     for out, b in sub_bound.items():
-        assert 0.0 < b < bound[out] / 1e3, out
+        assert 0.0 < b, out
+        if bound[out] is not None:
+            assert b < bound[out] / 1e3, out
+
+
+def test_anim_ref_records_config5_animation():
+    """SVAO_anim is BASELINE config 5's animation (chip_smoke.
+    CONFIG5_ANIMATION, bench_configs.py:51-66) on the small EmeraldSquare
+    tier, frames 0-2 with frame 2 kept, and otherwise SVAO_small.py's
+    settings; its stored G-buffer differs between frames (the camera and
+    the node move), and its depth2-free graph ran only the G-buffer and
+    ForwardLighting rasters."""
+    anim = chip_smoke.MID_REFS["SVAO_anim"][0]
+    base = chip_smoke.MID_REFS["SVAO_small"][0]
+    assert anim["animation"] == chip_smoke.CONFIG5_ANIMATION
+    assert (anim["scene"], anim["frames"], anim["frame"]) == (
+        "EmeraldSquare", 3, 2)
+    differ = ("scene", "frames", "frame", "outputs", "animation")
+    assert {k: v for k, v in anim.items() if k not in differ} == {
+        k: v for k, v in base.items() if k not in differ}
+    assert set(anim["outputs"]) < set(base["outputs"])
+    with np.load(chip_smoke.mid_ref_file("SVAO_anim")) as f:
+        settings = json.loads(str(f["settings"]))
+    assert settings["raster_overflow"] == {"ForwardLighting": 0,
+                                           "GBufferRaster": 0}
+    path = chip_smoke.mid_ref_file("SVAO_anim").with_suffix(".rasters.npz")
+    with np.load(path) as f:
+        mvec = [f[f"f{i}/GBufferRaster.mvec"] for i in range(3)]
+        depth = [f[f"f{i}/GBufferRaster.depth"] for i in range(3)]
+    assert not np.array_equal(depth[1], depth[2])
+    assert np.abs(mvec[2]).max() > 100 * np.abs(mvec[0]).max()

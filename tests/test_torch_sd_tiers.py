@@ -290,3 +290,61 @@ def test_svao_gives_its_sd_pass_alpha_and_use_pallas():
         p = SVAO({key: value, "secondaryDepthMode": "Raytraced"})
         p._check_supported()
         assert p.cfg[key] == value
+
+
+# run in a process of its own: XLA reads its flags when JAX loads
+_TIERS_WITHOUT_FMA = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch, jax.numpy as jnp
+torch.set_num_threads(1)
+from test_pallas_interpret import _rays, interpret_mode
+from test_torch_scene import carry
+from rtsdm_tpu.ops import rt, rt_pallas as rp
+from rtsdm_tpu.scene import procedural as PJ
+from rtsdm_tpu_torch.ops import rt_cuda as RT
+sj = PJ.load_scene("Arcade", aspect=16 / 9)
+st = carry(sj)
+o, d, tmin, tmax, cosw = _rays(sj, n=512, seed=7)
+near, far = sj.camera.near_z, sj.camera.far_z
+def t(a):
+    return torch.as_tensor(np.array(a))
+port = RT.sd_trace_resident(*RT.prep_triangles_packed(st, True),
+                            st.camera.pos_w, t(d), t(tmin), t(tmax), t(cosw),
+                            t(near), t(far), num_samples=4, mode="default",
+                            max_count=0, alpha=0.375).numpy()
+with interpret_mode(rp):
+    pal = np.asarray(rp.sd_trace_pallas(
+        *rp.prep_triangles(sj, True), o, d, tmin, tmax, cosw, near, far,
+        num_samples=4, mode="default", max_count=None, alpha=0.375))
+xla = np.asarray(rt.sd_trace(sj, o, d, tmin, tmax, num_samples=4,
+                             normalize=True, implementation="default",
+                             alpha=0.375))
+dec = np.asarray(rp.decode_packed(jnp.asarray(pal), near, far))
+print(json.dumps(dict(
+    port_vs_pallas=int((port != pal).any(1).sum()),
+    xla_vs_pallas=int((np.sort(xla, 1) != np.sort(dec, 1)).any(1).sum()))))
+"""
+
+
+def test_reference_keys_samples_as_the_port_on_its_pallas_tier_without_fma():
+    """Why the mid-size references of graphs with a ray-traced SD map take
+    the JAX package's Pallas SD trace with XLA's fused multiply-adds off
+    (ROADMAP hazard q): on Arcade's seeded rays, in a process whose XLA
+    contracts nothing, sd_trace_pallas (interpret mode) keys and places
+    every sample as K7's plain version does, while the package's CPU tier
+    (ops/rt.py:sd_trace, which its pass takes on the CPU) keeps another
+    sample set on some rays (measured 5 of 512); with contraction on, the
+    Pallas kernel's keys flip on some hits (this file's tolerances)."""
+    import json
+    import os
+    import subprocess
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=" ".join(filter(
+        None, (os.environ.get("XLA_FLAGS"), "--xla_cpu_max_isa=AVX"))))
+    out = subprocess.run(
+        [sys.executable, "-c", _TIERS_WITHOUT_FMA,
+         str(Path(__file__).parent)], env=env, capture_output=True,
+        text=True, timeout=600, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["port_vs_pallas"] == 0
+    assert got["xla_vs_pallas"] > 0

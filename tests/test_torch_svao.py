@@ -820,3 +820,47 @@ def test_svao_execute_reference_modes_match_reference(case, depth2, mode):
                                if mode == "HBAO" else 1e-5, rtol=0)
     assert ("SD_MAP" in ctx_t.dictionary) == (
         props["secondaryDepthMode"] == "StochasticDepth")
+
+
+def test_svao_evaluates_its_transcendentals_on_host_tables():
+    """The card rounds sin, cos and exp otherwise than the CPU in the last
+    bit, and SVAO's stencil, ray intervals and SD-map keys amplify such
+    bits (the substituted hold of scripts/SVAO_small.py read 1.4e-6 on the
+    card, an H100 80GB HBM3, against 6.0e-15 on the CPU until they went).
+    So the shift phases take the dither rotation's sin and cos and the
+    shift radii's exp from tables evaluated on the host, and the camera is
+    evaluated on the host too: in a frame of scripts/SVAO_small.py, SVAO
+    (its nested SD pass included) calls these functions on no tensor of
+    more than 32 entries (the tables)."""
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    root = Path(__file__).resolve().parents[1]
+    m = Renderer(48, 48, device="cpu")
+    run_script(str(root / "scripts" / "SVAO_small.py"), m)
+    m.loadScene("CornellBox")
+    m.clock.pause()
+    A.dither_rotation_for.cache_clear()
+    sizes = []
+    in_svao = []
+
+    def watched(fn):
+        def call(x, *a, **k):
+            if in_svao:
+                sizes.append(x.numel())
+            return fn(x, *a, **k)
+        return call
+
+    real = SVAO.execute
+
+    def execute(self, *a, **k):
+        in_svao.append(True)
+        try:
+            return real(self, *a, **k)
+        finally:
+            in_svao.pop()
+
+    with mock.patch.multiple(torch, **{f: watched(getattr(torch, f))
+                                       for f in ("sin", "cos", "exp", "tan",
+                                                 "arctan")}), \
+            mock.patch.object(SVAO, "execute", execute):
+        m.renderFrame()
+    assert sizes and max(sizes) <= 32

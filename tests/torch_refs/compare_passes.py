@@ -44,7 +44,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from make_refs import QUARTER_SETTINGS, SETTINGS  # noqa: E402
+from make_refs import (QUARTER_SETTINGS, RASTER_SD_SETTINGS,  # noqa: E402
+                       SETTINGS)
 
 
 def _whole(channel):
@@ -59,19 +60,28 @@ def _whole(channel):
 # the graph or None for any, what to keep of (ctx, outputs))}; the raster
 # passes whose whole outputs are recorded ("raw/<pass>/<channel>") and,
 # with --substitute, handed to the port's passes after them
+SVAO_SMALL_CHANNELS = [
+    "GBufferRaster.depth", "GBufferRaster.posW", "GBufferRaster.normW",
+    "GBufferRaster.faceNormalW", "GBufferRaster.mvec",
+    "LinearizeDepth.linearDepth", "RayShadow.visibility", "EnvMapPass.color",
+    "ForwardLighting.color", "ToneMapper.dst", "DepthPeeling.depth2",
+    "LinearizeDepth0.linearDepth", "CompressNormals.normalOut", "SD_MAP",
+    "SVAO.ao", "CrossBilateralBlur0.colorOut", "AmbientOcclusion.out",
+    "Shaded.out", "AmbientOcclusionTAA.colorOut", "ShadedTAA.colorOut"]
 CONFIGS = {
     "SVAO_small": dict(
         settings=SETTINGS,
-        intermediates=[
-            "GBufferRaster.depth", "GBufferRaster.posW",
-            "GBufferRaster.normW", "GBufferRaster.faceNormalW",
-            "GBufferRaster.mvec", "LinearizeDepth.linearDepth",
-            "RayShadow.visibility", "EnvMapPass.color",
-            "ForwardLighting.color", "ToneMapper.dst", "DepthPeeling.depth2",
-            "LinearizeDepth0.linearDepth", "CompressNormals.normalOut",
-            "SD_MAP", "SVAO.ao", "CrossBilateralBlur0.colorOut",
-            "AmbientOcclusion.out", "Shaded.out",
-            "AmbientOcclusionTAA.colorOut", "ShadedTAA.colorOut"],
+        intermediates=SVAO_SMALL_CHANNELS,
+        captured={
+            "RayShadow.visibility": ("lighting", "RayShadow", None,
+                                     _whole("visibility")),
+            "SD_MAP": ("svao", "SVAO", None,
+                       lambda ctx, out: ctx.dictionary["SD_MAP"])},
+        substituted=(("gbuffer", "GBufferRaster"),
+                     ("depth_chain", "DepthPeeling"))),
+    "SVAO_rasterSD": dict(
+        settings=RASTER_SD_SETTINGS,
+        intermediates=SVAO_SMALL_CHANNELS,
         captured={
             "RayShadow.visibility": ("lighting", "RayShadow", None,
                                      _whole("visibility")),
@@ -232,9 +242,9 @@ def main(argv=None) -> int:
                                 args.device)
         else:
             os.environ.setdefault("JAX_PLATFORMS", "cpu")
-            from make_refs import reference_shadows
+            from make_refs import reference_branches
             made_by = "rtsdm_tpu on the CPU"
-            with reference_shadows():
+            with reference_branches(CONFIGS[args.config]["settings"]):
                 chans, raw = render("rtsdm_tpu", args.config)
         np.savez_compressed(args.file, made_by=np.asarray(made_by),
                             config=np.asarray(args.config),

@@ -14,13 +14,19 @@ scripts/SVAO_depth.py (SVAO under DualDepth over TemporalDepthPeel's
 second layer beside SVAO_ref under the Raytraced secondary mode), frames
 0 and 1, frame 1 kept.
 
-A configuration that lists `substituted` G-buffer channels also writes
-them, whole (guard band included) and as GBufferRaster returned them in
-the kept frame, to <file>.rasters.npz: chip_smoke.py hands them to the
-port in place of its own raster's, so that the passes after the rasters
-are held to a bound far below the rasters' last bits. With frames > 1 the
-script fails unless every frame's raster gave the same channels (a paused
+A configuration that lists `substituted` raster channels
+("<Pass>.<channel>" of GBufferRaster or DepthPeeling) also writes them,
+whole (guard band included) and as the pass returned them, to
+<file>.rasters.npz: chip_smoke.py hands them to the port in place of its
+own rasters', so that the passes after the rasters are held to a bound
+far below the rasters' last bits. With frames > 1 the file holds one set
+a frame (keys "f<frame>/<Pass>.<channel>"); without animation the script
+then fails unless every frame's rasters gave the same channels (a paused
 clock and a still camera).
+
+SVAO_anim is BASELINE config 5's animation (bench_configs.py:51-66: an
+orbiting camera and the tallest 2% of the triangles oscillating as node
+1, the clock playing) on the small EmeraldSquare tier, frames 0-2.
 
 Wherever a CPU tier of the JAX package departs from its accelerator path,
 which the port follows, the reference takes the accelerator's behaviour:
@@ -47,7 +53,19 @@ which the port follows, the reference takes the accelerator's behaviour:
 * the raster stochastic-depth pass (config 2) takes the JAX package's
   accelerator branch, raster_stochastic_pallas: its XLA tier caps each
   tile's list at maxPerTile and hashes fragments differently from the
-  Pallas kernel, which the port's K9 follows.
+  Pallas kernel, which the port's K9 follows;
+* the ray-traced stochastic-depth pass takes the accelerator branch too
+  (`ray_sd`): on the CPU the package traces through its XLA tier
+  (ops/rt.py:sd_trace), which keeps another sample set on some texels than
+  sd_trace_pallas, which K5 and K7 follow; and those graphs render with
+  XLA's fused multiply-adds off (`xla_flags`), since contracted
+  Moller-Trumbore products flip the samples' hash keys where the card
+  rounds each product (ROADMAP hazard q);
+* in config 2 SVAO takes the accelerator branch of its fetches
+  (`fused_fetch`): on the CPU the package's phase 2 reads the float
+  raster SD map, on an accelerator fetch_sd_packed reads it packed to 16
+  bits, as the port's K4 does (hazard r; the ray-traced SD map holds 16-bit
+  depths already, so the other graphs are alike on either branch).
 
 The Pallas kernels run here in interpret mode, as the package's own
 interpret tests run them.
@@ -94,23 +112,39 @@ RASTER_PASSES = ("GBufferRaster", "DepthPeeling", "ForwardLighting",
                  "DepthPass")
 RASTER_CAPS = {p: {"maxPerTile": MAX_PER_TILE} for p in RASTER_PASSES[:3]}
 SHADOWS = "RayShadow through any_hit_pallas (interpret mode)"
+RAY_SD = ("StochasticDepthMapRT through sd_trace_pallas or "
+          "sd_trace_pallas_stream (interpret mode)")
+NO_FMA = "--xla_cpu_max_isa=AVX"
+# the raster channels each graph's AO outputs read (its shaded outputs
+# also read ForwardLighting's own raster, which no substitute reaches):
+# the G-buffer's depth and face normals, its motion vectors where a
+# temporal pass of the AO reads them, and DepthPeeling's floored raster
+# where the graph keeps that pass (HBAO.py; SVAO.py under DualDepth)
+GBUFFER_AO = ["GBufferRaster.depth", "GBufferRaster.faceNormalW"]
+GBUFFER_TAA = GBUFFER_AO + ["GBufferRaster.mvec"]
+PEELED = ["DepthPeeling.depth2"]
 SETTINGS = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
                 width=480, height=270, frames=1, frame=0,
                 outputs=["AmbientOcclusion.out", "Shaded.out",
                          "AmbientOcclusionTAA.colorOut",
                          "ShadedTAA.colorOut"],
-                pass_overrides=RASTER_CAPS, shadows=SHADOWS)
+                pass_overrides=RASTER_CAPS, shadows=SHADOWS,
+                ray_sd=RAY_SD, xla_flags=NO_FMA, substituted=GBUFFER_TAA)
 HBAO_SETTINGS = dict(script="scripts/HBAO.py", scene="Arcade@full",
                      width=480, height=270, frames=1, frame=0,
                      outputs=["Ambient.out", "Diffuse.out"],
                      pass_overrides={**RASTER_CAPS,
                                      "HBAO": {"samplingMode": "Shift"}},
-                     shadows=SHADOWS)
-RASTER_SD_SETTINGS = dict(
-    SETTINGS, pass_overrides={**RASTER_CAPS,
-                              "SVAO": {"stochasticDepthImpl": "Raster"}},
+                     shadows=SHADOWS, substituted=GBUFFER_AO + PEELED)
+RASTER_SD_SETTINGS = {k: v for k, v in SETTINGS.items()
+                      if k not in ("ray_sd", "xla_flags")}
+RASTER_SD_SETTINGS.update(
+    pass_overrides={**RASTER_CAPS, "SVAO": {"stochasticDepthImpl": "Raster"}},
     raster_sd="StochasticDepthMap through raster_stochastic_pallas "
-              "(interpret mode)")
+              "(interpret mode)",
+    fused_fetch="SVAO through fetch_all_directions and fetch_sd_packed "
+                "(interpret mode)",
+    substituted=GBUFFER_TAA + ["StochasticDepthMap.stochasticDepth"])
 SVAO_FULL_SETTINGS = dict(
     SETTINGS, script="scripts/SVAO.py",
     outputs=["AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
@@ -134,7 +168,9 @@ DUAL_SETTINGS = dict(
     left_out={"DiffuseRef.out": "kept small: SVAO_full holds it",
               "AmbientTAA.colorOut": "kept small: SVAO_full holds it",
               "DiffuseTAA.colorOut": "kept small: SVAO_full holds it",
-              **SVAO_FULL_SETTINGS["left_out"]})
+              **SVAO_FULL_SETTINGS["left_out"]},
+    substituted=GBUFFER_TAA + PEELED)
+SVAO_FULL_SETTINGS["substituted"] = GBUFFER_TAA
 # scripts/SVAO_depth.py: no RayShadow and no ForwardLighting; its two
 # rasters capped; frame 1, so that TemporalDepthPeel holds frame 0's layer
 DEPTH_SETTINGS = dict(
@@ -142,15 +178,27 @@ DEPTH_SETTINGS = dict(
     height=270, frames=2, frame=1, outputs=["Ambient.out", "AmbientRef.out"],
     pass_overrides={p: {"maxPerTile": MAX_PER_TILE}
                     for p in ("GBufferRaster", "DepthPeeling")},
-    substituted=["GBufferRaster.depth", "GBufferRaster.faceNormalW",
-                 "GBufferRaster.mvec"])
-QUARTER_SETTINGS["substituted"] = ["GBufferRaster.depth",
-                                   "GBufferRaster.faceNormalW"]
+    substituted=GBUFFER_TAA)
+QUARTER_SETTINGS["substituted"] = GBUFFER_AO
+# BASELINE config 5's animation (bench_configs.py:51-66) on the small
+# EmeraldSquare tier (7,322 triangles: the resident SD trace; its 65-unit
+# extent inside the 45-unit orbit), frames 0-2, frame 2 kept
+ANIMATION = dict(camera_orbit=dict(center=[0.0, 2.0, 0.0], radius=45.0,
+                                   height=14.0, duration=8.0),
+                 node=1, tallest_share=50,
+                 node_track=dict(axis=[0.0, 1.0, 0.0], amplitude=0.5,
+                                 period=4.0),
+                 clock="playing")
+ANIM_SETTINGS = dict(
+    SETTINGS, scene="EmeraldSquare", frames=3, frame=2,
+    outputs=["AmbientOcclusion.out", "AmbientOcclusionTAA.colorOut",
+             "ShadedTAA.colorOut"],
+    animation=ANIMATION, substituted=GBUFFER_TAA)
 # file name prefix -> settings
 REFS = {"SVAO_small": SETTINGS, "HBAO": HBAO_SETTINGS,
         "SVAO_rasterSD": RASTER_SD_SETTINGS, "SVAO_full": SVAO_FULL_SETTINGS,
         "SVAO_quarter": QUARTER_SETTINGS, "SVAO_dual": DUAL_SETTINGS,
-        "SVAO_depth": DEPTH_SETTINGS}
+        "SVAO_depth": DEPTH_SETTINGS, "SVAO_anim": ANIM_SETTINGS}
 
 
 # Pallas kernels run in interpret mode, per pass whose branch was patched
@@ -194,15 +242,24 @@ def reference_shadows():
 def reference_branches(settings: dict):
     """The accelerator branches `settings` records: the shadows where the
     graph has RayShadow, the raster stochastic depth through
-    raster_stochastic_pallas where the settings name it."""
-    from rtsdm_tpu.ops import raster_pallas
-    from rtsdm_tpu.passes.stochastic_depth import StochasticDepthMap
+    raster_stochastic_pallas, the ray-traced one through the SD trace's
+    Pallas kernels and SVAO's fetches through the fused Pallas fetches
+    where the settings name them."""
+    from rtsdm_tpu.ops import fetch_pallas, raster_pallas, rt_pallas
+    from rtsdm_tpu.passes.stochastic_depth import (StochasticDepthMap,
+                                                   StochasticDepthMapRT)
+    from rtsdm_tpu.passes.svao import SVAO
     with contextlib.ExitStack() as st:
         if "shadows" in settings:
             st.enter_context(reference_shadows())
         if "raster_sd" in settings:
             st.enter_context(accelerator_branch(StochasticDepthMap,
                                                 raster_pallas))
+        if "ray_sd" in settings:
+            st.enter_context(accelerator_branch(StochasticDepthMapRT,
+                                                rt_pallas))
+        if "fused_fetch" in settings:
+            st.enter_context(accelerator_branch(SVAO, fetch_pallas))
         yield
 
 
@@ -250,22 +307,71 @@ def raster_overflow():
 
 @contextlib.contextmanager
 def raster_channels(channels):
-    """While it holds, the yielded list gets, per GBufferRaster run, the
-    whole outputs `channels` ("GBufferRaster.<channel>") as numpy."""
+    """While it holds, the yielded list gets, per frame, the whole outputs
+    `channels` ("<Pass>.<channel>", Pass GBufferRaster, DepthPeeling or
+    StochasticDepthMap) as numpy: its i-th entry holds what each pass
+    returned in its i-th run."""
     from unittest import mock
-    from rtsdm_tpu.passes import gbuffer
+    from rtsdm_tpu.passes import depth_chain, gbuffer
     import numpy as np
+    from rtsdm_tpu.passes import stochastic_depth
+    classes = {"GBufferRaster": gbuffer.GBufferRaster,
+               "DepthPeeling": depth_chain.DepthPeeling,
+               "StochasticDepthMap": stochastic_depth.StochasticDepthMap}
     seen = []
-    real = gbuffer.GBufferRaster.execute
+    runs = collections.Counter()
 
-    def execute(self, ctx, inputs, state=None):
-        out, st = real(self, ctx, inputs, state)
-        seen.append({c: np.asarray(out[c.split(".", 1)[1]])
-                     for c in channels})
-        return out, st
+    def tracked(name, cls):
+        real = cls.execute
+        mine = [c for c in channels if c.split(".", 1)[0] == name]
 
-    with mock.patch.object(gbuffer.GBufferRaster, "execute", execute):
+        def execute(self, ctx, inputs, state=None):
+            out, st = real(self, ctx, inputs, state)
+            i = runs[name]
+            runs[name] += 1
+            if i == len(seen):
+                seen.append({})
+            seen[i].update({c: np.asarray(out[c.split(".", 1)[1]])
+                            for c in mine})
+            return out, st
+        return mock.patch.object(cls, "execute", execute)
+
+    with contextlib.ExitStack() as st:
+        for name in sorted({c.split(".", 1)[0] for c in channels}):
+            st.enter_context(tracked(name, classes[name]))
         yield seen
+
+
+def tallest_node_ids(positions, share: int):
+    """Node ids [T] int32 that put the triangles of the top 1/share by
+    centroid height on node 1 and the rest on node 0, as
+    bench_configs.py:56-60 selects config 5's oscillating node."""
+    import numpy as np
+    cent = np.asarray(positions).mean(1)
+    sel = np.argsort(cent[:, 1])[-len(cent) // share:]
+    node = np.zeros(len(cent), np.int32)
+    node[sel] = 1
+    return node
+
+
+def animate(m, animation: dict):
+    """Config 5's camera path and node track on renderer `m` after its
+    scene loaded (bench_configs.py:51-66), the clock playing."""
+    import jax.numpy as jnp
+    from rtsdm_tpu.scene.animation import (AnimationController, CameraPath,
+                                           NodeTrack)
+    from rtsdm_tpu.utils.structs import replace
+    m.cameraPath = CameraPath.orbit(**animation["camera_orbit"])
+    node = tallest_node_ids(m.scene.positions, animation["tallest_share"])
+    m.scene = replace(m.scene, node_id=jnp.asarray(node))
+    for gr in m.graphs:
+        gr.set_scene(m.scene)
+    track = animation["node_track"]
+    m.animationController = AnimationController(
+        {animation["node"]: NodeTrack.oscillate(tuple(track["axis"]),
+                                                amplitude=track["amplitude"],
+                                                period=track["period"])})
+    m.clock.play()
 
 
 def ref_path(name: str, settings: dict) -> Path:
@@ -286,6 +392,8 @@ def render(settings: dict):
         m.active_graph.get_pass(name).cfg.update(props)
     m.loadScene(settings["scene"])
     m.clock.pause()
+    if "animation" in settings:
+        animate(m, settings["animation"])
     kept = {}
     for f in range(settings["frames"]):
         m.clock.frame = f
@@ -309,7 +417,15 @@ def gbuffer_overflow(m, settings: dict, max_per_tile: int) -> int:
     gb = graph.get_pass("GBufferRaster").cfg
     guard = int(graph.get_pass("GuardBand").cfg["guardBand"])
     w, h = settings["width"] + 2 * guard, settings["height"] + 2 * guard
-    scene = pattern_jittered_scene(m.scene, gb["samplePattern"],
+    scene = m.scene
+    if "animation" in settings:     # the kept frame's animated scene
+        time_s = settings["frame"] / m.clock.framerate
+        scene = m.animationController.animate(m._scene_comp, time_s)
+        base = m._scene_comp.camera
+        scene = scene.with_camera(m.cameraPath.camera_at(
+            time_s, base, dt=1.0 / m.clock.framerate,
+            aspect=float(base.aspect), focal=float(base.focal_length)))
+    scene = pattern_jittered_scene(scene, gb["samplePattern"],
                                    gb["sampleCount"], settings["frame"], w,
                                    h)
     cam = scene.camera
@@ -317,9 +433,6 @@ def gbuffer_overflow(m, settings: dict, max_per_tile: int) -> int:
                     height=h, jitter_x=cam.jitter_x, jitter_y=cam.jitter_y,
                     cull=gb["cull"].lower(), max_per_tile=max_per_tile)
     return int(vis["overflow"])
-
-
-NO_FMA = "--xla_cpu_max_isa=AVX"
 
 
 def golden_without_fma(test: str) -> int:
@@ -378,16 +491,24 @@ def main(argv=None) -> int:
         os.environ["XLA_FLAGS"] = " ".join(
             filter(None, (os.environ.get("XLA_FLAGS"), NO_FMA)))
         return golden_without_fma(args.golden)
-    import numpy as np
     settings = dict(REFS[args.config])
     settings.update({k: v for k, v in (("width", args.width),
                                        ("height", args.height)) if v})
+    if "xla_flags" in settings:
+        if "jax" in sys.modules:
+            raise SystemExit("xla_flags must be set before JAX is imported")
+        os.environ["XLA_FLAGS"] = " ".join(
+            filter(None, (os.environ.get("XLA_FLAGS"),
+                          settings["xla_flags"])))
+    import numpy as np
     t0 = time.perf_counter()
     with reference_branches(settings), raster_overflow() as overflow, \
             raster_channels(settings.get("substituted", ())) as rasters:
         images, m = render(settings)
     want = ({"RayShadow"} if "shadows" in settings else set()) | (
-        {"StochasticDepthMap"} if "raster_sd" in settings else set())
+        {"StochasticDepthMap"} if "raster_sd" in settings else set()) | (
+        {"StochasticDepthMapRT"} if "ray_sd" in settings else set()) | (
+        {"SVAO"} if "fused_fetch" in settings else set())
     if set(INTERPRETED) != want:
         raise SystemExit(f"Pallas kernels ran in {dict(INTERPRETED)}, not "
                          f"in each of {sorted(want)}")
@@ -406,13 +527,22 @@ def main(argv=None) -> int:
     np.savez_compressed(path, settings=np.asarray(json.dumps(settings)),
                         **images)
     if settings.get("substituted"):
-        for later in rasters[1:]:
-            if any(not np.array_equal(later[c], rasters[0][c])
-                   for c in settings["substituted"]):
-                raise SystemExit("the G-buffer raster differs between "
-                                 "frames: no one substitute holds")
-        np.savez_compressed(path.with_suffix(".rasters.npz"),
-                            **rasters[settings["frame"]])
+        want = sorted(settings["substituted"])
+        if len(rasters) != settings["frames"] or any(
+                sorted(r) != want for r in rasters):
+            got = [sorted(r) for r in rasters]
+            raise SystemExit(f"raster channels captured {got}, not {want} "
+                             f"in each of {settings['frames']} frames")
+        if "animation" not in settings:
+            for later in rasters[1:]:
+                if any(not np.array_equal(later[c], rasters[0][c])
+                       for c in want):
+                    raise SystemExit("the rasters differ between frames "
+                                     "of a still scene")
+        stored = rasters[0] if settings["frames"] == 1 else {
+            f"f{f}/{c}": a for f, r in enumerate(rasters)
+            for c, a in r.items()}
+        np.savez_compressed(path.with_suffix(".rasters.npz"), **stored)
     print(f"{path.relative_to(ROOT)}: "
           + ", ".join(f"{k} {v.shape}" for k, v in images.items())
           + f"; {settings['seconds']} s; G-buffer overflow at 256: "

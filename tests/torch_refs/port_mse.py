@@ -9,7 +9,7 @@ renders each reference NAME of chip_smoke.MID_REFS through the port on
 --device (the CPU by default; cuda on the card) and prints each output's
 MSE against tests/torch_refs/NAME.*.npz; for a name with a substituted
 hold (chip_smoke.MID_SUBSTITUTED_BOUND) once more with the JAX package's
-G-buffer channels stored beside the reference in place of the port's.
+raster channels stored beside the reference in place of the port's.
 Imports no JAX. Not run by the tests.
 """
 from __future__ import annotations
