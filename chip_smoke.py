@@ -30,9 +30,10 @@ Phases, each of which raises on failure (the script then exits non-zero):
    shared memory, blocks an SM) and the SD trace stage piece by piece
    (sd_stage_split: each rt_cuda function the SD pass calls, by CUDA events
    and host time; K5's row is its whole wrapper, lists included);
-6. time a steady-state frame stage by stage (CUDA events) and through the
-   public entry points (host clock), and profile one frame (torch.profiler:
-   device time by kernel, and the device's idle share of the frame);
+6. time a steady-state frame by the program's own spans (host clock:
+   renderFrame, the SVAO pass and its phase1, sd_map and phase2), and
+   profile one frame (torch.profiler: device time by kernel, and the
+   device's idle share of the frame);
 7. render CornellBox 64x64 on the card and on the CPU (the plain versions,
    which tests/test_torch_*.py hold against the JAX package) and compare
    the AO with the bound those tests use;
@@ -979,53 +980,31 @@ COMPARE = {"raster": compare_raster,
 # steady-state stages
 # ---------------------------------------------------------------------------
 
-def staged_frame_ms(scene, pass_, ctx, reps: int = 5):
-    """Per-stage device times of a steady-state frame (the mean over `reps`
-    frames after the first): the stages SVAO.execute runs, called as it
-    calls them, each between two CUDA events."""
+def frame_spans_ms(scene, pass_, ctx, reps: int = 5):
+    """Host ms per steady-state frame (the mean over `reps` frames after
+    one warm frame) of the program's own spans, as Renderer.renderFrame's
+    profiler keeps them: renderFrame (the G-buffer, the SVAO pass and a
+    synchronize), the pass (SVAO) and its phases (SVAO/phase1, SVAO/sd_map,
+    SVAO/phase2), and every span inside; {scope path: ms}."""
     import torch
-    from rtsdm_tpu_torch.ops import ao as A
-    from rtsdm_tpu_torch.passes.svao import _normals_to_view
-    from rtsdm_tpu_torch.passes.svao_shift import (svao_phase1_shift,
-                                                   svao_phase2_shift)
-    from rtsdm_tpu_torch.rendergraph.render_pass import RenderContext
-    cam = scene.camera
-    cfg = pass_._vao_cfg(ctx, (WIDTH, HEIGHT))
-    sd_w, sd_h = pass_._stoch_map_size((WIDTH, HEIGHT))
-    sd_ctx = RenderContext(width=sd_w, height=sd_h, scene=scene,
-                           dictionary={"guardBand": 0})
-    graph = pass_._build_sd_graph()
-    names = ("g_buffer", "phase1", "sd_trace", "phase2", "frame")
-    sums = dict.fromkeys(names, 0.0)
-    for r in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
-        ev[0].record()
-        g, lin, packed = g_buffer_stage(scene, WIDTH, HEIGHT)
-        ev[1].record()
-        nv = _normals_to_view(ctx, packed)
-        p1 = svao_phase1_shift(cam, cfg, lin, nv, 0, True)
-        ev[2].record()
-        marked, _, _ = graph.execute(sd_ctx, {}, external_inputs={
-            "StochasticDepthMap.linearZ": lin,
-            "StochasticDepthMap.depthMap": g["depth"],
-            "StochasticDepthMap.rayMin": p1["ray_min"],
-            "StochasticDepthMap.rayMax": p1["ray_max"]})
-        sd_map = marked["StochasticDepthMap.stochasticDepth"]
-        ev[3].record()
-        delta = svao_phase2_shift(cam, cfg, lin, nv, p1["stencil"], sd_map,
-                                  True, 4)
-        ao = torch.where(p1["stencil"] != 0,
-                         A.finalize(cfg, p1["ao_raw"] + delta),
-                         A.finalize(cfg, p1["ao_raw"]))
-        ev[4].record()
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(ao).all()), "staged AO is not finite")
-        if r == 0:
-            continue
-        for i, n in enumerate(names[:4]):
-            sums[n] += ev[i].elapsed_time(ev[i + 1])
-        sums["frame"] += ev[0].elapsed_time(ev[4])
-    return {n: sums[n] / reps for n in names}
+    from rtsdm_tpu_torch.core.profiler import Profiler
+    prof = Profiler()
+    ctx.profiler = prof
+    try:
+        for r in range(reps + 1):
+            if r == 1:
+                prof.reset()
+            with prof.activate(), prof.event("renderFrame"):
+                g, lin, packed = g_buffer_stage(scene, WIDTH, HEIGHT)
+                with prof.event("SVAO"):
+                    out, _ = pass_.execute(ctx, {"gbufferDepth": g["depth"],
+                                                 "depth": lin,
+                                                 "normals": packed})
+                torch.cuda.synchronize()
+            check(bool(torch.isfinite(out["ao"]).all()), "AO is not finite")
+    finally:
+        ctx.profiler = None
+    return prof.flat_averages()
 
 
 # device symbol of each kernel (csrc/*.cu), as the profiler names it
@@ -1071,19 +1050,6 @@ def kernel_device_ms(acts, name: str):
     """Summed device time of kernel `name` in a profiled frame, or None."""
     hits = [ms for k, (ms, _) in acts.items() if KERNEL_SYMBOLS[name] in k]
     return sum(hits) if hits else None
-
-
-def frame_host_ms(scene, pass_, ctx, reps: int = 5) -> float:
-    """Host-clock time of whole frames through the public entry points,
-    ending in a synchronize (mean over `reps` after one warm frame)."""
-    import torch
-    frame(scene, pass_, ctx, WIDTH, HEIGHT)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        frame(scene, pass_, ctx, WIDTH, HEIGHT)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 # ---------------------------------------------------------------------------
@@ -4167,15 +4133,20 @@ def main(argv=None) -> int:
         f"{k5['kernel_ms']:.4f} ms, device {k5['device_ms']} ms")
 
     torch.cuda.reset_peak_memory_stats()
-    stages = staged_frame_ms(scene, pass_, ctx)
-    host_ms = frame_host_ms(scene, pass_, ctx)
+    spans = frame_spans_ms(scene, pass_, ctx)
+    stages = {n: spans.get(f"renderFrame/SVAO/{n}", 0.0)
+              for n in ("phase1", "sd_map", "phase2")}
+    stages["SVAO"] = spans.get("renderFrame/SVAO", 0.0)
+    host_ms = spans.get("renderFrame", 0.0)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log("steady-state frame, device time per stage (CUDA events, mean of 5): "
-        + ", ".join(f"{n} {v:.3f} ms" for n, v in stages.items()))
-    log(f"steady-state frame, host clock through SVAO.execute (mean of 5): "
-        f"{host_ms:.3f} ms; peak device memory {peak_gib:.2f} GiB")
-    check(all(math.isfinite(v) and v > 0 for v in stages.values()),
-          "stage times")
+    log("steady-state frame, host time per span (the program's profiler, "
+        "mean of 5): " + ", ".join(f"{n} {v:.3f} ms"
+                                   for n, v in spans.items()))
+    log(f"steady-state frame, host clock through SVAO.execute (renderFrame, "
+        f"mean of 5): {host_ms:.3f} ms; peak device memory {peak_gib:.2f} "
+        "GiB")
+    check(all(math.isfinite(v) and v > 0 for v in stages.values())
+          and host_ms > 0, "span times")
     acts = profiled_frame(scene, pass_, ctx)
     busy_ms = sum(ms for ms, _ in acts.values())
     if acts:

@@ -3,25 +3,52 @@ reference Utils/Timing/Profiler.h:49, FALCOR_PROFILE scopes
 Profiler.h:276-298).
 
 Named scopes nest into a tree of host-clock totals that exports to JSON
-like Profiler::Capture (Profiler.h:138-191). PyTorch launches work on the
-GPU asynchronously, so a scope given `outputs` synchronizes their CUDA
-devices before it stops its clock when `sync` is set (the GpuTimer
-equivalent); a scope without outputs times the host's work only.
+like Profiler::Capture (Profiler.h:138-191). While the profiler is
+enabled, each scope is also a torch.profiler record_function named
+SPAN_PREFIX + its path ("rtsdm/renderFrame/SVAO/phase1"), so that under
+torch.profiler the program's spans lie in one trace with the device's
+activities, on one clock. PyTorch launches work on the GPU
+asynchronously: a scope times the host's work only.
+
+Renderer.renderFrame makes its profiler the active one for the frame
+(Profiler.activate); profile_scope opens a scope on it from code that has
+no RenderContext (ops/*). A disabled profiler, or none active, costs one
+test a scope and allocates nothing.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import time
 
-import torch
+from torch.profiler import record_function
+
+SPAN_PREFIX = "rtsdm/"
+
+
+class _Null:
+    """The scope of a disabled profiler: enters and leaves doing nothing."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return False
+
+
+NULL_SCOPE = _Null()
+
+# the profiler Renderer.renderFrame made active for the frame (enabled
+# ones only), which profile_scope opens its scopes on
+_active = None
 
 
 class _Event:
-    __slots__ = ("name", "count", "total", "children")
+    __slots__ = ("name", "path", "count", "total", "children")
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, path: str):
         self.name = name
+        self.path = path
         self.count = 0
         self.total = 0.0
         self.children: dict[str, _Event] = {}
@@ -36,54 +63,75 @@ class _Event:
         }
 
 
-def _synchronize(outputs) -> None:
-    """Wait for the CUDA devices of the tensors in `outputs` (a tensor, or
-    a dict / list / tuple nesting them)."""
-    devices = set()
-    stack = [outputs]
-    while stack:
-        x = stack.pop()
-        if isinstance(x, torch.Tensor):
-            if x.is_cuda:
-                devices.add(x.device)
-        elif isinstance(x, dict):
-            stack.extend(x.values())
-        elif isinstance(x, (list, tuple)):
-            stack.extend(x)
-    for d in devices:
-        torch.cuda.synchronize(d)
+class _Scope:
+    """One enabled scope: a node of the tree, timed on the host clock,
+    and a record_function span of its path."""
+    __slots__ = ("prof", "name", "args", "ev", "span", "t0")
+
+    def __init__(self, prof, name: str, args):
+        self.prof = prof
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        parent = self.prof._stack[-1]
+        ev = parent.children.get(self.name)
+        if ev is None:
+            path = f"{parent.path}/{self.name}" if parent.path else self.name
+            ev = parent.children[self.name] = _Event(self.name, path)
+        self.ev = ev
+        self.prof._stack.append(ev)
+        self.span = record_function(SPAN_PREFIX + ev.path, self.args)
+        self.span.__enter__()
+        self.t0 = time.perf_counter()
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        self.ev.total += time.perf_counter() - self.t0
+        self.ev.count += 1
+        self.span.__exit__(exc_type, exc, tb)
+        self.prof._stack.pop()
+        return False
+
+
+class _Activation:
+    __slots__ = ("prof", "prev")
+
+    def __init__(self, prof):
+        self.prof = prof
+
+    def __enter__(self):
+        global _active
+        self.prev, _active = _active, self.prof
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        global _active
+        _active = self.prev
+        return False
 
 
 class Profiler:
-    def __init__(self, enabled: bool = True, sync: bool = True):
+    def __init__(self, enabled: bool = True):
         self.enabled = enabled
-        self.sync = sync
-        self.root = _Event("/")
-        self._stack = [self.root]
+        self.reset()
 
-    @contextlib.contextmanager
-    def event(self, name: str, outputs=None):
-        """Time the enclosed block under `name`, nested in the open scope."""
+    def event(self, name: str, frame: int | None = None):
+        """Time the enclosed block under `name`, nested in the open scope;
+        `frame` (top-level scopes) rides on the span as its args."""
         if not self.enabled:
-            yield
-            return
-        parent = self._stack[-1]
-        ev = parent.children.get(name)
-        if ev is None:
-            ev = parent.children[name] = _Event(name)
-        self._stack.append(ev)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync and outputs is not None:
-                _synchronize(outputs)
-            ev.total += time.perf_counter() - t0
-            ev.count += 1
-            self._stack.pop()
+            return NULL_SCOPE
+        return _Scope(self, name, None if frame is None else str(frame))
+
+    def activate(self):
+        """Make this profiler the one profile_scope opens scopes on, for
+        the enclosed block (while enabled)."""
+        if not self.enabled:
+            return NULL_SCOPE
+        return _Activation(self)
 
     def reset(self):
-        self.root = _Event("/")
+        self.root = _Event("/", "")
         self._stack = [self.root]
 
     def capture(self) -> dict:
@@ -97,22 +145,19 @@ class Profiler:
         source, reference PathBenchmark.cpp:59-90)."""
         out = {}
 
-        def walk(ev, prefix):
+        def walk(ev):
             for c in ev.children.values():
-                key = f"{prefix}/{c.name}" if prefix else c.name
-                out[key] = (c.total / c.count * 1e3) if c.count else 0.0
-                walk(c, key)
+                out[c.path] = (c.total / c.count * 1e3) if c.count else 0.0
+                walk(c)
 
-        walk(self.root, "")
+        walk(self.root)
         return out
 
 
-_GLOBAL = Profiler(enabled=False)
-
-
-def global_profiler() -> Profiler:
-    return _GLOBAL
-
-
-def profile_scope(name: str, outputs=None):
-    return _GLOBAL.event(name, outputs)
+def profile_scope(name: str):
+    """A scope named `name` on the active profiler, nested in its open
+    scope; without one, a scope that does nothing."""
+    prof = _active
+    if prof is None:
+        return NULL_SCOPE
+    return prof.event(name)

@@ -6,11 +6,12 @@ rtsdm_tpu/mogwai.py; reference Source/Mogwai, MogwaiScripting.cpp:127-179).
 
 A graph script sees the renderer as `m` (m.addGraph, m.loadScene, ...).
 renderFrame runs the active graph eagerly, pass by pass, and ends with
-torch.cuda.synchronize(); `m.profiler` (off by default) times the frame
-and each pass on the host clock. A GuardBand pass in the graph grows the render
-target by 2 * guardBand on each axis and widens the camera's field of view
-so the interior keeps the requested one (GuardBand.cpp:74-100); marked
-outputs are cropped back to the requested size. `m.cameraPath` (a
+torch.cuda.synchronize(); `m.profiler` (off by default) times the frame,
+its animation step and camera path, each pass and the spans inside them on
+the host clock (core/profiler.py). A GuardBand pass in the graph grows the
+render target by 2 * guardBand on each axis and widens the camera's field
+of view so the interior keeps the requested one (GuardBand.cpp:74-100);
+marked outputs are cropped back to the requested size. `m.cameraPath` (a
 scene/animation.py CameraPath) moves the camera and `m.animationController`
 (an AnimationController) the geometry, by the clock's time. Runs on the
 GPU unless the renderer is given device="cpu".
@@ -183,23 +184,29 @@ class Renderer:
         if self._frame_fn is None:
             self._build_frame_fn()
         t0 = time.perf_counter()
-        # _scene_comp stays the bind pose: node tracks are absolute, so
-        # each frame animates it afresh (never last frame's soup, which
-        # would compound the transforms)
-        scene = self._scene_comp
-        if self.animationController is not None:
-            scene = self.animationController.animate(scene, self.clock.time)
-        if self.cameraPath is not None:
-            base = self._scene_comp.camera
-            scene = scene.with_camera(self.cameraPath.camera_at(
-                self.clock.time, base, dt=1.0 / self.clock.framerate,
-                aspect=float(base.aspect), focal=float(base.focal_length)))
-        with self.profiler.event("renderFrame"):
-            marked, self._state = self._frame_fn(
-                scene, self._state, frame_index=self.clock.frame,
-                time=self.clock.time)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        prof, frame = self.profiler, self.clock.frame
+        with prof.activate():
+            # _scene_comp stays the bind pose: node tracks are absolute, so
+            # each frame animates it afresh (never last frame's soup, which
+            # would compound the transforms)
+            scene = self._scene_comp
+            if self.animationController is not None:
+                with prof.event("animate", frame=frame):
+                    scene = self.animationController.animate(
+                        scene, self.clock.time)
+            if self.cameraPath is not None:
+                with prof.event("camera_path", frame=frame):
+                    base = self._scene_comp.camera
+                    scene = scene.with_camera(self.cameraPath.camera_at(
+                        self.clock.time, base, dt=1.0 / self.clock.framerate,
+                        aspect=float(base.aspect),
+                        focal=float(base.focal_length)))
+            with prof.event("renderFrame", frame=frame):
+                marked, self._state = self._frame_fn(
+                    scene, self._state, frame_index=frame,
+                    time=self.clock.time)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
         self.last_frame_ms = (time.perf_counter() - t0) * 1e3
         _, _, gb = self._render_res()
         if gb:

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .._build import launch, ptr, stream_of
+from ..core.profiler import profile_scope
 from ..utils.math import true_div
 from . import ao as A
 from . import ao_shift as S
@@ -138,34 +139,35 @@ def fetch_all_directions(padded_sets, pad: int, radius_px_q, levels, offs,
     ao_shift.offset_tables. Returns a list over sets of [nd, 16, qh, qw];
     entry [d] equals fetch_direction(set, pad, shift_level_index(levels,
     radius * radii[d]), offs[d], qh, qw)."""
-    qh, qw = radius_px_q.shape[1:]
-    sets = list(padded_sets)
-    # one set (SVAO's phases) is read in place, not stacked
-    planes = (sets[0][None] if len(sets) == 1 else torch.stack(sets)) \
-        .contiguous()
-    radius = radius_px_q.contiguous()
-    if planes.dtype != torch.float32 or radius.dtype != torch.float32:
-        raise TypeError("fetch_all_directions: float32 planes and radius")
-    n_src, _, ph, pw = planes.shape
-    if (ph, pw) != (qh + 2 * pad, qw + 2 * pad):
-        raise ValueError("fetch_all_directions: planes not padded by pad")
-    if planes.is_cuda:
-        bounds, radii_t, tab, _ = _tables("dir", levels, offs, radii,
-                                          (pad,), planes.device)
-        nd = len(offs)
-        out = torch.empty((n_src, nd, 16, qh, qw), dtype=torch.float32,
-                          device=planes.device)
-        if max(planes.numel(), out.numel()) >= 2**31:
-            raise ValueError("fetch_all_directions: more than 2^31 values")
-        launch("rtsdm_fetch_directions", ptr(planes), ptr(radius),
-               ptr(bounds), ptr(radii_t), ptr(tab), n_src, nd, len(levels),
-               qh, qw, ph, pw, ptr(out), stream_of(planes))
-        return list(out)
-    if planes.device.type != "cpu":
-        raise RuntimeError(f"fetch_all_directions: unsupported device "
-                           f"{planes.device}")
-    return fetch_all_directions_plain(planes, pad, radius, levels, offs,
-                                      radii)
+    with profile_scope("kernel.fetch_all_directions"):
+        qh, qw = radius_px_q.shape[1:]
+        sets = list(padded_sets)
+        # one set (SVAO's phases) is read in place, not stacked
+        planes = (sets[0][None] if len(sets) == 1 else torch.stack(sets)) \
+            .contiguous()
+        radius = radius_px_q.contiguous()
+        if planes.dtype != torch.float32 or radius.dtype != torch.float32:
+            raise TypeError("fetch_all_directions: float32 planes and radius")
+        n_src, _, ph, pw = planes.shape
+        if (ph, pw) != (qh + 2 * pad, qw + 2 * pad):
+            raise ValueError("fetch_all_directions: planes not padded by pad")
+        if planes.is_cuda:
+            bounds, radii_t, tab, _ = _tables("dir", levels, offs, radii,
+                                              (pad,), planes.device)
+            nd = len(offs)
+            out = torch.empty((n_src, nd, 16, qh, qw), dtype=torch.float32,
+                              device=planes.device)
+            if max(planes.numel(), out.numel()) >= 2**31:
+                raise ValueError("fetch_all_directions: more than 2^31 values")
+            launch("rtsdm_fetch_directions", ptr(planes), ptr(radius),
+                   ptr(bounds), ptr(radii_t), ptr(tab), n_src, nd, len(levels),
+                   qh, qw, ph, pw, ptr(out), stream_of(planes))
+            return list(out)
+        if planes.device.type != "cpu":
+            raise RuntimeError(f"fetch_all_directions: unsupported device "
+                               f"{planes.device}")
+        return fetch_all_directions_plain(planes, pad, radius, levels, offs,
+                                          radii)
 
 
 def fetch_all_directions_plain(planes, pad, radius_px_q, levels, offs,
@@ -208,29 +210,31 @@ def fetch_taps_same_class(planes, lvl_taps, pad: int, offs):
     texels. Returns [n_src, nd * taps, 16, qh, qw]: entry [s, d * taps + k]
     reads class c's own plane at offs[d][c][lvl_taps[k, c, q]] (0 where the
     level is out of range)."""
-    _check_taps_inputs(planes, lvl_taps, pad)
-    if planes.is_cuda:
-        planes, lvl = planes.contiguous(), lvl_taps.contiguous()
-        tab = _same_class_table_on(offs, pad, planes.device)
-        n_src, _, ph, pw = planes.shape
-        taps, _, qh, qw = lvl.shape
-        nd, _, n_levels, _ = tab.shape
-        if max(planes.numel(), lvl.numel(), n_src * nd * taps * 16 * qh
-               * qw) >= 2**31:
-            raise ValueError("fetch_taps_same_class: more than 2^31 values")
-        if nd * n_levels * 2 * 4 > TAPS_TABLE_BYTES:
-            raise ValueError("fetch_taps_same_class: a class's table slice "
-                             f"exceeds {TAPS_TABLE_BYTES} bytes")
-        out = torch.empty((n_src, nd * taps, 16, qh, qw),
-                          dtype=torch.float32, device=planes.device)
-        launch("rtsdm_fetch_taps_same_class", ptr(planes), ptr(lvl),
-               ptr(tab), n_src, nd, taps, n_levels, qh, qw, ph, pw, ptr(out),
-               stream_of(planes))
-        return out
-    if planes.device.type != "cpu":
-        raise RuntimeError(f"fetch_taps_same_class: unsupported device "
-                           f"{planes.device}")
-    return fetch_taps_same_class_plain(planes, lvl_taps, pad, offs)
+    with profile_scope("kernel.fetch_taps_same_class"):
+        _check_taps_inputs(planes, lvl_taps, pad)
+        if planes.is_cuda:
+            planes, lvl = planes.contiguous(), lvl_taps.contiguous()
+            tab = _same_class_table_on(offs, pad, planes.device)
+            n_src, _, ph, pw = planes.shape
+            taps, _, qh, qw = lvl.shape
+            nd, _, n_levels, _ = tab.shape
+            if max(planes.numel(), lvl.numel(), n_src * nd * taps * 16 * qh
+                   * qw) >= 2**31:
+                raise ValueError("fetch_taps_same_class: more than 2^31 "
+                                 "values")
+            if nd * n_levels * 2 * 4 > TAPS_TABLE_BYTES:
+                raise ValueError("fetch_taps_same_class: a class's table "
+                                 f"slice exceeds {TAPS_TABLE_BYTES} bytes")
+            out = torch.empty((n_src, nd * taps, 16, qh, qw),
+                              dtype=torch.float32, device=planes.device)
+            launch("rtsdm_fetch_taps_same_class", ptr(planes), ptr(lvl),
+                   ptr(tab), n_src, nd, taps, n_levels, qh, qw, ph, pw,
+                   ptr(out), stream_of(planes))
+            return out
+        if planes.device.type != "cpu":
+            raise RuntimeError(f"fetch_taps_same_class: unsupported device "
+                               f"{planes.device}")
+        return fetch_taps_same_class_plain(planes, lvl_taps, pad, offs)
 
 
 def fetch_taps_same_class_plain(planes, lvl_taps, pad: int, offs):
@@ -277,32 +281,33 @@ def fetch_sd_packed(sd_map, guard: int, radius_px_q, levels, offs, radii,
     fetch_sd_direction). On the card the kernel packs the depths itself;
     the contract it is held to is fetch_sd_packed_plain(pack_sd16(sd_map),
     ...)."""
-    qh, qw = radius_px_q.shape[1:]
-    sd_h, sd_w, k = sd_map.shape
-    bounds, radii_t, tab, ok = _tables(
-        "sd", levels, offs, radii, (guard, pad, sd_h, sd_w, qh, qw),
-        sd_map.device)
-    if not ok:
-        return None
-    radius = radius_px_q.contiguous()
-    if sd_map.is_cuda:
-        sd = sd_map.contiguous()
-        if sd.dtype != torch.float32 or radius.dtype != torch.float32:
-            raise TypeError("fetch_sd_packed: float32 SD map and radius")
-        nd, n_levels = len(offs), len(levels)
-        out = torch.empty((nd, 16, (k + 1) // 2, qh, qw), dtype=torch.int32,
-                          device=sd.device)
-        if max(sd.numel(), out.numel()) >= 2**31:
-            raise ValueError("fetch_sd_packed: more than 2^31 values")
-        launch("rtsdm_fetch_sd_packed", ptr(sd), ptr(radius), ptr(bounds),
-               ptr(radii_t), ptr(tab), k, nd, n_levels, qh, qw, sd_w,
-               ptr(out), stream_of(sd))
-        return out
-    if sd_map.device.type != "cpu":
-        raise RuntimeError(f"fetch_sd_packed: unsupported device "
-                           f"{sd_map.device}")
-    return fetch_sd_packed_plain(pack_sd16(sd_map), guard, radius, levels,
-                                 offs, radii)
+    with profile_scope("kernel.fetch_sd_packed"):
+        qh, qw = radius_px_q.shape[1:]
+        sd_h, sd_w, k = sd_map.shape
+        bounds, radii_t, tab, ok = _tables(
+            "sd", levels, offs, radii, (guard, pad, sd_h, sd_w, qh, qw),
+            sd_map.device)
+        if not ok:
+            return None
+        radius = radius_px_q.contiguous()
+        if sd_map.is_cuda:
+            sd = sd_map.contiguous()
+            if sd.dtype != torch.float32 or radius.dtype != torch.float32:
+                raise TypeError("fetch_sd_packed: float32 SD map and radius")
+            nd, n_levels = len(offs), len(levels)
+            out = torch.empty((nd, 16, (k + 1) // 2, qh, qw),
+                              dtype=torch.int32, device=sd.device)
+            if max(sd.numel(), out.numel()) >= 2**31:
+                raise ValueError("fetch_sd_packed: more than 2^31 values")
+            launch("rtsdm_fetch_sd_packed", ptr(sd), ptr(radius), ptr(bounds),
+                   ptr(radii_t), ptr(tab), k, nd, n_levels, qh, qw, sd_w,
+                   ptr(out), stream_of(sd))
+            return out
+        if sd_map.device.type != "cpu":
+            raise RuntimeError(f"fetch_sd_packed: unsupported device "
+                               f"{sd_map.device}")
+        return fetch_sd_packed_plain(pack_sd16(sd_map), guard, radius, levels,
+                                     offs, radii)
 
 
 def fetch_sd_packed_plain(sd_pl, guard, radius_px_q, levels, offs, radii):

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.profiler import profile_scope
 from ..utils.math import cross, dot3, transform_point
 from . import raster_cuda
 from .rt_cuda import pad_tile
@@ -85,18 +86,20 @@ def _binned_chunks(view_proj, positions, width: int, height: int,
     """Triangles set up, morton-sorted, packed into coefficient chunks with
     their screen boxes beside them, and binned to 8x32 tiles: (chunks,
     tri_boxes, lists, counts, nby, nbx)."""
-    coef, bbox, valid = _setup_triangles(view_proj, positions, width, height,
-                                         jitter_x, jitter_y, CULL_MODES[cull])
-    order = raster_cuda.screen_morton_order(bbox, valid, width, height)
-    coef, bbox, valid = coef[order], bbox[order], valid[order]
-    chunks = raster_cuda.pack_coef_chunks(coef, valid, order)
-    cbox = raster_cuda.chunk_screen_bboxes(bbox, valid)
-    nby = -(-height // raster_cuda.TILE_RH)
-    nbx = -(-width // raster_cuda.TILE_RW)
-    tri_boxes = raster_cuda.pack_tri_boxes(raster_cuda.cull_boxes(
-        coef, nbx * raster_cuda.TILE_RW, nby * raster_cuda.TILE_RH), valid)
-    lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
-    return chunks, tri_boxes, lists, counts, nby, nbx
+    with profile_scope("geometry.raster_bins"):
+        coef, bbox, valid = _setup_triangles(view_proj, positions, width,
+                                             height, jitter_x, jitter_y,
+                                             CULL_MODES[cull])
+        order = raster_cuda.screen_morton_order(bbox, valid, width, height)
+        coef, bbox, valid = coef[order], bbox[order], valid[order]
+        chunks = raster_cuda.pack_coef_chunks(coef, valid, order)
+        cbox = raster_cuda.chunk_screen_bboxes(bbox, valid)
+        nby = -(-height // raster_cuda.TILE_RH)
+        nbx = -(-width // raster_cuda.TILE_RW)
+        tri_boxes = raster_cuda.pack_tri_boxes(raster_cuda.cull_boxes(
+            coef, nbx * raster_cuda.TILE_RW, nby * raster_cuda.TILE_RH), valid)
+        lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
+        return chunks, tri_boxes, lists, counts, nby, nbx
 
 
 def rasterize(view_proj, positions, *, width: int, height: int,

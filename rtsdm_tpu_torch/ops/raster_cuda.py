@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch, ptr, stream_of
+from ..core.profiler import profile_scope
 from ..utils.sampling import coverage_mask_select, coverage_table_tensors
 from .rt_cuda import (LIST_CAP, RB, TC, TILE_RH, TILE_RW, _wrap32,
                       compact_lists, key15_of_hash, tile_flatten,
@@ -228,46 +229,49 @@ def raster_blocks(coef_chunks, tri_boxes, lists, counts, nby: int,
     linear view depth) a fragment counts only where its view depth exceeds
     floor + min_separation (depth peeling). Returns (z, tri_id, b1, b2).
     Launches with a floor are counted apart, under RASTER_FLOOR_KEY."""
-    for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
-                     (tri_boxes, torch.float32, "tri_boxes"),
-                     (lists, torch.int32, "lists"),
-                     (counts, torch.int32, "counts")):
-        _check(t, dt, n)
-    if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
-            or lists.shape[0] != nby * nbx or counts.shape != (nby * nbx,):
-        raise ValueError("raster_blocks: inconsistent shapes")
-    if not (0.0 <= px0 <= 1.0 and 0.0 <= py0 <= 1.0):
-        raise ValueError("raster_blocks: px0 and py0 must lie in [0, 1], "
-                         "the pixel centres the cull boxes bound")
-    if tri_boxes.shape != (coef_chunks.shape[0], 4, TC) \
-            or tri_boxes.device != coef_chunks.device:
-        raise ValueError("raster_blocks: tri_boxes must be [n_chunks, 4, "
-                         f"{TC}] beside the chunks, got "
-                         f"{tuple(tri_boxes.shape)} on {tri_boxes.device}")
-    if floor is not None:
-        _check(floor, torch.float32, "floor")
-        if floor.shape != (nby * TILE_RH, nbx * TILE_RW) \
-                or floor.device != coef_chunks.device:
-            raise ValueError("raster_blocks: floor must be the padded image")
-    if coef_chunks.is_cuda:
-        dev = coef_chunks.device
-        shape = (nby * TILE_RH, nbx * TILE_RW)
-        z = torch.empty(shape, dtype=torch.float32, device=dev)
-        tid = torch.empty(shape, dtype=torch.int32, device=dev)
-        b1 = torch.empty(shape, dtype=torch.float32, device=dev)
-        b2 = torch.empty(shape, dtype=torch.float32, device=dev)
-        launch("rtsdm_raster_blocks", ptr(coef_chunks), ptr(tri_boxes),
-               ptr(lists), ptr(counts), coef_chunks.shape[0], lists.shape[1],
-               nby, nbx, px0, py0, 0 if floor is None else ptr(floor),
-               min_separation, ptr(z), ptr(tid), ptr(b1), ptr(b2),
-               stream_of(coef_chunks),
-               key=None if floor is None else RASTER_FLOOR_KEY)
-        return z, tid, b1, b2
-    if coef_chunks.device.type != "cpu":
-        raise RuntimeError(f"raster_blocks: unsupported device "
-                           f"{coef_chunks.device}")
-    return raster_blocks_plain(coef_chunks, None, lists, counts, nby, nbx,
-                               px0, py0, floor, min_separation)
+    with profile_scope("kernel.raster_blocks"):
+        for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
+                         (tri_boxes, torch.float32, "tri_boxes"),
+                         (lists, torch.int32, "lists"),
+                         (counts, torch.int32, "counts")):
+            _check(t, dt, n)
+        if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
+                or lists.shape[0] != nby * nbx or counts.shape != (nby * nbx,):
+            raise ValueError("raster_blocks: inconsistent shapes")
+        if not (0.0 <= px0 <= 1.0 and 0.0 <= py0 <= 1.0):
+            raise ValueError("raster_blocks: px0 and py0 must lie in [0, 1], "
+                             "the pixel centres the cull boxes bound")
+        if tri_boxes.shape != (coef_chunks.shape[0], 4, TC) \
+                or tri_boxes.device != coef_chunks.device:
+            raise ValueError("raster_blocks: tri_boxes must be [n_chunks, 4, "
+                             f"{TC}] beside the chunks, got "
+                             f"{tuple(tri_boxes.shape)} on {tri_boxes.device}")
+        if floor is not None:
+            _check(floor, torch.float32, "floor")
+            if floor.shape != (nby * TILE_RH, nbx * TILE_RW) \
+                    or floor.device != coef_chunks.device:
+                raise ValueError("raster_blocks: floor must be the padded "
+                                 "image")
+        if coef_chunks.is_cuda:
+            dev = coef_chunks.device
+            shape = (nby * TILE_RH, nbx * TILE_RW)
+            z = torch.empty(shape, dtype=torch.float32, device=dev)
+            tid = torch.empty(shape, dtype=torch.int32, device=dev)
+            b1 = torch.empty(shape, dtype=torch.float32, device=dev)
+            b2 = torch.empty(shape, dtype=torch.float32, device=dev)
+            launch("rtsdm_raster_blocks", ptr(coef_chunks), ptr(tri_boxes),
+                   ptr(lists), ptr(counts), coef_chunks.shape[0],
+                   lists.shape[1], nby, nbx, px0, py0,
+                   0 if floor is None else ptr(floor),
+                   min_separation, ptr(z), ptr(tid), ptr(b1), ptr(b2),
+                   stream_of(coef_chunks),
+                   key=None if floor is None else RASTER_FLOOR_KEY)
+            return z, tid, b1, b2
+        if coef_chunks.device.type != "cpu":
+            raise RuntimeError(f"raster_blocks: unsupported device "
+                               f"{coef_chunks.device}")
+        return raster_blocks_plain(coef_chunks, None, lists, counts, nby, nbx,
+                                   px0, py0, floor, min_separation)
 
 
 def tile_centres(nb: int, nbx: int, px0: float, py0: float, dev):
@@ -379,49 +383,52 @@ def raster_stochastic_blocks(coef_chunks, tri_boxes, lists, counts,
     over that many warps per half tile, merged exactly (a minimum). Returns
     [k, nby*8, nbx*32] slot minima of linear view depth, SD_EMPTY where
     empty."""
-    for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
-                     (tri_boxes, torch.float32, "tri_boxes"),
-                     (lists, torch.int32, "lists"),
-                     (counts, torch.int32, "counts"),
-                     (first, torch.float32, "first"),
-                     (ray_min, torch.float32, "ray_min"),
-                     (ray_max, torch.float32, "ray_max")):
-        _check(t, dt, n)
-        if t.device != coef_chunks.device:
-            raise ValueError(f"raster_stochastic_blocks: {n} on {t.device}")
-    shape = (nby * TILE_RH, nbx * TILE_RW)
-    if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
-            or tri_boxes.shape != (coef_chunks.shape[0], 4, TC) \
-            or lists.shape[0] != nby * nbx or counts.shape != (nby * nbx,) \
-            or any(a.shape != shape for a in (first, ray_min, ray_max)):
-        raise ValueError("raster_stochastic_blocks: inconsistent shapes")
-    if not 1 <= k <= 8:
-        raise ValueError(f"raster_stochastic_blocks: k={k} not in 1..8")
-    parts = sd_parts(nby * nbx) if parts is None else int(parts)
-    if parts < 1:
-        raise ValueError(f"raster_stochastic_blocks: parts={parts} < 1")
-    if coef_chunks.is_cuda:
-        if max(coef_chunks.numel(), lists.numel(), k * shape[0] * shape[1],
-               2 * parts * nby * nbx) >= 2**31:
-            raise ValueError("raster_stochastic_blocks: more than 2^31 "
-                             "values")
-        lut, idx = coverage_table_tensors(k, coef_chunks.device)
-        out = torch.empty((k,) + shape, dtype=torch.float32,
-                          device=coef_chunks.device)
-        if parts > 1:    # the parts merge by atomicMin into it
-            out.fill_(SD_EMPTY)
-        launch("rtsdm_raster_stochastic", ptr(coef_chunks), ptr(tri_boxes),
-               ptr(lists), ptr(counts), ptr(first), ptr(ray_min),
-               ptr(ray_max), coef_chunks.shape[0], lists.shape[1], nby, nbx,
-               parts, k, alpha * k, ptr(lut), lut.numel(), ptr(idx),
-               ptr(out), stream_of(coef_chunks))
-        return out
-    if coef_chunks.device.type != "cpu":
-        raise RuntimeError(f"raster_stochastic_blocks: unsupported device "
-                           f"{coef_chunks.device}")
-    return raster_stochastic_blocks_plain(coef_chunks, None, lists, counts,
-                                          nby, nbx, first, ray_min, ray_max,
-                                          k, alpha)
+    with profile_scope("kernel.raster_stochastic_blocks"):
+        for t, dt, n in ((coef_chunks, torch.float32, "coef_chunks"),
+                         (tri_boxes, torch.float32, "tri_boxes"),
+                         (lists, torch.int32, "lists"),
+                         (counts, torch.int32, "counts"),
+                         (first, torch.float32, "first"),
+                         (ray_min, torch.float32, "ray_min"),
+                         (ray_max, torch.float32, "ray_max")):
+            _check(t, dt, n)
+            if t.device != coef_chunks.device:
+                raise ValueError(f"raster_stochastic_blocks: {n} on "
+                                 f"{t.device}")
+        shape = (nby * TILE_RH, nbx * TILE_RW)
+        if coef_chunks.shape[1:] != (COEF_ROWS, TC) \
+                or tri_boxes.shape != (coef_chunks.shape[0], 4, TC) \
+                or lists.shape[0] != nby * nbx \
+                or counts.shape != (nby * nbx,) \
+                or any(a.shape != shape for a in (first, ray_min, ray_max)):
+            raise ValueError("raster_stochastic_blocks: inconsistent shapes")
+        if not 1 <= k <= 8:
+            raise ValueError(f"raster_stochastic_blocks: k={k} not in 1..8")
+        parts = sd_parts(nby * nbx) if parts is None else int(parts)
+        if parts < 1:
+            raise ValueError(f"raster_stochastic_blocks: parts={parts} < 1")
+        if coef_chunks.is_cuda:
+            if max(coef_chunks.numel(), lists.numel(), k * shape[0] * shape[1],
+                   2 * parts * nby * nbx) >= 2**31:
+                raise ValueError("raster_stochastic_blocks: more than 2^31 "
+                                 "values")
+            lut, idx = coverage_table_tensors(k, coef_chunks.device)
+            out = torch.empty((k,) + shape, dtype=torch.float32,
+                              device=coef_chunks.device)
+            if parts > 1:    # the parts merge by atomicMin into it
+                out.fill_(SD_EMPTY)
+            launch("rtsdm_raster_stochastic", ptr(coef_chunks), ptr(tri_boxes),
+                   ptr(lists), ptr(counts), ptr(first), ptr(ray_min),
+                   ptr(ray_max), coef_chunks.shape[0], lists.shape[1], nby,
+                   nbx, parts, k, alpha * k, ptr(lut), lut.numel(), ptr(idx),
+                   ptr(out), stream_of(coef_chunks))
+            return out
+        if coef_chunks.device.type != "cpu":
+            raise RuntimeError(f"raster_stochastic_blocks: unsupported device "
+                               f"{coef_chunks.device}")
+        return raster_stochastic_blocks_plain(coef_chunks, None, lists,
+                                              counts, nby, nbx, first,
+                                              ray_min, ray_max, k, alpha)
 
 
 def fragment_draws(px, py, oid):
@@ -522,28 +529,31 @@ def fetch_attributes(tri_id, bary, table, nci: int, nflat: int):
     (b0 = 1 - b1 - b2) for the nci interpolated components, then its nflat
     flat entries; background pixels (tri_id < 0) are 0. Returns
     [H, W, nci + nflat]."""
-    _check(tri_id, torch.int32, "tri_id")
-    _check(bary, torch.float32, "bary")
-    _check(table, torch.float32, "table")
-    if table.shape[1] != 3 * nci + nflat or bary.shape != tri_id.shape + (2,):
-        raise ValueError("fetch_attributes: inconsistent shapes")
-    if tri_id.is_cuda:
-        if (nci + nflat) * FETCH_PIX * 4 > FETCH_SHARED_BYTES:
-            raise ValueError(f"fetch_attributes: {nci + nflat} outputs a "
-                             f"pixel exceed the kernel's shared memory")
-        if tri_id.numel() >= 2**31:
-            raise ValueError("fetch_attributes: more than 2^31 pixels")
-        if bary.data_ptr() % 8:
-            bary = bary.clone()     # read as float2
-        out = torch.empty(tri_id.shape + (nci + nflat,), dtype=torch.float32,
-                          device=tri_id.device)
-        launch("rtsdm_fetch_attributes", ptr(tri_id), ptr(bary), ptr(table),
-               tri_id.numel(), nci, nflat, ptr(out), stream_of(tri_id))
-        return out
-    if tri_id.device.type != "cpu":
-        raise RuntimeError(f"fetch_attributes: unsupported device "
-                           f"{tri_id.device}")
-    return fetch_attributes_plain(tri_id, bary, table, nci, nflat)
+    with profile_scope("kernel.fetch_attributes"):
+        _check(tri_id, torch.int32, "tri_id")
+        _check(bary, torch.float32, "bary")
+        _check(table, torch.float32, "table")
+        if table.shape[1] != 3 * nci + nflat \
+                or bary.shape != tri_id.shape + (2,):
+            raise ValueError("fetch_attributes: inconsistent shapes")
+        if tri_id.is_cuda:
+            if (nci + nflat) * FETCH_PIX * 4 > FETCH_SHARED_BYTES:
+                raise ValueError(f"fetch_attributes: {nci + nflat} outputs a "
+                                 f"pixel exceed the kernel's shared memory")
+            if tri_id.numel() >= 2**31:
+                raise ValueError("fetch_attributes: more than 2^31 pixels")
+            if bary.data_ptr() % 8:
+                bary = bary.clone()     # read as float2
+            out = torch.empty(tri_id.shape + (nci + nflat,),
+                              dtype=torch.float32, device=tri_id.device)
+            launch("rtsdm_fetch_attributes", ptr(tri_id), ptr(bary),
+                   ptr(table), tri_id.numel(), nci, nflat, ptr(out),
+                   stream_of(tri_id))
+            return out
+        if tri_id.device.type != "cpu":
+            raise RuntimeError(f"fetch_attributes: unsupported device "
+                               f"{tri_id.device}")
+        return fetch_attributes_plain(tri_id, bary, table, nci, nflat)
 
 
 def fetch_attributes_plain(tri_id, bary, table, nci: int, nflat: int):

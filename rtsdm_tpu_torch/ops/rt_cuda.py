@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch, ptr, stream_of
+from ..core.profiler import profile_scope
 from ..utils.math import true_div
 from ..utils.sampling import coverage_mask_select, coverage_table_tensors
 
@@ -386,14 +387,15 @@ def sd_keys(u, v, hb):
     """(key15 of hash(u, v), key15 of hb) for float32 u, v and int32 hb of
     one shape — on CUDA tensors through the trace kernel's own device
     functions (a check of the integer semantics, not part of the trace)."""
-    if u.is_cuda:
-        key_uv = torch.empty(u.shape, dtype=torch.int32, device=u.device)
-        key_hb = torch.empty_like(key_uv)
-        launch("rtsdm_sd_keys", ptr(u), ptr(v), ptr(hb), u.numel(),
-               ptr(key_uv), ptr(key_hb), stream_of(u))
-        return key_uv, key_hb
-    return (key15_of_hash(sd_hash(u, v)).to(torch.int32),
-            key15_of_hash(hb.to(torch.int64)).to(torch.int32))
+    with profile_scope("kernel.sd_keys"):
+        if u.is_cuda:
+            key_uv = torch.empty(u.shape, dtype=torch.int32, device=u.device)
+            key_hb = torch.empty_like(key_uv)
+            launch("rtsdm_sd_keys", ptr(u), ptr(v), ptr(hb), u.numel(),
+                   ptr(key_uv), ptr(key_hb), stream_of(u))
+            return key_uv, key_hb
+        return (key15_of_hash(sd_hash(u, v)).to(torch.int32),
+                key15_of_hash(hb.to(torch.int64)).to(torch.int32))
 
 
 def _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode,
@@ -440,32 +442,33 @@ def sd_trace_blocks(tri_packed, aabb, origin, rays, k: int,
     coverage slots are per-slot minima of depth16. max_count > 0 caps the
     face-accepted hits that take part (MaxCount); alpha is the coverage
     insertion's."""
-    fn = "sd_trace_blocks"
-    _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode,
-                      6 if rx is None else 12)
-    if (rx is None) != (ry is None):
-        raise ValueError(f"{fn}: rx and ry go together")
-    if rx is not None and any(
-            t.dtype != torch.float32 or not t.is_contiguous()
-            or t.shape != rays.shape[1:] for t in (rx, ry)):
-        raise ValueError(f"{fn}: rx and ry must be contiguous float32 "
-                         f"[{rays.shape[1]}]")
-    if tri_packed.is_cuda:
-        out = torch.empty((rays.shape[1], k), dtype=torch.int32,
-                          device=tri_packed.device)
-        n_chunks = tri_packed.shape[0]
-        launch("rtsdm_sd_trace", ptr(tri_packed), ptr(aabb), ptr(origin),
-               ptr(rays), None if rx is None else ptr(rx),
-               None if ry is None else ptr(ry), rays.shape[1] // RB,
-               n_chunks, list_width(n_chunks), k,
-               *_tail_args(k, cull_back, mode, max_count, alpha,
-                           tri_packed.device),
-               ptr(out), stream_of(tri_packed))
-        return out
-    if tri_packed.device.type != "cpu":
-        raise RuntimeError(f"{fn}: unsupported device {tri_packed.device}")
-    return sd_trace_blocks_plain(tri_packed, aabb, origin, rays, k,
-                                 cull_back, mode, max_count, alpha, rx, ry)
+    with profile_scope("kernel.sd_trace_blocks"):
+        fn = "sd_trace_blocks"
+        _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode,
+                          6 if rx is None else 12)
+        if (rx is None) != (ry is None):
+            raise ValueError(f"{fn}: rx and ry go together")
+        if rx is not None and any(
+                t.dtype != torch.float32 or not t.is_contiguous()
+                or t.shape != rays.shape[1:] for t in (rx, ry)):
+            raise ValueError(f"{fn}: rx and ry must be contiguous float32 "
+                             f"[{rays.shape[1]}]")
+        if tri_packed.is_cuda:
+            out = torch.empty((rays.shape[1], k), dtype=torch.int32,
+                              device=tri_packed.device)
+            n_chunks = tri_packed.shape[0]
+            launch("rtsdm_sd_trace", ptr(tri_packed), ptr(aabb), ptr(origin),
+                   ptr(rays), None if rx is None else ptr(rx),
+                   None if ry is None else ptr(ry), rays.shape[1] // RB,
+                   n_chunks, list_width(n_chunks), k,
+                   *_tail_args(k, cull_back, mode, max_count, alpha,
+                               tri_packed.device),
+                   ptr(out), stream_of(tri_packed))
+            return out
+        if tri_packed.device.type != "cpu":
+            raise RuntimeError(f"{fn}: unsupported device {tri_packed.device}")
+        return sd_trace_blocks_plain(tri_packed, aabb, origin, rays, k,
+                                     cull_back, mode, max_count, alpha, rx, ry)
 
 
 def sd_trace_blocks_plain(tri_packed, aabb, origin, rays, k: int,
@@ -632,26 +635,27 @@ def sd_trace_resident_blocks(tri_packed, aabb, origin, rays, k: int,
     whose AABB (aabb [6, n_chunks], rows 0-2 min, 3-5 max) overlaps the box
     of its valid segments from `origin` [3], listing them itself; there is
     no list width."""
-    fn = "sd_trace_resident_blocks"
-    _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode, 6)
-    if aabb.shape[0] != 6:
-        raise ValueError(f"{fn}: aabb [6, n_chunks]")
-    h, w = _grid(rays, grid)
-    if tri_packed.is_cuda:
-        out = torch.empty((h * w, k), dtype=torch.int32,
-                          device=tri_packed.device)
-        launch("rtsdm_sd_trace_resident", ptr(tri_packed), ptr(aabb),
-               ptr(origin), ptr(rays), rays.shape[1], h, w,
-               tri_packed.shape[0], k,
-               *_tail_args(k, cull_back, mode, max_count, alpha,
-                           tri_packed.device),
-               ptr(out), stream_of(tri_packed))
-        return out
-    if tri_packed.device.type != "cpu":
-        raise RuntimeError(f"{fn}: unsupported device {tri_packed.device}")
-    return sd_trace_resident_blocks_plain(tri_packed, aabb, origin, rays, k,
-                                          cull_back, mode, max_count, alpha,
-                                          grid)
+    with profile_scope("kernel.sd_trace_resident_blocks"):
+        fn = "sd_trace_resident_blocks"
+        _check_trace_args(fn, tri_packed, aabb, origin, rays, k, mode, 6)
+        if aabb.shape[0] != 6:
+            raise ValueError(f"{fn}: aabb [6, n_chunks]")
+        h, w = _grid(rays, grid)
+        if tri_packed.is_cuda:
+            out = torch.empty((h * w, k), dtype=torch.int32,
+                              device=tri_packed.device)
+            launch("rtsdm_sd_trace_resident", ptr(tri_packed), ptr(aabb),
+                   ptr(origin), ptr(rays), rays.shape[1], h, w,
+                   tri_packed.shape[0], k,
+                   *_tail_args(k, cull_back, mode, max_count, alpha,
+                               tri_packed.device),
+                   ptr(out), stream_of(tri_packed))
+            return out
+        if tri_packed.device.type != "cpu":
+            raise RuntimeError(f"{fn}: unsupported device {tri_packed.device}")
+        return sd_trace_resident_blocks_plain(tri_packed, aabb, origin, rays,
+                                              k, cull_back, mode, max_count,
+                                              alpha, grid)
 
 
 def grid_tile_rays(rays, h: int, w: int):
@@ -888,21 +892,22 @@ def any_hit_blocks(tri_packed, boxes, lists, counts, rays):
     order, until its first hit; pairs counts the ray-triangle pairs it
     tested, up to and including the one that hit. The hits are those of
     the walk without the cull (any_hit_blocks_plain with boxes None)."""
-    _check_any_hit_args(tri_packed, boxes, lists, counts, rays)
-    if tri_packed.is_cuda:
-        nb = counts.shape[0]
-        hit = torch.empty((nb * RB,), dtype=torch.uint8,
-                          device=tri_packed.device)
-        pairs = torch.empty((nb * RB,), dtype=torch.int32,
-                            device=tri_packed.device)
-        launch("rtsdm_any_hit", ptr(tri_packed), ptr(boxes), ptr(lists),
-               ptr(counts), ptr(rays), nb, tri_packed.shape[0],
-               lists.shape[1], ptr(hit), ptr(pairs), stream_of(tri_packed))
-        return hit.bool(), pairs
-    if tri_packed.device.type != "cpu":
-        raise RuntimeError(f"any_hit_blocks: unsupported device "
-                           f"{tri_packed.device}")
-    return any_hit_blocks_plain(tri_packed, boxes, lists, counts, rays)
+    with profile_scope("kernel.any_hit_blocks"):
+        _check_any_hit_args(tri_packed, boxes, lists, counts, rays)
+        if tri_packed.is_cuda:
+            nb = counts.shape[0]
+            hit = torch.empty((nb * RB,), dtype=torch.uint8,
+                              device=tri_packed.device)
+            pairs = torch.empty((nb * RB,), dtype=torch.int32,
+                                device=tri_packed.device)
+            launch("rtsdm_any_hit", ptr(tri_packed), ptr(boxes), ptr(lists),
+                   ptr(counts), ptr(rays), nb, tri_packed.shape[0],
+                   lists.shape[1], ptr(hit), ptr(pairs), stream_of(tri_packed))
+            return hit.bool(), pairs
+        if tri_packed.device.type != "cpu":
+            raise RuntimeError(f"any_hit_blocks: unsupported device "
+                               f"{tri_packed.device}")
+        return any_hit_blocks_plain(tri_packed, boxes, lists, counts, rays)
 
 
 def any_hit_accepts(tri, ray):
@@ -1028,20 +1033,21 @@ def any_hit_inputs(scene, origins, dirs, tmin, tmax):
     each chunk's triangles together), ordered near to far along the mean
     ray direction so tiles reach their occluders early, their cull boxes
     for these rays, and the tiles' lists."""
-    v0t, e1t, e2t, flags = prep_triangles(scene, True)
-    flags = flags.clone()
-    flags[0] = 1.0
-    tri_packed, aabb = pack_for_stream_classic(v0t, e1t, e2t, flags)
-    md = dirs.mean(0)
-    cent = (aabb[0:3] + aabb[3:6]) * 0.5
-    order = torch.argsort(cent[0] * md[0] + cent[1] * md[1]
-                          + cent[2] * md[2], stable=True)
-    tri_packed = tri_packed[order].contiguous()
-    lists, counts = build_chunk_lists(aabb[:, order], origins, dirs, tmin,
-                                      tmax)
-    rays = any_hit_rays(origins, dirs, tmin, tmax)
-    return (tri_packed, any_hit_boxes(tri_packed, rays), lists, counts,
-            rays)
+    with profile_scope("geometry.any_hit_inputs"):
+        v0t, e1t, e2t, flags = prep_triangles(scene, True)
+        flags = flags.clone()
+        flags[0] = 1.0
+        tri_packed, aabb = pack_for_stream_classic(v0t, e1t, e2t, flags)
+        md = dirs.mean(0)
+        cent = (aabb[0:3] + aabb[3:6]) * 0.5
+        order = torch.argsort(cent[0] * md[0] + cent[1] * md[1]
+                              + cent[2] * md[2], stable=True)
+        tri_packed = tri_packed[order].contiguous()
+        lists, counts = build_chunk_lists(aabb[:, order], origins, dirs, tmin,
+                                          tmax)
+        rays = any_hit_rays(origins, dirs, tmin, tmax)
+        return (tri_packed, any_hit_boxes(tri_packed, rays), lists, counts,
+                rays)
 
 
 def any_hit(scene, origins, dirs, tmin, tmax):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .._build import launch, ptr, stream_of
+from ..core.profiler import profile_scope
 
 MODES = {"nearest": 0, "bilinear": 1, "catmull_rom": 2}
 
@@ -100,23 +101,26 @@ def warp_resample(tex, sx, sy, mode: str = "catmull_rom",
     (pixel units, texel centres at +0.5) -> [C, HO, WO]. A CUDA tensor
     launches the kernel (counted per mode, launch_key) after check_offsets,
     a CPU tensor takes the plain version."""
-    if mode not in MODES:
-        raise ValueError(f"warp_resample: unknown mode {mode!r}")
-    if tex.dim() != 3 or sx.shape != sy.shape or sx.dim() != 2:
-        raise ValueError("warp_resample: tex [C,H,W], sx and sy [HO,WO]")
-    for t, name in ((tex, "tex"), (sx, "sx"), (sy, "sy")):
-        if t.dtype != torch.float32:
-            raise ValueError(f"warp_resample: {name} must be float32")
-    if tex.is_cuda:
-        tex, sx, sy = tex.contiguous(), sx.contiguous(), sy.contiguous()
-        check_offsets(tex, sx)
-        c, h, w = tex.shape
-        ho, wo = sx.shape
-        out = torch.empty((c, ho, wo), dtype=torch.float32, device=tex.device)
-        launch("rtsdm_warp_resample", ptr(tex), ptr(sx), ptr(sy), c, h, w,
-               ho, wo, MODES[mode], int(wrap_x), ptr(out), stream_of(tex),
-               key=launch_key(mode))
-        return out
-    if tex.device.type != "cpu":
-        raise RuntimeError(f"warp_resample: unsupported device {tex.device}")
-    return warp_resample_plain(tex, sx, sy, mode, wrap_x)
+    with profile_scope("kernel.warp_resample"):
+        if mode not in MODES:
+            raise ValueError(f"warp_resample: unknown mode {mode!r}")
+        if tex.dim() != 3 or sx.shape != sy.shape or sx.dim() != 2:
+            raise ValueError("warp_resample: tex [C,H,W], sx and sy [HO,WO]")
+        for t, name in ((tex, "tex"), (sx, "sx"), (sy, "sy")):
+            if t.dtype != torch.float32:
+                raise ValueError(f"warp_resample: {name} must be float32")
+        if tex.is_cuda:
+            tex, sx, sy = tex.contiguous(), sx.contiguous(), sy.contiguous()
+            check_offsets(tex, sx)
+            c, h, w = tex.shape
+            ho, wo = sx.shape
+            out = torch.empty((c, ho, wo), dtype=torch.float32,
+                              device=tex.device)
+            launch("rtsdm_warp_resample", ptr(tex), ptr(sx), ptr(sy), c, h, w,
+                   ho, wo, MODES[mode], int(wrap_x), ptr(out), stream_of(tex),
+                   key=launch_key(mode))
+            return out
+        if tex.device.type != "cpu":
+            raise RuntimeError(f"warp_resample: unsupported device "
+                               f"{tex.device}")
+        return warp_resample_plain(tex, sx, sy, mode, wrap_x)

@@ -8,6 +8,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.profiler import profile_scope
 from ..ops.raster import attr_table, fetch_vertex_attributes, rasterize
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
 from ..utils.math import normalize, transform_point, true_div
@@ -34,8 +35,10 @@ def attribute_table(scene):
     if scene.prev_positions is not None:
         src += (scene.prev_positions,)
 
-    def build():
-        return attr_table(src[:3] + src[4:], [scene.face_normals(), src[3]])
+    def build():    # a miss: its span's count is the misses'
+        with profile_scope("geometry.attr_table"):
+            return attr_table(src[:3] + src[4:],
+                              [scene.face_normals(), src[3]])
 
     if any(t.is_inference() for t in src):     # they keep no version
         return build()

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.profiler import profile_scope
 from ..ops import rt_cuda as rt
 from ..ops.raster import raster_stochastic
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
@@ -162,16 +163,19 @@ class StochasticDepthMapRT(RenderPass):
             tmax = torch.where(ray_max != 0.0, torch.minimum(ray_max, tmax),
                                tmax)
 
-        tri_packed, aabb = rt.prep_triangles_packed(
-            ctx.scene, bool(self.cfg["AlphaTest"]), origin)
+        streams = self.streams(ctx.scene)
+        with profile_scope("geometry.sd_pack"):
+            tri_packed, aabb = rt.prep_triangles_packed(
+                ctx.scene, bool(self.cfg["AlphaTest"]), origin)
+            if streams:
+                scr = rt.chunk_screen_rows(aabb, origin, cam.camera_u,
+                                           cam.camera_v, cam.camera_w, dim_w,
+                                           dim_h)
+                aabb = torch.cat([aabb[:6], scr], 0)
         trace = dict(num_samples=k, cull_back=self.cfg["CullMode"] == "Back",
                      mode=impl, max_count=max_count,
                      alpha=float(self.cfg["Alpha"]))
-        if self.streams(ctx.scene):
-            scr = rt.chunk_screen_rows(aabb, origin, cam.camera_u,
-                                       cam.camera_v, cam.camera_w, dim_w,
-                                       dim_h)
-            aabb = torch.cat([aabb[:6], scr], 0)
+        if streams:
 
             def tf(x2d, fill=0.0):  # 8x32-tile ray order
                 return rt.tile_flatten(rt.pad_tile(x2d, fill)[0])

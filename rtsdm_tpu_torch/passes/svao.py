@@ -1,6 +1,7 @@
 """SVAO — Stenciled Volumetric Ambient Occlusion, the paper's main pass
 (counterpart of rtsdm_tpu/passes/svao.py; reference SVAO.cpp:192-456:
-phase 1 -> nested SD graph -> phase 2).
+phase 1 -> nested SD graph -> phase 2, each a span of the context's
+profiler: phase1, sd_map, phase2).
 
 Ported configuration: samplingMode 'shift' (passes/svao_shift.py, K3 and
 K4) or 'gather' (svao_phase1 / svao_phase2 below, per-pixel gathers);
@@ -257,49 +258,55 @@ class SVAO(RenderPass):
         primary = self.cfg["primaryDepthMode"]
         secondary = self.cfg["secondaryDepthMode"]
         shift = self.cfg["samplingMode"] == "shift"
-        normal_v = _normals_to_view(ctx, inputs["normals"])
-        # the dictionary guard band is in full-res pixels
-        guard = (ctx.guard_band * w) // max(ctx.width, 1)
-        phase1 = svao_phase1_shift if shift else svao_phase1
-        out = phase1(cam, cfg, depth, normal_v, guard,
-                     bool(self.cfg["useRayInterval"]), depth2=depth2,
-                     primary=primary, secondary=secondary,
-                     trace_out_of_screen=bool(self.cfg["traceOutOfScreen"]))
-        ao_raw, stencil = out["ao_raw"], out["stencil"]
-        result = {"stencil": stencil, "internalRayMin": out["ray_min"],
-                  "internalRayMax": out["ray_max"]}
-        if secondary == DEPTH_MODE_SINGLE:
-            return {"ao": A.finalize(cfg, ao_raw), **result}, None
+        with ctx.span("phase1"):
+            normal_v = _normals_to_view(ctx, inputs["normals"])
+            # the dictionary guard band is in full-res pixels
+            guard = (ctx.guard_band * w) // max(ctx.width, 1)
+            phase1 = svao_phase1_shift if shift else svao_phase1
+            out = phase1(cam, cfg, depth, normal_v, guard,
+                         bool(self.cfg["useRayInterval"]), depth2=depth2,
+                         primary=primary, secondary=secondary,
+                         trace_out_of_screen=bool(
+                             self.cfg["traceOutOfScreen"]))
+            ao_raw, stencil = out["ao_raw"], out["stencil"]
+            result = {"stencil": stencil, "internalRayMin": out["ray_min"],
+                      "internalRayMax": out["ray_max"]}
+            if secondary == DEPTH_MODE_SINGLE:
+                return {"ao": A.finalize(cfg, ao_raw), **result}, None
 
         sd_map = None
         if secondary == DEPTH_MODE_STOCHASTIC:
-            sd_map = self._sd_map(ctx, inputs, depth, out)
-        if secondary == DEPTH_MODE_STOCHASTIC and shift:
-            delta = svao_phase2_shift(cam, cfg, depth, normal_v, stencil,
-                                      sd_map,
-                                      bool(self.cfg["stochMapJitter"]),
-                                      int(self.cfg["stochMapDivisor"]),
-                                      depth2=depth2, primary=primary)
-        else:
-            delta = svao_phase2(
-                ctx.scene, cam, cfg, depth, depth2, normal_v, stencil,
-                sd_map, primary, secondary,
-                sd_jitter=bool(self.cfg["stochMapJitter"]),
-                alpha_test=bool(self.cfg["alphaTest"]), cull=self._cull(),
-                ray_budget_fraction=float(self.cfg["maxRayBudgetFraction"]),
-                rt_chunk=int(self.cfg["rtChunk"]))
-        refined = stencil != 0
-        if cfg.dual_ao:
-            raw2 = ao_raw + delta
-            # bright >= dark (SVAORaster2.ps.slang:62)
-            raw2 = torch.stack([raw2[..., 0],
-                                torch.minimum(raw2[..., 0], raw2[..., 1])],
-                               -1)
-            ao = torch.where(refined[..., None], A.finalize(cfg, raw2),
-                             A.finalize(cfg, ao_raw))
-        else:
-            ao = torch.where(refined, A.finalize(cfg, ao_raw + delta),
-                             A.finalize(cfg, ao_raw))
+            with ctx.span("sd_map"):
+                sd_map = self._sd_map(ctx, inputs, depth, out)
+        with ctx.span("phase2"):
+            if secondary == DEPTH_MODE_STOCHASTIC and shift:
+                delta = svao_phase2_shift(cam, cfg, depth, normal_v, stencil,
+                                          sd_map,
+                                          bool(self.cfg["stochMapJitter"]),
+                                          int(self.cfg["stochMapDivisor"]),
+                                          depth2=depth2, primary=primary)
+            else:
+                delta = svao_phase2(
+                    ctx.scene, cam, cfg, depth, depth2, normal_v, stencil,
+                    sd_map, primary, secondary,
+                    sd_jitter=bool(self.cfg["stochMapJitter"]),
+                    alpha_test=bool(self.cfg["alphaTest"]),
+                    cull=self._cull(),
+                    ray_budget_fraction=float(
+                        self.cfg["maxRayBudgetFraction"]),
+                    rt_chunk=int(self.cfg["rtChunk"]))
+            refined = stencil != 0
+            if cfg.dual_ao:
+                raw2 = ao_raw + delta
+                # bright >= dark (SVAORaster2.ps.slang:62)
+                raw2 = torch.stack([raw2[..., 0],
+                                    torch.minimum(raw2[..., 0],
+                                                  raw2[..., 1])], -1)
+                ao = torch.where(refined[..., None], A.finalize(cfg, raw2),
+                                 A.finalize(cfg, ao_raw))
+            else:
+                ao = torch.where(refined, A.finalize(cfg, ao_raw + delta),
+                                 A.finalize(cfg, ao_raw))
         ctx.debug_print("svao.ao_raw", ao_raw)
         ctx.debug_print("svao.delta", delta)
         ctx.debug_print("svao.stencil", stencil)

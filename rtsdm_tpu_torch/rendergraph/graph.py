@@ -12,7 +12,6 @@ under its name.
 """
 from __future__ import annotations
 
-import contextlib
 from collections import defaultdict, deque
 
 import torch
@@ -210,9 +209,7 @@ class RenderGraph:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
                 ev[0].record()
-            prof = ctx.profiler.event(name) if ctx.profiler \
-                else contextlib.nullcontext()
-            with prof:
+            with ctx.span(name):
                 outputs, ns = p.execute(ctx, inputs, state.get(name))
             if self.time_passes:
                 ev[1].record()

@@ -11,6 +11,8 @@ import dataclasses
 import logging
 from typing import Any
 
+from ..core.profiler import NULL_SCOPE
+
 log = logging.getLogger("rtsdm_tpu_torch")
 
 PASS_REGISTRY: dict[str, type] = {}
@@ -80,6 +82,13 @@ class RenderContext:
     @property
     def guard_band(self) -> int:
         return int(self.dictionary.get("guardBand", 0))
+
+    def span(self, name: str):
+        """A scope named `name` on the context's profiler, nested in its
+        open scope; without a profiler, a scope that does nothing."""
+        if self.profiler is None:
+            return NULL_SCOPE
+        return self.profiler.event(name)
 
     def debug_print(self, name: str, arr) -> None:
         """Record arr[y, x(, ...)] at the selected debug pixel, clamped to

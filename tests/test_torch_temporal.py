@@ -243,7 +243,7 @@ def _scopes(prof):
     with prof.event("frame"):
         with prof.event("A"):
             pass
-        with prof.event("B", outputs={"x": torch.zeros(2)}):
+        with prof.event("B"):
             with prof.event("C"):
                 pass
     with prof.event("frame"):
@@ -254,7 +254,8 @@ def _scopes(prof):
 
 def test_profiler_tree_matches_reference():
     """The same scopes give the same tree, counts and flat keys in both
-    packages; a disabled profiler records nothing."""
+    packages; a disabled profiler records nothing; profile_scope opens on
+    the active profiler only."""
     def shape(cap):
         return (cap["name"], cap["count"],
                 [shape(c) for c in cap["children"]])
@@ -269,9 +270,15 @@ def test_profiler_tree_matches_reference():
     assert pt.capture()["children"] == []
     off = _scopes(PRT.Profiler(enabled=False))
     assert off.flat_averages() == {}
-    assert not PRT.global_profiler().enabled
     with PRT.profile_scope("x"):
         pass
+    with off.activate(), PRT.profile_scope("x"):
+        pass
+    assert off.flat_averages() == {}
+    with pt.activate(), PRT.profile_scope("x"):
+        pass
+    assert pt.flat_averages() == {"x": pytest.approx(
+        pt.capture()["children"][0]["avg_ms"])}
 
 
 def test_path_benchmark_rows_need_the_profiler():
