@@ -179,7 +179,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the JAX package's per-frame G-buffer channels substituted;
 24c. the golden test_MultiSampling (samples/MultiSampling.py: the Halton
    sample pattern, CornellBox 96x96, frame 2) within the golden runner's
-   bound, every jittered K1 call held bit-exact.
+   bound, every jittered K1 call held bit-exact;
+25. the eye-plane cull of K1's binning (eye_cull_loops; alone with
+   `--eye-cull SEED`) in the benchmark's cells of configs 5 and 4
+   (benchmark/: emerald_720p.orbit, bistro_1080p.flyby) for the seed: at
+   every frame of each 48-frame loop, every K1 call's outputs bit-equal to
+   K1's on the binning without the cull, and the triangles culled and the
+   chunks a tile visits with and without it, read after the frame's
+   synchronize; at the compared frame the binning runs under
+   torch.cuda.set_sync_debug_mode("error"), the count matches the one
+   computed on the CPU, and K1 is timed on both binnings with its walk
+   and bound (raster_timing).
 
 The last three lines are JSON: the frames' times, one entry per kernel
 ({"kernels": [...]}, with its bound, library yardstick and launches per
@@ -1601,7 +1611,7 @@ def raster_inputs(scene, w: int, h: int):
     them: (chunks, tri_boxes, lists, counts, nby, nbx)."""
     from rtsdm_tpu_torch.ops import raster as R
     return R._binned_chunks(scene.camera.view_proj_no_jitter,
-                            scene.positions, w, h, 0.0, 0.0, "back")
+                            scene.positions, w, h, 0.0, 0.0, "back")[0]
 
 
 def graph_timing(m, reps: int = 7):
@@ -4059,6 +4069,185 @@ def mid_child(root: Path) -> dict:
 
 # ---------------------------------------------------------------------------
 
+EYE_CULL_CELLS = ("emerald_720p.orbit", "bistro_1080p.flyby")
+EYE_CULL_SEED = 1
+
+
+@contextlib.contextmanager
+def recorded_rasters(calls: list, strict: list):
+    """Every rasterize call of the port's rasters (GBufferRaster,
+    ForwardLighting's G-buffer, DepthPass, DepthPeeling) appended to
+    `calls` as a dict of its arguments, its outputs and its binning's
+    returned tensors; while strict[0] is set, each binning runs after a
+    synchronize under torch.cuda.set_sync_debug_mode("error")."""
+    import torch
+    from rtsdm_tpu_torch.ops import raster as R
+    from rtsdm_tpu_torch.passes import depth_chain, gbuffer
+    orig, orig_bins = R.rasterize, R._binned_chunks
+
+    def bins(*a):
+        if not strict[0]:
+            return orig_bins(*a)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return orig_bins(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def rasterize(view_proj, positions, **kw):
+        got = []
+
+        def kept(*a):
+            got.append(bins(*a))
+            return got[-1]
+
+        R._binned_chunks = kept
+        try:
+            out = orig(view_proj, positions, **kw)
+        finally:
+            R._binned_chunks = orig_bins
+        calls.append(dict(view_proj=view_proj, positions=positions, kw=kw,
+                          out=out, bins=got[0]))
+        return out
+
+    mods = (gbuffer, depth_chain)
+    for mod in mods:
+        mod.rasterize = rasterize
+    try:
+        yield
+    finally:
+        for mod in mods:
+            mod.rasterize = orig
+
+
+def uncull_inputs(call):
+    """K1's inputs of a recorded call binned as without the eye-plane cull
+    (every valid triangle in screen-morton order, the chunks packed by
+    _pack_bins), and its floor."""
+    import torch
+    from rtsdm_tpu_torch.ops import raster as R
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    from rtsdm_tpu_torch.ops.rt_cuda import pad_tile
+    kw = call["kw"]
+    w, h = kw["width"], kw["height"]
+    coef, bbox, valid = R._setup_triangles(
+        call["view_proj"], call["positions"], w, h, kw.get("jitter_x", 0.0),
+        kw.get("jitter_y", 0.0), R.CULL_MODES[kw.get("cull", "back")])
+    order = RC.screen_morton_order(bbox, valid, w, h)
+    base = R._pack_bins(coef[order], bbox[order], valid[order], order,
+                        -(-h // RC.TILE_RH), -(-w // RC.TILE_RW))
+    floor = kw.get("depth_floor")
+    if floor is not None:
+        floor = pad_tile(floor.to(torch.float32), 3e38)[0].contiguous()
+    return base, dict(floor=floor,
+                      min_separation=kw.get("min_separation", 0.0))
+
+
+def eye_cull_call(call, timed: bool) -> dict:
+    """One recorded raster call against K1 on the binning without the cull:
+    bit-equal outputs, the count culled, the mean chunk visits a tile with
+    and without the cull; `timed`: K1 on each binning timed with its walk
+    and bound (raster_timing), and the count computed again on the CPU."""
+    import torch
+    from rtsdm_tpu_torch.ops import raster as R
+    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    bins, culled = call["bins"]
+    out, kw = call["out"], call["kw"]
+    base, fkw = uncull_inputs(call)
+    z, tid, b1, b2 = RC.raster_blocks(*base, **fkw)
+    crop = (slice(0, kw["height"]), slice(0, kw["width"]))
+    same = (torch.equal(out["tri_id"], tid[crop])
+            and torch.equal(out["depth"], z[crop])
+            and torch.equal(out["bary"], torch.stack([b1[crop], b2[crop]],
+                                                     -1)))
+    row = dict(floored=fkw["floor"] is not None,
+               eye_culled=int(out["eye_culled"]), same=bool(same),
+               visits_mean=float(walk_visits(bins[2], bins[3],
+                                             bins[0].shape[0]).mean()),
+               visits_max=int(walk_visits(bins[2], bins[3],
+                                          bins[0].shape[0]).max()),
+               uncull_visits_mean=float(walk_visits(
+                   base[2], base[3], base[0].shape[0]).mean()))
+    check(row["eye_culled"] == int(culled), "eye_culled is not the count "
+                                            "of the binning's cull")
+    if timed:
+        row["k1"] = raster_timing(bins, fkw, "with the eye-plane cull")
+        row["uncull_k1"] = raster_timing(base, fkw, "without it")
+        def cpu(v):
+            return v.cpu() if isinstance(v, torch.Tensor) else v
+
+        coef, _, valid, w = R._setup_with_w(
+            cpu(call["view_proj"]), cpu(call["positions"]), kw["width"],
+            kw["height"], cpu(kw.get("jitter_x", 0.0)),
+            cpu(kw.get("jitter_y", 0.0)), R.CULL_MODES[kw.get("cull", "back")])
+        wp = bins[5] * RC.TILE_RW
+        hp = bins[4] * RC.TILE_RH
+        row["eye_culled_cpu"] = int((valid & RC.behind_eye(coef, w, wp, hp))
+                                    .sum())
+    return row
+
+
+def eye_cull_loops(seed: int = EYE_CULL_SEED) -> dict:
+    """Phase 25 (module docstring) for each of EYE_CULL_CELLS."""
+    import torch
+    sys.path.insert(0, str(ROOT / "benchmark"))
+    from harness import cell, discover
+    from harness.drive import Driver
+    report = {}
+    for name in EYE_CULL_CELLS:
+        wl = discover.load_json("workloads", name, discover.HERE)
+        cfg = discover.load_json("configs", wl["config"], discover.HERE)
+        arrays, camera = cell.inputs(cfg, wl, seed)
+        drv = Driver("rtsdm_tpu_torch")
+        m = drv.build(cfg, wl, arrays, camera, cfg["script"], "cuda")
+        j_star = cell.compare_frames(seed, wl)
+        loop = int(wl["loop_frames"])
+        frames = []
+        for f in range(loop):
+            calls, strict = [], [f == j_star]
+            with recorded_rasters(calls, strict):
+                drv.render(m, f)
+            torch.cuda.synchronize()
+            check(calls, f"{name} frame {f}: no raster call recorded")
+            frames.append([eye_cull_call(c, f == j_star) for c in calls])
+            del calls
+        rows = [r for fr in frames for r in fr]
+        at = frames[j_star]
+        report[name] = dict(seed=seed, compared_frame=j_star,
+                            calls=len(rows), compared=at,
+                            per_frame=[[r["eye_culled"], r["visits_mean"],
+                                        r["uncull_visits_mean"]]
+                                       for r in (fr[0] for fr in frames)])
+        for r in at:
+            log(f"eye cull, {name} seed {seed} frame {j_star}"
+                f"{' (floored)' if r['floored'] else ''}: "
+                f"{r['eye_culled']} triangles culled (CPU "
+                f"{r['eye_culled_cpu']}); a tile visits "
+                f"{r['visits_mean']:.2f} chunks (max {r['visits_max']}), "
+                f"{r['uncull_visits_mean']:.2f} without the cull; K1 "
+                f"{r['k1']['event_ms']:.3f} ms a launch (bound "
+                f"{r['k1']['bound_ms']:.3f}), "
+                f"{r['uncull_k1']['event_ms']:.3f} ms without (bound "
+                f"{r['uncull_k1']['bound_ms']:.3f})")
+        log(f"eye cull, {name}: {len(rows)} K1 calls over {loop} frames; "
+            "culled / visits / visits without, per frame (first call): "
+            + "; ".join(f"{f}: {a} / {b:.1f} / {c:.1f}"
+                        for f, (a, b, c) in enumerate(
+                            report[name]["per_frame"])))
+        moved = [f for f, fr in enumerate(frames)
+                 if not all(r["same"] for r in fr)]
+        check(not moved, f"{name}: K1's outputs moved with the eye-plane "
+                         f"cull at frames {moved}")
+        check(all(r["eye_culled"] == r["eye_culled_cpu"] for r in at),
+              f"{name}: the card's eye_culled differs from the CPU's")
+        log(f"eye cull, {name}: every K1 call bit-equal with and without "
+            "the cull; the compared frame's counts equal the CPU's")
+        del m, drv
+        torch.cuda.empty_cache()
+    return report
+
+
 def main(argv=None) -> int:
     import argparse
     import torch
@@ -4072,6 +4261,8 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--mid-child", type=Path, default=None,
                     help=argparse.SUPPRESS)
+    ap.add_argument("--eye-cull", type=int, default=None, metavar="SEED",
+                    help="run phase 25 alone, for the benchmark seed SEED")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on an "
@@ -4084,6 +4275,11 @@ def main(argv=None) -> int:
         print(json.dumps(mid_child(args.mid_child)), flush=True)
         return 0
     load_port()
+    if args.eye_cull is not None:
+        log(gpu_identity())
+        print(json.dumps({"eye_cull": eye_cull_loops(args.eye_cull)}),
+              flush=True)
+        return 0
     from rtsdm_tpu_torch import _build
     from rtsdm_tpu_torch.scene.procedural import sun_temple
 
@@ -4233,6 +4429,9 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     multisampling = multisampling_golden()
     new_phase_s["24c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eye_cull = eye_cull_loops()
+    new_phase_s["25"] = time.perf_counter() - t0
     log("earlier phases' seconds on the card: " + ", ".join(
         f"{k} {v:.1f}" for k, v in phase_s.items()))
     log("new phases' seconds on the card: " + ", ".join(
@@ -4272,7 +4471,7 @@ def main(argv=None) -> int:
         "configs": configs, "svao_full": svao_full,
         "svao_depth_modes": svao_modes,
         "svao_reference_modes": reference_modes, "quality": quality,
-        "multisampling_golden": multisampling,
+        "multisampling_golden": multisampling, "eye_cull": eye_cull,
         "new_phase_seconds": new_phase_s, "phase_seconds": phase_s,
         "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
         "sd_stage": sd_stage, "sd_trace_resources": resources,

@@ -34,6 +34,14 @@ def _setup_triangles(view_proj, positions, width: int, height: int,
     functions c0, c1, c2 (E_i(p) = c_i . (px, py, 1)), the clip-z
     interpolant zc and the clip-w interpolant wc: z_ndc(p) = (zc.p)/(wc.p).
     """
+    return _setup_with_w(view_proj, positions, width, height, jitter_x,
+                         jitter_y, cull)[:3]
+
+
+def _setup_with_w(view_proj, positions, width: int, height: int, jitter_x,
+                  jitter_y, cull: int):
+    """_setup_triangles' (coef, bbox, valid) and the vertices' clip w
+    [T,3]."""
     clip = transform_point(view_proj, positions)           # [T,3,4]
     x, y, z, w = clip.unbind(-1)
     # homogeneous pixel coords; jitter shifts the image by (+jitterX,
@@ -78,28 +86,55 @@ def _setup_triangles(view_proj, positions, width: int, height: int,
         torch.ceil(sy.amax(-1)) + 1, 0, height))
     bbox = torch.stack([x0, y0, x1, y1], -1)
     valid = valid & (x1 > x0) & (y1 > y0)
-    return coef, bbox, valid
+    return coef, bbox, valid, w
 
 
 def _binned_chunks(view_proj, positions, width: int, height: int,
                    jitter_x, jitter_y, cull: str):
     """Triangles set up, morton-sorted, packed into coefficient chunks with
-    their screen boxes beside them, and binned to 8x32 tiles: (chunks,
-    tri_boxes, lists, counts, nby, nbx)."""
+    their screen boxes beside them, and binned to 8x32 tiles: ((chunks,
+    tri_boxes, lists, counts, nby, nbx), eye_culled), eye_culled the 0-d
+    count of valid triangles left out as wholly behind the eye
+    (raster_cuda.behind_eye).
+
+    Every culled triangle has a vertex behind the eye, hence the whole
+    viewport as its box and the viewport centre's morton key. Sorted behind
+    the others of that key and taken out of the chunks' valid row, their
+    boxes and the tile lists, they leave every chunk outside that key's
+    group as it is without the cull, and every other triangle in its
+    relative order, to which K1 breaks ties. Both matter: K1 accepts a
+    near-degenerate triangle's fragments up to 20 pixels outside its box
+    (PERF.md section 2), which a tile sees only where the box of the chunk
+    holding the triangle overlaps it. Sorted last with the invalid ones
+    instead, the culled triangles shift every later chunk's members, and
+    K1's outputs moved at 6 of the 48 frames of the benchmark's orbit
+    (emerald_720p.orbit, seed 1, on an H100)."""
     with profile_scope("geometry.raster_bins"):
-        coef, bbox, valid = _setup_triangles(view_proj, positions, width,
+        coef, bbox, valid, w = _setup_with_w(view_proj, positions, width,
                                              height, jitter_x, jitter_y,
                                              CULL_MODES[cull])
-        order = raster_cuda.screen_morton_order(bbox, valid, width, height)
-        coef, bbox, valid = coef[order], bbox[order], valid[order]
-        chunks = raster_cuda.pack_coef_chunks(coef, valid, order)
-        cbox = raster_cuda.chunk_screen_bboxes(bbox, valid)
         nby = -(-height // raster_cuda.TILE_RH)
         nbx = -(-width // raster_cuda.TILE_RW)
-        tri_boxes = raster_cuda.pack_tri_boxes(raster_cuda.cull_boxes(
-            coef, nbx * raster_cuda.TILE_RW, nby * raster_cuda.TILE_RH), valid)
-        lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
-        return chunks, tri_boxes, lists, counts, nby, nbx
+        culled = valid & raster_cuda.behind_eye(
+            coef, w, nbx * raster_cuda.TILE_RW, nby * raster_cuda.TILE_RH)
+        del w
+        order = raster_cuda.screen_morton_order(bbox, valid, width, height,
+                                                last=culled)
+        # rebound, so the unsorted copies are freed before the packing
+        coef, bbox, live = coef[order], bbox[order], (valid & ~culled)[order]
+        return _pack_bins(coef, bbox, live, order, nby, nbx), culled.sum()
+
+
+def _pack_bins(coef, bbox, live, order, nby: int, nbx: int):
+    """(chunks, tri_boxes, lists, counts, nby, nbx) of set-up triangles in
+    the chunks' order (`order`: their original ids): the `live` ones enter
+    the chunks' valid row, their cull boxes and the tile lists."""
+    chunks = raster_cuda.pack_coef_chunks(coef, live, order)
+    cbox = raster_cuda.chunk_screen_bboxes(bbox, live)
+    tri_boxes = raster_cuda.pack_tri_boxes(raster_cuda.cull_boxes(
+        coef, nbx * raster_cuda.TILE_RW, nby * raster_cuda.TILE_RH), live)
+    lists, counts = raster_cuda.build_chunk_lists_2d(cbox, nby, nbx)
+    return chunks, tri_boxes, lists, counts, nby, nbx
 
 
 def rasterize(view_proj, positions, *, width: int, height: int,
@@ -112,9 +147,12 @@ def rasterize(view_proj, positions, *, width: int, height: int,
     Returns dict: tri_id [H,W] int32 (-1 = background), bary [H,W,2]
     (b1, b2), depth [H,W] NDC z in [0,1] (1.0 at background), overflow
     (tiles whose chunk list hit its width and streamed every chunk — a
-    diagnostic, never a correctness loss)."""
-    chunks, tri_boxes, lists, counts, nby, nbx = _binned_chunks(
-        view_proj, positions, width, height, jitter_x, jitter_y, cull)
+    diagnostic, never a correctness loss) and eye_culled (the triangles
+    left out of the binning as wholly behind the eye); both 0-d device
+    tensors, read without a sync of the frame."""
+    (chunks, tri_boxes, lists, counts, nby, nbx), eye_culled = \
+        _binned_chunks(view_proj, positions, width, height, jitter_x,
+                       jitter_y, cull)
     floor = None
     if depth_floor is not None:   # padding pixels take no fragment
         floor = pad_tile(depth_floor.to(torch.float32), 3e38)[0].contiguous()
@@ -124,7 +162,8 @@ def rasterize(view_proj, positions, *, width: int, height: int,
     crop = (slice(0, height), slice(0, width))
     return {"tri_id": tid[crop], "bary": torch.stack([b1[crop], b2[crop]], -1),
             "depth": z[crop],
-            "overflow": torch.clamp(counts - lists.shape[1], min=0).sum()}
+            "overflow": torch.clamp(counts - lists.shape[1], min=0).sum(),
+            "eye_culled": eye_culled}
 
 
 def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
@@ -135,7 +174,7 @@ def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
     [H,W] linear first-layer depth and ray interval (None: no floor, no
     interval). Returns LINEAR view depths [H, W, k], `far` where a slot
     stayed empty."""
-    chunks, tri_boxes, lists, counts, nby, nbx = _binned_chunks(
+    (chunks, tri_boxes, lists, counts, nby, nbx), _ = _binned_chunks(
         view_proj, positions, width, height, 0.0, 0.0, cull)
     dev = chunks.device
     hp, wp = nby * raster_cuda.TILE_RH, nbx * raster_cuda.TILE_RW

@@ -27,9 +27,9 @@ COEF_ROWS = 17  # c0(3) c1(3) c2(3) zc(3) wc(3) valid(1) orig_id(1)
 _BIG = 3e38
 
 
-def screen_morton_order(bbox, valid, width: int, height: int):
-    """Stable argsort of the 2-D morton code of each triangle's screen bbox
-    centre; invalid triangles sort last, so trailing chunks are empty."""
+def screen_morton_key(bbox, width: int, height: int):
+    """[T] int32 2-D morton code of each triangle's screen bbox centre on
+    a 1024x1024 grid over the viewport."""
     cx = torch.clamp((bbox[:, 0] + bbox[:, 2]) * (0.5 * 1024.0 / width),
                      0.0, 1023.0).to(torch.int32)
     cy = torch.clamp((bbox[:, 1] + bbox[:, 3]) * (0.5 * 1024.0 / height),
@@ -41,7 +41,17 @@ def screen_morton_order(bbox, valid, width: int, height: int):
         v = (v | (v << 2)) & 0x33333333
         return (v | (v << 1)) & 0x55555555
 
-    key = spread(cx) | (spread(cy) << 1)
+    return spread(cx) | (spread(cy) << 1)
+
+
+def screen_morton_order(bbox, valid, width: int, height: int, last=None):
+    """Stable argsort of screen_morton_key; invalid triangles sort last, so
+    trailing chunks are empty. last: optional [T] bool, triangles that sort
+    behind the others of their own key (the order is unchanged where none
+    is set)."""
+    key = screen_morton_key(bbox, width, height)
+    if last is not None:
+        key = key * 2 + last.to(torch.int32)
     key = torch.where(valid, key, 2**30)
     return torch.argsort(key, stable=True)
 
@@ -140,6 +150,53 @@ def cull_boxes(coef, wp: int, hp: int):
     lo = torch.where(ok[:, None], lo, -_BIG).clamp(min=-_BIG)
     hi = torch.where(ok[:, None], hi, _BIG).clamp(max=_BIG)
     return torch.cat([lo, hi], -1).to(torch.float32)
+
+
+BEHIND_W = 1e-3   # behind_eye: every w below -BEHIND_W of the largest |w|
+
+
+def behind_eye(coef, w, wp: int, hp: int):
+    """[T] bool: triangles wholly behind the eye, which K1's float32
+    fragment test can accept at no point of [0, wp] x [0, hp] (coef [T,5,3]
+    rows c0, c1, c2 oriented as K1 reads them, w [T,3] the vertices' clip
+    w, as _setup_triangles computes both).
+
+    K1 evaluates e_i = E_i(p) + r_i, E_i(p) = c_i . (px, py, 1) exact, with
+    |r_i| <= rho_i(p) = CULL_ROUND * (|cx_i| px + |cy_i| py + |cz_i|) (the
+    bound cull_boxes uses), and accepts p only where every
+    e_i >= -CULL_TOL * S, S = |e0| + |e1| + |e2|. There at most two e_i
+    are negative and their magnitudes sum to at most 2 CULL_TOL S, so where
+    every w_i <= -BEHIND_W * W (W = max |w_i|):
+
+        sum_i w_i e_i <= W S (2 CULL_TOL - BEHIND_W (1 - 2 CULL_TOL)) <= 0,
+
+    and D(p) = sum_i w_i E_i(p) = sum_i w_i e_i - sum_i w_i r_i is at most
+    W sum_i rho_i(p). A triangle whose D(p) exceeds that bound is accepted
+    nowhere. (In exact arithmetic D(p) is the triangle's oriented
+    determinant, the same at every p and positive for a valid triangle: the
+    test rejects such a triangle through its edge functions, whatever wd
+    reads.)
+    D - W sum_i rho_i is affine in p on the quadrant px, py >= 0, so it
+    stays positive on the region where it is at the region's corners;
+    there it is computed in float64 (the products of float32 factors are
+    exact, the sums off by ~1e-15 of their terms), with twice the bound.
+    A triangle the argument cannot cover (a vertex at or in front of the
+    eye plane, or D within the bound: a sliver or a degenerate one) is
+    kept. The tests wd > 0, 0 <= z <= 1 and a depth floor only take more
+    fragments away; K9's test, e_i >= 0 and wd > 0, is the case CULL_TOL =
+    0 of the same argument, so the culled triangles are K9's too."""
+    c = coef[:, :3].double()                       # [T, edge, (x, y, 1)]
+    w = w.double()
+    big = w.abs().amax(-1)
+
+    def at_corners(f):   # f [T, 3] -> f . (px, py, 1) at the corners [T, 4]
+        x, y, k = f[:, 0] * wp, f[:, 1] * hp, f[:, 2]
+        return torch.stack([k, x + k, y + k, x + y + k], -1)
+
+    d = at_corners((w[:, :, None] * c).sum(1))
+    r = at_corners(c.abs().sum(1))
+    return ((d > (2.0 * CULL_ROUND * big)[:, None] * r).all(-1)
+            & (w <= -BEHIND_W * big[:, None]).all(-1))
 
 
 def pack_tri_boxes(boxes, valid):

@@ -102,6 +102,35 @@ def adversarial_floor(z):
     return (ADV_B / (z + ADV_A)).contiguous()
 
 
+EYE_W, EYE_H = 128, 96
+
+
+def eye_scene(inside: bool, device):
+    """EmeraldSquare's box town (7,322 triangles) and a view of it: with
+    the eye among its buildings (about 1,600 triangles wholly behind the
+    eye), or from the scene's own camera outside the town (none)."""
+    from rtsdm_tpu_torch.scene.camera import Camera
+    from rtsdm_tpu_torch.scene.procedural import emerald_square
+    st = emerald_square(aspect=EYE_W / EYE_H, device=device)
+    if inside:
+        st = st.with_camera(Camera.create(
+            position=(0.0, 1.7, 0.0), target=(10.0, 1.0, 4.0),
+            focal_length=21.0, aspect=EYE_W / EYE_H, near_z=0.1,
+            far_z=500.0, device=device))
+    return st
+
+
+def parent_bins(view_proj, positions, w: int, h: int, cull: str = "back"):
+    """K1's inputs binned without the eye-plane cull, every valid triangle
+    in screen-morton order: (chunks, tri_boxes, lists, counts, nby,
+    nbx)."""
+    coef, bbox, valid = R._setup_triangles(view_proj, positions, w, h, 0.0,
+                                           0.0, R.CULL_MODES[cull])
+    order = RC.screen_morton_order(bbox, valid, w, h)
+    return R._pack_bins(coef[order], bbox[order], valid[order], order,
+                        -(-h // RC.TILE_RH), -(-w // RC.TILE_RW))
+
+
 def sd16_edge_depths(rng, shape):
     """float32 depths for the 16-bit SD pack: about a third whose product
     with 65535 is a half-integer in float32 (round half to even decides),
@@ -159,7 +188,7 @@ def test_raster_cull_is_exact_on_gpu(cuda_device, case, floored):
         vp, pos = adversarial_scene()
         args = R._binned_chunks(torch.as_tensor(vp, device=cuda_device),
                                 torch.as_tensor(pos, device=cuda_device),
-                                ADV_W, ADV_H, 0.0, 0.0, "none")
+                                ADV_W, ADV_H, 0.0, 0.0, "none")[0]
         to_floor = adversarial_floor
     else:
         st = arcade(aspect=100 / 60, device=cuda_device)
@@ -514,7 +543,7 @@ def _raster_inputs(st, w, h):
     """K1/K9 inputs of a view: chunks, triangle boxes, lists, counts, tile
     grid."""
     return R._binned_chunks(st.camera.view_proj_no_jitter, st.positions, w,
-                            h, 0.0, 0.0, "back")
+                            h, 0.0, 0.0, "back")[0]
 
 
 @pytest.mark.cuda
@@ -587,7 +616,7 @@ def test_raster_stochastic_cull_is_exact_on_gpu(cuda_device):
     vp, pos = adversarial_scene()
     args = R._binned_chunks(torch.as_tensor(vp, device=cuda_device),
                             torch.as_tensor(pos, device=cuda_device),
-                            ADV_W, ADV_H, 0.0, 0.0, "none")
+                            ADV_W, ADV_H, 0.0, 0.0, "none")[0]
     chunks, boxes, lists, counts, nby, nbx = args
     lin = adversarial_floor(RC.raster_blocks(*args)[0])
     rng = np.random.default_rng(41)
@@ -605,6 +634,42 @@ def test_raster_stochastic_cull_is_exact_on_gpu(cuda_device):
                                               parts=parts)
             assert torch.equal(got, want), (lw, parts)
     assert bool((want < RC.SD_EMPTY).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inside", [True, False])
+def test_eye_cull_leaves_kernels_bit_equal_on_gpu(cuda_device, inside):
+    """K1 (plain and with the first layer as a depth floor) and K9 on the
+    eye-culled binning give bit for bit what they give on the binning
+    without the cull (parent_bins), with the eye among EmeraldSquare's
+    buildings and outside the town; the binning makes no host sync."""
+    st = eye_scene(inside, cuda_device)
+    vp, pos = st.camera.view_proj_no_jitter, st.positions
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        bins, culled = R._binned_chunks(vp, pos, EYE_W, EYE_H, 0.0, 0.0,
+                                        "back")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    base = parent_bins(vp, pos, EYE_W, EYE_H)
+    assert (int(culled) > 0) == inside
+    z = RC.raster_blocks(*base)[0]
+    floor = dict(floor=st.camera.linearize_depth(z).contiguous(),
+                 min_separation=0.5)
+    for kw in ({}, floor):
+        for a, b in zip(RC.raster_blocks(*bins, **kw),
+                        RC.raster_blocks(*base, **kw)):
+            assert torch.equal(a, b), kw.keys()
+    lin = st.camera.linearize_depth(z)
+    first = torch.where(torch.arange(lin.numel(), device=cuda_device)
+                        .reshape(lin.shape) % 3 == 0, -3e38, lin)
+    planes = [first.contiguous(), torch.zeros_like(lin),
+              torch.full_like(lin, 3e38)]
+    got = RC.raster_stochastic_blocks(*bins, *planes, 4, 0.375)
+    assert torch.equal(got, RC.raster_stochastic_blocks(*base, *planes, 4,
+                                                        0.375))
+    assert bool((got < RC.SD_EMPTY).any())
 
 
 @pytest.mark.cuda

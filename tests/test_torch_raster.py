@@ -31,8 +31,9 @@ import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_pallas_interpret import interpret_mode  # noqa: E402
-from test_torch_cuda import (ADV_H, ADV_W, adversarial_floor,  # noqa: E402
-                             adversarial_scene)
+from test_torch_cuda import (ADV_H, ADV_W, EYE_H, EYE_W,  # noqa: E402
+                             adversarial_floor, adversarial_scene,
+                             eye_scene, parent_bins)
 from test_torch_scene import carry  # noqa: E402
 
 from rtsdm_tpu.ops import raster_pallas as rpx  # noqa: E402
@@ -245,13 +246,13 @@ def cull_case(request):
     if name == "adversarial":
         vp, pos = adversarial_scene()
         args = R._binned_chunks(torch.as_tensor(vp), torch.as_tensor(pos),
-                                ADV_W, ADV_H, 0.0, 0.0, "none")
+                                ADV_W, ADV_H, 0.0, 0.0, "none")[0]
         to_floor = adversarial_floor
     else:
         w, h = map(int, request.param.split()[1].split("x"))
         st = load_scene(name, aspect=w / h, device="cpu")
         args = R._binned_chunks(st.camera.view_proj_no_jitter, st.positions,
-                                w, h, 0.0, 0.0, "back")
+                                w, h, 0.0, 0.0, "back")[0]
 
         def to_floor(z):
             return st.camera.linearize_depth(z).contiguous()
@@ -342,3 +343,151 @@ def test_raster_blocks_checks_tri_boxes():
     with pytest.raises(ValueError, match="tri_boxes must be contiguous"):
         RC.raster_blocks(chunks, good.transpose(1, 2).contiguous()
                          .transpose(1, 2), lists, counts, 1, 1)
+
+
+# --- the binning's eye-plane cull (ops/raster._binned_chunks) ----------------
+
+def test_eye_culled_triangles_are_never_accepted():
+    """The triangles behind_eye culls with the eye among EmeraldSquare's
+    buildings, without a face cull (a superset of the back-face cull's,
+    with the same coefficients), rasterized alone by K1's plain version
+    with every tile listing every chunk and no cull boxes, leave the image
+    empty: K1's own fragment test holds the claim that it never accepts
+    them. K9's test (e_i >= 0 where K1's allows -1e-5 of the sum) accepts
+    no fragment K1's rejects, so the claim holds for K9 too."""
+    st = eye_scene(True, "cpu")
+    coef, _, valid, w = R._setup_with_w(st.camera.view_proj_no_jitter,
+                                        st.positions, EYE_W, EYE_H, 0.0, 0.0,
+                                        R.CULL_NONE)
+    culled = valid & RC.behind_eye(coef, w, EYE_W, EYE_H)
+    ids = torch.nonzero(culled).squeeze(1)
+    assert ids.numel() > 3000
+    chunks = RC.pack_coef_chunks(coef[ids], torch.ones_like(ids, dtype=bool),
+                                 ids)
+    nby, nbx = EYE_H // RC.TILE_RH, EYE_W // RC.TILE_RW
+    n = chunks.shape[0]
+    lists = torch.arange(n, dtype=torch.int32).repeat(nby * nbx, 1)
+    counts = torch.full((nby * nbx,), n, dtype=torch.int32)
+    z, tid, _, _ = RC.raster_blocks_plain(chunks, None, lists, counts, nby,
+                                          nbx)
+    assert bool((tid == -1).all()) and bool((z == 1.0).all())
+    # a degenerate triangle behind the eye (its third vertex on its first
+    # edge) lies within the rounding bound and is left to K1's test
+    tri = st.positions[ids[:1]].clone()
+    tri[0, 2] = 0.5 * (tri[0, 0] + tri[0, 1])
+    coef, _, _, w = R._setup_with_w(st.camera.view_proj_no_jitter, tri,
+                                    EYE_W, EYE_H, 0.0, 0.0, R.CULL_NONE)
+    assert (w < 0).all() and not bool(RC.behind_eye(coef, w, EYE_W,
+                                                    EYE_H).any())
+
+
+@pytest.mark.parametrize("inside", [True, False], ids=["eye inside",
+                                                       "eye outside"])
+def test_eye_cull_keeps_the_raster_and_the_other_chunks(inside):
+    """With the eye among EmeraldSquare's buildings and outside the town:
+    rasterize's tri_id, depth and bary equal bit for bit K1's on the
+    binning without the cull (parent_bins), and its eye_culled counts
+    behind_eye's triangles. Every chunk outside the viewport centre's
+    morton key group holds the parent's triangles, boxes and valid lanes;
+    within the group the culled triangles sort behind the others, each
+    part in the parent's order, and leave the valid lanes and the lists;
+    where nothing is culled the binning is the parent's."""
+    st = eye_scene(inside, "cpu")
+    vp, pos = st.camera.view_proj_no_jitter, st.positions
+    out = R.rasterize(vp, pos, width=EYE_W, height=EYE_H)
+    base = parent_bins(vp, pos, EYE_W, EYE_H)
+    z, tid, b1, b2 = RC.raster_blocks(*base)
+    assert torch.equal(out["tri_id"], tid) and torch.equal(out["depth"], z)
+    assert torch.equal(out["bary"], torch.stack([b1, b2], -1))
+    assert bool((tid >= 0).any())
+
+    coef, bbox, valid, w = R._setup_with_w(vp, pos, EYE_W, EYE_H, 0.0, 0.0,
+                                           R.CULL_BACK)
+    culled = valid & RC.behind_eye(coef, w, EYE_W, EYE_H)
+    assert int(out["eye_culled"]) == int(culled.sum())
+    bins, _ = R._binned_chunks(vp, pos, EYE_W, EYE_H, 0.0, 0.0, "back")
+    if not inside:
+        assert not bool(culled.any())
+        for a, b in zip(bins, base):
+            assert a == b if isinstance(a, int) else torch.equal(a, b)
+        return
+    assert int(culled.sum()) > 1000
+    t = coef.shape[0]
+    new_ids = bins[0][:, 16].reshape(-1)[:t].long()
+    old_ids = base[0][:, 16].reshape(-1)[:t].long()
+    centre = RC.screen_morton_key(torch.tensor([[0.0, 0.0, EYE_W, EYE_H]]),
+                                  EYE_W, EYE_H)
+    group = valid & (RC.screen_morton_key(bbox, EYE_W, EYE_H) == centre)
+    assert bool(group[culled].all())
+    at = group[old_ids]                  # the group's positions, contiguous
+    assert torch.equal(at, group[new_ids])
+    assert torch.equal(new_ids[~at], old_ids[~at])
+    members = old_ids[at]
+    assert torch.equal(new_ids[at], torch.cat([members[~culled[members]],
+                                               members[culled[members]]]))
+    live = bins[0][:, 15].reshape(-1)[:t] > 0
+    assert torch.equal(live, (valid & ~culled)[new_ids])
+    whole = ~torch.nn.functional.pad(at, (0, (-t) % RC.TC)).reshape(
+        -1, RC.TC).any(1)                # chunks with no member of the group
+    assert bool(whole.sum() > 0)
+    for a, b in zip(bins[:2], base[:2]):
+        assert torch.equal(a[whole], b[whole])
+    # the lists then walk a fraction of the chunks
+    assert int(bins[3].sum()) * 4 < int(base[3].sum())
+
+
+# EmeraldSquare with the eye among its buildings (eye_scene's view)
+EYE_INSIDE = dict(position=(0.0, 1.7, 0.0), target=(10.0, 1.0, 4.0),
+                  focal_length=21.0, aspect=EYE_W / EYE_H, near_z=0.1,
+                  far_z=500.0)
+
+
+@pytest.mark.parametrize("floored", [False, True], ids=["plain", "floored"])
+def test_rasterize_eye_inside_matches_pallas_interpret(floored):
+    """rasterize with the eye among EmeraldSquare's buildings, where the
+    binning culls the triangles wholly behind the eye, against
+    rasterize_pallas on the same arrays and camera, plain and with the
+    first layer as a depth floor (min_separation 0.5): none of the culled
+    triangles is seen by the reference, and the ids differ within
+    MAX_ID_MISMATCH (measured: 0 of 12,288, both). Where the ids agree the
+    floored depth keeps its bound of 5e-5 (measured 3.8e-5); the plain
+    depth and the barycentrics keep the module's bounds except on the side
+    faces of thin posts 20-35 units away, seen nearly edge-on (plain: 33
+    and 9 pixels, up to 6.3e-5 and 6.4e-4, 1.1e-4 and 3.3e-4 without XLA's
+    FMA contraction; floored barycentrics up to 6.1e-4): the set-up
+    coefficients differ by up to 2e-3 of their scale
+    (test_setup_triangles_matches_reference), and such slivers carry that
+    into both. The port's raster there equals K1's without the cull
+    bit for bit (test_eye_cull_keeps_the_raster_and_the_other_chunks)."""
+    from rtsdm_tpu.scene.camera import Camera as CameraJ
+    sj = PJ.emerald_square(aspect=EYE_W / EYE_H).with_camera(
+        CameraJ.create(**EYE_INSIDE))
+    st = carry(sj)
+    vp = st.camera.view_proj_mat
+    kw, kwj = {}, {}
+    if floored:
+        lin = st.camera.linearize_depth(R.rasterize(
+            vp, st.positions, width=EYE_W, height=EYE_H)["depth"])
+        kw = dict(depth_floor=lin, min_separation=0.5)
+        kwj = dict(depth_floor=jnp.asarray(lin.numpy()), min_separation=0.5)
+    with interpret_mode(rpx):
+        ref = rpx.rasterize_pallas(sj.camera.view_proj_mat, sj.positions,
+                                   width=EYE_W, height=EYE_H, **kwj)
+    got = R.rasterize(vp, st.positions, width=EYE_W, height=EYE_H, **kw)
+    coef, _, valid, w = R._setup_with_w(vp, st.positions, EYE_W, EYE_H, 0.0,
+                                        0.0, R.CULL_BACK)
+    culled = torch.nonzero(valid & RC.behind_eye(coef, w, EYE_W, EYE_H))
+    assert int(got["eye_culled"]) == culled.numel() > 1000
+    rid, gid = np.asarray(ref["tri_id"]), got["tri_id"].numpy()
+    assert (rid >= 0).any()
+    assert not np.isin(rid, culled.numpy()).any()
+    same = rid == gid
+    assert (~same).mean() <= MAX_ID_MISMATCH
+    depth_tol, bary_tol = (5e-5, 1.5e-3) if floored else (1.5e-4, 1.5e-3)
+    np.testing.assert_allclose(got["depth"].numpy()[same],
+                               np.asarray(ref["depth"])[same],
+                               atol=depth_tol, rtol=0)
+    np.testing.assert_allclose(got["bary"].numpy()[same],
+                               np.asarray(ref["bary"])[same], atol=bary_tol,
+                               rtol=0)
+    assert int(got["overflow"]) == int(ref["overflow"]) == 0

@@ -203,13 +203,13 @@ def k9_cull_case(request):
     if name == "adversarial":
         vp, pos = adversarial_scene()
         args = R._binned_chunks(torch.as_tensor(vp), torch.as_tensor(pos),
-                                ADV_W, ADV_H, 0.0, 0.0, "none")
+                                ADV_W, ADV_H, 0.0, 0.0, "none")[0]
         to_lin = adversarial_floor
     else:
         w, h = map(int, request.param.split()[1].split("x"))
         st = load_scene(name, aspect=w / h, device="cpu")
         args = R._binned_chunks(st.camera.view_proj_no_jitter, st.positions,
-                                w, h, 0.0, 0.0, "back")
+                                w, h, 0.0, 0.0, "back")[0]
         to_lin = st.camera.linearize_depth
     lin = to_lin(RC.raster_blocks_plain(args[0], None, *args[2:])[0])
     rng = np.random.default_rng(37)
