@@ -127,9 +127,11 @@ Phases, each of which raises on failure (the script then exits non-zero):
    bound of its pairs (k8_bound_at); the frame timed as in 10;
 19. BASELINE config 3 (bench_configs.py:24-27): SVAO_small.py with
    stochMapDivisor 1 and stochMapGuardBand 512, SunTemple@full 1920x1080,
-   3 frames: K5 once a frame on the full-resolution SD grid, K4 never
-   (phase 2 reads the SD map through the plain fetch_sd_direction, XLA
-   code in the JAX package too); held and timed as in 18;
+   3 frames: K5 once a frame on the full-resolution SD grid, K4 never:
+   phase 2 reads the SD map through K11 (fetch_sd_strided, csrc/fetch.cu),
+   once a ring direction, 8 times a frame (XLA code in the JAX package);
+   held and timed as in 18, K11 at every call of the last frame bit-equal
+   to fetch_sd_direction and timed;
 20. scripts/SVAO.py at Arcade@full 1280x720: one frame with SVAO's
    primaryDepthMode DualDepth (DepthPeeling runs: K1 once with its floor,
    phase 1's K3 on two plane sets; the frame's calls held bit-exact) and
@@ -1027,7 +1029,8 @@ KERNEL_SYMBOLS = {"raster": "raster_blocks_kernel",
                   "warp_resample": "warp_resample_kernel",
                   "fetch_taps_same_class": "fetch_taps_same_class_kernel",
                   "raster_stochastic": "raster_sd_kernel",
-                  "sd_trace_resident": "sd_trace_resident_kernel"}
+                  "sd_trace_resident": "sd_trace_resident_kernel",
+                  "fetch_sd_strided": "fetch_sd_strided_kernel"}
 
 
 def profiled_frame(scene, pass_, ctx):
@@ -1722,9 +1725,10 @@ RASTER_SD_FLOPS_PER_PAIR = 16   # raster_sd.cu: the three edge functions
 
 def kernels_of_configs():
     """Every kernel of the graph path plus K6 (HBAO's same-class fetch), K9
-    (the raster stochastic depth map) and K7 (the resident SD trace)."""
+    (the raster stochastic depth map), K7 (the resident SD trace) and K11
+    (phase 2's SD fetch at divisors 1 and 2)."""
     from rtsdm_tpu_torch.ops import fetch_cuda, raster_cuda, rt_cuda
-    from rtsdm_tpu_torch.passes import hbao
+    from rtsdm_tpu_torch.passes import hbao, svao_shift
     return kernels_of_graph() + [
         Kernel("fetch_taps_same_class", ["rtsdm_fetch_taps_same_class"],
                fetch_cuda.fetch_taps_same_class,
@@ -1744,6 +1748,12 @@ def kernels_of_configs():
                [(rt_cuda, "sd_trace_resident_blocks_plain")],
                "rtsdm_tpu_torch/csrc/sd_trace.cu",
                "rtsdm_tpu/ops/rt_pallas.py:371"),
+        Kernel("fetch_sd_strided", ["rtsdm_fetch_sd_strided"],
+               fetch_cuda.fetch_sd_strided,
+               [(svao_shift, "fetch_sd_strided")],
+               [(fetch_cuda, "fetch_sd_strided_plain")],
+               "rtsdm_tpu_torch/csrc/fetch.cu",
+               "none: rtsdm_tpu/ops/ao_shift.py:fetch_sd_direction is XLA"),
     ]
 
 
@@ -1800,11 +1810,13 @@ def config_want(label, n_lights):
         # fetch once each; the SD trace streams (K5: SunTemple's 323,202,
         # Bistro's 681,562 and EmeraldSquare's 1,036,922 triangles are
         # above 65,536); phase 2 reads the packed SD map through K4 at
-        # divisor 4 (configs 4 and 5) and through the plain
-        # fetch_sd_direction at divisor 1 (config 3)
+        # divisor 4 (configs 4 and 5) and through K11 at divisor 1 (config
+        # 3), one launch a ring direction
+        div1 = label == "config3"
         return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
                 "fetch_all_directions": 2,
-                "fetch_sd_packed": int(label != "config3"), "sd_trace": 1,
+                "fetch_sd_packed": int(not div1),
+                "fetch_sd_strided": 8 * div1, "sd_trace": 1,
                 "raster_stochastic": 0, "sd_trace_resident": 0,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
     if label in ("config2", "svao_full"):
@@ -1920,6 +1932,14 @@ def _pair_fetch_sd_packed(args, kwargs):
         radii),)
 
 
+def _pair_fetch_sd_strided(args, kwargs):
+    """K11 against its plain version, fetch_sd_direction of the levels
+    shift_level_index gives."""
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    return ((F.fetch_sd_strided(*args, **kwargs),),
+            (F.fetch_sd_strided_plain(*args, **kwargs),))
+
+
 def _pair_any_hit(args, kwargs, tiles=ANY_HIT_TILES):
     """On the spread tile subset (hold_any_hit)."""
     return hold_any_hit(args, tiles)
@@ -1984,6 +2004,7 @@ CONFIG_PAIRS = {"raster": _pair_raster,
                 "fetch_attributes": _pair_fetch_attributes,
                 "fetch_all_directions": _pair_fetch_directions,
                 "fetch_sd_packed": _pair_fetch_sd_packed,
+                "fetch_sd_strided": _pair_fetch_sd_strided,
                 "any_hit": _pair_any_hit,
                 "warp_resample": _pair_warp,
                 "sd_trace_resident": _pair_sd_trace_resident,
@@ -2619,6 +2640,38 @@ def k8_bound_at(label, k) -> dict:
     return res
 
 
+def k11_timing(label, k):
+    """K11 at the last frame's first call: CUDA events, device and host
+    time, its bound (each value written once, each SD texel the call reads
+    read once: the plain version's fetch of a map of texel indices, exact
+    in float32 below 2^24 texels, counts them) and the plain version's
+    time."""
+    import torch
+    from rtsdm_tpu_torch.ops import fetch_cuda as F
+    check(k.calls, f"{label}: K11 made no call")
+    args, kwargs = k.calls[0]
+    t = timings(lambda: F.fetch_sd_strided(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_sd_strided"], 50)
+    out = F.fetch_sd_strided(*args, **kwargs)
+    sd_h, sd_w, depth_k = args[0].shape
+    check(sd_h * sd_w < 2**24, f"{label}: K11's texel count is inexact")
+    index = torch.arange(sd_h * sd_w, dtype=torch.float32,
+                         device=out.device).reshape(sd_h, sd_w, 1)
+    texels = int(F.fetch_sd_strided_plain(index, *args[1:], **kwargs)
+                 .unique().numel())
+    res = with_bound(dict(t, ms=t["event_ms"], shape=list(out.shape),
+                          texels_read=texels,
+                          plain_ms=cuda_ms(lambda: F.fetch_sd_strided_plain(
+                              *args, **kwargs), 3)),
+                     nbytes(out) + texels * depth_k * 4, 0.0)
+    log(f"{label} K11 {tuple(out.shape)}, {texels} SD texels read: "
+        f"{res['ms']:.4f} ms by CUDA events, "
+        f"device {res['device_ms']} ms, host {res['host_us']:.1f} us; bound "
+        f"{res['bound_ms']:.4f} ms ({res['bound_by']}); plain "
+        f"{res['plain_ms']:.3f} ms")
+    return res
+
+
 def run_new_configs():
     """Phases 18-19: BASELINE config 4 (scripts/SVAO_quarter.py, Bistro@full
     1920x1080: quarter-res SVAO with dualAO, the SD trace streamed through
@@ -2635,11 +2688,13 @@ def run_new_configs():
         m, totals, modes = drive_config(label, kernels)
         if label == "config3":
             log("config3: phase 2 at divisor 1 reads the SD map through "
-                "the plain ao_shift.fetch_sd_direction, as the JAX package "
-                "does (rtsdm_tpu/passes/svao_shift.py:578-580, XLA code, "
-                "not a Pallas kernel): K4 serves divisor 4 only, so it "
-                "never launches here")
+                "K11 (fetch_sd_strided), once a ring direction, where the "
+                "JAX package runs XLA code (rtsdm_tpu/passes/"
+                "svao_shift.py:578-580, no Pallas kernel): K4 serves "
+                "divisor 4 only, so it never launches here")
         held = check_config_calls(label, kernels)
+        k11 = k11_timing(label, by_name["fetch_sd_strided"]) \
+            if label == "config3" else None
         k5 = sd_trace_timing(label, by_name["sd_trace"])
         k8 = k8_bound_at(label, by_name["any_hit"]) \
             if label == "config4" else None
@@ -2652,7 +2707,7 @@ def run_new_configs():
                              overrides=overrides, launches=totals,
                              warp_launches_by_mode=modes,
                              frames=CONFIG_FRAMES, bit_exact_calls=held,
-                             sd_trace=k5, any_hit=k8,
+                             sd_trace=k5, any_hit=k8, sd_fetch=k11,
                              raster_calls=raster_calls)
         del m
     return report

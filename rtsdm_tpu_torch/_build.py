@@ -51,6 +51,7 @@ KERNEL_SIGNATURES = {
     "fetch.cu": {
         "rtsdm_fetch_directions": [_P] * 5 + [_I] * 7 + [_P, _P],
         "rtsdm_fetch_sd_packed": [_P] * 5 + [_I] * 6 + [_P, _P],
+        "rtsdm_fetch_sd_strided": [_P] * 5 + [_I] * 7 + [_P, _P],
         "rtsdm_fetch_taps_same_class": [_P] * 3 + [_I] * 8 + [_P, _P],
     },
     "sd_trace.cu": {

@@ -1,4 +1,5 @@
-// Level-select shifted fetches of SVAO's deinterleaved planes (K3, K4).
+// Level-select shifted fetches of SVAO's deinterleaved planes (K3, K4, K6,
+// K11).
 //
 // K3 replaces rtsdm_tpu/ops/fetch_pallas.py:_fetch_fused_kernel (driver
 // fetch_all_directions): for every ring direction d, dither class c and
@@ -49,6 +50,22 @@
 // reads each of its taps levels once and serves all nd directions and all
 // n_src sets from it, and all index arithmetic is 32-bit (the wrapper
 // checks the sizes fit).
+//
+// K11, phase 2's SD fetch at stochMapDivisor 1 and 2 (wrapper
+// fetch_sd_strided), replaces no TPU kernel: the JAX package fetches the SD
+// map there with XLA code (rtsdm_tpu/ops/ao_shift.py:fetch_sd_direction, a
+// strided slice and a select per class and level). For one ring direction
+// d it selects the level as K4 does and reads the k depths of SD texel
+// (y0 + s qy, x0 + s qx), s = 4 / divisor, with the clamped origin (y0, x0)
+// of the table, into a float [16, k, qh, qw] output (no pack: phase 2 reads
+// the depths as they are). Bounded by memory: each value is read and
+// written once, so K11 has K4's form (a block is a 32x8 tile of one class's
+// quarter texels, the class's table slice and the level bounds in shared
+// memory, 32-bit indices, a float4 read a texel at k = 4), one direction a
+// launch so that only one direction's output is alive. The class is the
+// fastest block index: at stride 4 a warp reads every fourth texel, and the
+// tiles of the other classes, which read the texels between, then run at
+// the same time and find them in L2.
 //
 // The level is computed exactly as rtsdm_tpu/ops/ao.py:shift_level_index:
 // a float32 product compared with float32 bounds (the float64 geometric
@@ -170,6 +187,45 @@ __global__ void __launch_bounds__(kTileX * kTileY)
   }
 }
 
+// K = 4: a texel's four depths are one float4 read; K = 0: k at run time
+template <int K>
+__global__ void __launch_bounds__(kTileX * kTileY)
+    fetch_sd_strided_kernel(const float* __restrict__ sd,
+                            const float* __restrict__ radius,
+                            const float* __restrict__ bounds,
+                            const float* __restrict__ radii,
+                            const int* __restrict__ tab, int d, int k,
+                            int n_levels, int qh, int qw, int sd_w,
+                            int stride, float* __restrict__ out) {
+  __shared__ float sb[kMaxBounds];
+  __shared__ int st[2 * (kMaxBounds + 1)];  // tab[d, :, c] as [n_levels, 2]
+  const int c = blockIdx.x;
+  const int tid = threadIdx.y * kTileX + threadIdx.x;
+  const int n_b = n_levels - 1;
+  for (int i = tid; i < n_b; i += kTileX * kTileY) sb[i] = bounds[i];
+  for (int i = tid; i < n_levels * 2; i += kTileX * kTileY)
+    st[i] = tab[((d * n_levels + (i >> 1)) * 16 + c) * 2 + (i & 1)];
+  __syncthreads();
+  const int qx = blockIdx.y * kTileX + threadIdx.x;
+  const int qy = blockIdx.z * kTileY + threadIdx.y;
+  if (qx >= qw || qy >= qh) return;
+  if (K != 0) k = K;
+  const int plane = qh * qw;
+  const int q = qy * qw + qx;
+  const int* e = st + level_of(radius[c * plane + q] * radii[d], sb, n_b) * 2;
+  const int texel = (e[0] + qy * stride) * sd_w + e[1] + qx * stride;
+  float* o = out + c * k * plane + q;
+  if (K == 4) {
+    const float4 v = reinterpret_cast<const float4*>(sd)[texel];
+    o[0] = v.x;
+    o[plane] = v.y;
+    o[2 * plane] = v.z;
+    o[3 * plane] = v.w;
+  } else {
+    for (int j = 0; j < k; ++j) o[j * plane] = sd[texel * k + j];
+  }
+}
+
 __global__ void __launch_bounds__(kTileX * kTileY)
     fetch_taps_same_class_kernel(const float* __restrict__ planes,
                                  const int* __restrict__ lvl,
@@ -256,6 +312,31 @@ extern "C" int rtsdm_fetch_sd_packed(const float* sd, const float* radius,
                                   stream>>>(sd, radius, bounds, radii, tab,
                                             k, nd, n_levels, qh, qw, sd_w,
                                             out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// sd [sd_h, sd_w, k] float32; radius [16, qh, qw]; bounds [n_levels - 1]
+// ascending; radii [nd]; tab [nd, n_levels, 16, 2] = (y0, x0); d the
+// direction; out [16, k, qh, qw]; n_levels - 1 <= 63, every size below
+// 2^31 elements and every texel read inside the map (the table's clamp).
+extern "C" int rtsdm_fetch_sd_strided(const float* sd, const float* radius,
+                                      const float* bounds, const float* radii,
+                                      const int* tab, int d, int k,
+                                      int n_levels, int qh, int qw, int sd_w,
+                                      int stride, float* out,
+                                      cudaStream_t stream) {
+  if (qh > 0 && qw > 0 && k > 0) {
+    const dim3 grid(16, (qw + kTileX - 1) / kTileX,
+                    (qh + kTileY - 1) / kTileY);
+    if (k == 4 && (reinterpret_cast<uintptr_t>(sd) & 15) == 0)
+      fetch_sd_strided_kernel<4><<<grid, dim3(kTileX, kTileY), 0, stream>>>(
+          sd, radius, bounds, radii, tab, d, k, n_levels, qh, qw, sd_w,
+          stride, out);
+    else
+      fetch_sd_strided_kernel<0><<<grid, dim3(kTileX, kTileY), 0, stream>>>(
+          sd, radius, bounds, radii, tab, d, k, n_levels, qh, qw, sd_w,
+          stride, out);
   }
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,18 @@
 """Shifted fetches of deinterleaved planes: the wrappers of csrc/fetch.cu
-(K3 SVAO direction fetch, K4 packed SD fetch, K6 HBAO same-class taps),
-their plain PyTorch versions, and the 16-bit SD unpack (counterpart of
-rtsdm_tpu/ops/fetch_pallas.py: fetch_all_directions, fetch_sd_packed,
-fetch_taps_same_class).
+(K3 SVAO direction fetch, K4 packed SD fetch, K6 HBAO same-class taps,
+K11 SD fetch at stochMapDivisor 1 and 2), their plain PyTorch versions,
+and the 16-bit SD unpack (counterpart of rtsdm_tpu/ops/fetch_pallas.py:
+fetch_all_directions, fetch_sd_packed, fetch_taps_same_class; K11's of
+the XLA code rtsdm_tpu/ops/ao_shift.py:fetch_sd_direction).
 
 Every kernel reads a static per-configuration table: for every direction,
 class and radius level the source (class and) offset of the shifted read.
-The tables are built once per configuration (K3/K4 from
+The tables are built once per configuration (K3/K4/K11 from
 ao_shift.offset_tables, K6 from the HBAO ring's offsets) and kept on the
-device (a small bounded cache). K3 and K4 find theirs by the identity of
-the ring's tables, which the SVAO passes keep per configuration as
-immutable tuples (passes/svao_shift._ring): a call neither walks nor
-hashes them.
+device (a small bounded cache). K3, K4 and K11 find theirs by the
+identity of the ring's tables, which the SVAO passes keep per
+configuration as immutable tuples (passes/svao_shift._ring): a call
+neither walks nor hashes them.
 """
 from __future__ import annotations
 
@@ -48,18 +49,26 @@ def direction_table(offs, pad: int) -> np.ndarray:
     return tab
 
 
+def strided_table(offs, guard: int, sd_h: int, sd_w: int, qh: int, qw: int,
+                  divisor: int) -> np.ndarray:
+    """[nd, L, 16, 2] int32: ao_shift.sd_slice_origins of every direction,
+    the clamped SD-map origin (y0, x0) of direction d, level l, class c."""
+    tab = np.stack([S.sd_slice_origins(o, guard, sd_h, sd_w, qh, qw, divisor)
+                    for o in offs]).transpose(0, 2, 1, 3)
+    return np.ascontiguousarray(tab, np.int32)
+
+
 def sd_table(offs, guard: int, pad: int, sd_h: int, sd_w: int, qh: int,
              qw: int):
-    """([nd, L, 16, 2] int32 clamped SD-map origins (y0, x0), ok). ok is
-    False when a clamp at the map edge moves an origin more than `pad` from
-    its unclamped place — the reference's condition for leaving the packed
-    fetch (fetch_pallas.py:_sd_tables); the caller then uses
-    ao_shift.fetch_sd_direction."""
-    tab = np.stack([S.sd_slice_origins(o, guard, sd_h, sd_w, qh, qw)
-                    for o in offs]).transpose(0, 2, 1, 3)   # [nd, L, 16, 2]
+    """([nd, L, 16, 2] int32 clamped SD-map origins (y0, x0) at divisor 4,
+    ok). ok is False when a clamp at the map edge moves an origin more than
+    `pad` from its unclamped place — the reference's condition for leaving
+    the packed fetch (fetch_pallas.py:_sd_tables); the caller then uses
+    fetch_sd_strided."""
+    tab = strided_table(offs, guard, sd_h, sd_w, qh, qw, 4)
     local = tab - guard + pad
     ok = bool(((local >= 0) & (local <= 2 * pad)).all())
-    return np.ascontiguousarray(tab, np.int32), ok
+    return tab, ok
 
 
 def same_class_table(offs, pad: int) -> np.ndarray:
@@ -101,6 +110,11 @@ def _build_tables(kind, levels, offs, radii, extra, device):
             raise ValueError("fetch_all_directions: at most 63 ascending "
                              "level bounds and 64 directions")
         tab, ok = direction_table(offs, *extra), True
+    elif kind == "strided":
+        if not searchable:
+            raise ValueError("fetch_sd_strided: at most 63 ascending level "
+                             "bounds and 64 directions")
+        tab, ok = strided_table(offs, *extra), True
     else:
         tab, ok = sd_table(offs, *extra)
         if ok and not searchable and torch.device(device).type == "cuda":
@@ -278,7 +292,7 @@ def fetch_sd_packed(sd_map, guard: int, radius_px_q, levels, offs, radii,
     normalized depths. Returns 16-bit-pair packed planes [nd, 16,
     ceil(k/2), qh, qw] int32 (see unpack_sd16), or None when the slice
     tables do not fit the halo of `pad` (tiny SD maps; the caller uses
-    fetch_sd_direction). On the card the kernel packs the depths itself;
+    fetch_sd_strided). On the card the kernel packs the depths itself;
     the contract it is held to is fetch_sd_packed_plain(pack_sd16(sd_map),
     ...)."""
     with profile_scope("kernel.fetch_sd_packed"):
@@ -319,6 +333,53 @@ def fetch_sd_packed_plain(sd_pl, guard, radius_px_q, levels, offs, radii):
         S.fetch_sd_direction(sd_hwk, A.shift_level_index(
             levels, radius_px_q * float(r)), o, guard, qh, qw, 4)
         for r, o in zip(radii, offs)])
+
+
+def fetch_sd_strided(sd_map, guard: int, radius_px_q, levels, offs, radii,
+                     d: int, divisor: int):
+    """K11: phase 2's SD fetch of ring direction d at stochMapDivisor
+    `divisor` (1, 2 or 4; SVAO takes K4 at 4 where its tables fit). sd_map
+    [sd_h, sd_w, k] float32 guard-banded normalized depths; radius_px_q
+    [16, qh, qw]. Returns [16, k, qh, qw] float32, equal bit for bit to
+    fetch_sd_strided_plain."""
+    with profile_scope("kernel.fetch_sd_strided"):
+        if divisor not in (1, 2, 4):
+            raise ValueError(f"stochMapDivisor {divisor} not in (1, 2, 4)")
+        if not sd_map.is_cuda:
+            if sd_map.device.type != "cpu":
+                raise RuntimeError(f"fetch_sd_strided: unsupported device "
+                                   f"{sd_map.device}")
+            return fetch_sd_strided_plain(sd_map, guard, radius_px_q, levels,
+                                          offs, radii, d, divisor)
+        sd, radius = sd_map.contiguous(), radius_px_q.contiguous()
+        if sd.dtype != torch.float32 or radius.dtype != torch.float32:
+            raise TypeError("fetch_sd_strided: float32 SD map and radius")
+        qh, qw = radius.shape[1:]
+        sd_h, sd_w, k = sd.shape
+        stride = 4 // divisor
+        if (qh - 1) * stride >= sd_h or (qw - 1) * stride >= sd_w:
+            raise ValueError("fetch_sd_strided: SD map smaller than the "
+                             "strided fetch")
+        bounds, radii_t, tab, _ = _tables(
+            "strided", levels, offs, radii,
+            (guard, sd_h, sd_w, qh, qw, divisor), sd.device)
+        out = torch.empty((16, k, qh, qw), dtype=torch.float32,
+                          device=sd.device)
+        if max(sd.numel(), out.numel()) >= 2**31:
+            raise ValueError("fetch_sd_strided: more than 2^31 values")
+        launch("rtsdm_fetch_sd_strided", ptr(sd), ptr(radius), ptr(bounds),
+               ptr(radii_t), ptr(tab), int(d), k, len(levels), qh, qw, sd_w,
+               stride, ptr(out), stream_of(sd))
+        return out
+
+
+def fetch_sd_strided_plain(sd_map, guard, radius_px_q, levels, offs, radii,
+                           d: int, divisor: int):
+    """Plain PyTorch version of K11: direction d's level planes and
+    ao_shift.fetch_sd_direction's strided select."""
+    qh, qw = radius_px_q.shape[1:]
+    lvl = A.shift_level_index(levels, radius_px_q * float(radii[d]))
+    return S.fetch_sd_direction(sd_map, lvl, offs[d], guard, qh, qw, divisor)
 
 
 def unpack_sd16(packed, kk: int):

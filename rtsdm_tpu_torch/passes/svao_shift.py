@@ -6,7 +6,8 @@ everything runs in deinterleaved space: [16, qh, qw] planes in which the
 ring's screen directions and the dither rotation are per-class constants.
 The depth fetches of both phases go through K3 (ops/fetch_cuda.
 fetch_all_directions) and the SD fetch of phase 2 through K4
-(fetch_sd_packed), with the ring tables of cfg's kernel (VAO or HBAO).
+(fetch_sd_packed) at stochMapDivisor 4 and K11 (fetch_sd_strided) at 1
+and 2, with the ring tables of cfg's kernel (VAO or HBAO).
 Both phases take the primary depth mode (SingleDepth or DualDepth, a
 second layer `depth2`), phase 1 the secondary one (StochasticDepth, or
 any other: no SD ray intervals), and cfg.dual_ao the bright/dark pair of
@@ -23,7 +24,7 @@ import torch
 from ..ops import ao as A
 from ..ops import ao_shift as S
 from ..ops.fetch_cuda import (fetch_all_directions, fetch_sd_packed,
-                              offs_tuple, unpack_sd16)
+                              fetch_sd_strided, offs_tuple, unpack_sd16)
 from ..utils.math import true_div
 from ..utils.sampling import AO_KERNEL_VAO
 
@@ -464,12 +465,8 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
         old_vis = s["vis"]
         vao = cfg.kernel == AO_KERNEL_VAO
         vis = torch.where(s["in_screen"], s["vis"], 1.0 if vao else 0.0)
-        if sd_pre is not None:
-            sd_p = sd_pre[i]
-        else:
-            lvl_q = A.shift_level_index(levels, rq * float(radii[i]))
-            sd_p = S.fetch_sd_direction(sd_map, lvl_q, offs[i], g, qh, qw,
-                                        divisor)
+        sd_p = sd_pre[i] if sd_pre is not None else fetch_sd_strided(
+            sd_map, g, rq, levels, offs, radii, i, divisor)
         vis_sd = _sd_eval_deint(cfg, bq, sd_p, s, jqx, jqy, xg_q, yg_q,
                                 divisor, low_w, low_h, depth_range,
                                 cam.near_z, k_sd, sd_pre is not None)

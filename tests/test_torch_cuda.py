@@ -282,6 +282,39 @@ def test_sd_fetch_kernel_packs_as_plain_on_gpu(cuda_device, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("k", [3, 4])
+@pytest.mark.parametrize("divisor", [1, 2])
+def test_sd_strided_fetch_kernel_matches_plain_on_gpu(cuda_device, divisor,
+                                                      k):
+    """K11 against fetch_sd_strided_plain (fetch_sd_direction of
+    shift_level_index's levels) at divisors 1 and 2, every direction, at
+    quarter sizes that are not multiples of its 32x8 tiles, with radii
+    whose fetches clamp at the map's edges and a NaN radius; k = 4 also
+    from a map that is not 16-byte aligned. One launch a call."""
+    from rtsdm_tpu_torch import _build
+    rng = np.random.default_rng(71 + 2 * k + divisor)
+    h, w, dev, guard = 52, 140, cuda_device, 24
+    s = 4 // divisor
+    levels, offs, radii = S.offset_tables(_Cfg(), 20.0)
+    r = rng.uniform(0.5, 30.0, (h, w)).astype(np.float32)
+    r[0, :3] = (np.nan, np.inf, 0.0)
+    radius = S.deinterleave(torch.as_tensor(r, device=dev))
+    sd = torch.as_tensor(rng.uniform(
+        0.0, 1.0, (h // 4 * s + 2 * guard, w // 4 * s + 2 * guard, k))
+        .astype(np.float32), device=dev)
+    for m in ([sd, misaligned(sd)] if k == 4 else [sd]):
+        for d in range(len(offs)):
+            want = F.fetch_sd_strided_plain(sd, guard, radius, levels, offs,
+                                            radii, d, divisor)
+            _build.LAUNCHES.clear()
+            got = F.fetch_sd_strided(m, guard, radius, levels, offs, radii,
+                                     d, divisor)
+            assert _build.LAUNCHES["rtsdm_fetch_sd_strided"] == 1
+            assert want.shape == (16, k, h // 4, w // 4)
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("nci,nflat", [(8, 4), (3, 0), (2, 1)])
 def test_attribute_fetch_kernel_matches_plain_on_gpu(cuda_device, nci,
                                                      nflat):

@@ -186,7 +186,7 @@ def test_unpack_sd16_logical_shift_and_true_division():
                                   1)))
 
 
-@pytest.mark.parametrize("divisor", [4, 2])
+@pytest.mark.parametrize("divisor", [4, 2, 1])
 def test_fetch_sd_direction_matches_reference(planes, divisor):
     p = planes
     qh, qw = p["h"] // 4, p["w"] // 4
@@ -205,10 +205,37 @@ def test_fetch_sd_direction_matches_reference(planes, divisor):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("divisor", [2, 1])
+def test_fetch_sd_strided_cpu_matches_fetch_sd_direction(planes, divisor):
+    """K11's wrapper on the CPU (its plain version) against the plain
+    fetch_sd_direction of the level planes shift_level_index gives (held
+    to the JAX package's by the test above), for every direction; radii at
+    the map's edges clamp, a NaN radius takes level 0."""
+    p = planes
+    qh, qw = p["h"] // 4, p["w"] // 4
+    guard = 10
+    s = 4 // divisor
+    sd = p["rng"].uniform(0, 1, (qh * s + 2 * guard, qw * s + 2 * guard, 3)) \
+        .astype(np.float32)
+    radius_px = p["radius_px"].copy()
+    radius_px[0, :3] = (np.nan, np.inf, 0.0)
+    radius = S.deinterleave(torch.as_tensor(radius_px))
+    for d in range(len(p["offs"])):
+        got = F.fetch_sd_strided(torch.as_tensor(sd), guard, radius,
+                                 p["levels"], p["offs"], p["radii"], d,
+                                 divisor)
+        lvl = A.shift_level_index(p["levels"], radius * float(p["radii"][d]))
+        want = S.fetch_sd_direction(torch.as_tensor(sd), lvl, p["offs"][d],
+                                    guard, qh, qw, divisor)
+        assert got.shape == (16, 3, qh, qw) and got.dtype == torch.float32
+        assert torch.equal(got, want)
+
+
 def test_cached_ring_tables_equal_uncached():
     """SVAO's ring tables are built once per configuration and kept
     immutable; K3's and K4's wrappers find their device tables by those
-    objects (no call walks or hashes the offsets), and the cached tables
+    objects, as K11's does (no call walks or hashes the offsets), and the
+    cached tables
     equal tables built anew from the uncached offset_tables."""
     import dataclasses
 
@@ -225,7 +252,8 @@ def test_cached_ring_tables_equal_uncached():
     assert pad == int(-(-float(lv[-1]) // 4)) + 1
     dev = torch.device("cpu")
     for kind, extra in (("dir", (pad,)),
-                        ("sd", (128, pad, 528, 736, 68, 120))):
+                        ("sd", (128, pad, 528, 736, 68, 120)),
+                        ("strided", (512, 2232, 3072, 302, 512, 1))):
         cached = F._tables(kind, levels, offs, radii, extra, dev)
         assert F._tables(kind, levels, offs, radii, extra, dev) is cached
         fresh = F._tables(kind, lv, of, ra, extra, dev)

@@ -30,7 +30,8 @@ ROOT = Path(__file__).resolve().parents[1]
 WRAPPERS = (RC.raster_blocks, RC.fetch_attributes, F.fetch_all_directions,
             F.fetch_sd_packed, RT.sd_trace_blocks, W.warp_resample,
             RT.any_hit_blocks, F.fetch_taps_same_class,
-            RC.raster_stochastic_blocks, RT.sd_trace_resident_blocks)
+            RC.raster_stochastic_blocks, RT.sd_trace_resident_blocks,
+            F.fetch_sd_strided)
 
 
 def test_port_never_imports_jax():
@@ -75,7 +76,7 @@ def test_build_targets_hopper_without_fma():
 
 
 def _tiny_inputs():
-    """Minimal valid CPU arguments for each of the ten wrappers."""
+    """Minimal valid CPU arguments for each of the eleven wrappers."""
     rng = np.random.default_rng(11)
     chunks = torch.zeros((1, RC.COEF_ROWS, RC.TC))
     lists = torch.zeros((1, 1), dtype=torch.int32)
@@ -123,6 +124,7 @@ def _tiny_inputs():
                                      torch.ones((8, 32)), 4, 0.375),
         "sd_trace_resident_blocks": (tri, torch.zeros((6, 1)),
                                      torch.zeros(3), rays, 2),
+        "fetch_sd_strided": (sd, pad, radius, levels, offs, radii, 1, 1),
     }
 
 
@@ -139,7 +141,8 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
                       (RT, "any_hit_blocks_plain"),
                       (F, "fetch_taps_same_class_plain"),
                       (RC, "raster_stochastic_blocks_plain"),
-                      (RT, "sd_trace_resident_blocks_plain")):
+                      (RT, "sd_trace_resident_blocks_plain"),
+                      (F, "fetch_sd_strided_plain")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _name=name, **kw):

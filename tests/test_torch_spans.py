@@ -177,3 +177,28 @@ def test_profile_scope_nests_under_the_active_profilers_open_scope():
     assert sorted(prof.flat_averages()) == ["frame", "frame/geometry.g",
                                             "frame/kernel.k"]
     assert prof._stack == [prof.root]
+
+
+def test_the_divisor_1_sd_fetch_has_its_kernel_span(tmp_path):
+    """At stochMapDivisor 1 (BASELINE config 3) phase 2's SD fetch is K11's
+    wrapper: a traced frame holds its span, kernel.fetch_sd_strided, once a
+    ring direction inside renderFrame/SVAO/phase2, and K4's not at all."""
+    from torch.profiler import ProfilerActivity, profile
+    m = _animated_svao_small()
+    m.active_graph.get_pass("SVAO").cfg.update(stochMapDivisor=1,
+                                               stochMapGuardBand=16)
+    m.profiler.enabled = True
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        m.renderFrame()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = [e["name"][len(PREFIX):]
+             for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation" and e.get("ph") == "X"
+             and e.get("name", "").startswith(PREFIX)]
+    phase2 = "renderFrame/SVAO/phase2"
+    nd = m.active_graph.get_pass("SVAO").cfg["sampleCount"]
+    assert names.count(f"{phase2}/kernel.fetch_sd_strided") == nd
+    assert not [n for n in names if n.endswith("kernel.fetch_sd_packed")]
+    assert _paths(m.profiler.capture())[
+        f"{phase2}/kernel.fetch_sd_strided"]["count"] == nd
