@@ -131,7 +131,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    phase 2 reads the SD map through K11 (fetch_sd_strided, csrc/fetch.cu),
    once a ring direction, 8 times a frame (XLA code in the JAX package);
    held and timed as in 18, K11 at every call of the last frame bit-equal
-   to fetch_sd_direction and timed;
+   to fetch_sd_direction and timed; one more frame under torch.profiler:
+   its host-to-device copies by innermost span and its tables.svao misses
+   (frame_copies; none in SVAO);
 20. scripts/SVAO.py at Arcade@full 1280x720: one frame with SVAO's
    primaryDepthMode DualDepth (DepthPeeling runs: K1 once with its floor,
    phase 1's K3 on two plane sets; the frame's calls held bit-exact) and
@@ -2346,6 +2348,7 @@ def run_configs():
                              name="fetch_taps_same_class",
                              launches=totals["fetch_taps_same_class"]))
         raster_calls = time_raster_calls(label, by_name["raster"].calls)
+        copies = frame_copies(m, label) if label == "config3" else None
         times, _ = graph_timing(m)
         script, scene, width, height, overrides, _ = CONFIGS[label]
         report[label] = dict(times, script=str(script.relative_to(ROOT)),
@@ -2672,6 +2675,53 @@ def k11_timing(label, k):
     return res
 
 
+def h2d_copies_by_span(events) -> collections.Counter:
+    """The host-to-device copies among a torch.profiler session's events
+    (prof.events()), counted by the innermost program span ("rtsdm/" + its
+    scope path, given without the prefix; "" for none) around the call
+    that made each."""
+    from rtsdm_tpu_torch.core.profiler import SPAN_PREFIX
+    found = collections.Counter()
+    for e in events:
+        n = sum(1 for k in e.kernels if k.name.startswith("Memcpy HtoD"))
+        if not n:
+            continue
+        p = e
+        while p is not None and not p.name.startswith(SPAN_PREFIX):
+            p = p.cpu_parent
+        found[p.name[len(SPAN_PREFIX):] if p is not None else ""] += n
+    return found
+
+
+def frame_copies(m, label: str) -> dict:
+    """One more frame of renderer m under torch.profiler, with its spans:
+    the host-to-device copies it made by innermost span and the misses of
+    its table caches (the tables.svao spans). SVAO's frame, its nested SD
+    graph included, makes neither after its first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    m.profiler.enabled = True
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.renderFrame()
+            torch.cuda.synchronize()
+    finally:
+        m.profiler.enabled = False
+    events = prof.events()
+    copies = h2d_copies_by_span(events)
+    misses = sum(1 for e in events if e.name.endswith("/tables.svao"))
+    log(f"{label}: a warm frame's host-to-device copies by innermost span "
+        f"{dict(copies.most_common()) or 'none'}; tables.svao misses "
+        f"{misses}")
+    in_svao = sum(n for span, n in copies.items()
+                  if span.startswith("renderFrame/SVAO"))
+    check(in_svao == 0 and misses == 0,
+          f"{label}: SVAO's warm frame made {in_svao} host-to-device "
+          f"copies and {misses} table(s)")
+    return {"h2d_copies": dict(copies), "tables_svao_misses": misses}
+
+
 def run_new_configs():
     """Phases 18-19: BASELINE config 4 (scripts/SVAO_quarter.py, Bistro@full
     1920x1080: quarter-res SVAO with dualAO, the SD trace streamed through
@@ -2680,7 +2730,8 @@ def run_new_configs():
     CONFIG_FRAMES frames with the launches of config_want, the last
     frame's calls bit-exact against their plain versions (K5 and K8 on a
     spread subset of tiles), K5 timed with its bound, every K1 call timed,
-    the frame timed as in 10. Returns {label: report}."""
+    at config 3 a warm frame's host-to-device copies by span (none may lie
+    in SVAO), the frame timed as in 10. Returns {label: report}."""
     report = {}
     for label in ("config4", "config3"):
         kernels = kernels_of_configs()
@@ -2699,6 +2750,7 @@ def run_new_configs():
         k8 = k8_bound_at(label, by_name["any_hit"]) \
             if label == "config4" else None
         raster_calls = time_raster_calls(label, by_name["raster"].calls)
+        copies = frame_copies(m, label) if label == "config3" else None
         times, _ = graph_timing(m)
         script, scene, width, height, overrides, _ = CONFIGS[label]
         report[label] = dict(times, script=str(script.relative_to(ROOT)),
@@ -2708,7 +2760,7 @@ def run_new_configs():
                              warp_launches_by_mode=modes,
                              frames=CONFIG_FRAMES, bit_exact_calls=held,
                              sd_trace=k5, any_hit=k8, sd_fetch=k11,
-                             raster_calls=raster_calls)
+                             raster_calls=raster_calls, copies=copies)
         del m
     return report
 

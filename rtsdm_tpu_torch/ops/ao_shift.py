@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from ..utils.sampling import DITHER_4X4, JITTER_4X4
+from ..utils.sampling import DITHER_4X4
 from . import ao as A
 
 
@@ -167,12 +167,3 @@ def fetch_sd_direction(sd_map, lvl_planes, offs_i, guard: int, qh: int,
         out.append(acc)
     return torch.stack(out)
 
-
-def tiled_jitter(qh: int, qw: int, enabled: bool = True, *, device):
-    """The 4x4 SD-map sub-texel jitter tiled over quarter coordinates."""
-    if not enabled:
-        return torch.full((qh, qw, 2), 0.5, device=device)
-    tab = JITTER_4X4.reshape(4, 4, 2)
-    return torch.as_tensor(
-        np.tile(tab, (-(-qh // 4), -(-qw // 4), 1))[:qh, :qw].copy(),
-        device=device)

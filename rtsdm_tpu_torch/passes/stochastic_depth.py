@@ -21,6 +21,7 @@ from ..core.profiler import profile_scope
 from ..ops import rt_cuda as rt
 from ..ops.raster import raster_stochastic
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
+from ..utils.device import device_constant
 from ..utils.math import dot3
 from ..utils.sampling import jitter_grid
 
@@ -128,42 +129,61 @@ class StochasticDepthMapRT(RenderPass):
         k = int(self.cfg["SampleCount"])
         dev = ray_max.device
 
-        # one ray per texel (Common.slangh:65-92)
-        py, px = torch.meshgrid(torch.arange(sd_h, device=dev),
-                                torch.arange(sd_w, device=dev), indexing="ij")
-        signed = torch.stack([px - guard, py - guard], -1).to(torch.float32)
-        jit = jitter_grid(sd_h, sd_w, bool(self.cfg["Jitter"]), device=dev)
-        origin, dirs = cam.compute_ray_pinhole(signed, (dim_w, dim_h),
-                                               jitter=jit)
-        cos_w = dot3(dirs, cam.camera_w / torch.sqrt(dot3(cam.camera_w,
-                                                          cam.camera_w)))
-        inv_cos = 1.0 / cos_w
-        tmax = cam.far_z * inv_cos
-
-        divisor = lin_z.shape[1] // max(dim_w, 1)
-        if divisor in (1, 2, 4) and lin_z.shape[1] == dim_w * divisor \
-                and lin_z.shape[0] == dim_h * divisor:
-            interior = _downsample_linear(lin_z, divisor, dim_w, dim_h)
-            depth = torch.nn.functional.pad(
-                interior, (guard, sd_w - dim_w - guard,
-                           guard, sd_h - dim_h - guard))
-        else:
-            inside = ((signed[..., 0] >= 0) & (signed[..., 0] < dim_w)
-                      & (signed[..., 1] >= 0) & (signed[..., 1] < dim_h))
-            frame_uv = (signed + 0.5) / torch.tensor(
-                [dim_w, dim_h], dtype=torch.float32, device=dev)
-            depth = torch.where(inside, _bilinear_sample(
-                lin_z, torch.clamp(frame_uv, 0.0, 1.0)), 0.0)
-        tmin = depth * inv_cos + 0.1 * cam.near_z  # behind the first hit
-        if self.cfg["RayInterval"]:
-            # a raw 0 means "not written" (Common.slangh:80-89); the FLT_MAX
-            # rayMin clear kills unrequested texels through the max
-            tmin = torch.where(ray_min != 0.0, torch.maximum(ray_min, tmin),
-                               tmin)
-            tmax = torch.where(ray_max != 0.0, torch.minimum(ray_max, tmax),
-                               tmax)
-
         streams = self.streams(ctx.scene)
+        trace = dict(num_samples=k, cull_back=self.cfg["CullMode"] == "Back",
+                     mode=impl, max_count=max_count,
+                     alpha=float(self.cfg["Alpha"]))
+        with profile_scope("sd_rays"):
+            # one ray per texel (Common.slangh:65-92)
+            py, px = torch.meshgrid(torch.arange(sd_h, device=dev),
+                                    torch.arange(sd_w, device=dev),
+                                    indexing="ij")
+            signed = torch.stack([px - guard, py - guard], -1) \
+                .to(torch.float32)
+            jit = jitter_grid(sd_h, sd_w, bool(self.cfg["Jitter"]),
+                              device=dev)
+            origin, dirs = cam.compute_ray_pinhole(signed, (dim_w, dim_h),
+                                                   jitter=jit)
+            cos_w = dot3(dirs, cam.camera_w / torch.sqrt(
+                dot3(cam.camera_w, cam.camera_w)))
+            inv_cos = 1.0 / cos_w
+            tmax = cam.far_z * inv_cos
+
+            divisor = lin_z.shape[1] // max(dim_w, 1)
+            if divisor in (1, 2, 4) and lin_z.shape[1] == dim_w * divisor \
+                    and lin_z.shape[0] == dim_h * divisor:
+                interior = _downsample_linear(lin_z, divisor, dim_w, dim_h)
+                depth = torch.nn.functional.pad(
+                    interior, (guard, sd_w - dim_w - guard,
+                               guard, sd_h - dim_h - guard))
+            else:
+                inside = ((signed[..., 0] >= 0) & (signed[..., 0] < dim_w)
+                          & (signed[..., 1] >= 0) & (signed[..., 1] < dim_h))
+                frame_uv = (signed + 0.5) / device_constant(
+                    (dim_w, dim_h), torch.float32, dev)
+                depth = torch.where(inside, _bilinear_sample(
+                    lin_z, torch.clamp(frame_uv, 0.0, 1.0)), 0.0)
+            tmin = depth * inv_cos + 0.1 * cam.near_z  # behind the first hit
+            if self.cfg["RayInterval"]:
+                # a raw 0 means "not written" (Common.slangh:80-89); the
+                # FLT_MAX rayMin clear kills unrequested texels through the
+                # max
+                tmin = torch.where(ray_min != 0.0,
+                                   torch.maximum(ray_min, tmin), tmin)
+                tmax = torch.where(ray_max != 0.0,
+                                   torch.minimum(ray_max, tmax), tmax)
+            if streams:
+
+                def tf(x2d, fill=0.0):  # 8x32-tile ray order
+                    return rt.tile_flatten(rt.pad_tile(x2d, fill)[0])
+
+                rays = (tf(dirs), tf(tmin), tf(tmax, -1.0), tf(cos_w))
+                trace.update(rx=tf(signed[..., 0]), ry=tf(signed[..., 1]))
+            else:
+                rays = (dirs.reshape(-1, 3), tmin.reshape(-1),
+                        tmax.reshape(-1), cos_w.reshape(-1))
+                trace.update(grid=(sd_h, sd_w))
+
         with profile_scope("geometry.sd_pack"):
             tri_packed, aabb = rt.prep_triangles_packed(
                 ctx.scene, bool(self.cfg["AlphaTest"]), origin)
@@ -172,27 +192,19 @@ class StochasticDepthMapRT(RenderPass):
                                            cam.camera_v, cam.camera_w, dim_w,
                                            dim_h)
                 aabb = torch.cat([aabb[:6], scr], 0)
-        trace = dict(num_samples=k, cull_back=self.cfg["CullMode"] == "Back",
-                     mode=impl, max_count=max_count,
-                     alpha=float(self.cfg["Alpha"]))
         if streams:
-
-            def tf(x2d, fill=0.0):  # 8x32-tile ray order
-                return rt.tile_flatten(rt.pad_tile(x2d, fill)[0])
-
             ph = sd_h + (-sd_h) % rt.TILE_RH
             pw = sd_w + (-sd_w) % rt.TILE_RW
-            packed = rt.sd_trace_stream(
-                tri_packed, aabb, origin, tf(dirs), tf(tmin), tf(tmax, -1.0),
-                tf(cos_w), cam.near_z, cam.far_z, rx=tf(signed[..., 0]),
-                ry=tf(signed[..., 1]), **trace)
+            packed = rt.sd_trace_stream(tri_packed, aabb, origin, *rays,
+                                        cam.near_z, cam.far_z, **trace)
             packed = rt.tile_unflatten(packed, ph, pw)[:sd_h, :sd_w]
         else:
             packed = rt.sd_trace_resident(
-                tri_packed, aabb, origin, dirs.reshape(-1, 3),
-                tmin.reshape(-1), tmax.reshape(-1), cos_w.reshape(-1),
-                cam.near_z, cam.far_z, grid=(sd_h, sd_w),
+                tri_packed, aabb, origin, *rays, cam.near_z, cam.far_z,
                 **trace).reshape(sd_h, sd_w, k)
+        # the rays in tile order (217 MB at config 3) go as the trace
+        # returns, before the decode makes its temporaries
+        del rays, trace
         depths = rt.decode_packed(packed, cam.near_z, cam.far_z,
                                   bool(self.cfg["normalize"]), mode=impl)
         ctx.debug_print("sdrt.stochasticDepth", depths)

@@ -21,12 +21,14 @@ import math
 import numpy as np
 import torch
 
+from ..core.profiler import profile_scope
 from ..ops import ao as A
 from ..ops import ao_shift as S
 from ..ops.fetch_cuda import (fetch_all_directions, fetch_sd_packed,
                               fetch_sd_strided, offs_tuple, unpack_sd16)
+from ..utils.device import device_constant
 from ..utils.math import true_div
-from ..utils.sampling import AO_KERNEL_VAO
+from ..utils.sampling import AO_KERNEL_VAO, jitter_grid
 
 
 def _cam_consts(cam, cfg):
@@ -35,8 +37,8 @@ def _cam_consts(cam, cfg):
     w, h = cfg.resolution
     sx = 0.5 * cam.frame_width / cam.focal_length
     sy = 0.5 * cam.frame_height / cam.focal_length
-    kpx = 0.5 * (sx.new_tensor(float(w)) / sx
-                 + sy.new_tensor(float(h)) / sy) * 0.5
+    kpx = 0.5 * (device_constant(float(w), sx.dtype, sx.device) / sx
+                 + device_constant(float(h), sy.dtype, sy.device) / sy) * 0.5
     return sx, sy, kpx
 
 
@@ -130,14 +132,17 @@ def _class_grids(qh: int, qw: int, device):
     return xg, yg
 
 
+@functools.lru_cache(maxsize=64)
 def _class_consts(alpha: float, device):
-    """Per-class screen direction of ring direction alpha, [16, 1, 1]."""
-    thetas = S.class_angles()
-    u = np.asarray([S.screen_dir(alpha, float(t)) for t in thetas],
-                   np.float32)
-    ux = torch.as_tensor(u[:, 0].reshape(16, 1, 1).copy(), device=device)
-    uy = torch.as_tensor(u[:, 1].reshape(16, 1, 1).copy(), device=device)
-    return ux, uy
+    """Per-class screen direction of ring direction alpha, [16, 1, 1], made
+    on `device` once per (alpha, device) and shared."""
+    with profile_scope("tables.svao"):
+        thetas = S.class_angles()
+        u = np.asarray([S.screen_dir(alpha, float(t)) for t in thetas],
+                       np.float32)
+        ux = torch.as_tensor(u[:, 0].reshape(16, 1, 1).copy(), device=device)
+        uy = torch.as_tensor(u[:, 1].reshape(16, 1, 1).copy(), device=device)
+        return ux, uy
 
 
 def _visibility_vao(cfg, oz, s_start, s_end, pdf, radius):
@@ -447,7 +452,7 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
         stencil, (0, wp - w, 0, hp - h)))
     bq = _deint_b(b)
     xg_q, yg_q = _class_grids(qh, qw, dev)
-    jit_q = S.tiled_jitter(qh, qw, sd_jitter, device=dev)
+    jit_q = jitter_grid(qh, qw, sd_jitter, device=dev)
     jqx, jqy = jit_q[..., 0], jit_q[..., 1]
     k_sd = sd_map.shape[-1]
 

@@ -10,7 +10,7 @@ import dataclasses
 
 import torch
 
-from ..utils.device import resolve_device
+from ..utils.device import device_constant, resolve_device
 from ..utils.math import cross, look_at, normalize, perspective
 
 CAMERA_FIELDS = ("view_mat", "prev_view_mat", "proj_mat", "view_proj_mat",
@@ -110,7 +110,8 @@ class Camera:
         """View position [..., 3] (negative z) -> uv [..., 2]
         (SVAO/Common.slang:148-153)."""
         ndc = pos_v[..., :2] / (self.image_scale() * pos_v[..., 2:3])
-        return ndc * torch.tensor([-0.5, 0.5], device=ndc.device) + 0.5
+        return ndc * device_constant((-0.5, 0.5), torch.float32,
+                                     ndc.device) + 0.5
 
     def view_space_radius_to_uv_radius(self, z, r: float):
         """Positive view depth z [...], world radius r -> uv radius
@@ -123,8 +124,8 @@ class Camera:
         (origin top-left); frame_dim (W, H); jitter None -> the camera
         jitter, else an explicit [..., 2] subtexel position in [0, 1].
         Returns (origin [3], normalized directions [..., 3])."""
-        wh = torch.as_tensor(frame_dim, dtype=torch.float32,
-                             device=pixel_xy.device)
+        wh = device_constant(tuple(float(v) for v in frame_dim),
+                             torch.float32, pixel_xy.device)
         if jitter is None:
             p = (pixel_xy + 0.5) / wh + torch.stack([-self.jitter_x,
                                                      self.jitter_y])

@@ -15,6 +15,8 @@ import math
 import numpy as np
 import torch
 
+from .device import device_constant
+
 AO_KERNEL_VAO = 0
 AO_KERNEL_HBAO = 1
 
@@ -72,26 +74,44 @@ JITTER_4X4 = np.array([
 ], np.float32)
 
 
+# JITTER_4X4 as nested tuples [py][px] = (x, y): the key of its device copy
+_JITTER_ROWS = tuple(tuple(map(tuple, row))
+                     for row in JITTER_4X4.reshape(4, 4, 2).tolist())
+
+
+def jitter_table(device):
+    """JITTER_4X4 as a [4, 4, 2] (py, px) float32 tensor on `device`, made
+    once per device and shared: callers never write to it."""
+    return device_constant(_JITTER_ROWS, torch.float32, device)
+
+
 def random_jitter(px, py, enabled: bool = True):
     """Per-SD-texel sub-texel jitter [..., 2] for arbitrary int index
     tensors (Jitter.slangh:27-50)."""
     if not enabled:
         return torch.full(px.shape + (2,), 0.5, device=px.device)
-    idx = (py % 4) * 4 + (px % 4)
-    return torch.as_tensor(JITTER_4X4, device=px.device)[idx]
+    return jitter_table(px.device)[py % 4, px % 4]
 
 
 def jitter_grid(h: int, w: int, enabled: bool = True, x0: int = 0,
                 y0: int = 0, *, device):
     """[h, w, 2] sub-texel jitter for the contiguous grid starting at
-    (x0, y0): the 4x4 table tiled."""
+    (x0, y0): the 4x4 table tiled on `device`."""
     if not enabled:
         return torch.full((h, w, 2), 0.5, device=device)
-    tab = np.asarray(JITTER_4X4, np.float32).reshape(4, 4, 2)  # [py, px, 2]
-    tab = np.roll(tab, -(int(x0) % 4), axis=1)
-    tile = np.tile(tab, ((h + 7) // 4, (w + 3) // 4, 1))
-    o = int(y0) % 4
-    return torch.as_tensor(tile[o:o + h, :w].copy(), device=device)
+    return tile_4x4(jitter_table(device), h, w, x0, y0)
+
+
+def tile_4x4(table, h: int, w: int, x0: int = 0, y0: int = 0):
+    """[h, w, ...] tiling of a [4, 4, ...] table from (x0, y0) on the
+    table's device: out[i, j] = table[(i + y0) % 4, (j + x0) % 4], by a
+    gather of the table's rows and then of its columns. Each gather takes
+    a 1-D index: indexing with a row and a column index broadcast against
+    each other makes the CUDA backend expand both to the grid's size, two
+    int64 [h, w] temporaries."""
+    rows = (torch.arange(h, device=table.device) + int(y0)) % 4
+    cols = (torch.arange(w, device=table.device) + int(x0)) % 4
+    return table.index_select(0, rows).index_select(1, cols)
 
 
 _DX8_PATTERN = np.asarray(

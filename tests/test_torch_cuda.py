@@ -759,3 +759,68 @@ def test_svao_small_graph_on_gpu(cuda_device):
         assert v.shape[:2] == (96, 96) and bool(torch.isfinite(v).all())
     ao = out["AmbientOcclusion.out"][..., 0]
     assert float(ao.min()) >= 0.0 and float(ao.max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,x0,y0", [(2232, 3072, 0, 0), (215, 357, 1, 3)])
+def test_jitter_grid_is_built_on_the_device(cuda_device, h, w, x0, y0):
+    """The SD pass's ray jitter, built on the card from the 4x4 table by
+    1-D gathers (config 3's 2232x3072 SD grid, and a ragged grid from an
+    offset), equals the numpy tiling it replaced bit for bit, and allocates
+    the grid alone: no index the size of the grid (indexing the table with
+    broadcast row and column indices made two int64 grids on the card)."""
+    from rtsdm_tpu_torch.utils.sampling import (JITTER_4X4, jitter_grid,
+                                                jitter_table)
+    jitter_table(cuda_device)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = jitter_grid(h, w, True, x0, y0, device=cuda_device)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base - got.nbytes
+    assert got.is_cuda and extra < 2**20, extra
+    tab = np.roll(JITTER_4X4.reshape(4, 4, 2), -x0, axis=1)
+    want = np.tile(tab, (-(-h // 4) + 1, -(-w // 4), 1))[y0:y0 + h, :w]
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_svao_frame_makes_no_host_to_device_copy_on_gpu(cuda_device):
+    """scripts/SVAO_small.py on the card (CornellBox 96x96, the ray-traced SD
+    map, both shift-mode phases), two frames under torch.profiler with the
+    program's spans: the first builds SVAO's tables (tables.svao) and
+    uploads them; the second makes no host-to-device copy inside
+    renderFrame/SVAO and builds no table."""
+    import sys
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import h2d_copies_by_span
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtsdm_tpu_torch.mogwai import Renderer, run_script
+    from rtsdm_tpu_torch.ops import ao as A
+    from rtsdm_tpu_torch.passes import svao_shift as PH
+    from rtsdm_tpu_torch.utils import device as D
+    for cached in (D._constant, A._dir_params, PH._class_consts):
+        cached.cache_clear()
+    m = Renderer(96, 96, device=cuda_device)
+    run_script(str(ROOT / "scripts" / "SVAO_small.py"), m)
+    m.active_graph.get_pass("GuardBand").cfg["guardBand"] = 8
+    m.loadScene("CornellBox")
+    m.clock.pause()
+    m.profiler.enabled = True
+    found = []
+    for f in range(2):
+        m.clock.frame = f
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            m.renderFrame()
+            torch.cuda.synchronize()
+        events = prof.events()
+        copies = h2d_copies_by_span(events)
+        found.append((sum(n for span, n in copies.items()
+                          if span.startswith("renderFrame/SVAO")),
+                      sum(1 for e in events
+                          if e.name.endswith("/tables.svao"))))
+    (copies0, tables0), (copies1, tables1) = found
+    assert copies0 > 0 and tables0 > 0
+    assert copies1 == 0 and tables1 == 0

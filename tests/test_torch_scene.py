@@ -19,6 +19,7 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp
 
+from rtsdm_tpu.ops import ao_shift as AOSJ
 from rtsdm_tpu.scene import procedural as PJ
 from rtsdm_tpu.utils import math as MJ
 from rtsdm_tpu.utils import sampling as SJ
@@ -218,15 +219,33 @@ def test_sampling_tables_match_reference():
                                       SJ.sample_radius_table(8, kernel))
     np.testing.assert_array_equal(ST.DITHER_4X4, SJ.DITHER_4X4)
     np.testing.assert_array_equal(ST.JITTER_4X4, SJ.JITTER_4X4)
-    for x0, y0, en in ((0, 0, True), (3, 2, True), (0, 0, False)):
-        np.testing.assert_array_equal(
-            ST.jitter_grid(18, 37, en, x0, y0, device="cpu").numpy(),
-            np.asarray(SJ.jitter_grid(18, 37, en, x0, y0)))
     px = np.arange(40, dtype=np.int32) * 7
     py = np.arange(40, dtype=np.int32) * 3
     np.testing.assert_array_equal(
         ST.random_jitter(t(px), t(py)).numpy(),
         np.asarray(SJ.random_jitter(jnp.asarray(px), jnp.asarray(py))))
+
+
+@pytest.mark.parametrize("h,w,enabled,x0,y0,ref", [
+    (18, 37, True, 0, 0, "jitter_grid"),
+    (18, 37, True, 3, 2, "jitter_grid"),
+    (18, 37, False, 0, 0, "jitter_grid"),
+    (215, 357, True, 1, 3, "jitter_grid"),
+    (2232, 3072, True, 0, 0, "jitter_grid"),    # config 3's SD grid
+    (302, 512, True, 0, 0, "tiled_jitter"),     # config 3's phase 2
+    (302, 512, False, 0, 0, "tiled_jitter")])
+def test_jitter_grid_matches_reference(h, w, enabled, x0, y0, ref):
+    """The SD pass's ray jitter and phase 2's, both built on the device
+    from the 4x4 table (utils/sampling.jitter_grid), equal the reference's
+    tiled tables bit for bit: jitter_grid from (x0, y0), and
+    ao_shift.tiled_jitter, which tiles from (0, 0)."""
+    got = ST.jitter_grid(h, w, enabled, x0, y0, device="cpu")
+    if ref == "jitter_grid":
+        want = SJ.jitter_grid(h, w, enabled, x0, y0)
+    else:
+        want = AOSJ.tiled_jitter(h, w, enabled)
+    assert got.dtype == torch.float32 and got.shape == (h, w, 2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("name,aspect", [("CornellBox", 1.0),

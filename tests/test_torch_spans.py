@@ -102,6 +102,7 @@ def test_a_traced_svao_frame_has_the_programs_spans(frames):
     assert "renderFrame/GBufferRaster/geometry.raster_bins" in names
     assert "renderFrame/SVAO/sd_map/StochasticDepthMap/geometry.sd_pack" \
         in names
+    assert "renderFrame/SVAO/sd_map/StochasticDepthMap/sd_rays" in names
     # a wrapper's span directly under a pass
     assert any(n.count("/") == 2 and n.split("/")[2].startswith("kernel.")
                for n in names if n.startswith("renderFrame/"))
@@ -202,3 +203,62 @@ def test_the_divisor_1_sd_fetch_has_its_kernel_span(tmp_path):
     assert not [n for n in names if n.endswith("kernel.fetch_sd_packed")]
     assert _paths(m.profiler.capture())[
         f"{phase2}/kernel.fetch_sd_strided"]["count"] == nd
+
+
+def _clear_table_caches():
+    from rtsdm_tpu_torch.ops import ao as A
+    from rtsdm_tpu_torch.passes import svao_shift as PH
+    from rtsdm_tpu_torch.utils import device as D
+    for cached in (D._constant, A._dir_params, PH._class_consts):
+        cached.cache_clear()
+
+
+def test_svao_builds_its_tables_in_the_first_frame_only():
+    """SVAO's constant tables (the SD pass's ray jitter table, the camera's
+    and the phases' constants, the per-direction tables) are made on the
+    device on a cache miss, each miss under the span tables.svao: the
+    first frame opens it inside SVAO, and the next frame neither opens it
+    nor makes a tensor from host values anywhere in SVAO (on a GPU each
+    would be a blocking copy)."""
+    from unittest import mock
+
+    from rtsdm_tpu_torch.passes.svao import SVAO
+    _clear_table_caches()
+    m = _animated_svao_small()
+    m.profiler.enabled = True
+    m.renderFrame()
+    first = [p for p in _paths(m.profiler.capture())
+             if p.endswith("/tables.svao")]
+    assert first and all(p.startswith("renderFrame/SVAO/") for p in first)
+    assert "renderFrame/SVAO/sd_map/StochasticDepthMap/sd_rays/tables.svao" \
+        in first
+
+    made, in_svao = [], []
+
+    def watched(name, fn):
+        def call(*a, **k):
+            if in_svao:
+                made.append(name)
+            return fn(*a, **k)
+        return call
+
+    real = SVAO.execute
+
+    def execute(self, *a, **k):
+        in_svao.append(True)
+        try:
+            return real(self, *a, **k)
+        finally:
+            in_svao.pop()
+
+    m.profiler.reset()
+    with mock.patch.multiple(torch, **{f: watched(f, getattr(torch, f))
+                                       for f in ("tensor", "as_tensor",
+                                                 "from_numpy")}), \
+            mock.patch.object(torch.Tensor, "new_tensor", watched(
+                "new_tensor", torch.Tensor.new_tensor)), \
+            mock.patch.object(SVAO, "execute", execute):
+        m.renderFrame()
+    assert not [p for p in _paths(m.profiler.capture())
+                if p.endswith("tables.svao")]
+    assert made == []

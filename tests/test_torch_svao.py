@@ -864,3 +864,48 @@ def test_svao_evaluates_its_transcendentals_on_host_tables():
             mock.patch.object(SVAO, "execute", execute):
         m.renderFrame()
     assert sizes and max(sizes) <= 32
+
+
+@pytest.mark.parametrize("kernel", ["VAO", "HBAO"])
+@pytest.mark.parametrize("nd", [4, 8])
+def test_cached_direction_tables_equal_host_values(kernel, nd):
+    """SVAO's per-direction constants, dir_params and the shift phases'
+    per-class screen directions (_class_consts), are made on the device
+    once per ring and then shared: a second call returns the same tensors,
+    and they equal, bit for bit, the float32 values the host computes and
+    the JAX package's tables."""
+    from rtsdm_tpu_torch.ops import ao_shift as S
+    from rtsdm_tpu_torch.passes.svao import _KERNELS
+    k = _KERNELS[kernel]
+    cpu = torch.device("cpu")
+    cfg = A.VAOConfig(num_directions=nd, kernel=k)
+    params = A.dir_params(cfg, "cpu")
+    assert A.dir_params(A.VAOConfig(num_directions=nd, kernel=k,
+                                    resolution=(7, 5)), cpu) is params
+    ref = AJ.dir_params(AJ.VAOConfig(num_directions=nd, kernel=k))
+    alphas = (np.arange(nd, dtype=np.float32) / nd) * 2.0 * 3.141
+    radii = np.asarray(cfg.radii(), np.float32)
+    assert len(params) == nd
+    for i, (alpha, r, bit) in enumerate(params):
+        assert alpha.dtype == r.dtype == torch.float32
+        assert alpha.shape == r.shape == ()
+        np.testing.assert_array_equal(alpha.numpy(), alphas[i])
+        np.testing.assert_array_equal(r.numpy(), radii[i])
+        np.testing.assert_array_equal(alpha.numpy(),
+                                      np.asarray(ref["alpha"])[i])
+        np.testing.assert_array_equal(r.numpy(), np.asarray(ref["r"])[i])
+        assert bit == 1 << i == int(ref["bit"][i])
+    thetas = S.class_angles()
+    for i in range(nd):
+        alpha = (i / nd) * 2.0 * 3.141
+        ux, uy = PH._class_consts(alpha, cpu)
+        again = PH._class_consts(alpha, cpu)
+        assert again[0] is ux and again[1] is uy
+        host = np.asarray([S.screen_dir(alpha, float(th)) for th in thetas],
+                          np.float32)
+        jx, jy = PHJ._class_consts(None, alpha)
+        for got, col, j in ((ux, 0, jx), (uy, 1, jy)):
+            assert got.dtype == torch.float32 and got.shape == (16, 1, 1)
+            np.testing.assert_array_equal(got.numpy().reshape(16),
+                                          host[:, col])
+            np.testing.assert_array_equal(got.numpy(), np.asarray(j))
