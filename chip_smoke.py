@@ -1,203 +1,122 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch / CUDA port (rtsdm_tpu_torch) on one NVIDIA GPU.
+"""Card check of the PyTorch / CUDA port (rtsdm_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py                  # from the root of a checkout
+    python3 chip_smoke.py --parent DIR     # also through the parent's package
+    python3 chip_smoke.py --eye-cull SEED  # phase 25 alone
 
-Phases, each of which raises on failure (the script then exits non-zero):
+It holds the port on the card and prints each kernel's row; it times no
+frame, pass or stage (benchmark/run.py and benchmark/span_report.py do).
+Each phase raises on failure, and the script then exits non-zero. "Held
+bit-exact" means every output equal, bit for bit, to the kernel's plain
+PyTorch version on the same inputs on the card (the plain versions are
+what tests/test_torch_*.py hold against the JAX package). Launch counts
+are zeroed just before a frame and read just after it; no plain version
+may run inside a frame.
 
-1. refuse to run without a CUDA device, or outside a checkout of the repo;
-2. print the card's name and power limit (nvidia-smi);
-3. build the CUDA kernels (csrc/*.cu, one nvcc per source, sm_90a) and the
-   scene helper;
-4. drive the SVAO path once, as bench.py does, at SunTemple@full 1920x1080:
-   G-buffer -> linearize -> packed view normals -> SVAO.execute (phase 1,
-   nested SD ray-trace graph, phase 2). Every kernel's launch count is
-   zeroed just before and read just after; each of the five must have
-   launched, and no plain PyTorch version may run. The inputs each kernel
-   got are kept for phase 5;
-5. hold each kernel against its plain PyTorch version on those inputs, on
-   the card, with the tolerance stated (K1, which culls each chunk's
-   triangles per half tile, against the plain version without the cull),
-   and time both (CUDA events; the kernel also by torch.profiler and its
-   host enqueue); K1's walk and cull replayed on the host give its bounds
-   on the pairs it evaluates and on every lane of every visit; the host
-   time of K1's inputs and cull boxes; K3's and K4's wrappers' host time
-   piece by piece (fetch_host_split); K4's wrapper runs its kernel and
-   nothing else on the card (torch.profiler: the pack is in the kernel);
-   the G-buffer's attribute fetch piece by piece (gbuffer_host_split: face
-   normals, the table, K2's wrapper, by host clock and device time); K5's
-   and K7's resources (registers,
-   shared memory, blocks an SM) and the SD trace stage piece by piece
-   (sd_stage_split: each rt_cuda function the SD pass calls, by CUDA events
-   and host time; K5's row is its whole wrapper, lists included);
-6. time a steady-state frame by the program's own spans (host clock:
-   renderFrame, the SVAO pass and its phase1, sd_map and phase2), and
-   profile one frame (torch.profiler: device time by kernel, and the
-   device's idle share of the frame);
-7. render CornellBox 64x64 on the card and on the CPU (the plain versions,
-   which tests/test_torch_*.py hold against the JAX package) and compare
-   the AO with the bound those tests use;
-8. the graph path: scripts/SVAO_small.py (the README's four outputs) through
-   rtsdm_tpu_torch.mogwai at SunTemple@full 1920x1080 with the script's own
-   properties, 3 frames on a paused clock. Counts are zeroed before and read
-   after every frame: per frame K10 (warp_resample) launches at least 6
-   times, K8 (any_hit) once per light, K1 and K2 twice (ForwardLighting
-   re-rasters), K3-K5 as on the SVAO path; no plain version runs. The four
-   marked outputs are cropped to 1080x1920 and finite, and AO lies in [0, 1];
-9. hold K8 and K10 against their plain versions on the inputs of the graph's
-   last frame (K8 on a spread subset of whole 8x32 tiles: its hits against
-   the plain version without its per-ray cull, its pairs against the
-   cull's replay; over every tile, its hits against K8 with boxes that cull
-   nothing), K8's cull replayed over the walk (k8_walk: its yield, the
-   boxes warps stage, the operations its bound counts) and timed without
-   the cull and on the per-pair path; K10 also on a
-   synthetic motion field at the TAA shape; time the kernels, their plain
-   versions and K10's library yardstick (grid_sample), K10 in each mode by
-   CUDA events, torch.profiler and its host enqueue at TAA's shape with 3
-   channels and 1, grid_sample beside it measured the same ways; time every
-   K1 call of the graph's last frame with its walk and cull;
-10. time the graph frame: host-clock median over 7 frames after a warm-up,
-   per-pass CUDA events, and one profiled frame (device busy, idle share);
-11. BASELINE config 2 (bench_configs.py:20-23): scripts/SVAO_small.py with
-   SVAO's stochasticDepthImpl set to 'Raster' after the graph was built,
-   Arcade@full 1280x720, 3 frames. Per frame K9 (raster_stochastic)
-   launches once and K5 never; K1-K4 and K8 as the graph gives them. Every
-   call of the last frame of K1-K4, K8 and K10 is held bit-exact against its
-   plain version at the config's shapes (K4 with no SD guard band; K8 on a
-   spread subset of tiles), and so is K9 (with its per-triangle cull,
-   against the plain version without it), at the path's alpha and at 1.0,
-   its walk whole and split, and on short lists that stream every chunk;
-   K9's walk, cull and visits per tile replayed on the host; K9 timed with
-   its walk in 1, 4, 8, 16 and 32 parts and its default in turns (CUDA
-   events and torch.profiler); every K1 call timed as in 9; then the frame
-   is timed as in 10;
-12. BASELINE config 1: scripts/HBAO.py on CornellBox 256x256, 3 frames. Per
-   frame K6 (fetch_taps_same_class) launches once and K1 once with its
-   depth floor (DepthPeeling) besides its two plain launches; the last
-   frame's calls held as in 11; then one frame with HBAO's depthMode set to
-   DualDepth (K6 on two plane sets); timed as in 10;
-13. config 1's graph again on SunTemple@full 1920x1080, where K6 and the
-   floored K1 do real work: the last frame's calls held as in 11, K6 held
-   bit-exact on every call kept (also the CornellBox and DualDepth calls),
-   K6 (CUDA events, torch.profiler per call) and the floored K1 timed; the
-   frame timed as in 10;
-14. both configs' graphs, scripts/SVAO.py, scripts/Forward.py (three
-   goldens, K8 once a frame) and SVAO_small.py with a guard band at their
-   golden settings on the card (tests/image_tests/renderpasses/
-   test_HBAO.py, test_SVAO_rasterSD.py, test_SVAO_full.py, test_Forward.py,
-   test_Forward_arcade.py, test_SVAO_guardband.py, renderscripts/
-   test_TAA_sweep.py; SVAO.py traces with K7), held against the committed
-   goldens by the golden runner's MSE bound;
-15. scripts/SVAO.py (the reference's shipped SVAO graph) at Arcade@full
-   1280x720 through Renderer.renderFrame, 3 frames: per frame K7
-   (sd_trace_resident: 38,610 triangles, at most 65,536) launches once and
-   K5 never; the last frame's calls of K1-K4, K7, K8 and K10 held
-   bit-exact against their plain versions; one frame with SVAO's
-   stochMaxCount 8 (K7 with the cap, held); StochasticDepthMapRT at that
-   frame's SD inputs in the default, kbuffer, coverage (alpha 0.375) and
-   MaxCount 8 settings on both tiers, each call held and K7 equal to K5
-   bit for bit; K7 and K5 timed on the same rays, K7's visits on its 8x32
-   tiles and on 256 consecutive rays; the SD stage split; the frame timed
-   as in 10. (Phase 5 also runs the SVAO path once with stochMaxCount 8:
-   K5 with the cap, held and timed.)
-16. with --parent DIR: the parent's SD stage (SVAO path and SVAO.py), K2
-   (the SVAO path's and the graph's 2048x1208 call) and K4 (the SVAO
-   path's call) against this checkout's, in turns in processes of their
-   own (CUDA events around the wrapper, torch.profiler per call, host
-   enqueue); both checkouts' K5 and K7 resources; phases 17, 17b and 17c
-   through the parent's kernels, measured only;
-17. scripts/SVAO_small.py at Arcade@full 480x270, frame 0, through K7 and
-   through K5, each marked output held by MSE against the JAX package's
-   render committed in tests/torch_refs/ (made by make_refs.py there);
-17b. the same for scripts/HBAO.py (K6; HBAO's samplingMode "Shift", as the
-   card takes it) and config 2 (K9) at the same scene, size and frame;
-17c. the same for scripts/SVAO.py (K7 once a frame; K1 twice, never with
-   its floor: the graph prunes DepthPass and DepthPeeling; K2-K4, K8, K10).
-17d. the same for scripts/SVAO_quarter.py (BASELINE config 4's graph: K7
-   once a frame, AOGuidedBlur's bright/dark fusion) and scripts/SVAO.py
-   with SVAO's primaryDepthMode DualDepth (DepthPeeling's floored K1 once a
-   frame), at the same scene, size and frame; this checkout only;
-18. BASELINE config 4 (bench_configs.py:28-30): scripts/SVAO_quarter.py at
-   Bistro@full (681,562 triangles) 1920x1080, 3 frames: SVAO at quarter
-   res with dualAO, divisor 4. Per frame K5 launches once and K7 never, K3
-   twice, K4 once, K1 and K2 twice, K8 once a light, one TAA (K10
-   Catmull-Rom); no plain version runs; the outputs are 1080x1920 and
-   finite, AO in [0, 1]. The last frame's calls held as in 11, K5's on a
-   spread subset of whole tiles; K5 timed with its bound, and K8 with the
-   bound of its pairs (k8_bound_at); the frame timed as in 10;
-19. BASELINE config 3 (bench_configs.py:24-27): SVAO_small.py with
-   stochMapDivisor 1 and stochMapGuardBand 512, SunTemple@full 1920x1080,
-   3 frames: K5 once a frame on the full-resolution SD grid, K4 never:
-   phase 2 reads the SD map through K11 (fetch_sd_strided, csrc/fetch.cu),
-   once a ring direction, 8 times a frame (XLA code in the JAX package);
-   held and timed as in 18, K11 at every call of the last frame bit-equal
-   to fetch_sd_direction and timed; one more frame under torch.profiler:
-   its host-to-device copies by innermost span and its tables.svao misses
-   (frame_copies; none in SVAO);
-20. scripts/SVAO.py at Arcade@full 1280x720: one frame with SVAO's
-   primaryDepthMode DualDepth (DepthPeeling runs: K1 once with its floor,
-   phase 1's K3 on two plane sets; the frame's calls held bit-exact) and
-   one with secondaryDepthMode SingleDepth (no SD trace, no K4);
-21. scripts/SVAO_depth.py at Arcade@full 1280x720, 3 frames on a paused
-   clock: SVAO under DualDepth over TemporalDepthPeel's layer (phase 1
-   alone: K3 on two plane sets) and SVAO_ref under the Raytraced secondary
-   mode at full resolution (K3, then the brute-force interval query of
-   ops/rt.py, plain PyTorch). Per frame K1 once plain and once floored
-   (DepthPeeling), K2 once, K3 twice, no SD trace, no K4, no shadows,
-   TemporalDepthPeel's K10 bilinear from frame 1; the last frame's calls
-   held bit-exact; both outputs finite, AO in [0, 1]; the RT query timed by
-   CUDA events with its rays and its ray-triangle tests; the frame timed as
-   in 10 (3 host-clock frames);
-22. scripts/SVAO.py at Arcade@full 1280x720, one frame each with
-   samplingMode gather (no K3 or K4), kernel HBAO (K3 and K4 on HBAO's
-   ring tables) and secondaryDepthMode Raytraced (the RT query timed), set
-   after the build, each frame's calls held bit-exact; then one RTAO frame
-   at that size (closest_hit, timed);
-17e. scripts/SVAO_depth.py at Arcade@full 480x270, frame 1, against the JAX
-   package's render (tests/torch_refs/SVAO_depth.*); then every mid-size
-   graph (SVAO_small.py through K7 and K5, config 2, HBAO.py, SVAO.py and
-   SVAO.py under DualDepth, SVAO_quarter.py, SVAO_depth.py) with the JAX
-   package's raster channels substituted for the port's (<ref>.rasters.npz:
-   the G-buffer's and DepthPeeling's that its AO reads), its AO outputs
-   held under a bound far below the rasters' last bits; this checkout
-   only;
-23. one row of the quality oracle (rtsdm_tpu_torch/tools/quality_ssim.py):
-   BASELINE config 2 at 640x360, SSIM of the ray-traced and the raster SD
-   AO against SVAO's Raytraced mode and their mean absolute difference,
-   reported, not gated;
-24. BASELINE config 5 (bench_configs.py:31-33, animated as :51-66):
-   scripts/SVAO_small.py on EmeraldSquare@full (1,036,922 triangles) at
-   1280x720, the camera orbiting and the tallest 2% of the triangles
-   oscillating, the clock playing, 3 frames: per frame K1 and K2 twice (K2
-   interpolating last frame's positions too: (nci, nflat) = (11, 4)), K3
-   twice, K4 once, K5 once, K8 once a light, K10 at least 6 times, no
-   plain version; the outputs finite, AO in [0, 1], the motion vectors
-   showing the camera's motion and the node's own; the last frame's calls
-   held bit-exact (K5 and K8 on spread tile subsets), each kernel timed
-   with its bound (K2 beside its (8, 4) template), the frame timed as in
-   10, the animation step timed, peak device memory, and the quality
-   oracle's config-5 row (ShadedTAA's temporal stability);
-24b. the same animation on EmeraldSquare's small tier (K7) at 480x270,
-   frames 0-2, against the JAX package's render
-   (tests/torch_refs/SVAO_anim.*), with the port's own rasters and with
-   the JAX package's per-frame G-buffer channels substituted;
-24c. the golden test_MultiSampling (samples/MultiSampling.py: the Halton
-   sample pattern, CornellBox 96x96, frame 2) within the golden runner's
-   bound, every jittered K1 call held bit-exact;
-25. the eye-plane cull of K1's binning (eye_cull_loops; alone with
-   `--eye-cull SEED`) in the benchmark's cells of configs 5 and 4
-   (benchmark/: emerald_720p.orbit, bistro_1080p.flyby) for the seed: at
-   every frame of each 48-frame loop, every K1 call's outputs bit-equal to
-   K1's on the binning without the cull, and the triangles culled and the
-   chunks a tile visits with and without it, read after the frame's
-   synchronize; at the compared frame the binning runs under
-   torch.cuda.set_sync_debug_mode("error"), the count matches the one
-   computed on the CPU, and K1 is timed on both binnings with its walk
-   and bound (raster_timing).
+1-3. refuse to run without a CUDA device or outside a checkout; print the
+   card's name and power limit; build the CUDA kernels and the scene
+   helper;
+4. the SVAO path once, as bench.py drives it, at SunTemple@full 1920x1080
+   (G-buffer, linearize, packed view normals, SVAO phase 1, the nested SD
+   trace graph, phase 2): K1-K5 each launch, AO finite in [0, 1] with
+   some occlusion, the G-buffer covers the frame, the stencil and the SD
+   map are not empty;
+5. each of those five calls against its plain version (K1 with its
+   per-triangle cull against the version without it, tri_id within 1e-4 of
+   the pixels, bit-exact expected; the others bit-exact); K5's key
+   function on the INT_MIN hash; K4's wrapper runs its kernel and nothing
+   else (torch.profiler over K4_WRAPPER_REPS calls); the SVAO path once
+   more with stochMaxCount 8 (K5 with the cap, held);
+7. CornellBox 64x64 on the card against the CPU's plain versions, within
+   the bound of tests/test_svao.py;
+8. scripts/SVAO_small.py through rtsdm_tpu_torch.mogwai at SunTemple@full
+   1920x1080, 3 frames on a paused clock: per frame K1 and K2 twice, K3-K5
+   as on the SVAO path, K8 once a light, K10 at least 6 times (TAA's two
+   Catmull-Rom); the four outputs 1080x1920 and finite, AO in [0, 1];
+9. the graph's last frame: K8 held on 128 spread 8x32 tiles (hits against
+   the version without its per-ray cull, tested pairs against the cull's
+   replay; the launch over every tile the same on those tiles; the same
+   hits as with boxes that cull nothing); K10 held at every call and on a
+   synthetic motion field at the TAA shape, near and far out of bounds;
+11. BASELINE config 2 (SVAO_small.py with stochasticDepthImpl Raster,
+   Arcade@full 1280x720), 3 frames: K9 once a frame, K5 never; every call
+   of the last frame of K1-K4, K8 and K10 held bit-exact
+   (check_config_calls), and K9 against its version without the cull at
+   the path's alpha and at 1.0, its walk whole and split, and streaming
+   every chunk;
+12. BASELINE config 1 (scripts/HBAO.py, CornellBox 256x256), 3 frames: K6
+   once, K1 once floored (DepthPeeling) besides its two; held as in 11;
+   one frame under HBAO's DualDepth (K6 once on two plane sets);
+13. config 1 on SunTemple@full 1920x1080, held as in 11; K6 held at every
+   call kept from 12 and 13;
+14. the goldens on the card: HBAO.py, config 2, SVAO.py (K7 every frame),
+   Forward.py (three tests; K8 once a frame) and SVAO_small.py with a
+   guard band, each output within the golden runner's MSE bound, 2e-4;
+15. scripts/SVAO.py at Arcade@full 1280x720, 3 frames: K7 once a frame,
+   K5 never, held as in 11 (K7 too); one frame with stochMaxCount 8 (K7
+   with the cap, held); StochasticDepthMapRT at that frame's SD inputs in
+   the default, kbuffer, coverage and MaxCount 8 settings on both tiers,
+   each call held and K7 equal to K5 bit for bit;
+16. with --parent DIR: phases 17-17c through the parent checkout's
+   package in a process of its own (--mid-child), and a failure if an MSE
+   differs from this checkout's in its 4th digit;
+17. scripts/SVAO_small.py at its mid-size reference's settings
+   (tests/torch_refs/: the JAX package's renders by make_refs.py, which
+   records each one's settings in its file), frame 0, through K7 and
+   through K5, each marked output within its MSE bound (MID_REFS);
+17b. the same for scripts/HBAO.py (K6) and config 2 (K9);
+17c. the same for scripts/SVAO.py (K7 once a frame, K1 twice and never
+   floored, K2-K4, K8, K10);
+17d. the same for scripts/SVAO_quarter.py and SVAO.py under DualDepth;
+17e. the same for scripts/SVAO_depth.py (frame 1); then every reference
+   rendered with the JAX package's raster channels (<ref>.rasters.npz) in
+   place of the port's, its AO outputs within MID_SUBSTITUTED_BOUND;
+18. BASELINE config 4 (scripts/SVAO_quarter.py, Bistro@full 1920x1080),
+   3 frames: K5 once a frame, K7 never, K3 twice, K4 once, one TAA;
+   outputs finite, AO in [0, 1]; held as in 11 (K5 and K8 on spread tiles);
+19. BASELINE config 3 (SVAO_small.py at stochMapDivisor 1, SD guard band
+   512, SunTemple@full 1920x1080), 3 frames: K5 once a frame, K4 never,
+   K11 once a ring direction; held as in 11 (K11 too); one more frame
+   under torch.profiler: no host-to-device copy inside SVAO and no miss of
+   its table caches (frame_copies);
+20. scripts/SVAO.py with SVAO's primaryDepthMode DualDepth (K1 once
+   floored, phase 1's K3 on two plane sets) and secondaryDepthMode
+   SingleDepth (no SD trace, no K4), one frame each, held as in 11;
+21. scripts/SVAO_depth.py at Arcade@full 1280x720, 3 frames: K1 once plain
+   and once floored, K2 once, K3 twice, no SD trace, K4 or shadows, K10
+   bilinear from frame 1, one RT query a frame tracing rays; held as in 11;
+22. scripts/SVAO.py with samplingMode gather (no K3 or K4), kernel HBAO
+   (K3 and K4 on HBAO's ring radii) and secondaryDepthMode Raytraced (one
+   RT query), one frame each, held as in 11; one RTAO frame, finite in
+   [0, 1] with some pixels occluded;
+24. BASELINE config 5 (SVAO_small.py on EmeraldSquare@full, 1,036,922
+   triangles, 1280x720), animated as bench_configs.py:51-66, 3 frames:
+   K1 and K2 twice (K2 interpolating last frame's positions, (nci, nflat)
+   = (11, 4)), K3 twice, K4 and K5 once, K8 once a light, K10 at least 6
+   times; outputs finite, AO in [0, 1]; the motion vectors show the
+   camera's motion and the moving node's own; held as in 11;
+24b. config 5's animation on EmeraldSquare's small tier at 480x270, frames
+   0-2, against its mid-size reference, plainly and substituted;
+24c. the golden test_MultiSampling (Halton jitter, CornellBox 96x96),
+   every jittered K1 call held bit-exact;
+25. K1's eye-plane cull in the benchmark's cells emerald_720p.orbit and
+   bistro_1080p.flyby for the seed: every K1 call of each 48-frame loop
+   bit-equal to K1 on the binning without the cull; at the compared frame
+   the binning runs under torch.cuda.set_sync_debug_mode("error") and the
+   count culled equals the one computed on the CPU.
 
-The last three lines are JSON: the frames' times, one entry per kernel
-({"kernels": [...]}, with its bound, library yardstick and launches per
-frame in configs 3, 4 and 5), and {"ok": true, "device": {...}}.
+Kernel rows: at the calls of phases 5, 9, 11-15, 18, 19 and 24 each kernel
+is timed one way (timings: CUDA events around the wrapper, its kernel's
+device time by torch.profiler, the plain version's time) beside its bound
+(the larger of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s,
+counted from the run's work: K1's and K9's walks and culls replayed, K8's
+pairs and staged boxes, K5's and K7's chunk visits), a library yardstick
+where one PyTorch call computes the same (K10 bilinear: grid_sample) and
+its launches per frame in each config.
+
+The last two lines are JSON: {"kernels": [...]}, one row per kernel and
+path, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -206,7 +125,6 @@ import contextlib
 import functools
 import inspect
 import json
-import math
 import subprocess
 import sys
 import time
@@ -278,7 +196,6 @@ class Kernel:
         self.plains = list(plains)
         self.source, self.replaces = source, replaces
         self.calls = []          # (args, kwargs) of the path's calls
-        self.result = {}
 
     @property
     def launches(self) -> int:
@@ -396,13 +313,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, symbol: str, reps: int):
-    """Mean device time per launch of kernel `symbol` (a substring of the
-    profiler's kernel name), which fn() launches once, over the launches
-    the profiler recorded in `reps` calls of fn() under torch.profiler,
-    after one warm-up call (it has dropped some records of a call's
-    launches: the mean over `reps` then understated the time); None where
-    it saw no such kernel."""
+def device_activities(fn, reps: int) -> dict:
+    """{name: [device ms of each]} of the device activities torch.profiler
+    recorded in `reps` calls of fn(), after one warm-up call. The profiler
+    drops some records of a call's launches, never adds any."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -413,47 +327,42 @@ def device_ms(fn, symbol: str, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e.device_time_total for e in prof.events()
-            if e.device_type == DeviceType.CUDA and symbol in e.name]
+    acts = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            acts[e.name].append(e.device_time_total / 1e3)
+    return acts
+
+
+def device_ms(fn, symbol: str, reps: int):
+    """Mean device time per launch of kernel `symbol` (a substring of the
+    profiler's kernel name), which fn() launches once, over the launches
+    the profiler recorded in `reps` calls of fn() (device_activities: the
+    mean over `reps` would understate the time); None where it saw no such
+    kernel."""
+    hits = [ms for name, v in device_activities(fn, reps).items()
+            if symbol in name for ms in v]
     if hits and len(hits) != reps:
         log(f"torch.profiler recorded {len(hits)} launches of {symbol} in "
             f"{reps} calls")
-    return sum(hits) / 1e3 / len(hits) if hits else None
+    return sum(hits) / len(hits) if hits else None
 
 
-def host_us(fn, reps: int) -> float:
-    """Host time per call of fn() in microseconds, without waiting for the
-    device (the enqueue: a wrapper's checks, allocations and launch)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    t1 = time.perf_counter()
-    torch.cuda.synchronize()
-    return (t1 - t0) * 1e6 / reps
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def synced_ms(fn, reps: int) -> float:
-    """Host-clock time per call of fn() that ends in a synchronize (mean of
-    `reps` after one warm-up call)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-        torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / reps
-
-
-def timings(fn, symbol: str, reps: int) -> dict:
-    """A call's CUDA-event time (host work included), its kernel's device
-    time (profiler) and its host enqueue time, in one place."""
-    return dict(event_ms=cuda_ms(fn, reps, 3),
-                device_ms=device_ms(fn, symbol, reps),
-                host_us=host_us(fn, reps))
+def timings(what: str, fn, symbol: str, reps: int, plain=None) -> dict:
+    """The times of a kernel row at one call, the one way every row takes
+    them: fn()'s CUDA-event time over `reps` calls after 3 warm-up calls
+    (`ms`, the wrapper's host work included), its kernel's device time
+    per launch by torch.profiler (`device_ms`) and, where given, plain()'s
+    CUDA-event time over one call after one warm-up call (`plain_ms`)."""
+    t = dict(ms=cuda_ms(fn, reps, 3), device_ms=device_ms(fn, symbol, reps),
+             plain_ms=None if plain is None else cuda_ms(plain, 1, 1))
+    log(f"{what}: {t['ms']:.4f} ms by CUDA events, device "
+        f"{ms_text(t['device_ms'])}, plain {ms_text(t['plain_ms'])}")
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -517,14 +426,11 @@ def drive_main_path(scene, kernels):
     from rtsdm_tpu_torch._build import LAUNCHES
     torch.cuda.synchronize()
     LAUNCHES.clear()
-    t0 = time.perf_counter()
     with record_main_path(kernels) as plain_calls:
         g, out = frame(scene, pass_, ctx, WIDTH, HEIGHT)
         torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
-    log(f"main path, first frame (host clock, kernel loading included): "
-        f"{seconds:.3f} s; launches {counts}")
+    log(f"main path, first frame: launches {counts}")
     check(not plain_calls, f"plain versions ran: {plain_calls}")
     for k in kernels:
         check(k.launches > 0, f"{k.name}: its kernel never launched on the "
@@ -532,7 +438,7 @@ def drive_main_path(scene, kernels):
         check(k.calls, f"{k.name}: no recorded call")
     sd_map = kernels_by_name(kernels)["fetch_sd_packed"].calls[0][0][0]
     check_frame(g, out, WIDTH, HEIGHT, sd_map)
-    return pass_, ctx, counts
+    return counts
 
 
 def kernels_by_name(kernels):
@@ -637,31 +543,30 @@ def walk_line(w: dict) -> str:
 
 
 def raster_timing(args, kwargs, what: str, reps: int = 10) -> dict:
-    """K1 at one call (args and kwargs of raster_cuda.raster_blocks): its
-    walk and cull (raster_walk), CUDA-event, device and host times, and
-    both bounds: on the pairs it evaluates (`bound_ms`) and on every lane
-    of every visit (`bound_ms_all_lanes`, the count without the
-    cull)."""
+    """K1's row at one call (args and kwargs of raster_cuda.raster_blocks):
+    its walk and cull (raster_walk), its times (timings; the plain version
+    without the cull) and both bounds: on the pairs it evaluates
+    (`bound_ms`) and on every lane of every visit (`bound_ms_all_lanes`,
+    the count without the cull)."""
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     chunks, boxes, lists, counts, nby, nbx = args
     walk = raster_walk(chunks, boxes, lists, counts, nbx)
-    t = timings(lambda: RC.raster_blocks(*args, **kwargs),
-                KERNEL_SYMBOLS["raster"], reps)
+    log(f"K1 {what} {nby * 8}x{nbx * 32}, {chunks.shape[0]} chunks: "
+        f"{walk_line(walk)}")
+    t = timings(f"K1 {what}", lambda: RC.raster_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["raster"], reps,
+                plain=lambda: RC.raster_blocks_plain(chunks, None, *args[2:],
+                                                     **kwargs))
     n_bytes = nbytes(chunks, boxes, lists, counts, kwargs.get("floor"))
     n_bytes += 16 * RC.RB * nby * nbx   # z, id, b1, b2 written, 4 B each
     b_new, by_new = bound(n_bytes, walk["flops"])
     b_old, _ = bound(n_bytes - nbytes(boxes), walk["flops_all_lanes"])
-    dev = ("not measured" if t["device_ms"] is None
-           else f"{t['device_ms']:.4f} ms")
-    log(f"K1 {what} {nby * 8}x{nbx * 32}, {chunks.shape[0]} chunks: "
-        f"{walk_line(walk)}")
-    log(f"K1 {what}: CUDA events {t['event_ms']:.4f} ms, device {dev}, "
-        f"host enqueue {t['host_us']:.1f} us; bound {b_new:.4f} ms "
-        f"({by_new}) on the pairs evaluated, {b_old:.4f} ms on every lane "
-        "of every visit")
+    log(f"K1 {what}: bound {b_new:.4f} ms ({by_new}) on the pairs "
+        f"evaluated, {b_old:.4f} ms on every lane of every visit")
+    # no PyTorch call rasterizes triangles: no library yardstick
     return dict(walk, **t, bound_ms=b_new, bound_by=by_new,
                 bound_bytes=n_bytes, bound_flops=walk["flops"],
-                bound_ms_all_lanes=b_old)
+                bound_ms_all_lanes=b_old, library_ms=None)
 
 
 def compare_raster(k):
@@ -688,12 +593,8 @@ def compare_raster(k):
     check(mism <= 1e-4 * n and err <= 1e-6, "K1 disagrees with its plain "
                                             "version")
     exact = all(torch.equal(a, b) for a, b in zip(got, want))
-    t = raster_timing(args, kwargs, "main path")
-    # no PyTorch call rasterizes triangles: no library yardstick
-    return dict(t, max_abs_err=err, mismatches=mism, exact=exact,
-                ms=t["event_ms"], library_ms=None,
-                plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(
-                    args[0], None, *args[2:], **kwargs), 1, 1))
+    return dict(raster_timing(args, kwargs, "main path"), max_abs_err=err,
+                mismatches=mism, exact=exact)
 
 
 def compare_fetch_attributes(k):
@@ -711,10 +612,10 @@ def compare_fetch_attributes(k):
         "(bound: bit-exact)")
     check(torch.equal(got, want), "K2 is not bit-exact")
     tri_id, nci = args[0], args[3]
-    t = timings(lambda: RC.fetch_attributes(*args, **kwargs),
-                KERNEL_SYMBOLS["fetch_attributes"], 50)
-    log(f"K2 times: CUDA events {t['event_ms']:.4f} ms, device "
-        f"{t['device_ms']} ms, host enqueue {t['host_us']:.1f} us")
+    t = timings(f"K2 {tuple(got.shape)}",
+                lambda: RC.fetch_attributes(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_attributes"], 50,
+                plain=lambda: RC.fetch_attributes_plain(*args, **kwargs))
     # b0 (2), then 3 products and 2 sums per interpolated component; no
     # single PyTorch call gathers and interpolates: no library yardstick
     flops = float((tri_id >= 0).sum()) * (2 + 5 * nci)
@@ -726,12 +627,8 @@ def compare_fetch_attributes(k):
         f"{bound(n_bytes, flops)[0]:.4f} ms ({whole:.4f} ms reading the "
         f"whole table)")
     return with_bound(
-        dict(max_abs_err=err, mismatches=0, exact=True,
-             ms=t["event_ms"], device_ms=t["device_ms"],
-             host_us=t["host_us"], table_rows_read=rows,
-             bound_ms_whole_table=whole,
-             plain_ms=cuda_ms(lambda: RC.fetch_attributes_plain(
-                 *args, **kwargs), 10, 2)),
+        dict(t, max_abs_err=err, mismatches=0, exact=True,
+             table_rows_read=rows, bound_ms_whole_table=whole),
         n_bytes, flops)
 
 
@@ -754,17 +651,13 @@ def compare_fetch_directions(k):
     log(f"K3 fetch_all_directions {tuple(got.shape)}: {mism} mismatches, "
         f"max |diff| {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K3 is not bit-exact")
-    t = timings(lambda: F.fetch_all_directions(*args, **kwargs),
-                KERNEL_SYMBOLS["fetch_all_directions"], 50)
-    log(f"K3 times: CUDA events {t['event_ms']:.4f} ms, device "
-        f"{t['device_ms']} ms, host enqueue {t['host_us']:.1f} us")
+    t = timings(f"K3 {tuple(got.shape)}",
+                lambda: F.fetch_all_directions(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_all_directions"], 50, plain=plain)
     # a copy per output after one product radius * radii[d]; no single
     # PyTorch call selects the level and shifts: no library yardstick
-    return with_bound(
-        dict(max_abs_err=err, mismatches=mism, exact=True,
-             ms=t["event_ms"], device_ms=t["device_ms"],
-             host_us=t["host_us"], plain_ms=cuda_ms(plain, 5, 1)),
-        nbytes(planes, radius, got), float(got.numel()))
+    return with_bound(dict(t, max_abs_err=err, mismatches=mism, exact=True),
+                      nbytes(planes, radius, got), float(got.numel()))
 
 
 K4_WRAPPER_REPS = 20   # calls whose device activity K4's check reads
@@ -792,129 +685,26 @@ def compare_fetch_sd_packed(k):
     log(f"K4 fetch_sd_packed {tuple(got.shape)}: {mism} mismatches, max "
         f"|diff| of the unpacked depths {err:.3g} (bound: bit-exact)")
     check(torch.equal(got, want), "K4 is not bit-exact")
-    # the profiler drops some records of a launch (device_ms), so a single
-    # call can show no activity at all: hold K4_WRAPPER_REPS calls, of which
-    # every recorded activity must be K4's kernel, at most one a call
-    acts = profiled(lambda: [F.fetch_sd_packed(*args, **kwargs)
-                             for _ in range(K4_WRAPPER_REPS)])
-    own = sum(c for n, (_, c) in acts.items()
+    # the profiler drops some records of a launch (device_activities), so a
+    # single call can show no activity at all: hold K4_WRAPPER_REPS calls,
+    # of which every recorded activity must be K4's kernel, at most one a
+    # call
+    acts = device_activities(lambda: F.fetch_sd_packed(*args, **kwargs),
+                             K4_WRAPPER_REPS)
+    own = sum(len(v) for n, v in acts.items()
               if KERNEL_SYMBOLS["fetch_sd_packed"] in n)
-    others = {n: c for n, (_, c) in acts.items()
+    others = {n: len(v) for n, v in acts.items()
               if KERNEL_SYMBOLS["fetch_sd_packed"] not in n}
     log(f"K4's wrapper on the card (torch.profiler), {K4_WRAPPER_REPS} "
         f"calls: {own} launches of its kernel, other activities {others}")
     check(not others and 1 <= own <= K4_WRAPPER_REPS,
           "K4's wrapper runs more than its kernel on the card")
-    t = timings(lambda: F.fetch_sd_packed(*args, **kwargs),
-                KERNEL_SYMBOLS["fetch_sd_packed"], 50)
-    log(f"K4 times: CUDA events {t['event_ms']:.4f} ms, device "
-        f"{t['device_ms']} ms, host enqueue {t['host_us']:.1f} us")
+    t = timings(f"K4 {tuple(got.shape)}",
+                lambda: F.fetch_sd_packed(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_sd_packed"], 50, plain=plain)
     # as K3, on the 16-bit packed SD map: no library yardstick
-    return with_bound(
-        dict(max_abs_err=err, mismatches=mism, exact=True,
-             ms=t["event_ms"], device_ms=t["device_ms"],
-             host_us=t["host_us"], plain_ms=cuda_ms(plain, 5, 1)),
-        nbytes(sd_map, radius, got), float(got.numel()))
-
-
-def fetch_host_split(k3, k4) -> dict:
-    """Host time of K3's and K4's wrappers, piece by piece (host clock, no
-    synchronize; microseconds): the ring's tables (svao_shift._ring, twice
-    a frame), the cached table lookup, the launch alone, and each wrapper
-    whole (K3 also on two plane sets, with its stack's host and device
-    time); K4's pack_sd16 apart. Beside them what the ring and the lookup
-    cost where nothing is cached: offset_tables, the walk of its offsets
-    into a tuple key, and the hash of that key."""
-    import torch
-    from rtsdm_tpu_torch._build import launch, ptr, stream_of
-    from rtsdm_tpu_torch.ops import ao as A
-    from rtsdm_tpu_torch.ops import ao_shift as S
-    from rtsdm_tpu_torch.ops import fetch_cuda as F
-    from rtsdm_tpu_torch.passes import svao_shift
-    args = k3.calls[0][0]
-    sets, pad, radius, levels, offs, radii = args
-    cfg = A.VAOConfig(radius=SVAO_PROPS["radius"], num_directions=8)
-    lv, of, ra = S.offset_tables(cfg, cfg.ss_max_radius)
-    key = (tuple(float(x) for x in lv), F.offs_tuple(of),
-           tuple(float(r) for r in ra), (pad,))
-    res = {"offset_tables_us": host_us(
-               lambda: S.offset_tables(cfg, cfg.ss_max_radius), 20),
-           "offsets_walk_us": host_us(lambda: F.offs_tuple(of), 50),
-           "key_hash_us": host_us(lambda: hash(key), 50),
-           "ring_us": host_us(lambda: svao_shift._ring(cfg), 50),
-           "k3_lookup_us": host_us(lambda: F._tables(
-               "dir", levels, offs, radii, (pad,), radius.device), 50)}
-    planes = sets[0][None]
-    bounds, radii_t, tab, _ = F._tables("dir", levels, offs, radii, (pad,),
-                                        radius.device)
-    qh, qw = radius.shape[1:]
-    out = torch.empty((1, len(offs), 16, qh, qw), device=radius.device)
-    res["k3_launch_us"] = host_us(lambda: launch(
-        "rtsdm_fetch_directions", ptr(planes), ptr(radius), ptr(bounds),
-        ptr(radii_t), ptr(tab), 1, len(offs), len(levels), qh, qw,
-        planes.shape[2], planes.shape[3], ptr(out), stream_of(planes)), 50)
-    res["k3_wrapper_us"] = host_us(lambda: F.fetch_all_directions(*args),
-                                   50)
-    # two plane sets (SVAO's and HBAO's DualDepth): the wrapper stacks
-    # them, one copy of both padded layers a call
-    two = [sets[0], sets[0]]
-    res["k3_two_sets_wrapper_us"] = host_us(
-        lambda: F.fetch_all_directions(two, *args[1:]), 50)
-    res["k3_two_sets_stack_us"] = host_us(lambda: torch.stack(two), 50)
-    res["k3_two_sets_stack_device_us"] = 1e3 * cuda_ms(
-        lambda: torch.stack(two), 50)
-    sd_map = k4.calls[0][0][0]
-    res["k4_pack_us"] = host_us(lambda: F.pack_sd16(sd_map), 50)
-    res["k4_wrapper_us"] = host_us(lambda: F.fetch_sd_packed(
-        *k4.calls[0][0]), 50)
-    log("K3/K4 host split (us, host clock): " + ", ".join(
-        f"{n} {v:.1f}" for n, v in res.items()))
-    return res
-
-
-def gbuffer_host_split(scene, k2) -> dict:
-    """The G-buffer's attribute fetch at K2's recorded call (the SVAO
-    path's, SunTemple@full 1920x1080), piece by piece: host enqueue
-    (host clock, no synchronize, us), CUDA-event time and device time
-    (torch.profiler: every device activity of one call summed, and their
-    count) of scene.face_normals(), pack_attr_rows of the five attributes,
-    K2's wrapper, fetch_vertex_attributes building its table on every call
-    (as the G-buffer called it before the table was kept), the kept
-    table's lookup (passes/gbuffer.attribute_table) and
-    fetch_vertex_attributes with it (the G-buffer's call now)."""
-    from rtsdm_tpu_torch.ops import raster as R
-    from rtsdm_tpu_torch.ops import raster_cuda as RC
-    from rtsdm_tpu_torch.passes.gbuffer import attribute_table
-    args = k2.calls[0][0]
-    tri_id, bary = args[:2]
-    interp = [scene.positions, scene.normals, scene.texcoords]
-    face_n = scene.face_normals()
-    pieces = {
-        "face_normals": scene.face_normals,
-        "pack_attr_rows": lambda: RC.pack_attr_rows(
-            interp, [face_n, scene.material_id]),
-        "k2_wrapper": lambda: RC.fetch_attributes(*args),
-        "fetch_vertex_attributes_table_each_call":
-            lambda: R.fetch_vertex_attributes(
-                tri_id, bary, interp,
-                [scene.face_normals(), scene.material_id]),
-        "attribute_table_kept": lambda: attribute_table(scene),
-        "fetch_vertex_attributes_kept_table":
-            lambda: R.fetch_vertex_attributes(
-                tri_id, bary, table=attribute_table(scene)),
-    }
-    res = {}
-    for name, fn in pieces.items():
-        acts = profiled(fn)
-        res[name] = dict(host_us=host_us(fn, 20), event_ms=cuda_ms(fn, 20, 3),
-                         device_ms=sum(ms for ms, _ in acts.values()),
-                         device_activities=sum(n for _, n in acts.values()))
-        log(f"G-buffer split {name}: host enqueue "
-            f"{res[name]['host_us']:.1f} us, CUDA events "
-            f"{res[name]['event_ms']:.4f} ms, device "
-            f"{res[name]['device_ms']:.4f} ms in "
-            f"{res[name]['device_activities']} activities")
-    return res
+    return with_bound(dict(t, max_abs_err=err, mismatches=mism, exact=True),
+                      nbytes(sd_map, radius, got), float(got.numel()))
 
 
 def k5_lists(args):
@@ -970,15 +760,15 @@ def compare_sd_trace(k):
     log(f"K5 key function: INT_MIN -> {int(key_hb[0])}, 4096 (u, v) keys "
         "bit-exact")
     tests = float(visits.sum()) * RT.TC * RT.RB
-    # no PyTorch call traces rays: no library yardstick. `ms` is replaced
-    # by the whole wrapper's time (sd_trace_stream, lists included) once
-    # the stage split has run; kernel_ms keeps the launch alone.
-    ms = cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10, 2)
+    # the launch, its lists built in the kernel; no PyTorch call traces
+    # rays: no library yardstick
+    t = timings(f"K5 {n} rays",
+                lambda: RT.sd_trace_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["sd_trace"], 10,
+                plain=lambda: RT.sd_trace_blocks_plain(*args, **kwargs))
     return with_bound(
-        dict(max_abs_err=err, mismatches=mism,
-             exact=bool(torch.equal(got, want)), ms=ms, kernel_ms=ms,
-             plain_ms=cuda_ms(lambda: RT.sd_trace_blocks_plain(
-                 *args, **kwargs), 1, 1),
+        dict(t, max_abs_err=err, mismatches=mism,
+             exact=bool(torch.equal(got, want)),
              chunk_visits=int(visits.sum()), visits_per_block=spread(visits)),
         nbytes(args[:4], args[9:11], got), tests * TRACE_FLOPS_PER_TEST)
 
@@ -988,37 +778,6 @@ COMPARE = {"raster": compare_raster,
            "fetch_all_directions": compare_fetch_directions,
            "fetch_sd_packed": compare_fetch_sd_packed,
            "sd_trace": compare_sd_trace}
-
-
-# ---------------------------------------------------------------------------
-# steady-state stages
-# ---------------------------------------------------------------------------
-
-def frame_spans_ms(scene, pass_, ctx, reps: int = 5):
-    """Host ms per steady-state frame (the mean over `reps` frames after
-    one warm frame) of the program's own spans, as Renderer.renderFrame's
-    profiler keeps them: renderFrame (the G-buffer, the SVAO pass and a
-    synchronize), the pass (SVAO) and its phases (SVAO/phase1, SVAO/sd_map,
-    SVAO/phase2), and every span inside; {scope path: ms}."""
-    import torch
-    from rtsdm_tpu_torch.core.profiler import Profiler
-    prof = Profiler()
-    ctx.profiler = prof
-    try:
-        for r in range(reps + 1):
-            if r == 1:
-                prof.reset()
-            with prof.activate(), prof.event("renderFrame"):
-                g, lin, packed = g_buffer_stage(scene, WIDTH, HEIGHT)
-                with prof.event("SVAO"):
-                    out, _ = pass_.execute(ctx, {"gbufferDepth": g["depth"],
-                                                 "depth": lin,
-                                                 "normals": packed})
-                torch.cuda.synchronize()
-            check(bool(torch.isfinite(out["ao"]).all()), "AO is not finite")
-    finally:
-        ctx.profiler = None
-    return prof.flat_averages()
 
 
 # device symbol of each kernel (csrc/*.cu), as the profiler names it
@@ -1033,38 +792,6 @@ KERNEL_SYMBOLS = {"raster": "raster_blocks_kernel",
                   "raster_stochastic": "raster_sd_kernel",
                   "sd_trace_resident": "sd_trace_resident_kernel",
                   "fetch_sd_strided": "fetch_sd_strided_kernel"}
-
-
-def profiled_frame(scene, pass_, ctx):
-    """Device activity of one steady-state frame under torch.profiler:
-    {name: (ms, count)} over every kernel, copy and fill the card ran.
-    Empty where the profiler saw no device activity."""
-    return profiled(lambda: frame(scene, pass_, ctx, WIDTH, HEIGHT))
-
-
-def profiled(run_frame):
-    """Device activity of run_frame() (after one warm-up call)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    run_frame()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run_frame()
-        torch.cuda.synchronize()
-    acts = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms, n = acts.get(e.name, (0.0, 0))
-            acts[e.name] = (ms + e.device_time_total / 1e3, n + 1)
-    return acts
-
-
-def kernel_device_ms(acts, name: str):
-    """Summed device time of kernel `name` in a profiled frame, or None."""
-    hits = [ms for k, (ms, _) in acts.items() if KERNEL_SYMBOLS[name] in k]
-    return sum(hits) if hits else None
 
 
 # ---------------------------------------------------------------------------
@@ -1139,18 +866,17 @@ def check_graph_outputs(out):
 
 def drive_graph(kernels, path_counts):
     """Run the graph for GRAPH_FRAMES frames; counts are zeroed just before
-    and read just after every frame. Returns (renderer, launches summed over
-    the frames, K10's launches by mode)."""
+    and read just after every frame. Returns (launches summed over the
+    frames, K10's launches by mode)."""
     import torch
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.ops import warp_cuda
-    t0 = time.perf_counter()
     m = graph_renderer()
     n_lights = min(int(m.scene.num_lights), int(
         m.active_graph.get_pass("RayShadow").cfg["maxLights"]))
     log(f"graph: {GRAPH_SCRIPT.relative_to(ROOT)} on {GRAPH_SCENE} "
         f"({m.scene.num_triangles} triangles, {n_lights} light(s)) at "
-        f"{WIDTH}x{HEIGHT}, set up in {time.perf_counter() - t0:.2f} s")
+        f"{WIDTH}x{HEIGHT}")
     want = {"raster": 2 * path_counts["raster"],
             "fetch_attributes": 2 * path_counts["fetch_attributes"],
             "fetch_all_directions": path_counts["fetch_all_directions"],
@@ -1171,9 +897,8 @@ def drive_graph(kernels, path_counts):
             by_mode = {md: LAUNCHES[warp_cuda.launch_key(md)]
                        for md in warp_cuda.MODES}
             lo, hi = check_graph_outputs(out)
-            log(f"graph frame {f}: {m.last_frame_ms:.3f} ms host clock; "
-                f"launches {counts}; K10 by mode {by_mode}; AO in "
-                f"[{lo:.4f}, {hi:.4f}]")
+            log(f"graph frame {f}: launches {counts}; K10 by mode "
+                f"{by_mode}; AO in [{lo:.4f}, {hi:.4f}]")
             check(not plain_calls, f"plain versions ran: {plain_calls}")
             for name, n in want.items():
                 check(counts[name] == n, f"{name}: {counts[name]} launches "
@@ -1183,7 +908,7 @@ def drive_graph(kernels, path_counts):
             check(by_mode["catmull_rom"] == 2, "K10: TAA x2 expected")
             totals.update(counts)
             modes.update(by_mode)
-    return m, dict(totals), dict(modes)
+    return dict(totals), dict(modes)
 
 
 def spread_tiles(live, n: int, what: str):
@@ -1324,17 +1049,6 @@ def any_hit_work(walk, pairs, rays):
     return ops, float(p[hoist].sum()), float(p[~hoist].sum())
 
 
-def nudged_directions(rays):
-    """The same rays with dx of every odd lane moved by one ulp: no warp
-    with live rays of both parities hoists, so K8 forms d x e2 and det per
-    pair (a timing variant; the hits may differ from the real rays')."""
-    import torch
-    r = rays.clone()
-    dx = r[3, 1::2]
-    r[3, 1::2] = torch.nextafter(dx, torch.full_like(dx, float("inf")))
-    return r.contiguous()
-
-
 def compare_any_hit(k):
     """K8 on the graph's last-frame call: hits bit-exact against the plain
     version without the cull and pairs against the replay of the cull, on
@@ -1344,12 +1058,10 @@ def compare_any_hit(k):
     launch on the subset, and the same hits as K8 with boxes that cull
     nothing (whose pairs, the walk without the cull, are held against the
     plain version without the cull on the subset). The cull's yield over
-    the walk (k8_walk) and the warps that hoist (warp_directions). Timing
-    variants, each on the same tiles: boxes that cull nothing, one
-    box per chunk (the union of its four), the per-pair path, and the
-    per-pair path without the cull. Bounds: the pairs this run needed x
-    the operations per pair of the kernel that tests them (any_hit_work),
-    and beside it a yardstick: the walk without the cull x 47."""
+    the walk (k8_walk) and the warps that hoist (warp_directions). Bound:
+    the pairs this run needed x the operations per pair of the kernel that
+    tests them (any_hit_work); the plain version is timed on the tiles it
+    is held on."""
     import torch
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     check(len(k.calls) >= 1, "K8: no recorded call")
@@ -1397,52 +1109,18 @@ def compare_any_hit(k):
         f"{int(tile_same.sum())} of {nb} tiles have 256 bit-identical "
         f"directions, {int(warp_h.sum())} of {warp_h.numel()} warps hoist")
     ops, p_h, p_m = any_hit_work(walk, pairs, rays)
-    t = timings(lambda: RT.any_hit_blocks(*args), KERNEL_SYMBOLS["any_hit"],
-                10)
-    ms_free = cuda_ms(lambda: RT.any_hit_blocks(*free_args), 5, 1)
-    nudged = nudged_directions(rays)
-    nudged_args = (tri, RT.any_hit_boxes(tri, nudged), lists, counts,
-                   nudged)
-    _, pairs_n = RT.any_hit_blocks(*nudged_args)
-    ms_nudged = cuda_ms(lambda: RT.any_hit_blocks(*nudged_args), 10, 2)
-    ms_nudged_free = cuda_ms(lambda: RT.any_hit_blocks(
-        tri, free, lists, counts, nudged), 5, 1)
-    # one box per chunk: each of the four boxes replaced by their union
-    union = torch.cat([boxes[:, 0:3].amin(-1, keepdim=True),
-                       boxes[:, 3:6].amax(-1, keepdim=True)], 1) \
-        .expand(-1, -1, RT.N_CULL).contiguous()
-    chunk_args = (tri, union, lists, counts, rays)
-    _, pairs_u = RT.any_hit_blocks(*chunk_args)
-    ms_chunk = cuda_ms(lambda: RT.any_hit_blocks(*chunk_args), 10, 2)
-    ms_sub = cuda_ms(lambda: RT.any_hit_blocks(*sub), 10, 2)
-    plain_ms = cuda_ms(lambda: RT.any_hit_blocks_plain(*sub), 1, 0)
-    yard_ms, _ = bound(0.0, n_free * ANY_HIT_FLOPS_PER_PAIR)
-    log(f"K8 times: kernel {t['event_ms']:.4f} ms (device "
-        f"{t['device_ms']} ms, host {t['host_us']:.1f} us); without the "
-        f"cull {ms_free:.4f} ms; one box per chunk "
-        f"({float(pairs_u.double().sum()):.6g} pairs) {ms_chunk:.4f} ms; "
-        f"per-pair path (nudged directions, "
-        f"{float(pairs_n.double().sum()):.6g} pairs) {ms_nudged:.4f} ms, "
-        f"without the cull {ms_nudged_free:.4f} ms; on the {sel.numel()} "
-        f"tiles kernel {ms_sub:.4f} ms, plain {plain_ms:.2f} ms; "
-        f"yardstick bound (no cull, 47 a pair) {yard_ms:.4f} ms")
+    t = timings(f"K8 {nb * RT.RB} rays (plain on {sel.numel()} tiles)",
+                lambda: RT.any_hit_blocks(*args), KERNEL_SYMBOLS["any_hit"],
+                10, plain=lambda: RT.any_hit_blocks_plain(*sub))
     # no PyTorch call traces rays: no library yardstick
-    return [dict(with_bound(
-        dict(max_abs_err=err, mismatches=mism, exact=True,
-             ms=t["event_ms"], device_ms=t["device_ms"],
-             host_us=t["host_us"], plain_ms=plain_ms, ms_no_cull=ms_free,
-             ms_per_pair_path=ms_nudged,
-             ms_per_pair_path_no_cull=ms_nudged_free,
-             ms_chunk_boxes=ms_chunk,
-             pairs_chunk_boxes=float(pairs_u.double().sum()),
-             ms_on_plain_tiles=ms_sub,
+    return with_bound(
+        dict(t, max_abs_err=err, mismatches=mism, exact=True,
              plain_on=f"{sel.numel()} of {nb} tiles",
              pairs=n_pairs, pairs_hoisted=p_h, pairs_per_pair_path=p_m,
-             pairs_no_cull=n_free, yardstick_bound_ms=yard_ms, walk=walk,
+             pairs_no_cull=n_free, walk=walk,
              tiles_one_direction=int(tile_same.sum()),
              warps_hoisting=int(warp_h.sum())),
-        nbytes(tri, boxes, lists, counts, rays, hit, pairs), ops),
-        name="any_hit")]
+        nbytes(tri, boxes, lists, counts, rays, hit, pairs), ops)
 
 
 # fp32 operations of K10 per output pixel and per output value, counted
@@ -1471,7 +1149,7 @@ def compare_warp(k, launches_by_mode):
     bilinear), and on a synthetic motion field at the TAA shape (the real
     history texture, +-6 px of sin/cos motion, then the same field shifted
     far out of bounds by (+500, -300) px, as tests/test_pallas_interpret.py
-    builds it). The timed rows use the smooth field at the TAA shape;
+    builds it). The rows are timed on the smooth field at the TAA shape;
     bilinear's library yardstick is grid_sample (border, align_corners
     False), which no part of the port calls."""
     import torch
@@ -1485,12 +1163,9 @@ def compare_warp(k, launches_by_mode):
         want = W.warp_resample_plain(**a)
         err = _max_abs(got, want)
         worst = max(worst, err)
-        t = timings(lambda: W.warp_resample(**a),
-                    KERNEL_SYMBOLS["warp_resample"], 20)
         log(f"K10 {a['mode']}{' wrap_x' if a['wrap_x'] else ''} "
             f"{tuple(a['tex'].shape)} -> {tuple(got.shape)}: max |diff| "
-            f"{err:.3g} (bound: bit-exact); CUDA events {t['event_ms']:.4f} "
-            f"ms, device {t['device_ms']} ms, host {t['host_us']:.1f} us")
+            f"{err:.3g} (bound: bit-exact)")
         check(torch.equal(got, want), "K10 is not bit-exact on the path")
         if a["mode"] == "catmull_rom":
             taa = a["tex"]
@@ -1500,7 +1175,6 @@ def compare_warp(k, launches_by_mode):
     fields = {"smooth": (sx, sy),
               "far": ((sx + 500.0).contiguous(), (sy - 300.0).contiguous())}
     times = measure_warp(taa, sx, sy)
-    one = measure_warp(taa[:1].contiguous(), sx, sy)  # TemporalAO's width
     rows = []
     for mode in ("catmull_rom", "bilinear"):
         for fname, (fx, fy) in fields.items():
@@ -1514,31 +1188,21 @@ def compare_warp(k, launches_by_mode):
             check(torch.equal(got, want),
                   f"K10 {mode} is not bit-exact on the {fname} field")
         out = W.warp_resample(taa, sx, sy, mode)
-        plain_ms = cuda_ms(lambda: W.warp_resample_plain(taa, sx, sy, mode),
-                           5, 1)
         library_ms = library_device_ms = None
-        library_one = None
         if mode == "bilinear":
             lib = times["grid_sample"]
-            library_ms, library_device_ms = lib["event_ms"], lib["device_ms"]
-            library_one = one["grid_sample"]
+            library_ms, library_device_ms = lib["ms"], lib["device_ms"]
             lib_err = _max_abs(grid_sample_yardstick(taa, sx, sy)()[0], out)
             log(f"K10 bilinear yardstick grid_sample: max |diff| from K10 "
                 f"{lib_err:.3g} (not used by the port)")
         n_bytes, flops = warp_bound(taa, sx, sy, out, mode)
         rows.append(dict(with_bound(
-            dict(max_abs_err=worst, mismatches=0, exact=True,
-                 ms=times[mode]["event_ms"],
-                 device_ms=times[mode]["device_ms"],
-                 host_us=times[mode]["host_us"], one_channel=one[mode],
-                 library_one_channel=library_one,
-                 library_device_ms=library_device_ms, plain_ms=plain_ms,
+            dict(times[mode], max_abs_err=worst, mismatches=0, exact=True,
+                 library_device_ms=library_device_ms,
                  timed_at=f"{tuple(taa.shape)}, synthetic motion"),
             n_bytes, flops, library_ms),
             name=f"warp_resample:{mode}",
             launches=launches_by_mode.get(mode, 0)))
-        log(f"K10 {mode} at the TAA shape: kernel {times[mode]['event_ms']:.4f}"
-            f" ms, plain {plain_ms:.4f} ms")
     return rows
 
 
@@ -1572,92 +1236,19 @@ def grid_sample_yardstick(tex, sx, sy):
 
 
 def measure_warp(tex, sx, sy, reps: int = 50) -> dict:
-    """K10's CUDA-event, device and host times in each mode at one shape,
-    and grid_sample's beside bilinear, measured the same ways."""
+    """K10's times (timings) in each mode at one shape, the plain version
+    beside each, and grid_sample's beside bilinear."""
     from rtsdm_tpu_torch.ops import warp_cuda as W
-    sym = KERNEL_SYMBOLS["warp_resample"]
-    res = {}
-    for mode in W.MODES:
-        res[mode] = timings(lambda: W.warp_resample(tex, sx, sy, mode), sym,
-                            reps)
-    res["grid_sample"] = timings(grid_sample_yardstick(tex, sx, sy),
-                                 "grid_sampler_2d", reps)
     shape = f"{tuple(tex.shape)} -> {tuple(sx.shape)}"
-    for name, t in res.items():
-        dev = ("not measured" if t["device_ms"] is None
-               else f"{t['device_ms']:.4f} ms")
-        log(f"K10 timing {name} {shape}: CUDA events {t['event_ms']:.4f} ms, "
-            f"device {dev}, host enqueue {t['host_us']:.1f} us")
+    res = {mode: timings(
+        f"K10 {mode} {shape}", lambda: W.warp_resample(tex, sx, sy, mode),
+        KERNEL_SYMBOLS["warp_resample"], reps,
+        plain=lambda: W.warp_resample_plain(tex, sx, sy, mode))
+        for mode in W.MODES}
+    res["grid_sample"] = timings(f"grid_sample {shape}",
+                                 grid_sample_yardstick(tex, sx, sy),
+                                 "grid_sampler_2d", reps)
     return res
-
-
-def raster_setup_ms(scene) -> dict:
-    """Host-clock time of K1's inputs at the main path's size (the binning
-    of _binned_chunks, cull boxes included) and of the cull boxes alone."""
-    from rtsdm_tpu_torch.ops import raster as R
-    from rtsdm_tpu_torch.ops import raster_cuda as RC
-    coef = R._setup_triangles(scene.camera.view_proj_no_jitter,
-                              scene.positions, WIDTH, HEIGHT, 0.0, 0.0,
-                              R.CULL_BACK)[0]
-    wp = -(-WIDTH // RC.TILE_RW) * RC.TILE_RW
-    hp = -(-HEIGHT // RC.TILE_RH) * RC.TILE_RH
-    res = dict(binning_ms=synced_ms(lambda: raster_inputs(scene, WIDTH,
-                                                          HEIGHT), 5),
-               cull_boxes_ms=synced_ms(lambda: RC.cull_boxes(coef, wp, hp),
-                                       5))
-    log(f"K1 inputs at {WIDTH}x{HEIGHT} (host clock, synchronized): "
-        f"_binned_chunks {res['binning_ms']:.3f} ms, of which cull_boxes "
-        f"{res['cull_boxes_ms']:.3f} ms")
-    return res
-
-
-def raster_inputs(scene, w: int, h: int):
-    """K1's inputs for the scene's camera at w x h, as rasterize builds
-    them: (chunks, tri_boxes, lists, counts, nby, nbx)."""
-    from rtsdm_tpu_torch.ops import raster as R
-    return R._binned_chunks(scene.camera.view_proj_no_jitter,
-                            scene.positions, w, h, 0.0, 0.0, "back")[0]
-
-
-def graph_timing(m, reps: int = 7):
-    """Host-clock median of `reps` steady frames (after a warm-up), the
-    per-pass CUDA-event spans of one more frame, and one profiled frame."""
-    import statistics
-
-    import torch
-    graph = m.active_graph
-    m.renderFrame()
-    host = []
-    for _ in range(reps):
-        m.renderFrame()
-        host.append(m.last_frame_ms)
-    graph.time_passes = True
-    m.renderFrame()
-    passes = graph.pass_times_ms()
-    graph.time_passes = False
-    acts = profiled(m.renderFrame)
-    torch.cuda.synchronize()
-    median = statistics.median(host)
-    busy = sum(ms for ms, _ in acts.values()) if acts else None
-    log(f"graph frame, host clock over {reps} frames (ms): "
-        + ", ".join(f"{t:.3f}" for t in host) + f"; median {median:.3f}")
-    log("graph frame, per pass (CUDA events, ms): " + ", ".join(
-        f"{n} {t:.3f}" for n, t in passes.items()))
-    if acts:
-        log(f"graph profiled frame: {sum(n for _, n in acts.values())} "
-            f"device activities, {busy:.3f} ms busy; device idle share of "
-            f"the median host-clock frame {1.0 - busy / median:.4f}")
-        for name, (ms, n) in sorted(acts.items(),
-                                    key=lambda kv: -kv[1][0])[:12]:
-            log(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
-    else:
-        log("graph profiled frame: the profiler saw no device activity; "
-            "device busy time not measured")
-    return dict(host_ms=host, host_median_ms=median, passes_ms=passes,
-                device_busy_ms=busy,
-                idle_share=None if busy is None else 1.0 - busy / median,
-                kernel_device_ms={n: kernel_device_ms(acts, n)
-                                  for n in KERNEL_SYMBOLS}), acts
 
 
 # ---------------------------------------------------------------------------
@@ -1850,7 +1441,6 @@ def drive_config(label, kernels, per_frame=None):
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
     script, scene, width, height, overrides, _ = CONFIGS[label]
-    t0 = time.perf_counter()
     m = config_renderer(label)
     graph = m.active_graph
     n_lights = min(int(m.scene.num_lights), int(
@@ -1858,7 +1448,7 @@ def drive_config(label, kernels, per_frame=None):
         if "RayShadow" in graph.passes else 0
     log(f"{label}: {script.relative_to(ROOT)} {overrides or ''} on {scene} "
         f"({m.scene.num_triangles} triangles, {n_lights} light(s)) at "
-        f"{width}x{height}, set up in {time.perf_counter() - t0:.2f} s")
+        f"{width}x{height}")
     want = config_want(label, n_lights)
     totals = collections.Counter()
     modes = collections.Counter()
@@ -1875,9 +1465,8 @@ def drive_config(label, kernels, per_frame=None):
             by_mode = {md: LAUNCHES[warp_cuda.launch_key(md)]
                        for md in warp_cuda.MODES}
             lo, hi = check_config_outputs(label, out)
-            log(f"{label} frame {f}: {m.last_frame_ms:.3f} ms host clock; "
-                f"launches {counts}; K10 by mode {by_mode}; AO in "
-                f"[{lo:.4f}, {hi:.4f}]")
+            log(f"{label} frame {f}: launches {counts}; K10 by mode "
+                f"{by_mode}; AO in [{lo:.4f}, {hi:.4f}]")
             check(not plain_calls, f"plain versions ran: {plain_calls}")
             for name, n in want.items():
                 check(counts[name] == n, f"{label}: {name} launched "
@@ -2032,15 +1621,6 @@ def same_call(a, b) -> bool:
             and eq(tuple(a[1].values()), tuple(b[1][k] for k in a[1])))
 
 
-def distinct_calls(calls) -> list:
-    """The recorded calls whose arguments differ from every earlier one."""
-    out = []
-    for c in calls:
-        if not any(same_call(c, d) for d in out):
-            out.append(c)
-    return out
-
-
 def _raster_only(args, kwargs):
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     return RC.raster_blocks(*args, **kwargs)
@@ -2055,15 +1635,13 @@ def check_config_calls(label, kernels):
     tiles, as in compare_any_hit). A K1 call with the arguments of an
     earlier one (config 5's G-buffer and ForwardLighting raster the same
     scene from the same camera) is held against that call's plain output,
-    which the plain version would give again. Returns {kernel: calls
-    held}."""
+    which the plain version would give again."""
     import torch
     by_name = kernels_by_name(kernels)
-    held, seconds = {}, {}
+    held = {}
     for name, pair in CONFIG_PAIRS.items():
         calls = by_name[name].calls
         done = []        # (call, plain outputs) of the K1 calls held so far
-        t0 = time.perf_counter()
         if name == "any_hit" and label in K8_HOLD_TILES:
             pair = functools.partial(pair, tiles=K8_HOLD_TILES[label])
         for args, kwargs in calls:
@@ -2084,28 +1662,15 @@ def check_config_calls(label, kernels):
                                          f"{tuple(g.shape)} is not "
                                          f"bit-exact ({mism} mismatches)")
         held[name] = len(calls)
-        seconds[name] = time.perf_counter() - t0
-    log(f"{label}: seconds holding each kernel's calls: " + ", ".join(
-        f"{n} {v:.1f}" for n, v in seconds.items()))
     log(f"{label}: the last frame's calls held bit-exact against their plain "
         f"versions: {held}")
-    return held
-
-
-def time_raster_calls(label, calls) -> list:
-    """raster_timing at every K1 call kept from a path's last frame."""
-    return [dict(raster_timing(a, kw, f"{label} call {i}"
-                               + (" (floored)" if kw.get("floor") is not None
-                                  else "")),
-                 floored=kw.get("floor") is not None)
-            for i, (a, kw) in enumerate(calls)]
 
 
 def compare_raster_floor(calls):
     """K1 with its depth floor (DepthPeeling) on the last floored call:
-    times, bounds, the share of pixels holding a second layer. Every
-    floored call was held bit-exact by check_config_calls (--fmad=false; the
-    floor test is a true division and a comparison)."""
+    its row (raster_timing) and the share of pixels holding a second
+    layer. Every floored call was held bit-exact by check_config_calls
+    (--fmad=false; the floor test is a true division and a comparison)."""
     from rtsdm_tpu_torch.ops import raster_cuda as RC
     floored = [(a, kw) for a, kw in calls if kw.get("floor") is not None]
     check(floored, "K1: no floored call recorded")
@@ -2115,19 +1680,15 @@ def compare_raster_floor(calls):
     log(f"K1 with floor {tuple(got[1].shape)}, {args[0].shape[0]} chunks, "
         f"min_separation {kwargs.get('min_separation')}: second-layer "
         f"coverage {peeled:.4f}")
-    t = raster_timing(args, kwargs, "floored (DepthPeeling)")
-    # no PyTorch call rasterizes triangles: no library yardstick
-    return dict(t, max_abs_err=0.0, mismatches=0, exact=True,
-                ms=t["event_ms"], library_ms=None,
-                plain_ms=cuda_ms(lambda: RC.raster_blocks_plain(
-                    args[0], None, *args[2:], **kwargs), 1, 1),
+    return dict(raster_timing(args, kwargs, "floored (DepthPeeling)"),
+                max_abs_err=0.0, mismatches=0, exact=True,
                 timed_at=f"{tuple(got[1].shape)}", second_layer=peeled)
 
 
 def compare_taps_same_class(calls, timed_label):
     """K6: bit-exact (a copy chosen by a table lookup) on every call kept
-    from the configs' last frames; the timed row is the largest call (CUDA
-    events around the wrapper, device time per call by torch.profiler)."""
+    from the configs' last frames; the row is timed at the largest call
+    (timings)."""
     import torch
     from rtsdm_tpu_torch.ops import fetch_cuda as F
     check(calls, "K6: no recorded call")
@@ -2144,38 +1705,17 @@ def compare_taps_same_class(calls, timed_label):
     args, kwargs, got = worst
     planes, lvl, pad, offs = args
     tab = F._same_class_table_on(offs, pad, planes.device)
-    t = timings(lambda: F.fetch_taps_same_class(*args, **kwargs),
-                KERNEL_SYMBOLS["fetch_taps_same_class"], 50)
-    log(f"K6 at {timed_label} {tuple(got.shape)}: {t['event_ms']:.4f} ms "
-        f"by CUDA events, device {t['device_ms']} ms, host "
-        f"{t['host_us']:.1f} us a call")
+    t = timings(f"K6 at {timed_label} {tuple(got.shape)}",
+                lambda: F.fetch_taps_same_class(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_taps_same_class"], 50,
+                plain=lambda: F.fetch_taps_same_class_plain(*args, **kwargs))
     # a copy per output; no single PyTorch call looks the offset up and
     # gathers (torch.gather needs the flat index this kernel computes): no
     # library yardstick
     return with_bound(
-        dict(t, max_abs_err=0.0, mismatches=0, exact=True, ms=t["event_ms"],
-             plain_ms=cuda_ms(lambda: F.fetch_taps_same_class_plain(
-                 *args, **kwargs), 5, 1),
+        dict(t, max_abs_err=0.0, mismatches=0, exact=True,
              timed_at=f"{timed_label} {tuple(got.shape)}"),
         nbytes(planes, lvl, tab, got), 0.0)
-
-
-def k9_parts_timing(args, parts_list, reps: int = 20) -> dict:
-    """K9 at one call with its walk split into each of parts_list, timed in
-    turns (the list, then the list reversed): {parts: {event_ms: [two
-    runs], device_ms: [two runs]}}."""
-    from rtsdm_tpu_torch.ops import raster_cuda as RC
-    res = {p: {"event_ms": [], "device_ms": []} for p in parts_list}
-    for order in (parts_list, parts_list[::-1]):
-        for p in order:
-            t = timings(lambda: RC.raster_stochastic_blocks(*args, parts=p),
-                        KERNEL_SYMBOLS["raster_stochastic"], reps)
-            res[p]["event_ms"].append(t["event_ms"])
-            res[p]["device_ms"].append(t["device_ms"])
-    for p, v in res.items():
-        log(f"K9 with its walk in {p} part(s): CUDA events "
-            f"{v['event_ms']} ms, device {v['device_ms']} ms")
-    return res
 
 
 def compare_raster_stochastic(k):
@@ -2219,17 +1759,17 @@ def compare_raster_stochastic(k):
                                         parts=p)
         check(torch.equal(g, got), f"K9 streaming every chunk ({p} "
                                    "part(s)) disagrees with its walk")
-    split = k9_parts_timing(args, sorted({1, 4, 8, 16, 32, parts}))
-    t = timings(lambda: RC.raster_stochastic_blocks(*args, **kwargs),
-                KERNEL_SYMBOLS["raster_stochastic"], 20)
+    t = timings(f"K9 {tuple(got.shape)}",
+                lambda: RC.raster_stochastic_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["raster_stochastic"], 20,
+                plain=lambda: RC.raster_stochastic_blocks_plain(
+                    chunks, None, *args[2:]))
     pairs_walk = walk["visits"] * RC.TC * RC.RB
     n_bytes = nbytes(chunks, boxes, lists, counts, first, rmin, rmax, got)
     # no PyTorch call rasterizes triangles: no library yardstick
     return with_bound(
-        dict(t, max_abs_err=0.0, mismatches=0, exact=True, ms=t["event_ms"],
-             plain_ms=cuda_ms(lambda: RC.raster_stochastic_blocks_plain(
-                 chunks, None, *args[2:]), 1, 0),
-             parts=parts, parts_timing=split, walk=walk,
+        dict(t, max_abs_err=0.0, mismatches=0, exact=True,
+             parts=parts, walk=walk,
              visits_per_tile=visits, pairs=walk["pairs"],
              pairs_walk=pairs_walk,
              bound_ms_walk=bound(n_bytes, pairs_walk
@@ -2272,7 +1812,6 @@ def small_configs_against_references():
     import numpy as np
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.mogwai import Renderer, run_script
-    res = {}
     for test, script, kind in (
             ("test_HBAO", HBAO_SCRIPT, "renderpasses"),
             ("test_SVAO_rasterSD", GRAPH_SCRIPT, "renderpasses"),
@@ -2313,17 +1852,15 @@ def small_configs_against_references():
             img = out[name].float().cpu().numpy()
             check(img.shape == ref.shape, f"{test} {name}: shape")
             mse = float(((img - ref.astype(np.float32)) ** 2).mean())
-            res[f"{test}.{name}"] = mse
             log(f"{test} {name} on the card vs the committed golden: MSE "
                 f"{mse:.4g} (bound 2e-4)")
             check(mse <= 2e-4, f"{test} {name}: MSE {mse} above 2e-4")
-    return res
 
 
 def run_configs():
     """Phases 11-14: configs 2 and 1 through the harness, their kernels
-    against their plain versions, their frame times; then the golden
-    settings on the card. Returns (kernel rows, per-config report)."""
+    against their plain versions and their rows; then the golden settings
+    on the card. Returns (kernel rows, {label: launches})."""
     report = {}
     rows = []
     k6_calls = []
@@ -2331,11 +1868,11 @@ def run_configs():
         kernels = kernels_of_configs()
         by_name = kernels_by_name(kernels)
         m, totals, modes = drive_config(label, kernels)
-        held = check_config_calls(label, kernels)
+        check_config_calls(label, kernels)
         if label == "config2":
             rows.append(dict(compare_raster_stochastic(
                 by_name["raster_stochastic"]),
-                name="raster_stochastic",
+                name="raster_stochastic", at=label,
                 launches=totals["raster_stochastic"]))
         else:
             k6_calls += by_name["fetch_taps_same_class"].calls
@@ -2343,28 +1880,16 @@ def run_configs():
             k6_calls.append(dual_depth_frame(m, kernels))
         if label == "config1_suntemple":
             rows.append(dict(compare_raster_floor(by_name["raster"].calls),
-                             name=FLOOR, launches=totals[FLOOR]))
+                             name=FLOOR, at=label, launches=totals[FLOOR]))
             rows.append(dict(compare_taps_same_class(k6_calls, label),
-                             name="fetch_taps_same_class",
+                             name="fetch_taps_same_class", at=label,
                              launches=totals["fetch_taps_same_class"]))
-        raster_calls = time_raster_calls(label, by_name["raster"].calls)
-        copies = frame_copies(m, label) if label == "config3" else None
-        times, _ = graph_timing(m)
-        script, scene, width, height, overrides, _ = CONFIGS[label]
-        report[label] = dict(times, script=str(script.relative_to(ROOT)),
-                             raster_calls=raster_calls,
-                             scene=scene, width=width, height=height,
-                             overrides=overrides, launches=totals,
-                             warp_launches_by_mode=modes,
-                             frames=CONFIG_FRAMES, bit_exact_calls=held)
+        report[label] = dict(launches=totals, warp_launches_by_mode=modes)
         del m
-    report["goldens_mse"] = small_configs_against_references()
-    src = kernels_by_name(kernels_of_configs())
+    small_configs_against_references()
     for r in rows:
-        k = src[r["name"].split(":")[0]]
-        r.update(source=k.source, replaces=k.replaces,
-                 config_launches={lb: report[lb]["launches"].get(r["name"], 0)
-                                  for lb in CONFIGS if lb in report})
+        r["config_launches"] = {lb: report[lb]["launches"].get(r["name"], 0)
+                                for lb in report}
     return rows, report
 
 # ---------------------------------------------------------------------------
@@ -2415,15 +1940,13 @@ def hold_sd_call(call, what: str):
     return mism
 
 
-def resident_visits(args, tiled: bool = True):
+def resident_visits(args):
     """Chunks each K7 block visits, as float64: its world-box overlaps
-    (the plain version's lists) on the SD grid's 8x32 tiles, or with
-    tiled=False on blocks of 256 consecutive rays (the parent's K7)."""
+    (the plain version's lists) on the SD grid's 8x32 tiles."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     tri, aabb, origin, rays = args[:4]
-    if tiled:
-        grid = args[9] if len(args) > 9 else None
-        rays = RT.grid_tile_rays(rays, *RT._grid(rays, grid))
+    grid = args[9] if len(args) > 9 else None
+    rays = RT.grid_tile_rays(rays, *RT._grid(rays, grid))
     _, counts = RT.build_chunk_lists(aabb, origin, rays[0:3].T, rays[3],
                                      rays[4], cap=tri.shape[0])
     return counts.double()
@@ -2483,9 +2006,8 @@ def sd_tiers_at(scene, sd_ctx, sd_inputs, base):
 def svao_full_sd_phases(m):
     """After SVAO.py's frames: one frame with SVAO's stochMaxCount 8 (K7
     with the cap, held), then the SD pass at the next frame's inputs in
-    every SD_SETTINGS entry on both tiers (sd_tiers_at). Returns (tiers,
-    filled slots per ray under the cap, the SD pass's (pass, ctx, inputs)
-    of that frame)."""
+    every SD_SETTINGS entry on both tiers (sd_tiers_at). Returns the
+    tiers' calls."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     svao = m.active_graph.get_pass("SVAO")
     svao.cfg["stochMaxCount"] = 8
@@ -2508,13 +2030,12 @@ def svao_full_sd_phases(m):
     sd_pass, sd_ctx, sd_inputs = seen[0]
     base = {k: v for k, v in sd_pass.cfg.items()
             if k not in ("Implementation", "MaxCount", "pallasStream")}
-    return (sd_tiers_at(m._scene_comp, sd_ctx, sd_inputs, base), capped,
-            seen[0])
+    return sd_tiers_at(m._scene_comp, sd_ctx, sd_inputs, base)
 
 
 def resident_row(tiers):
     """K7's kernel row from the default setting's call: bit-exact error,
-    kernel and plain times, its bound; and K5's time on the same rays."""
+    its times (timings), its chunk visits and its bound."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     _, args, kwargs, out = tiers["default"]["resident"]
     plain = RT.sd_trace_resident_blocks_plain(*args, **kwargs)
@@ -2523,24 +2044,17 @@ def resident_row(tiers):
     visits = resident_visits(args)
     n_chunks = args[0].shape[0]
     walk = spread(visits)
-    row_major = spread(resident_visits(args, tiled=False))
     log(f"K7 sd_trace_resident {out.shape[0]} rays x {out.shape[1]} slots, "
-        f"{n_chunks} chunks: visits per 8x32 tile {walk}; per block of 256 "
-        f"consecutive rays (the parent's blocking) {row_major}")
-    ms = cuda_ms(lambda: RT.sd_trace_resident_blocks(*args, **kwargs), 10, 2)
-    plain_ms = cuda_ms(lambda: RT.sd_trace_resident_blocks_plain(
-        *args, **kwargs), 1, 1)
-    _, a5, kw5, _ = tiers["default"]["stream"]
-    ms5 = cuda_ms(lambda: RT.sd_trace_blocks(*a5, **kw5), 10, 2)
-    v5 = walk_visits(*k5_lists(a5), a5[0].shape[0])
-    log(f"K7 {ms:.4f} ms (plain {plain_ms:.2f} ms); K5 on the same rays "
-        f"{ms5:.4f} ms ({spread(v5)})")
+        f"{n_chunks} chunks: visits per 8x32 tile {walk}")
+    t = timings(f"K7 {out.shape[0]} rays",
+                lambda: RT.sd_trace_resident_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["sd_trace_resident"], 10,
+                plain=lambda: RT.sd_trace_resident_blocks_plain(
+                    *args, **kwargs))
     return with_bound(
-        dict(max_abs_err=err, mismatches=0, exact=True, ms=ms,
-             plain_ms=plain_ms, timed_at=f"{tuple(out.shape)} rays x slots, "
-             f"{n_chunks} chunks", chunk_visits=int(visits.sum()),
-             visits_per_block=walk, visits_per_block_row_major=row_major,
-             k5_same_rays_ms=ms5, k5_chunk_visits=int(v5.sum())),
+        dict(t, max_abs_err=err, mismatches=0, exact=True,
+             timed_at=f"{tuple(out.shape)} rays x slots, {n_chunks} chunks",
+             chunk_visits=int(visits.sum()), visits_per_block=walk),
         nbytes(args[:4], out),
         float(visits.sum()) * RT.TC * RT.RB * TRACE_FLOPS_PER_TEST)
 
@@ -2549,36 +2063,17 @@ def run_svao_full():
     """scripts/SVAO.py at Arcade@full 1280x720 through Renderer.renderFrame
     (the script's own properties): CONFIG_FRAMES frames with K7 once and
     K5 never per frame, the last frame's calls bit-exact against their
-    plain versions (K1-K4, K7, K8, K10); svao_full_sd_phases; K7's row; the
-    frame timed as in 10. Returns (K7's kernel row, report)."""
+    plain versions (K1-K4, K7, K8, K10); svao_full_sd_phases; K7's row.
+    Returns (K7's kernel row, {launches})."""
     label = "svao_full"
     kernels = kernels_of_configs()
-    by_name = kernels_by_name(kernels)
     m, totals, modes = drive_config(label, kernels)
-    held = check_config_calls(label, kernels)
-    raster_calls = time_raster_calls(label, by_name["raster"].calls)
-    tiers, capped, sd_call = svao_full_sd_phases(m)
-    row = resident_row(tiers)
-    row["sd_stage"] = sd_stage_split(*sd_call)
-    whole = row["sd_stage"]["sd_trace_resident"]
-    row.update(kernel_ms=row["ms"], ms=whole["event_ms"],
-               device_ms=whole["device_ms"], wrapper_host_us=whole["host_us"])
-    times, _ = graph_timing(m)
-    row = dict(row, name="sd_trace_resident",
-               launches=totals["sd_trace_resident"],
-               device_ms_profiled_frame=times["kernel_device_ms"].get(
-                   "sd_trace_resident"),
-               source=by_name["sd_trace_resident"].source,
-               replaces=by_name["sd_trace_resident"].replaces)
-    script, scene, width, height, overrides, _ = CONFIGS[label]
-    report = dict(times, script=str(script.relative_to(ROOT)), scene=scene,
-                  width=width, height=height, launches=totals,
-                  warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
-                  bit_exact_calls=held, maxcount8_filled_slots=capped,
-                  raster_calls=raster_calls,
-                  sd_tiers_bit_exact=sorted(tiers))
+    check_config_calls(label, kernels)
+    row = dict(resident_row(svao_full_sd_phases(m)),
+               name="sd_trace_resident", at=label,
+               launches=totals["sd_trace_resident"])
     del m
-    return row, report
+    return row, dict(launches=totals, warp_launches_by_mode=modes)
 
 
 # ---------------------------------------------------------------------------
@@ -2587,8 +2082,8 @@ def run_svao_full():
 # ---------------------------------------------------------------------------
 
 def sd_trace_timing(label, k) -> dict:
-    """K5 at the config's last call: its launch (CUDA events, device time
-    per call by torch.profiler, host enqueue), its chunk visits per 8x32
+    """K5's row at the config's last call (held bit-exact by
+    check_config_calls): its times (timings), its chunk visits per 8x32
     tile and its bound (the visits' ray-triangle tests)."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     check(k.calls, f"{label}: no K5 call recorded")
@@ -2596,28 +2091,25 @@ def sd_trace_timing(label, k) -> dict:
     out = RT.sd_trace_blocks(*args, **kwargs)
     n_chunks = args[0].shape[0]
     visits = walk_visits(*k5_lists(args), n_chunks)
-    t = timings(lambda: RT.sd_trace_blocks(*args, **kwargs),
-                KERNEL_SYMBOLS["sd_trace"], 10)
     filled = float((out != RT.INVALID).any(1).double().mean())
-    res = with_bound(
-        dict(t, ms=t["event_ms"], rays=out.shape[0], chunks=n_chunks,
+    log(f"{label} K5: {out.shape[0]} rays ({out.shape[0] // RT.RB} tiles) x "
+        f"{n_chunks} chunks, visits per tile {spread(visits)}; rays with a "
+        f"hit {filled:.4f}")
+    t = timings(f"{label} K5", lambda: RT.sd_trace_blocks(*args, **kwargs),
+                KERNEL_SYMBOLS["sd_trace"], 10)
+    return with_bound(
+        dict(t, max_abs_err=0.0, rays=out.shape[0], chunks=n_chunks,
              chunk_visits=int(visits.sum()), visits_per_block=spread(visits),
              rays_with_a_hit=filled),
         nbytes(args[:4], args[9:11], out),
         float(visits.sum()) * RT.TC * RT.RB * TRACE_FLOPS_PER_TEST)
-    log(f"{label} K5: {out.shape[0]} rays ({out.shape[0] // RT.RB} tiles) x "
-        f"{n_chunks} chunks, visits per tile {res['visits_per_block']}; "
-        f"{res['ms']:.4f} ms by CUDA events, device {res['device_ms']} ms, "
-        f"host {res['host_us']:.1f} us; bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']}); rays with a hit {filled:.4f}")
-    return res
 
 
 def k8_bound_at(label, k) -> dict:
-    """K8 at a config's last-frame call: its time (CUDA events, device time
-    per call by torch.profiler) and its bound as compare_any_hit counts it
-    (this run's pairs x the operations per pair of the warp that tests
-    them, plus the boxes staged, from the replayed walk; its bytes)."""
+    """K8's row at a config's last-frame call (held by check_config_calls):
+    its times (timings) and its bound as compare_any_hit counts it (this
+    run's pairs x the operations per pair of the warp that tests them,
+    plus the boxes staged, from the replayed walk; its bytes)."""
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     check(k.calls, f"{label}: no K8 call recorded")
     args, _ = k.calls[-1]
@@ -2627,34 +2119,29 @@ def k8_bound_at(label, k) -> dict:
     _, pairs_f = RT.any_hit_blocks(tri, free, lists, counts, rays)
     walk = k8_walk(tri, boxes, lists, counts, rays, pairs_f)
     ops, p_h, p_m = any_hit_work(walk, pairs, rays)
-    t = timings(lambda: RT.any_hit_blocks(*args), KERNEL_SYMBOLS["any_hit"],
-                10)
-    res = with_bound(
-        dict(t, ms=t["event_ms"], rays=int(rays.shape[1]),
+    log(f"{label} K8: {int(rays.shape[1])} rays x {int(tri.shape[0])} "
+        f"chunks, {float(pairs.double().sum()):.6g} pairs tested "
+        f"({float(pairs_f.double().sum()):.6g} without the cull)")
+    t = timings(f"{label} K8", lambda: RT.any_hit_blocks(*args),
+                KERNEL_SYMBOLS["any_hit"], 10)
+    return with_bound(
+        dict(t, max_abs_err=0.0, rays=int(rays.shape[1]),
              chunks=int(tri.shape[0]), pairs=float(pairs.double().sum()),
              pairs_hoisted=p_h, pairs_per_pair_path=p_m,
              pairs_no_cull=float(pairs_f.double().sum()), walk=walk),
         nbytes(tri, boxes, lists, counts, rays, hit, pairs), ops)
-    log(f"{label} K8: {res['rays']} rays x {res['chunks']} chunks, "
-        f"{res['pairs']:.6g} pairs tested ({res['pairs_no_cull']:.6g} "
-        f"without the cull); {res['ms']:.4f} ms by CUDA events, device "
-        f"{res['device_ms']} ms; bound {res['bound_ms']:.4f} ms "
-        f"({res['bound_by']})")
-    return res
 
 
 def k11_timing(label, k):
-    """K11 at the last frame's first call: CUDA events, device and host
-    time, its bound (each value written once, each SD texel the call reads
-    read once: the plain version's fetch of a map of texel indices, exact
-    in float32 below 2^24 texels, counts them) and the plain version's
-    time."""
+    """K11's row at the last frame's first call (held bit-exact by
+    check_config_calls): its times (timings) and its bound (each value
+    written once, each SD texel the call reads read once: the plain
+    version's fetch of a map of texel indices, exact in float32 below
+    2^24 texels, counts them)."""
     import torch
     from rtsdm_tpu_torch.ops import fetch_cuda as F
     check(k.calls, f"{label}: K11 made no call")
     args, kwargs = k.calls[0]
-    t = timings(lambda: F.fetch_sd_strided(*args, **kwargs),
-                KERNEL_SYMBOLS["fetch_sd_strided"], 50)
     out = F.fetch_sd_strided(*args, **kwargs)
     sd_h, sd_w, depth_k = args[0].shape
     check(sd_h * sd_w < 2**24, f"{label}: K11's texel count is inexact")
@@ -2662,17 +2149,13 @@ def k11_timing(label, k):
                          device=out.device).reshape(sd_h, sd_w, 1)
     texels = int(F.fetch_sd_strided_plain(index, *args[1:], **kwargs)
                  .unique().numel())
-    res = with_bound(dict(t, ms=t["event_ms"], shape=list(out.shape),
-                          texels_read=texels,
-                          plain_ms=cuda_ms(lambda: F.fetch_sd_strided_plain(
-                              *args, **kwargs), 3)),
-                     nbytes(out) + texels * depth_k * 4, 0.0)
-    log(f"{label} K11 {tuple(out.shape)}, {texels} SD texels read: "
-        f"{res['ms']:.4f} ms by CUDA events, "
-        f"device {res['device_ms']} ms, host {res['host_us']:.1f} us; bound "
-        f"{res['bound_ms']:.4f} ms ({res['bound_by']}); plain "
-        f"{res['plain_ms']:.3f} ms")
-    return res
+    t = timings(f"{label} K11 {tuple(out.shape)}, {texels} SD texels read",
+                lambda: F.fetch_sd_strided(*args, **kwargs),
+                KERNEL_SYMBOLS["fetch_sd_strided"], 50,
+                plain=lambda: F.fetch_sd_strided_plain(*args, **kwargs))
+    return with_bound(dict(t, max_abs_err=0.0, shape=list(out.shape),
+                           texels_read=texels),
+                      nbytes(out) + texels * depth_k * 4, 0.0)
 
 
 def h2d_copies_by_span(events) -> collections.Counter:
@@ -2719,7 +2202,6 @@ def frame_copies(m, label: str) -> dict:
     check(in_svao == 0 and misses == 0,
           f"{label}: SVAO's warm frame made {in_svao} host-to-device "
           f"copies and {misses} table(s)")
-    return {"h2d_copies": dict(copies), "tables_svao_misses": misses}
 
 
 def run_new_configs():
@@ -2729,10 +2211,11 @@ def run_new_configs():
     SD guard band 512, SunTemple@full 1920x1080) through the harness:
     CONFIG_FRAMES frames with the launches of config_want, the last
     frame's calls bit-exact against their plain versions (K5 and K8 on a
-    spread subset of tiles), K5 timed with its bound, every K1 call timed,
-    at config 3 a warm frame's host-to-device copies by span (none may lie
-    in SVAO), the frame timed as in 10. Returns {label: report}."""
+    spread subset of tiles), K5's row (and K8's at config 4, K11's at
+    config 3), at config 3 a warm frame's host-to-device copies by span
+    (none may lie in SVAO). Returns (kernel rows, {label: launches})."""
     report = {}
+    rows = []
     for label in ("config4", "config3"):
         kernels = kernels_of_configs()
         by_name = kernels_by_name(kernels)
@@ -2743,29 +2226,26 @@ def run_new_configs():
                 "JAX package runs XLA code (rtsdm_tpu/passes/"
                 "svao_shift.py:578-580, no Pallas kernel): K4 serves "
                 "divisor 4 only, so it never launches here")
-        held = check_config_calls(label, kernels)
-        k11 = k11_timing(label, by_name["fetch_sd_strided"]) \
-            if label == "config3" else None
-        k5 = sd_trace_timing(label, by_name["sd_trace"])
-        k8 = k8_bound_at(label, by_name["any_hit"]) \
-            if label == "config4" else None
-        raster_calls = time_raster_calls(label, by_name["raster"].calls)
-        copies = frame_copies(m, label) if label == "config3" else None
-        times, _ = graph_timing(m)
-        script, scene, width, height, overrides, _ = CONFIGS[label]
-        report[label] = dict(times, script=str(script.relative_to(ROOT)),
-                             scene=scene, width=width, height=height,
-                             triangles=int(m.scene.num_triangles),
-                             overrides=overrides, launches=totals,
-                             warp_launches_by_mode=modes,
-                             frames=CONFIG_FRAMES, bit_exact_calls=held,
-                             sd_trace=k5, any_hit=k8, sd_fetch=k11,
-                             raster_calls=raster_calls, copies=copies)
+        check_config_calls(label, kernels)
+        if label == "config3":
+            rows.append(dict(k11_timing(label, by_name["fetch_sd_strided"]),
+                             name="fetch_sd_strided"))
+        rows.append(dict(sd_trace_timing(label, by_name["sd_trace"]),
+                         name="sd_trace"))
+        if label == "config4":
+            rows.append(dict(k8_bound_at(label, by_name["any_hit"]),
+                             name="any_hit"))
+        for r in rows:
+            r.setdefault("at", label)
+            r.setdefault("launches", totals.get(r["name"], 0))
+        if label == "config3":
+            frame_copies(m, label)
+        report[label] = dict(launches=totals, warp_launches_by_mode=modes)
         del m
-    return report
+    return rows, report
 
 
-def svao_modes_frames() -> dict:
+def svao_modes_frames():
     """Phase 20: scripts/SVAO.py at Arcade@full 1280x720, one frame with
     SVAO's primaryDepthMode set to DualDepth after the build (DepthPeeling
     runs: K1 once with its floor; phase 1's K3 call on two plane sets;
@@ -2786,7 +2266,6 @@ def svao_modes_frames() -> dict:
     m.renderFrame()
     base = {k: svao.cfg[k] for k in ("primaryDepthMode",
                                      "secondaryDepthMode")}
-    res = {}
     for mode, props in (("DualDepth", {"primaryDepthMode": "DualDepth"}),
                         ("SingleDepth",
                          {"secondaryDepthMode": "SingleDepth"})):
@@ -2809,83 +2288,50 @@ def svao_modes_frames() -> dict:
                 "fetch_sd_packed": int(dual), "sd_trace": 0,
                 "sd_trace_resident": int(dual), "raster_stochastic": 0,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
-        log(f"SVAO.py with {props}: {m.last_frame_ms:.3f} ms host clock; "
-            f"launches {counts}; AO in [{lo:.4f}, {hi:.4f}]")
+        log(f"SVAO.py with {props}: launches {counts}; AO in "
+            f"[{lo:.4f}, {hi:.4f}]")
         check(all(counts[n] == v for n, v in want.items()),
               f"SVAO.py {mode}: launches {counts}, expected {want}")
         sets = [len(a[0]) for a, _ in by_name["fetch_all_directions"].calls]
         check(sets == ([2, 1] if dual else [1]),
               f"SVAO.py {mode}: K3 took {sets} plane sets")
-        held = check_config_calls(f"SVAO.py {mode}", kernels)
+        check_config_calls(f"SVAO.py {mode}", kernels)
         floored = sum(kw.get("floor") is not None
                       for _, kw in by_name["raster"].calls)
         check(floored == int(dual), f"{mode}: {floored} floored K1 calls held")
-        res[mode] = dict(launches=counts, bit_exact_calls=held,
-                         k3_plane_sets=sets, floored_k1_held=floored,
-                         host_ms=m.last_frame_ms, ao_range=[lo, hi])
     log("SVAO.py DualDepth: K1 launched once with its floor and phase 1's "
         "K3 on 2 plane sets, both bit-exact with their plain versions; "
         "SingleDepth: no SD trace and no K4")
     del m
-    return res
 
 
 # ---------------------------------------------------------------------------
-# scripts/SVAO_depth.py, SVAO's reference modes, RTAO and the quality oracle
-# (phases 21-23): the brute-force ray queries of ops/rt.py are plain
-# PyTorch (XLA code in the JAX package), timed here
+# scripts/SVAO_depth.py, SVAO's reference modes and RTAO (phases 21-22): the
+# brute-force ray queries of ops/rt.py are plain PyTorch (XLA code in the
+# JAX package)
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def timed_rt_queries():
+def rt_queries():
     """While it holds, every call of ops/rt.py's closest_hit and
-    vao_interval_query is timed by CUDA events around it (synchronized
-    before and after) and the yielded list gets {fn, rays, ms, args}."""
-    import torch
+    vao_interval_query appends {fn, rays} to the yielded list."""
     from rtsdm_tpu_torch.ops import rt
     seen = []
     saved = []
     for name in ("closest_hit", "vao_interval_query"):
         real = getattr(rt, name)
 
-        def timed(scene, origins, dirs, tmin, tmax, *a, _real=real,
-                  _name=name, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            torch.cuda.synchronize()
-            start.record()
-            out = _real(scene, origins, dirs, tmin, tmax, *a, **kw)
-            end.record()
-            torch.cuda.synchronize()
-            seen.append(dict(fn=_name, rays=int(origins.shape[0]),
-                             ms=start.elapsed_time(end),
-                             chunk=kw.get("chunk", rt.DEFAULT_CHUNK),
-                             args=(scene, origins, dirs, tmin, tmax)))
-            return out
+        def recorded(scene, origins, *a, _real=real, _name=name, **kw):
+            seen.append(dict(fn=_name, rays=int(origins.shape[0])))
+            return _real(scene, origins, *a, **kw)
 
         saved.append((name, real))
-        setattr(rt, name, timed)
+        setattr(rt, name, recorded)
     try:
         yield seen
     finally:
         for name, real in saved:
             setattr(rt, name, real)
-
-
-def rt_query_row(q: dict, what: str) -> dict:
-    """A timed query's rays, time, rays a second and the ray-triangle
-    tests its culled blocks evaluated, against the brute force's."""
-    from rtsdm_tpu_torch.ops import rt
-    culled, brute = rt.query_tests(*q["args"], chunk=q["chunk"])
-    rps = q["rays"] / (q["ms"] / 1e3) if q["ms"] > 0 else None
-    row = dict(fn=q["fn"], rays=q["rays"], ms=q["ms"], rays_per_s=rps,
-               tests=culled, brute_force_tests=brute,
-               tests_per_s=culled / (q["ms"] / 1e3) if q["ms"] > 0 else None)
-    log(f"{what}: {q['fn']} traced {q['rays']} rays in {q['ms']:.3f} ms "
-        f"(CUDA events), {rps:.4g} rays/s; {culled} ray-triangle tests "
-        f"evaluated ({culled / max(brute, 1):.4g} of the brute force's "
-        f"{brute})")
-    return row
 
 
 def run_svao_depth() -> dict:
@@ -2896,12 +2342,11 @@ def run_svao_depth() -> dict:
     launches of config_want per frame, counted between zeroing and reading
     around each frame; the last frame's calls held bit-exact against their
     plain versions (K1 with and without its floor, K2, K3, K10 bilinear);
-    both outputs finite, of the requested size, AO in [0, 1]; the RT query
-    timed by CUDA events with the rays it traced; the frame timed as in
-    10."""
+    both outputs finite, of the requested size, AO in [0, 1]; one RT query
+    a frame, tracing rays. Returns {launches}."""
     label = "svao_depth"
     kernels = kernels_of_configs()
-    with timed_rt_queries() as queries:
+    with rt_queries() as queries:
         m, totals, modes = drive_config(label, kernels)
     ref_ao = m._last_outputs["AmbientRef.out"][..., 0]
     check(0.0 <= float(ref_ao.min()) and float(ref_ao.max()) <= 1.0,
@@ -2912,19 +2357,12 @@ def run_svao_depth() -> dict:
     check(modes.get("bilinear", 0) == CONFIG_FRAMES - 1,
           f"svao_depth: TemporalDepthPeel's K10 bilinear launched "
           f"{modes.get('bilinear', 0)} times, expected {CONFIG_FRAMES - 1}")
-    held = check_config_calls(label, kernels)
-    rt_row = rt_query_row(queries[-1], f"{label} SVAO_ref")
-    check(rt_row["rays"] > 0, "svao_depth: SVAO_ref traced no ray")
-    times, _ = graph_timing(m, reps=3)
-    script, scene, width, height, overrides, _ = CONFIGS[label]
-    report = dict(times, script=str(script.relative_to(ROOT)), scene=scene,
-                  width=width, height=height,
-                  triangles=int(m.scene.num_triangles), launches=totals,
-                  warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
-                  bit_exact_calls=held, rt_query=rt_row,
-                  rt_query_ms_per_frame=[q["ms"] for q in queries])
+    check_config_calls(label, kernels)
+    log(f"{label} SVAO_ref: {queries[-1]['fn']} traced "
+        f"{queries[-1]['rays']} rays")
+    check(queries[-1]["rays"] > 0, "svao_depth: SVAO_ref traced no ray")
     del m
-    return report
+    return dict(launches=totals, warp_launches_by_mode=modes)
 
 
 # SVAO's reference modes in scripts/SVAO.py (phase 22): the mode, its
@@ -2946,9 +2384,10 @@ def svao_reference_modes() -> dict:
     with samplingMode gather (per-pixel phases: no K3 or K4; the SD map
     through K7), kernel HBAO (shift mode: K3 and K4 on HBAO's ring tables,
     held bit-exact) and secondaryDepthMode Raytraced (phase 1's K3, then
-    the RT query, timed), set after the build; counts zeroed just before
-    and read just after each frame, no plain version run, the frame's
-    calls held bit-exact. Then one RTAO frame at that size (rtao_frame)."""
+    one RT query), set after the build; counts zeroed just before and read
+    just after each frame, no plain version run, the frame's calls held
+    bit-exact. Then one RTAO frame at that size (rtao_frame). Returns
+    {mode: launches}."""
     import torch
     from rtsdm_tpu_torch._build import LAUNCHES
     from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
@@ -2969,7 +2408,7 @@ def svao_reference_modes() -> dict:
     res = {}
     for mode, props, differs in REFERENCE_MODES:
         svao.cfg.update(props)
-        with timed_rt_queries() as queries, \
+        with rt_queries() as queries, \
                 record_main_path(kernels) as plain_calls:
             for k in kernels:
                 k.calls.clear()
@@ -2988,8 +2427,8 @@ def svao_reference_modes() -> dict:
                      "sd_trace": 0, "raster_stochastic": 0,
                      "fetch_taps_same_class": 0, "any_hit": n_lights},
                     **differs)
-        log(f"SVAO.py with {props}: {m.last_frame_ms:.3f} ms host clock; "
-            f"launches {counts}; AO in [{lo:.4f}, {hi:.4f}]")
+        log(f"SVAO.py with {props}: launches {counts}; AO in "
+            f"[{lo:.4f}, {hi:.4f}]")
         check(all(counts[n] == v for n, v in want.items()),
               f"SVAO.py {mode}: launches {counts}, expected {want}")
         if mode == "HBAO":
@@ -2999,26 +2438,23 @@ def svao_reference_modes() -> dict:
             check(len(tables) == 3 and all(t == hbao_radii for t in tables),
                   f"SVAO.py HBAO: K3/K4 took ring radii {tables}, not "
                   f"HBAO's {hbao_radii}")
-        held = check_config_calls(f"SVAO.py {mode}", kernels)
-        row = dict(launches=counts, warp_launches_by_mode=by_mode,
-                   bit_exact_calls=held, host_ms=m.last_frame_ms,
-                   ao_range=[lo, hi])
+        check_config_calls(f"SVAO.py {mode}", kernels)
         if mode == "Raytraced":
             check(len(queries) == 1, f"Raytraced: {len(queries)} queries")
-            row.update(rt_query=rt_query_row(queries[0],
-                                             "SVAO.py Raytraced"))
+            log(f"SVAO.py Raytraced: {queries[0]['fn']} traced "
+                f"{queries[0]['rays']} rays")
         else:
             check(not queries, f"SVAO.py {mode}: an RT query ran")
-        res[mode] = row
+        res[mode] = dict(launches=counts, warp_launches_by_mode=by_mode)
     del m
-    res["rtao"] = rtao_frame()
+    rtao_frame()
     return res
 
 
-def rtao_frame(scene_name="Arcade@full", width=1280, height=720) -> dict:
+def rtao_frame(scene_name="Arcade@full", width=1280, height=720):
     """One RTAO frame on the G-buffer of `scene_name` at width x height:
-    a cosine ray a pixel through closest_hit (timed by CUDA events, after a
-    warm-up frame), ambient finite and in [0, 1], some pixels occluded."""
+    a cosine ray a pixel through closest_hit, ambient finite and in
+    [0, 1], some pixels occluded."""
     import torch
     from rtsdm_tpu_torch.passes.ao_extra import RTAO
     from rtsdm_tpu_torch.passes.gbuffer import raster_gbuffer
@@ -3031,12 +2467,7 @@ def rtao_frame(scene_name="Arcade@full", width=1280, height=720) -> dict:
     inputs = {"wPos": g["posW"], "faceNormal": g["faceNormalW"]}
     ctx = RenderContext(width=width, height=height, scene=scene,
                         frame_index=1, dictionary={"guardBand": 0})
-    p.execute(ctx, inputs)
-    with timed_rt_queries() as queries:
-        t0 = time.perf_counter()
-        out, _ = p.execute(ctx, inputs)
-        torch.cuda.synchronize()
-        frame_ms = (time.perf_counter() - t0) * 1e3
+    out, _ = p.execute(ctx, inputs)
     amb = out["ambient"]
     check(tuple(amb.shape) == (height, width)
           and bool(torch.isfinite(amb).all())
@@ -3044,38 +2475,14 @@ def rtao_frame(scene_name="Arcade@full", width=1280, height=720) -> dict:
           "RTAO: ambient not finite in [0, 1]")
     occluded = float((amb < 1.0).float().mean())
     check(0.0 < occluded < 1.0, f"RTAO: occluded share {occluded}")
-    log(f"RTAO frame, {scene_name} {width}x{height}: {frame_ms:.3f} ms host "
-        f"clock, {occluded:.4f} of the pixels occluded")
-    return dict(scene=scene_name, width=width, height=height,
-                frame_ms=frame_ms, occluded_share=occluded,
-                rt_query=rt_query_row(queries[0], "RTAO"))
-
-
-def quality_row() -> dict:
-    """Phase 23: one row of the quality oracle on the card
-    (rtsdm_tpu_torch/tools/quality_ssim.py), BASELINE config 2 at the JAX
-    tool's 640x360 on Arcade@full: SSIM of the ray-traced and the raster SD
-    AO against SVAO's Raytraced reference mode, and their mean absolute
-    difference. Reported, not gated."""
-    from rtsdm_tpu_torch.tools import quality_ssim as Q
-    t0 = time.perf_counter()
-    with timed_rt_queries() as queries:
-        row = Q.run_config(Q.CONFIGS[0], "cuda", rtao_frames=0)
-    row["seconds_total"] = time.perf_counter() - t0
-    check(len(queries) == 1, f"quality row: {len(queries)} RT queries")
-    log(f"quality, config 2 ({row['scene']} {row['resolution']}, "
-        f"{row['triangles']} triangles): SSIM(ray_sd, Raytraced) "
-        f"{row['ssim_ray_sd_vs_raytraced']:.6f}, SSIM(raster_sd, Raytraced) "
-        f"{row['ssim_raster_sd_vs_raytraced']:.6f}, mean |ray_sd - "
-        f"Raytraced| {row['mean_abs_diff_ray_sd_vs_raytraced']:.6g}")
-    row["rt_query"] = rt_query_row(queries[0], "quality config 2 Raytraced")
-    return row
+    log(f"RTAO frame, {scene_name} {width}x{height}: {occluded:.4f} of the "
+        f"pixels occluded")
 
 
 def maxcount_on_main_path(scene):
     """One SVAO-path frame at SunTemple@full with stochMaxCount 8: K5 (the
     streamed tier, 323,202 triangles) held bit-exact against its plain
-    version with the cap, and timed beside the uncapped trace."""
+    version with the cap."""
     import torch
     from rtsdm_tpu_torch.ops import rt_cuda as RT
     pass_, ctx = make_svao(scene, WIDTH, HEIGHT,
@@ -3086,29 +2493,17 @@ def maxcount_on_main_path(scene):
     check(len(calls) == 1 and calls[0][0] == "sd_trace_blocks",
           "SVAO path with stochMaxCount 8: not one K5 call")
     hold_sd_call(calls[0], "SVAO path stochMaxCount 8")
-    _, args, kwargs, out = calls[0]
+    _, args, _, out = calls[0]
     check(args[7] == 8, f"K5 took max_count {args[7]}")
-    ms = cuda_ms(lambda: RT.sd_trace_blocks(*args, **kwargs), 10, 2)
-    free = args[:7] + (0,) + args[8:]     # the same call uncapped
-    ms_free = cuda_ms(lambda: RT.sd_trace_blocks(*free, **kwargs), 10, 2)
     filled = float((out != RT.INVALID).sum(1).double().mean())
     log(f"SVAO path stochMaxCount 8: K5 bit-exact with its plain version; "
-        f"{filled:.4f} filled slots per ray; K5 {ms:.4f} ms with the cap, "
-        f"{ms_free:.4f} ms without")
-    return dict(k5_ms_maxcount8=ms, k5_ms_uncapped=ms_free,
-                filled_slots_per_ray=filled)
+        f"{filled:.4f} filled slots per ray")
+
 
 # ---------------------------------------------------------------------------
-# the SD trace stage piece by piece, K5's and K7's resources and walks
+# the SD pass's inputs, the chunk visits of K5's and K7's walks, the
+# parent's checkout
 # ---------------------------------------------------------------------------
-
-# rt_cuda functions the SD pass calls, timed piece by piece (the wrappers
-# sd_trace_stream and sd_trace_resident hold the pieces they call)
-SD_PIECES = ("prep_triangles_packed", "chunk_screen_rows",
-             "build_chunk_lists", "_ray_rows", "pad_tile", "tile_flatten",
-             "tile_unflatten", "sd_trace_blocks", "sd_trace_resident_blocks",
-             "decode_packed", "sd_trace_stream", "sd_trace_resident")
-
 
 @contextlib.contextmanager
 def sd_pass_capture():
@@ -3128,67 +2523,6 @@ def sd_pass_capture():
         StochasticDepthMapRT.execute = real
 
 
-def sd_stage_split(sd_pass, ctx, inputs, reps: int = 10) -> dict:
-    """The SD pass's execute on these inputs, whole and piece by piece:
-    for each rt_cuda function of SD_PIECES that it calls, all its calls
-    replayed together, by CUDA events (host work included) and host
-    enqueue time; K5's or K7's kernel by torch.profiler. On the streamed
-    tier build_chunk_lists is also timed when the path no longer calls it
-    (`off_path`)."""
-    import torch
-    from rtsdm_tpu_torch.ops import rt_cuda as RT
-    real = {n: getattr(RT, n) for n in SD_PIECES}
-    calls = {n: [] for n in SD_PIECES}
-
-    def rec(n):
-        def f(*a, **kw):
-            calls[n].append((a, kw))
-            return real[n](*a, **kw)
-        return f
-
-    for n in SD_PIECES:
-        setattr(RT, n, rec(n))
-    try:
-        sd_pass.execute(ctx, inputs)
-    finally:
-        for n, fn in real.items():
-            setattr(RT, n, fn)
-    torch.cuda.synchronize()
-
-    def replay(n):
-        def run():
-            for a, kw in calls[n]:
-                real[n](*a, **kw)
-        return run
-
-    res = {"stage": dict(event_ms=cuda_ms(lambda: sd_pass.execute(
-        ctx, inputs), reps, 2), host_us=host_us(lambda: sd_pass.execute(
-            ctx, inputs), reps))}
-    for n in SD_PIECES:
-        if calls[n]:
-            res[n] = dict(calls=len(calls[n]),
-                          event_ms=cuda_ms(replay(n), reps, 2),
-                          host_us=host_us(replay(n), reps))
-    if calls["sd_trace_stream"] and not calls["build_chunk_lists"]:
-        a, kw = calls["sd_trace_stream"][0]
-        lists_args = (a[1], a[2], a[3], a[4], a[5], kw.get("rx"),
-                      kw.get("ry"))
-        res["build_chunk_lists"] = dict(
-            calls=0, off_path=True,
-            event_ms=cuda_ms(lambda: RT.build_chunk_lists(*lists_args),
-                             reps, 2),
-            host_us=host_us(lambda: RT.build_chunk_lists(*lists_args), reps))
-    for n in ("sd_trace_stream", "sd_trace_resident"):
-        if calls[n]:
-            res[n]["device_ms"] = device_ms(replay(n), "sd_trace", reps)
-    log("SD stage split (CUDA events ms / host us): " + "; ".join(
-        f"{n} {v['event_ms']:.4f} / {v['host_us']:.1f}"
-        + (" (off the path)" if v.get("off_path") else "")
-        + (f", device {v['device_ms']:.4f}" if v.get("device_ms") else "")
-        for n, v in res.items()))
-    return res
-
-
 def spread(visits) -> dict:
     """Max, mean and tail of the chunk visits per block (float64 tensor)."""
     import torch
@@ -3199,100 +2533,12 @@ def spread(visits) -> dict:
                 p99=float(q[2]), max=int(v.max()))
 
 
-# sm_90's limits a block's resources count against (occupancy)
-SM_REGS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
-SM_SHARED, BLOCK_SHARED_RESERVED = 233472, 1024
-SD_THREADS = 256    # K5's and K7's block (the parent's too)
-
-
-def sd_trace_resources() -> dict:
-    """Registers a thread, static shared and local bytes of K5's and K7's
-    k = 4 kernels (with the back-face cull, where it is a template
-    parameter) as the imported package built them, read from its
-    sd_trace library by cuobjdump --dump-resource-usage, and the blocks
-    of 256 threads an SM holds by them (sm_90's limits; registers are
-    allocated 256 a warp)."""
-    import re
-    from rtsdm_tpu_torch import _build
-    src = _build.CSRC_DIR / "sd_trace.cu"
-    headers = sorted(_build.CSRC_DIR.glob("*.cuh"))
-    digest = _build._digest([src, *headers], _build.NVCC_FLAGS)
-    lib = _build.BUILD_DIR / f"librtsdm_sd_trace_{digest}.so"
-    check(lib.exists(), f"{lib} is not built")
-    dump = subprocess.run(
-        [str(Path(_build.nvcc_path()).parent / "cuobjdump"),
-         "--dump-resource-usage", str(lib)],
-        capture_output=True, text=True, timeout=120, check=True).stdout
-    res = {}
-    for m in re.finditer(r"Function \S*?\d+(sd_trace_kernel|"
-                         r"sd_trace_resident_kernel)ILi4E(?:Lb1E)?E\S*:"
-                         r"\s*REG:(\d+) STACK:\d+ SHARED:(\d+) LOCAL:(\d+)",
-                         dump):
-        name = m.group(1).replace("_kernel", "")
-        regs, shared, local = (int(g) for g in m.group(2, 3, 4))
-        warps = SD_THREADS // 32
-        by_regs = SM_REGS // (-(-regs * 32 // 256) * 256) // warps
-        by_shared = SM_SHARED // (-(-shared // 128) * 128
-                                  + BLOCK_SHARED_RESERVED)
-        res[name] = dict(registers=regs, shared_bytes=shared,
-                         local_bytes=local, threads=SD_THREADS,
-                         blocks_per_sm=min(by_regs, by_shared, SM_BLOCKS,
-                                           SM_THREADS // SD_THREADS))
-    check(set(res) == {"sd_trace", "sd_trace_resident"},
-          f"cuobjdump listed {sorted(res)} of K5 and K7 in {lib.name}")
-    log("SD trace resources (k = 4, cuobjdump): " + "; ".join(
-        f"{n}: {v['registers']} registers, {v['shared_bytes']} B shared, "
-        f"{v['local_bytes']} B local, {v['threads']} threads a block, "
-        f"{v['blocks_per_sm']} blocks an SM" for n, v in res.items()))
-    return res
-
-
 def import_checkout(root: Path):
     """Import rtsdm_tpu_torch from the checkout at `root`."""
     sys.path.insert(0, str(root))
     import rtsdm_tpu_torch
     where = Path(rtsdm_tpu_torch.__file__).resolve().parent.parent
     check(where == root.resolve(), f"rtsdm_tpu_torch imported from {where}")
-
-
-def ab_child(root: Path) -> dict:
-    """Run as `chip_smoke.py --ab-child ROOT` in a process of its own: the
-    SD stage, piece by piece (sd_stage_split), of the SVAO path
-    (SunTemple@full 1920x1080) and of scripts/SVAO.py's first frame
-    (Arcade@full 1280x720), its K5's and K7's resources
-    (sd_trace_resources), and K2 and K4 timed (timings) at calls recorded
-    from a frame: K2 at the SVAO path's call and at the graph's 2048x1208
-    one (SVAO_small.py on SunTemple@full, guard band 64), K4 at the SVAO
-    path's, through the package of the checkout at ROOT."""
-    import_checkout(root)
-    from rtsdm_tpu_torch.scene.procedural import sun_temple
-    scene = sun_temple(aspect=WIDTH / HEIGHT, detail="full", device="cuda")
-    pass_, ctx = make_svao(scene, WIDTH, HEIGHT, SVAO_PROPS)
-    by_name = kernels_by_name(kernels_of_path())
-    k2, k4 = by_name["fetch_attributes"], by_name["fetch_sd_packed"]
-    with sd_pass_capture() as seen, record_main_path([k2, k4]):
-        frame(scene, pass_, ctx, WIDTH, HEIGHT)
-    res = {"svao_path": sd_stage_split(*seen[0])}
-    calls = {"k2_svao_path": (k2, k2.calls[0]),
-             "k4_svao_path": (k4, k4.calls[0])}
-    m = graph_renderer()
-    k2.calls.clear()
-    with record_main_path([k2]):
-        m.renderFrame()
-    del m
-    wide = [c for c in k2.calls if tuple(c[0][0].shape) == (1208, 2048)]
-    check(wide, "the graph made no 2048x1208 K2 call")
-    calls["k2_graph"] = (k2, wide[0])
-    for label, (k, (args, kwargs)) in calls.items():
-        res[label] = timings(lambda: k.wrapper(*args, **kwargs),
-                             KERNEL_SYMBOLS[k.name], 50)
-    m = config_renderer("svao_full")
-    with sd_pass_capture() as seen:
-        m.renderFrame()
-    res["svao_full"] = sd_stage_split(*seen[0])
-    del m
-    res["resources"] = sd_trace_resources()
-    return res
 
 
 def child(flag: str, root: Path) -> dict:
@@ -3305,86 +2551,18 @@ def child(flag: str, root: Path) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
-def parent_ab(parent: Path) -> dict:
-    """The parent's SD stage, K5's and K7's resources, K2 and K4 against
-    this checkout's, in turns (parent, change, change, parent), each in a
-    process of its own (ab_child), on this card; and the mid-size
-    comparisons through the parent's kernels (mid_child, measured only).
-    Returns the four runs and the parent's MSEs."""
-    runs = []
-    for who in ("parent", "change", "change", "parent"):
-        res = child("--ab-child", parent if who == "parent" else ROOT)
-        runs.append(dict(who=who, **res))
-        for cell in ("svao_path", "svao_full"):
-            split = res[cell]
-            log(f"A/B {who} {cell}: stage {split['stage']['event_ms']:.4f} "
-                "ms; " + ", ".join(
-                    f"{n} {v['event_ms']:.4f} ms"
-                    + (f" (device {v['device_ms']:.4f})"
-                       if v.get("device_ms") else "")
-                    for n, v in split.items() if n != "stage"))
-        for name in ("k2_svao_path", "k2_graph", "k4_svao_path"):
-            t = res[name]
-            log(f"A/B {who} {name}: {t['event_ms']:.4f} ms by CUDA events, "
-                f"device {t['device_ms']} ms, host {t['host_us']:.1f} us")
-    mid = child("--mid-child", parent)
-    log("mid size through the parent's kernels: " + ", ".join(
-        f"{k} MSE {v['mse']:.4g}" for k, v in mid.items()))
-    return dict(runs=runs, parent_mid_size=mid)
-
-
 # ---------------------------------------------------------------------------
 # the mid-size comparison with the JAX package
 # ---------------------------------------------------------------------------
 
-# the graph scripts as tests/torch_refs/make_refs.py rendered them with the
-# JAX package on the CPU (tests/test_torch_refs.py checks that each file
-# records these settings): SVAO_small.py; HBAO.py (BASELINE config 1) with
-# HBAO's samplingMode "Shift", which the port takes on the card (hazard l);
-# config 2, SVAO_small.py with the raster SD map, the JAX package's through
-# raster_stochastic_pallas, which K9 follows (hazard m)
-MID_RASTER_CAPS = {p: {"maxPerTile": 4096}
-                   for p in ("GBufferRaster", "DepthPeeling",
-                             "ForwardLighting")}
-# the raster channels each graph's AO outputs read (make_refs.py stores
-# the JAX package's beside the reference): the G-buffer's depth and face
-# normals, its motion vectors where a temporal pass of the AO reads them,
-# DepthPeeling's floored raster where the graph keeps that pass
-MID_GBUFFER_AO = ["GBufferRaster.depth", "GBufferRaster.faceNormalW"]
-MID_GBUFFER_TAA = MID_GBUFFER_AO + ["GBufferRaster.mvec"]
-MID_PEELED = ["DepthPeeling.depth2"]
-# Graphs with a ray-traced SD map are rendered by the JAX package through
-# its SD trace's Pallas kernels (its CPU tier keys and orders the samples
-# otherwise) with XLA's fused multiply-adds off (they flip the samples'
-# hash keys): hazard q
-MID_REF = dict(script="scripts/SVAO_small.py", scene="Arcade@full",
-               width=480, height=270, frames=1, frame=0,
-               outputs=["AmbientOcclusion.out", "Shaded.out",
-                        "AmbientOcclusionTAA.colorOut",
-                        "ShadedTAA.colorOut"],
-               pass_overrides=MID_RASTER_CAPS,
-               shadows="RayShadow through any_hit_pallas (interpret mode)",
-               ray_sd="StochasticDepthMapRT through sd_trace_pallas or "
-                      "sd_trace_pallas_stream (interpret mode)",
-               xla_flags="--xla_cpu_max_isa=AVX", substituted=MID_GBUFFER_TAA)
-MID_HBAO_REF = dict({k: v for k, v in MID_REF.items()
-                     if k not in ("ray_sd", "xla_flags")},
-                    script="scripts/HBAO.py",
-                    outputs=["Ambient.out", "Diffuse.out"],
-                    pass_overrides={**MID_RASTER_CAPS,
-                                    "HBAO": {"samplingMode": "Shift"}},
-                    substituted=MID_GBUFFER_AO + MID_PEELED)
-# config 2's AO also reads the raster SD map, a raster of its own; its
-# reference's SVAO fetches through the fused Pallas fetches, whose phase 2
-# reads the SD map packed to 16 bits as K4 does (hazard r)
-MID_RASTER_SD_REF = dict(
-    {k: v for k, v in MID_REF.items() if k not in ("ray_sd", "xla_flags")},
-    pass_overrides={**MID_RASTER_CAPS, **RASTER_SD},
-    raster_sd="StochasticDepthMap through raster_stochastic_pallas "
-              "(interpret mode)",
-    fused_fetch="SVAO through fetch_all_directions and fetch_sd_packed "
-                "(interpret mode)",
-    substituted=MID_GBUFFER_TAA + ["StochasticDepthMap.stochasticDepth"])
+# The mid-size references (tests/torch_refs/<name>.<scene>.<W>x<H>.f<frame>
+# .npz) are the JAX package's renders of a graph script on the CPU, made by
+# tests/torch_refs/make_refs.py, which records in each file's `settings`
+# what it rendered: script, scene, size, frames, the frame kept, the
+# outputs, the pass overrides and the JAX package's accelerator branches it
+# took (its hazard notes say why). The port renders each with those
+# settings; the port's rasters keep no per-tile cap, so a maxPerTile
+# override changes nothing there.
 # MSE bound of each output against the JAX package's render: the MSE
 # measured on the card through the parent commit's kernels (PERF.md section
 # 6), doubled and rounded up to one digit. SVAO_small.py's (AO 3.69e-6, its
@@ -3408,39 +2586,9 @@ MID_HBAO_BOUND = {"Ambient.out": 2e-6, "Diffuse.out": 7e-6}
 MID_RASTER_SD_BOUND = {"AmbientOcclusion.out": 7e-6,
                        "AmbientOcclusionTAA.colorOut": 8e-6,
                        "Shaded.out": 5e-6, "ShadedTAA.colorOut": 2e-6}
-# scripts/SVAO.py, the reference's shipped graph: its DepthPass capped too
-# (hazard f; the graph prunes it and DepthPeeling, so only GBufferRaster
-# and ForwardLighting raster), DiffuseDLSS.output (a pass-through stub)
-# not kept
-MID_SVAO_FULL_REF = dict(
-    MID_REF, script="scripts/SVAO.py",
-    outputs=["AmbientRef.out", "DiffuseRef.out", "AmbientTAA.colorOut",
-             "DiffuseTAA.colorOut"],
-    pass_overrides={**MID_RASTER_CAPS, "DepthPass": {"maxPerTile": 4096}},
-    left_out={"DiffuseDLSS.output": "DLSSPass is a pass-through stub "
-                                    "(passes/stubs.py): DiffuseRef.out"})
 MID_SVAO_FULL_BOUND = {"AmbientRef.out": 8e-6, "DiffuseRef.out": 6e-6,
                        "AmbientTAA.colorOut": 1e-5,
                        "DiffuseTAA.colorOut": 2e-6}
-# scripts/SVAO_quarter.py (BASELINE config 4's graph: no DepthPeeling
-# pass, so two raster caps) and scripts/SVAO.py with SVAO's
-# primaryDepthMode set to DualDepth after the build (DepthPeeling and
-# LinearizeDepth0 then run; only AmbientRef.out is kept)
-MID_QUARTER_REF = dict(
-    MID_REF, script="scripts/SVAO_quarter.py",
-    outputs=["AmbientOcclusion.out", "ShadedTAA.colorOut"],
-    pass_overrides={p: MID_RASTER_CAPS[p]
-                    for p in ("GBufferRaster", "ForwardLighting")},
-    substituted=MID_GBUFFER_AO)
-MID_DUAL_REF = dict(
-    MID_SVAO_FULL_REF, outputs=["AmbientRef.out"],
-    pass_overrides={**MID_SVAO_FULL_REF["pass_overrides"],
-                    "SVAO": {"primaryDepthMode": "DualDepth"}},
-    left_out={**{o: "kept small: SVAO_full holds it"
-                 for o in ("DiffuseRef.out", "AmbientTAA.colorOut",
-                           "DiffuseTAA.colorOut")},
-              **MID_SVAO_FULL_REF["left_out"]},
-    substituted=MID_GBUFFER_TAA + MID_PEELED)
 # Bounds fixed before the first chip run of these graphs: twice the MSE of
 # the port's own CPU render against the reference, rounded up to one digit
 # (SVAO_quarter.py: AO 3.245e-4, ShadedTAA 5.383e-6; SVAO.py under
@@ -3450,35 +2598,20 @@ MID_DUAL_REF = dict(
 # ratios of small local deviations.
 MID_QUARTER_BOUND = {"AmbientOcclusion.out": 7e-4, "ShadedTAA.colorOut": 2e-5}
 MID_DUAL_BOUND = {"AmbientRef.out": 7e-6}
-# scripts/SVAO_depth.py (SVAO under DualDepth over TemporalDepthPeel's
-# layer, SVAO_ref under the Raytraced secondary mode): no RayShadow and no
-# ForwardLighting, its two rasters capped, frame 1 kept
-MID_DEPTH_REF = dict(
-    script="scripts/SVAO_depth.py", scene="Arcade@full", width=480,
-    height=270, frames=2, frame=1, outputs=["Ambient.out", "AmbientRef.out"],
-    pass_overrides={p: MID_RASTER_CAPS[p]
-                    for p in ("GBufferRaster", "DepthPeeling")},
-    substituted=MID_GBUFFER_TAA)
 # Bounds fixed before its first chip run: twice the CPU port's MSE,
 # rounded up (Ambient 1.836e-5, AmbientRef 1.887e-5)
 MID_DEPTH_BOUND = {"Ambient.out": 4e-5, "AmbientRef.out": 4e-5}
-# BASELINE config 5's animation (bench_configs.py:51-66): the camera
-# orbits (0, 2, 0) at radius 45 and height 14 in 8 s; the tallest 2% of
-# the triangles by centroid height (node 1) oscillate 0.5 along y in 4 s;
-# the clock plays. Phase 24b holds scripts/SVAO_small.py on the small
-# EmeraldSquare tier (7,322 triangles: K7) so animated, frames 0-2, frame
-# 2 kept (every frame's G-buffer channels stored for its substituted hold)
+# BASELINE config 5's animation (bench_configs.py:51-66), which phase 24
+# sets on EmeraldSquare@full: the camera orbits (0, 2, 0) at radius 45 and
+# height 14 in 8 s; the tallest 2% of the triangles by centroid height
+# (node 1) oscillate 0.5 along y in 4 s; the clock plays. The SVAO_anim
+# reference records the same animation on the small EmeraldSquare tier.
 CONFIG5_ANIMATION = dict(
     camera_orbit=dict(center=[0.0, 2.0, 0.0], radius=45.0, height=14.0,
                       duration=8.0),
     node=1, tallest_share=50,
     node_track=dict(axis=[0.0, 1.0, 0.0], amplitude=0.5, period=4.0),
     clock="playing")
-MID_ANIM_REF = dict(
-    MID_REF, scene="EmeraldSquare", frames=3, frame=2,
-    outputs=["AmbientOcclusion.out", "AmbientOcclusionTAA.colorOut",
-             "ShadedTAA.colorOut"],
-    animation=CONFIG5_ANIMATION, substituted=MID_GBUFFER_TAA)
 # Bounds: twice the card's MSE, rounded up to one digit (AO 2.074e-4, its
 # TAA 8.923e-5, ShadedTAA 5.089e-6; the CPU port's to the last digit):
 # raster edges of a far camera over small geometry, which its substituted
@@ -3486,15 +2619,12 @@ MID_ANIM_REF = dict(
 MID_ANIM_BOUND = {"AmbientOcclusion.out": 5e-4,
                   "AmbientOcclusionTAA.colorOut": 2e-4,
                   "ShadedTAA.colorOut": 2e-5}
-# file name prefix -> (settings, MSE bounds)
-MID_REFS = {"SVAO_small": (MID_REF, MID_MSE_BOUND),
-            "HBAO": (MID_HBAO_REF, MID_HBAO_BOUND),
-            "SVAO_rasterSD": (MID_RASTER_SD_REF, MID_RASTER_SD_BOUND),
-            "SVAO_full": (MID_SVAO_FULL_REF, MID_SVAO_FULL_BOUND),
-            "SVAO_quarter": (MID_QUARTER_REF, MID_QUARTER_BOUND),
-            "SVAO_dual": (MID_DUAL_REF, MID_DUAL_BOUND),
-            "SVAO_depth": (MID_DEPTH_REF, MID_DEPTH_BOUND),
-            "SVAO_anim": (MID_ANIM_REF, MID_ANIM_BOUND)}
+# file name prefix -> MSE bounds
+MID_REFS = {"SVAO_small": MID_MSE_BOUND, "HBAO": MID_HBAO_BOUND,
+            "SVAO_rasterSD": MID_RASTER_SD_BOUND,
+            "SVAO_full": MID_SVAO_FULL_BOUND,
+            "SVAO_quarter": MID_QUARTER_BOUND, "SVAO_dual": MID_DUAL_BOUND,
+            "SVAO_depth": MID_DEPTH_BOUND, "SVAO_anim": MID_ANIM_BOUND}
 # The substituted holds: the port renders with the JAX package's raster
 # channels (`substituted`, stored beside the reference in <ref>.rasters.npz
 # by make_refs.py) in place of its own rasters', so that what is left
@@ -3531,25 +2661,29 @@ MID_ENTRIES = ("rtsdm_sd_trace", "rtsdm_sd_trace_resident",
 
 
 def mid_ref_file(name: str) -> Path:
-    ref = MID_REFS[name][0]
-    return ROOT / "tests" / "torch_refs" / (
-        f"{name}.{ref['scene'].replace('@', '_')}.{ref['width']}x"
-        f"{ref['height']}.f{ref['frame']}.npz")
+    """The reference make_refs.py wrote for `name`."""
+    found = [p for p in (ROOT / "tests" / "torch_refs").glob(f"{name}.*.npz")
+             if not p.name.endswith(".rasters.npz")]
+    check(len(found) == 1, f"references of {name}: {found}")
+    return found[0]
 
 
 def mid_ref(name: str):
-    """The reference of MID_REFS[name], checked to record its settings."""
+    """(settings, reference) of `name`: the settings make_refs.py recorded
+    in the reference's file, checked against the file's name, and the
+    file's arrays."""
     import numpy as np
-    want = MID_REFS[name][0]
     path = mid_ref_file(name)
     ref = np.load(path)
-    recorded = json.loads(str(ref["settings"]))
-    check({k: recorded.get(k) for k in want} == want,
-          f"{path.name} records {recorded}, not {want}")
-    return ref
+    settings = json.loads(str(ref["settings"]))
+    want = (f"{name}.{settings['scene'].replace('@', '_')}."
+            f"{settings['width']}x{settings['height']}.f{settings['frame']}"
+            ".npz")
+    check(path.name == want, f"{path.name} records {settings}")
+    return settings, ref
 
 
-def mid_rasters(name: str) -> dict:
+def mid_rasters(name: str, settings: dict) -> dict:
     """The JAX package's raster channels stored beside reference `name`
     ({"<Pass>.<channel>": array}, or {"f<frame>/<Pass>.<channel>": array}
     where it renders more than one frame), checked to be the ones its
@@ -3558,7 +2692,6 @@ def mid_rasters(name: str) -> dict:
     path = mid_ref_file(name).with_suffix(".rasters.npz")
     with np.load(path) as f:
         arrays = {k: f[k] for k in f.files}
-    settings = MID_REFS[name][0]
     want = settings["substituted"]
     if settings["frames"] > 1:
         want = [f"f{f}/{c}" for f in range(settings["frames"]) for c in want]
@@ -3718,18 +2851,16 @@ def mid_rows(label: str, kept: dict, ref, bound: dict | None) -> dict:
 
 
 def mid_size_against_jax(bound: dict | None = MID_MSE_BOUND) -> dict:
-    """Phase 17: SVAO_small.py at MID_REF's scene, size, pass overrides
-    (the port's rasters keep no per-tile cap, so maxPerTile changes
-    nothing there) and frame through the port on the card, twice:
-    pallasStream 'auto' (Arcade's 38,610 triangles: the resident tier, K7)
-    and True (the streamed tier, K5). Each marked output is held against
+    """Phase 17: SVAO_small.py at its reference's settings through the
+    port on the card, twice: pallasStream 'auto' (Arcade's 38,610
+    triangles: the resident tier, K7) and True (the streamed tier, K5). Each marked output is held against
     the JAX package's render by MSE under its `bound` (None: measured
     only)."""
-    ref = mid_ref("SVAO_small")
+    settings, ref = mid_ref("SVAO_small")
+    n = settings["frames"]
     res = {}
     for stream in ("auto", True):
-        kept, launches = mid_frame(MID_REF, stream)
-        n = MID_REF["frames"]
+        kept, launches = mid_frame(settings, stream)
         tier = "K5" if stream is True else "K7"
         got = (launches["rtsdm_sd_trace"],
                launches["rtsdm_sd_trace_resident"])
@@ -3742,19 +2873,18 @@ def mid_size_against_jax(bound: dict | None = MID_MSE_BOUND) -> dict:
 def mid_configs_against_jax(bounds=(MID_HBAO_BOUND, MID_RASTER_SD_BOUND)):
     """Phase 17b: HBAO.py (K6 once a frame) and config 2 (SVAO_small.py
     with the raster SD map, K9 once a frame, the SD trace never) at the
-    scene, size, pass overrides and frame of their references through the
-    port on the card, each marked output held against the JAX package's
-    render by MSE under its bound (None: measured only)."""
+    settings of their references through the port on the card, each
+    marked output held against the JAX package's render by MSE under its
+    bound (None: measured only)."""
     res = {}
-    n = MID_REF["frames"]
-    for name, bound, want in (
-            ("HBAO", bounds[0], {"rtsdm_fetch_taps_same_class": n}),
-            ("SVAO_rasterSD", bounds[1], {"rtsdm_raster_stochastic": n})):
-        settings = MID_REFS[name][0]
-        ref = mid_ref(name)
+    for name, bound, entry in (
+            ("HBAO", bounds[0], "rtsdm_fetch_taps_same_class"),
+            ("SVAO_rasterSD", bounds[1], "rtsdm_raster_stochastic")):
+        settings, ref = mid_ref(name)
         kept, launches = mid_frame(settings)
         launches = {e: launches[e] for e in MID_ENTRIES}
-        want = {e: want.get(e, 0) for e in MID_ENTRIES}
+        want = dict.fromkeys(MID_ENTRIES, 0)
+        want[entry] = settings["frames"]
         check(launches == want, f"mid size {name}: launches {launches}, "
                                 f"expected {want}")
         res.update(mid_rows(name, kept, ref, bound))
@@ -3762,15 +2892,13 @@ def mid_configs_against_jax(bounds=(MID_HBAO_BOUND, MID_RASTER_SD_BOUND)):
 
 
 def mid_svao_full_against_jax(bound=MID_SVAO_FULL_BOUND) -> dict:
-    """Phase 17c: scripts/SVAO.py at the scene, size, pass overrides and
-    frame of its reference through the port on the card, each kept output
-    held against the JAX package's render by MSE under its bound (None:
-    measured only). Per frame K7 launches once (Arcade's 38,610 triangles)
+    """Phase 17c: scripts/SVAO.py at its reference's settings through the
+    port on the card, each kept output held against the JAX package's
+    render by MSE under its bound (None: measured only). Per frame K7 launches once (Arcade's 38,610 triangles)
     and K5, K6 and K9 never; K1 twice and never with its floor, K2 and K3
     twice, K4 once, K8 and TAA's two K10 calls."""
     from rtsdm_tpu_torch.ops import raster_cuda, warp_cuda
-    settings = MID_REFS["SVAO_full"][0]
-    ref = mid_ref("SVAO_full")
+    settings, ref = mid_ref("SVAO_full")
     kept, launches = mid_frame(settings)
     n = settings["frames"]
     want = dict({e: 0 for e in MID_ENTRIES}, rtsdm_sd_trace_resident=n,
@@ -3797,19 +2925,17 @@ def config_launches(report: dict, row: str) -> int:
 def mid_new_graphs_against_jax(
         bounds=(MID_QUARTER_BOUND, MID_DUAL_BOUND)) -> dict:
     """Phase 17d: scripts/SVAO_quarter.py (BASELINE config 4's graph) and
-    scripts/SVAO.py under DualDepth at the scene, size, pass overrides and
-    frame of their references through the port on the card, each kept
-    output held against the JAX package's render by MSE under its bound.
-    Arcade's 38,610 triangles: K7 once a frame, K5, K6 and K9 never; under
+    scripts/SVAO.py under DualDepth at their references' settings through
+    the port on the card, each kept output held against the JAX package's
+    render by MSE under its bound. Arcade's 38,610 triangles: K7 once a frame, K5, K6 and K9 never; under
     DualDepth DepthPeeling's K1 once a frame with its floor, none in the
     quarter graph. This checkout only: its parent cannot render them."""
     from rtsdm_tpu_torch.ops import raster_cuda
     res = {}
-    n = MID_REF["frames"]
     for name, bound in (("SVAO_quarter", bounds[0]),
                         ("SVAO_dual", bounds[1])):
-        settings = MID_REFS[name][0]
-        ref = mid_ref(name)
+        settings, ref = mid_ref(name)
+        n = settings["frames"]
         kept, launches = mid_frame(settings)
         floor = int(name == "SVAO_dual") * n
         got = {e: launches[e] for e in MID_ENTRIES}
@@ -3823,9 +2949,9 @@ def mid_new_graphs_against_jax(
 
 def mid_svao_depth_against_jax(bound=MID_DEPTH_BOUND,
                                substituted=MID_SUBSTITUTED_BOUND) -> dict:
-    """Phase 17e: scripts/SVAO_depth.py at the scene, size, pass overrides
-    and frame of its reference (frames 0 and 1: TemporalDepthPeel holds
-    frame 0's layer in frame 1) through the port on the card, each output
+    """Phase 17e: scripts/SVAO_depth.py at its reference's settings
+    (frames 0 and 1: TemporalDepthPeel holds frame 0's layer in frame 1)
+    through the port on the card, each output
     held against the JAX package's render by MSE under its bound; per
     frame DepthPeeling's floored K1 once, no SD trace, K6 or K9. Then the
     substituted holds of every reference but SVAO_anim's (phase 24b):
@@ -3834,8 +2960,7 @@ def mid_svao_depth_against_jax(bound=MID_DEPTH_BOUND,
     checkout only."""
     from rtsdm_tpu_torch.ops import raster_cuda
     res = {}
-    settings = MID_REFS["SVAO_depth"][0]
-    ref = mid_ref("SVAO_depth")
+    settings, ref = mid_ref("SVAO_depth")
     kept, launches = mid_frame(settings)
     n = settings["frames"]
     got = {e: launches[e] for e in MID_ENTRIES}
@@ -3857,13 +2982,14 @@ def substituted_holds(bounds: dict) -> dict:
     measured only)."""
     res = {}
     for name, sub_bound in bounds.items():
+        settings, ref = mid_ref(name)
         tiers = MID_SUBSTITUTED_TIERS.get(name, {"": None})
         for tier, stream in tiers.items():
-            kept, _ = mid_frame(MID_REFS[name][0], stream,
-                                substitute=mid_rasters(name))
+            kept, _ = mid_frame(settings, stream,
+                                substitute=mid_rasters(name, settings))
             kept = {k: v for k, v in kept.items() if k in sub_bound}
             label = f"{name}:substituted" + (f":{tier}" if tier else "")
-            res.update(mid_rows(label, kept, mid_ref(name), sub_bound))
+            res.update(mid_rows(label, kept, ref, sub_bound))
     return res
 
 
@@ -3873,43 +2999,19 @@ def substituted_holds(bounds: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def k2_animated_row(k) -> dict:
-    """K2 at config 5's first call of the last frame, (nci, nflat) =
+    """K2's row at config 5's first call of the last frame, (nci, nflat) =
     K2_ANIMATED, which takes the kernel's run-time path (only K2_STATIC is
-    a template): held, timed and bounded as compare_fetch_attributes does,
-    then timed beside the K2_STATIC template on the same pixels (the same
-    table without its previous positions), in turns, with the time per
-    output float of each."""
-    import torch
-    from rtsdm_tpu_torch.ops import raster_cuda as RC
+    a template): held and measured as compare_fetch_attributes does."""
     row = compare_fetch_attributes(k)
-    (tri_id, bary, table, nci, nflat), kwargs = k.calls[0]
+    (_, _, _, nci, nflat), _ = k.calls[0]
     check((nci, nflat) == K2_ANIMATED, f"K2 at {(nci, nflat)}")
-    static = torch.cat([table[:, :3 * K2_STATIC[0]],
-                        table[:, 3 * nci:]], 1).contiguous()
-    runs = {K2_ANIMATED: [], K2_STATIC: []}
-    args = {K2_ANIMATED: (tri_id, bary, table, nci, nflat),
-            K2_STATIC: (tri_id, bary, static) + K2_STATIC}
-    for order in ((K2_ANIMATED, K2_STATIC), (K2_STATIC, K2_ANIMATED)):
-        for key in order:
-            runs[key].append(cuda_ms(lambda: RC.fetch_attributes(*args[key]),
-                                     50, 3))
-    per_float = {key: min(v) / (tri_id.numel() * sum(key))
-                 for key, v in runs.items()}
-    ratio = per_float[K2_ANIMATED] / per_float[K2_STATIC]
-    log(f"K2 at {K2_ANIMATED} {tuple(tri_id.shape)} (run-time path) "
-        f"{runs[K2_ANIMATED]} ms, at {K2_STATIC} (template) "
-        f"{runs[K2_STATIC]} ms by CUDA events in turns; per output float "
-        f"{ratio:.3f}x the template's")
-    return dict(row, ms_static_template=runs[K2_STATIC],
-                ms_animated_turns=runs[K2_ANIMATED],
-                per_float_vs_static=ratio, nci=nci, nflat=nflat)
+    return dict(row, nci=nci, nflat=nflat)
 
 
 def fetch_rows(by_name) -> dict:
-    """K3 and K4 at the path's first recorded call (held bit-exact by
-    check_config_calls): CUDA-event times of the kernel and of its plain
-    version, bounds as compare_fetch_directions and compare_fetch_sd_packed
-    count them."""
+    """K3's and K4's rows at the path's first recorded call (held bit-exact
+    by check_config_calls): their times (timings) and bounds as
+    compare_fetch_directions and compare_fetch_sd_packed count them."""
     import torch
     from rtsdm_tpu_torch.ops import fetch_cuda as F
     (sets, pad, radius, levels, offs, radii), kw = \
@@ -3917,31 +3019,30 @@ def fetch_rows(by_name) -> dict:
     planes = torch.stack(list(sets)).contiguous()
     k3_args = (sets, pad, radius, levels, offs, radii)
     out = torch.stack(F.fetch_all_directions(*k3_args, **kw))
+    t = timings(f"config5 K3 {tuple(out.shape)}",
+                lambda: F.fetch_all_directions(*k3_args, **kw),
+                KERNEL_SYMBOLS["fetch_all_directions"], 50,
+                plain=lambda: F.fetch_all_directions_plain(
+                    planes, pad, radius.contiguous(), levels, offs, radii))
     rows = {"fetch_all_directions": with_bound(
-        dict(ms=cuda_ms(lambda: F.fetch_all_directions(*k3_args, **kw), 50,
-                        3),
-             plain_ms=cuda_ms(lambda: F.fetch_all_directions_plain(
-                 planes, pad, radius.contiguous(), levels, offs, radii), 3,
-                 1), timed_at=f"{tuple(out.shape)}"),
+        dict(t, max_abs_err=0.0, timed_at=f"{tuple(out.shape)}"),
         nbytes(planes, radius, out), float(out.numel()))}
     k4_args, kw = by_name["fetch_sd_packed"].calls[0]
     sd_map, guard, radius, levels, offs, radii, _ = k4_args
     got = F.fetch_sd_packed(*k4_args, **kw)
     sd_pl = F.pack_sd16(sd_map)
+    t = timings(f"config5 K4 {tuple(got.shape)}",
+                lambda: F.fetch_sd_packed(*k4_args, **kw),
+                KERNEL_SYMBOLS["fetch_sd_packed"], 50,
+                plain=lambda: F.fetch_sd_packed_plain(
+                    sd_pl, guard, radius.contiguous(), levels, offs, radii))
     rows["fetch_sd_packed"] = with_bound(
-        dict(ms=cuda_ms(lambda: F.fetch_sd_packed(*k4_args, **kw), 50, 3),
-             plain_ms=cuda_ms(lambda: F.fetch_sd_packed_plain(
-                 sd_pl, guard, radius.contiguous(), levels, offs, radii), 3,
-                 1), timed_at=f"{tuple(got.shape)}"),
+        dict(t, max_abs_err=0.0, timed_at=f"{tuple(got.shape)}"),
         nbytes(sd_map, radius, got), float(got.numel()))
-    for n, r in rows.items():
-        log(f"config5 {n} {r['timed_at']}: {r['ms']:.4f} ms by CUDA events "
-            f"(plain {r['plain_ms']:.3f} ms), bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']})")
     return rows
 
 
-def node_motion(m) -> dict:
+def node_motion(m):
     """The G-buffer of the last frame's animated geometry seen from a
     camera that did not move (its prev matrices its own): the motion
     vectors are the node's own motion. Their median magnitude on the
@@ -3977,36 +3078,9 @@ def node_motion(m) -> dict:
     check(res["node_median"] > 10.0 * res["static_median"],
           "config5: the moving node's motion vectors do not stand out")
     torch.cuda.synchronize()
-    return res
 
 
-def animation_step(m) -> dict:
-    """The animation step of one frame on its own (AnimationController.
-    animate of the bind pose and CameraPath.camera_at): host clock ending
-    in a synchronize, CUDA events, host enqueue, device time by
-    torch.profiler."""
-    t = m.clock.time
-    base = m._scene_comp.camera
-
-    def step():
-        return (m.animationController.animate(m._scene_comp, t),
-                m.cameraPath.camera_at(t, base, dt=1.0 / m.clock.framerate,
-                                       aspect=float(base.aspect),
-                                       focal=float(base.focal_length)))
-
-    acts = profiled(step)
-    res = dict(host_ms=synced_ms(step, 10), event_ms=cuda_ms(step, 10),
-               host_enqueue_us=host_us(step, 10),
-               device_ms=sum(ms for ms, _ in acts.values()),
-               device_activities=sum(n for _, n in acts.values()))
-    log(f"config5 animation step: host clock {res['host_ms']:.3f} ms "
-        f"(synchronized), CUDA events {res['event_ms']:.3f} ms, device "
-        f"{res['device_ms']:.3f} ms in {res['device_activities']} "
-        f"activities")
-    return res
-
-
-def run_config5(ident: str) -> dict:
+def run_config5() -> tuple:
     """Phase 24: BASELINE config 5, scripts/SVAO_small.py on
     EmeraldSquare@full (1,036,922 triangles) at 1280x720 (1408x848 with
     the 64-pixel guard band), the camera orbiting and node 1 oscillating
@@ -4016,78 +3090,34 @@ def run_config5(ident: str) -> dict:
     vectors' mean magnitude far above frame 0's (the camera moved), and
     the node's own motion (node_motion). The last frame's calls held
     bit-exact against their plain versions (K5 and K8 on spread tile
-    subsets); each kernel timed with its bound; the frame timed as in 10;
-    the animation step; peak device memory."""
-    import torch
+    subsets); the rows of K2-K5, K8 and K10. Returns (kernel rows,
+    {launches})."""
     label = "config5"
     kernels = kernels_of_configs()
     by_name = kernels_by_name(kernels)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     motion = []
-    seconds = {}
-    t0 = [time.perf_counter()]
-
-    def took(what):
-        now = time.perf_counter()
-        seconds[what] = now - t0[0]
-        t0[0] = now
 
     def per_frame(f, out):
         motion.append(float(out["GBufferRaster.mvec"].norm(dim=-1).mean()))
 
     m, totals, modes = drive_config(label, kernels, per_frame)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"config5 ({ident}): peak device memory over the frames "
-        f"{peak:.3f} GiB")
     log(f"config5 mean |mvec| per frame: {motion}")
     check(all(v > 100.0 * motion[0] for v in motion[1:]),
           "config5: the motion vectors do not show the camera's motion")
-    took("frames")
-    held = check_config_calls(label, kernels)
-    took("held")
-    node = node_motion(m)
-    took("node_motion")
-    rows = {"fetch_attributes": k2_animated_row(by_name["fetch_attributes"]),
-            **fetch_rows(by_name)}
-    took("k2_k3_k4")
-    rows["sd_trace"] = sd_trace_timing(label, by_name["sd_trace"])
-    took("k5")
-    rows["any_hit"] = k8_bound_at(label, by_name["any_hit"])
-    took("k8")
-    rows.update({r["name"]: r for r in compare_warp(
-        by_name["warp_resample"], modes)})
-    took("k10")
-    # the G-buffer's and ForwardLighting's K1 calls raster the same scene
-    # from the same camera: one is timed
-    raster_calls = time_raster_calls(label,
-                                     distinct_calls(by_name["raster"].calls))
-    took("k1")
-    times, _ = graph_timing(m)
-    took("frame_timing")
-    step = animation_step(m)
-    took("animation_step")
-    script, scene, width, height, overrides, _ = CONFIGS[label]
-    report = dict(times, script=str(script.relative_to(ROOT)), scene=scene,
-                  width=width, height=height,
-                  triangles=int(m.scene.num_triangles),
-                  animation=CONFIG5_ANIMATION, launches=totals,
-                  warp_launches_by_mode=modes, frames=CONFIG_FRAMES,
-                  bit_exact_calls=held, mvec_mean_abs=motion,
-                  node_motion=node, kernel_rows=rows,
-                  raster_calls=raster_calls, animation_step=step,
-                  peak_device_gib=peak, gpu=ident, seconds=seconds)
+    check_config_calls(label, kernels)
+    node_motion(m)
+    rows = [dict(k2_animated_row(by_name["fetch_attributes"]),
+                 name="fetch_attributes")]
+    rows += [dict(r, name=n) for n, r in fetch_rows(by_name).items()]
+    rows.append(dict(sd_trace_timing(label, by_name["sd_trace"]),
+                     name="sd_trace"))
+    rows.append(dict(k8_bound_at(label, by_name["any_hit"]), name="any_hit"))
+    rows += compare_warp(by_name["warp_resample"], modes)
+    report = dict(launches=totals, warp_launches_by_mode=modes)
+    for r in rows:
+        r.update(at=label, launches=config_launches(report, r["name"]))
     del m
-    from rtsdm_tpu_torch.tools import quality_ssim as Q
-    report["taa_stability"] = Q.run_config5_taa_stability("cuda")
-    took("taa_stability")
-    log("config5 seconds: " + ", ".join(f"{k} {v:.1f}"
-                                        for k, v in seconds.items()))
-    log(f"quality, config 5 ({ident}): mean SSIM of consecutive ShadedTAA "
-        f"frames 4-7 {report['taa_stability']['mean_frame_ssim']:.6f} "
-        f"{report['taa_stability']['consecutive_frame_ssim']} (the JAX "
-        f"tool's target {Q.TAA_STABILITY_TARGET})")
-    return report
+    return rows, report
 
 
 def mid_anim_against_jax(bound=MID_ANIM_BOUND,
@@ -4097,7 +3127,7 @@ def mid_anim_against_jax(bound=MID_ANIM_BOUND,
     on the card, held against the JAX package's render by MSE, then with
     the JAX package's per-frame G-buffer channels substituted (its AO
     outputs). Per frame K7 once, K5, K6 and K9 never, K2 twice."""
-    settings = MID_REFS["SVAO_anim"][0]
+    settings, ref = mid_ref("SVAO_anim")
     kept, launches = mid_frame(settings)
     n = settings["frames"]
     got = {e: launches[e] for e in MID_ENTRIES + ("rtsdm_fetch_attributes",)}
@@ -4105,7 +3135,7 @@ def mid_anim_against_jax(bound=MID_ANIM_BOUND,
                 rtsdm_fetch_attributes=2 * n)
     check(got == want, f"mid size SVAO_anim: launches {got}, expected "
                        f"{want}")
-    res = mid_rows("SVAO_anim", kept, mid_ref("SVAO_anim"), bound)
+    res = mid_rows("SVAO_anim", kept, ref, bound)
     res.update(substituted_holds({"SVAO_anim": sub_bound}))
     return res
 
@@ -4251,11 +3281,11 @@ def uncull_inputs(call):
                       min_separation=kw.get("min_separation", 0.0))
 
 
-def eye_cull_call(call, timed: bool) -> dict:
+def eye_cull_call(call, compared: bool) -> dict:
     """One recorded raster call against K1 on the binning without the cull:
     bit-equal outputs, the count culled, the mean chunk visits a tile with
-    and without the cull; `timed`: K1 on each binning timed with its walk
-    and bound (raster_timing), and the count computed again on the CPU."""
+    and without the cull; `compared` (the compared frame): the count
+    computed again on the CPU."""
     import torch
     from rtsdm_tpu_torch.ops import raster as R
     from rtsdm_tpu_torch.ops import raster_cuda as RC
@@ -4278,9 +3308,7 @@ def eye_cull_call(call, timed: bool) -> dict:
                    base[2], base[3], base[0].shape[0]).mean()))
     check(row["eye_culled"] == int(culled), "eye_culled is not the count "
                                             "of the binning's cull")
-    if timed:
-        row["k1"] = raster_timing(bins, fkw, "with the eye-plane cull")
-        row["uncull_k1"] = raster_timing(base, fkw, "without it")
+    if compared:
         def cpu(v):
             return v.cpu() if isinstance(v, torch.Tensor) else v
 
@@ -4332,11 +3360,7 @@ def eye_cull_loops(seed: int = EYE_CULL_SEED) -> dict:
                 f"{r['eye_culled']} triangles culled (CPU "
                 f"{r['eye_culled_cpu']}); a tile visits "
                 f"{r['visits_mean']:.2f} chunks (max {r['visits_max']}), "
-                f"{r['uncull_visits_mean']:.2f} without the cull; K1 "
-                f"{r['k1']['event_ms']:.3f} ms a launch (bound "
-                f"{r['k1']['bound_ms']:.3f}), "
-                f"{r['uncull_k1']['event_ms']:.3f} ms without (bound "
-                f"{r['uncull_k1']['bound_ms']:.3f})")
+                f"{r['uncull_visits_mean']:.2f} without the cull")
         log(f"eye cull, {name}: {len(rows)} K1 calls over {loop} frames; "
             "culled / visits / visits without, per frame (first call): "
             + "; ".join(f"{f}: {a} / {b:.1f} / {c:.1f}"
@@ -4358,14 +3382,12 @@ def eye_cull_loops(seed: int = EYE_CULL_SEED) -> dict:
 def main(argv=None) -> int:
     import argparse
     import torch
-    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
-                                             "NVIDIA GPU")
+    ap = argparse.ArgumentParser(description="Card check of the port on "
+                                             "one NVIDIA GPU")
     ap.add_argument("--parent", type=Path, default=None,
-                    help="an unpacked checkout of the parent commit: time "
-                         "its SD stage, K2 and K4 against this one's "
-                         "(parent_ab)")
-    ap.add_argument("--ab-child", type=Path, default=None,
-                    help=argparse.SUPPRESS)
+                    help="an unpacked checkout of the parent commit: render "
+                         "the mid-size phases through its package too and "
+                         "fail if an MSE moved")
     ap.add_argument("--mid-child", type=Path, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--eye-cull", type=int, default=None, metavar="SEED",
@@ -4375,9 +3397,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; this check runs only on an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    if args.ab_child is not None:
-        print(json.dumps(ab_child(args.ab_child)), flush=True)
-        return 0
     if args.mid_child is not None:
         print(json.dumps(mid_child(args.mid_child)), flush=True)
         return 0
@@ -4390,9 +3409,8 @@ def main(argv=None) -> int:
     from rtsdm_tpu_torch import _build
     from rtsdm_tpu_torch.scene.procedural import sun_temple
 
-    ident = gpu_identity()
     kind = torch.cuda.get_device_name(0)
-    log(ident)
+    log(gpu_identity())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
 
@@ -4403,156 +3421,73 @@ def main(argv=None) -> int:
         f"(nvcc {_build.BUILD_SECONDS['kernels']:.2f} s, g++ "
         f"{_build.BUILD_SECONDS['scenekit']:.2f} s)")
 
-    t0 = time.perf_counter()
     scene = sun_temple(aspect=WIDTH / HEIGHT, detail="full", device="cuda")
-    log(f"scene: SunTemple@full, {scene.num_triangles} triangles, "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"scene: SunTemple@full, {scene.num_triangles} triangles")
 
+    # the SVAO path (phases 4-5)
     kernels = kernels_of_path()
-    pass_, ctx, counts = drive_main_path(scene, kernels)
-
-    for k in kernels:
-        k.result = COMPARE[k.name](k)
-        log(f"  {k.name}: kernel {k.result['ms']:.4f} ms, plain "
-            f"{k.result['plain_ms']:.4f} ms")
-    fetch_split = fetch_host_split(
-        *(kernels_by_name(kernels)[n] for n in ("fetch_all_directions",
-                                                 "fetch_sd_packed")))
-    gbuffer_split = gbuffer_host_split(
-        scene, kernels_by_name(kernels)["fetch_attributes"])
-    maxcount = maxcount_on_main_path(scene)
-    raster_setup = raster_setup_ms(scene)
-    resources = sd_trace_resources()
-    with sd_pass_capture() as seen:
-        frame(scene, pass_, ctx, WIDTH, HEIGHT)
-    check(len(seen) == 1, "the SD pass did not run once")
-    sd_stage = sd_stage_split(*seen[0])
-    k5 = kernels_by_name(kernels)["sd_trace"].result
-    k5.update(ms=sd_stage["sd_trace_stream"]["event_ms"],
-              device_ms=sd_stage["sd_trace_stream"]["device_ms"],
-              wrapper_host_us=sd_stage["sd_trace_stream"]["host_us"])
-    log(f"K5 row: whole wrapper (sd_trace_stream, lists included) "
-        f"{k5['ms']:.4f} ms by CUDA events, the launch alone "
-        f"{k5['kernel_ms']:.4f} ms, device {k5['device_ms']} ms")
-
-    torch.cuda.reset_peak_memory_stats()
-    spans = frame_spans_ms(scene, pass_, ctx)
-    stages = {n: spans.get(f"renderFrame/SVAO/{n}", 0.0)
-              for n in ("phase1", "sd_map", "phase2")}
-    stages["SVAO"] = spans.get("renderFrame/SVAO", 0.0)
-    host_ms = spans.get("renderFrame", 0.0)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    log("steady-state frame, host time per span (the program's profiler, "
-        "mean of 5): " + ", ".join(f"{n} {v:.3f} ms"
-                                   for n, v in spans.items()))
-    log(f"steady-state frame, host clock through SVAO.execute (renderFrame, "
-        f"mean of 5): {host_ms:.3f} ms; peak device memory {peak_gib:.2f} "
-        "GiB")
-    check(all(math.isfinite(v) and v > 0 for v in stages.values())
-          and host_ms > 0, "span times")
-    acts = profiled_frame(scene, pass_, ctx)
-    busy_ms = sum(ms for ms, _ in acts.values())
-    if acts:
-        top = sorted(acts.items(), key=lambda kv: -kv[1][0])[:12]
-        log(f"profiled frame: {sum(n for _, n in acts.values())} device "
-            f"activities, {busy_ms:.3f} ms busy; device idle share of the "
-            f"unprofiled host-clock frame {1.0 - busy_ms / host_ms:.4f}")
-        for name, (ms, n) in top:
-            log(f"  {ms:9.3f} ms  x{n:<5d} {name[:100]}")
-        dev_ms = {k.name: kernel_device_ms(acts, k.name) for k in kernels}
-        log("kernels' device time in the profiled frame: " + ", ".join(
-            f"{n} " + ("not measured" if v is None else f"{v:.4f} ms")
-            for n, v in dev_ms.items()))
-    else:
-        log("profiled frame: the profiler saw no device activity; device "
-            "busy time not measured")
-
+    counts = drive_main_path(scene, kernels)
+    rows = [dict(COMPARE[k.name](k), name=k.name, at="svao_path",
+                 launches=counts[k.name]) for k in kernels]
+    maxcount_on_main_path(scene)
     small_frame_against_cpu()
 
-    # the graph path (phases 8-10)
+    # the graph path (phases 8-9)
     graph_kernels = kernels_of_graph()
-    m, graph_counts, warp_modes = drive_graph(graph_kernels, counts)
+    graph_counts, warp_modes = drive_graph(graph_kernels, counts)
     by_name = kernels_by_name(graph_kernels)
-    rows = [dict(k.result, name=k.name, launches=counts[k.name],
-                 source=k.source, replaces=k.replaces) for k in kernels]
-    rows += [dict(r, launches=graph_counts["any_hit"],
-                  source=by_name["any_hit"].source,
-                  replaces=by_name["any_hit"].replaces)
-             for r in compare_any_hit(by_name["any_hit"])]
-    rows += [dict(r, source=by_name["warp_resample"].source,
-                  replaces=by_name["warp_resample"].replaces)
-             for r in compare_warp(by_name["warp_resample"], warp_modes)]
+    rows.append(dict(compare_any_hit(by_name["any_hit"]), name="any_hit",
+                     launches=graph_counts["any_hit"]))
+    rows += compare_warp(by_name["warp_resample"], warp_modes)
+    graph = dict(launches=graph_counts, warp_launches_by_mode=warp_modes)
     for r in rows:
-        base = r["name"].split(":")[0]
-        r["graph_launches"] = (warp_modes.get(r["name"].split(":")[1], 0)
-                               if ":" in r["name"]
-                               else graph_counts.get(base, 0))
-        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), library "
-            + ("none" if r["library_ms"] is None
-               else f"{r['library_ms']:.4f} ms"))
-    graph_raster = time_raster_calls("graph", by_name["raster"].calls)
-    graph_times, _ = graph_timing(m)
-    del m
+        r.setdefault("at", "graph")
+        r["graph_launches"] = config_launches(graph, r["name"])
 
-    # BASELINE configs 1 and 2 (phases 11-14)
+    # BASELINE configs 2 and 1 (phases 11-14), SVAO.py (15)
     config_rows, configs = run_configs()
-    k7_row, svao_full = run_svao_full()
-    config_rows.append(k7_row)
+    k7_row, configs["svao_full"] = run_svao_full()
+    rows += config_rows + [k7_row]
     # BASELINE configs 4 and 3 (phases 18-19), SVAO's depth modes (20)
-    configs.update(run_new_configs())
-    svao_modes = svao_modes_frames()
+    new_rows, new_configs = run_new_configs()
+    rows += new_rows
+    configs.update(new_configs)
+    svao_modes_frames()
     # scripts/SVAO_depth.py (21), SVAO's reference modes and RTAO (22)
-    phase_s = {}
-    t0 = time.perf_counter()
     configs["svao_depth"] = run_svao_depth()
-    phase_s["21"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
     reference_modes = svao_reference_modes()
-    phase_s["22"] = time.perf_counter() - t0
-    ab = parent_ab(args.parent.resolve()) if args.parent else None
-    if ab is not None:
+    # the mid-size phases against the JAX package (17-17e), through the
+    # parent's kernels too with --parent (17-17c: the graphs it renders)
+    parent_mid = None
+    if args.parent is not None:
+        parent_mid = child("--mid-child", args.parent.resolve())
+        log("mid size through the parent's kernels: " + ", ".join(
+            f"{k} MSE {v['mse']:.4g}" for k, v in parent_mid.items()))
         log("phases 17d and 18-20 run on this checkout only: the parent "
             "has no DownsamplePass, AOGuidedBlur or SVAO depth modes")
     mid_size = dict(mid_size_against_jax(), **mid_configs_against_jax(),
                     **mid_svao_full_against_jax(),
                     **mid_new_graphs_against_jax())
-    t0 = time.perf_counter()
     mid_size.update(mid_svao_depth_against_jax())
-    phase_s["17e"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    quality = quality_row()
-    phase_s["23"] = time.perf_counter() - t0
-    # BASELINE config 5 (24), its animation at mid size (24b), the golden
-    # of the sample patterns (24c)
-    new_phase_s = {}
-    t0 = time.perf_counter()
-    configs["config5"] = run_config5(ident)
-    new_phase_s["24"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    mid_size.update(mid_anim_against_jax())
-    new_phase_s["24b"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    multisampling = multisampling_golden()
-    new_phase_s["24c"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    eye_cull = eye_cull_loops()
-    new_phase_s["25"] = time.perf_counter() - t0
-    log("earlier phases' seconds on the card: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in phase_s.items()))
-    log("new phases' seconds on the card: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in new_phase_s.items())
-        + f"; {sum(new_phase_s.values()):.1f} in all")
-    if ab is not None:
+    if parent_mid is not None:
         # every kernel is bit-exact with its plain version on both sides,
         # so the parent's MSEs are this checkout's to the last digit
         moved = {k: (v["mse"], mid_size[k]["mse"])
-                 for k, v in ab["parent_mid_size"].items()
+                 for k, v in parent_mid.items()
                  if f"{v['mse']:.4g}" != f"{mid_size[k]['mse']:.4g}"}
         check(not moved, f"mid size: MSEs moved from the parent's: {moved}")
-    rows += config_rows
+    # BASELINE config 5 (24), its animation at mid size (24b), the golden
+    # of the sample patterns (24c), K1's eye-plane cull (25)
+    config5_rows, configs["config5"] = run_config5()
+    rows += config5_rows
+    mid_anim_against_jax()
+    multisampling_golden()
+    eye_cull_loops()
+
+    src = kernels_by_name(kernels_of_configs())
     for r in rows:
+        k = src[r["name"].split(":")[0]]
+        r.update(source=k.source, replaces=k.replaces)
         r["launches_per_frame"] = {
             lb: config_launches(configs[lb], r["name"]) / CONFIG_FRAMES
             for lb in ("config3", "config4", "svao_depth", "config5")}
@@ -4560,34 +3495,15 @@ def main(argv=None) -> int:
             f"svao_full_{md}": config_launches(reference_modes[md],
                                                r["name"])
             for md, _, _ in REFERENCE_MODES})
-    for r in config_rows:
-        log(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain "
-            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-            f"({r['bound_by']}), library none; launches {r['launches']}")
-
-    print(json.dumps({"frame": {
-        "gpu": ident, "stages_ms": stages, "host_ms": host_ms,
-        "device_busy_ms": busy_ms if acts else None,
-        "kernel_device_ms": {k.name: kernel_device_ms(acts, k.name)
-                             for k in kernels},
-        "peak_device_gib": peak_gib,
-        "graph": dict(graph_times, script=str(GRAPH_SCRIPT.relative_to(ROOT)),
-                      scene=GRAPH_SCENE, launches=graph_counts,
-                      warp_launches_by_mode=warp_modes,
-                      raster_calls=graph_raster),
-        "configs": configs, "svao_full": svao_full,
-        "svao_depth_modes": svao_modes,
-        "svao_reference_modes": reference_modes, "quality": quality,
-        "multisampling_golden": multisampling, "eye_cull": eye_cull,
-        "new_phase_seconds": new_phase_s, "phase_seconds": phase_s,
-        "svao_path_maxcount8": maxcount, "raster_setup": raster_setup,
-        "sd_stage": sd_stage, "sd_trace_resources": resources,
-        "mid_size_vs_jax": mid_size, "parent_ab": ab,
-        "fetch_host_split_us": fetch_split,
-        "gbuffer_host_split": gbuffer_split}}))
-    keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+        log(f"  {r['name']} at {r['at']}: kernel {r['ms']:.4f} ms, device "
+            f"{ms_text(r['device_ms'])}, plain {ms_text(r['plain_ms'])}, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), library "
+            + ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+            + f"; launches {r['launches']}")
+    keys = ("name", "at", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {**{k: dict(r, route="cuda")[k] for k in keys},
          **{k: v for k, v in r.items() if k not in keys
@@ -4596,7 +3512,6 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

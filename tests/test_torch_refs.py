@@ -3,8 +3,9 @@ of scripts/SVAO_small.py, scripts/HBAO.py, BASELINE config 2,
 scripts/SVAO.py, scripts/SVAO.py under DualDepth, scripts/
 SVAO_quarter.py, scripts/SVAO_depth.py and BASELINE config 5's animation
 above every golden's size, made by tests/torch_refs/make_refs.py): they
-load, hold finite float32 images of the size they record, and record the
-settings chip_smoke.py renders the port with when it holds the card
+load, hold finite float32 images of the size they record, with an MSE
+bound in chip_smoke.py for each output, and record the settings
+chip_smoke.py reads from them to render the port when it holds the card
 against them, the JAX package's accelerator branches included (hazards f,
 k, l and m of ROADMAP.md); the raster channels stored beside each of them
 for the substituted holds are the ones their settings list, whole, one
@@ -31,6 +32,15 @@ AO = {"SVAO_small": "AmbientOcclusion.out", "HBAO": "Ambient.out",
 # the raster passes of each script (all capped)
 RASTERS = {"scripts/SVAO_quarter.py": ("GBufferRaster", "ForwardLighting"),
            "scripts/SVAO_depth.py": ("GBufferRaster", "DepthPeeling")}
+# what make_refs.py records of its render beside the settings it rendered
+RESULTS = ("seconds", "raster_overflow", "overflow_at_256", "overflow")
+
+
+def settings_of(name: str) -> dict:
+    """The settings make_refs.py rendered reference `name` with."""
+    settings, ref = chip_smoke.mid_ref(name)
+    ref.close()
+    return {k: v for k, v in settings.items() if k not in RESULTS}
 
 
 @pytest.fixture(scope="module", params=sorted(chip_smoke.MID_REFS))
@@ -40,10 +50,15 @@ def ref(request):
 
 
 def test_mid_size_refs_record_what_chip_smoke_renders(ref):
+    """The settings chip_smoke.py renders the port with are the ones the
+    file records: its name agrees with them, each output has an MSE bound,
+    the images are well-formed and no raster dropped a triangle."""
     name, ref = ref
     settings = json.loads(str(ref["settings"]))
-    want, bound = chip_smoke.MID_REFS[name]
-    assert {k: settings.get(k) for k in want} == want
+    bound = chip_smoke.MID_REFS[name]
+    assert chip_smoke.mid_ref_file(name).name == (
+        f"{name}.{settings['scene'].replace('@', '_')}.{settings['width']}x"
+        f"{settings['height']}.f{settings['frame']}.npz")
     assert set(bound) == set(settings["outputs"])
     assert set(ref) == set(settings["outputs"]) | {"settings"}
     assert settings["width"] * settings["height"] > 128 * 128  # > goldens
@@ -70,8 +85,8 @@ def test_mid_size_refs_take_the_accelerator_branches():
     reference takes the accelerator's shadows (hazard k) and raster caps
     (hazard f); config 2 differs from SVAO_small.py only there and in its
     SD raster, which it stores for its substituted hold."""
-    refs = chip_smoke.MID_REFS
-    hbao, sd = refs["HBAO"][0], refs["SVAO_rasterSD"][0]
+    refs = {name: settings_of(name) for name in chip_smoke.MID_REFS}
+    hbao, sd = refs["HBAO"], refs["SVAO_rasterSD"]
     assert hbao["script"] == "scripts/HBAO.py"
     assert hbao["pass_overrides"]["HBAO"] == {"samplingMode": "Shift"}
     assert sd["pass_overrides"]["SVAO"] == {"stochasticDepthImpl": "Raster"}
@@ -79,7 +94,7 @@ def test_mid_size_refs_take_the_accelerator_branches():
         chip_smoke.CONFIGS["config2"][4]["SVAO"]
     assert "raster_stochastic_pallas" in sd["raster_sd"]
     assert "fetch_sd_packed" in sd["fused_fetch"]
-    base = refs["SVAO_small"][0]
+    base = refs["SVAO_small"]
     differ = ("raster_sd", "ray_sd", "xla_flags", "fused_fetch",
               "substituted")
     assert {k: v for k, v in sd.items() if k not in differ} == dict(
@@ -90,12 +105,12 @@ def test_mid_size_refs_take_the_accelerator_branches():
         "StochasticDepthMap.stochasticDepth"]
     for name in ("SVAO_small", "SVAO_full", "SVAO_dual", "SVAO_quarter",
                  "SVAO_anim"):
-        settings = refs[name][0]
+        settings = refs[name]
         assert "sd_trace_pallas" in settings["ray_sd"], name
         assert settings["xla_flags"] == "--xla_cpu_max_isa=AVX", name
     for name in ("HBAO", "SVAO_rasterSD", "SVAO_depth"):
-        assert not {"ray_sd", "xla_flags"} & set(refs[name][0]), name
-    for settings, _ in refs.values():
+        assert not {"ray_sd", "xla_flags"} & set(refs[name]), name
+    for settings in refs.values():
         # scripts/SVAO_depth.py has no RayShadow (and no ForwardLighting),
         # scripts/SVAO_quarter.py no DepthPeeling pass
         if settings["script"] != "scripts/SVAO_depth.py":
@@ -115,8 +130,8 @@ def test_svao_full_ref_records_four_raster_caps_and_its_outputs():
     others (hazard f); the file records that the graph ran only the
     G-buffer and ForwardLighting rasters, neither overflowing, and the
     accelerator branches chip_smoke.py takes."""
-    full, bound = chip_smoke.MID_REFS["SVAO_full"]
-    base = chip_smoke.MID_REFS["SVAO_small"][0]
+    full, bound = settings_of("SVAO_full"), chip_smoke.MID_REFS["SVAO_full"]
+    base = settings_of("SVAO_small")
     assert full["script"] == "scripts/SVAO.py"
     assert full["pass_overrides"] == dict(
         base["pass_overrides"], DepthPass={"maxPerTile": 4096})
@@ -139,9 +154,9 @@ def test_quarter_and_dual_refs_record_their_graphs():
     SVAO.py with SVAO's primaryDepthMode set to DualDepth after the build
     (SVAO_full's settings but that override and one kept output; its
     DepthPeeling raster runs, capped, and overflows nothing)."""
-    refs = chip_smoke.MID_REFS
-    quarter, dual, full = (refs[n][0] for n in ("SVAO_quarter", "SVAO_dual",
-                                                "SVAO_full"))
+    quarter, dual, full = (settings_of(n) for n in ("SVAO_quarter",
+                                                    "SVAO_dual",
+                                                    "SVAO_full"))
     assert quarter["script"] == "scripts/SVAO_quarter.py"
     assert set(quarter["outputs"]) == {"AmbientOcclusion.out",
                                        "ShadedTAA.colorOut"}
@@ -163,7 +178,8 @@ def test_svao_depth_ref_records_frame_one_of_two():
     TemporalDepthPeel holds frame 0's layer), both outputs, its two
     rasters capped and overflowing nothing; the JAX package ran no
     accelerator branch (the graph has no RayShadow and no raster SD)."""
-    depth, bound = chip_smoke.MID_REFS["SVAO_depth"]
+    depth = settings_of("SVAO_depth")
+    bound = chip_smoke.MID_REFS["SVAO_depth"]
     assert (depth["frames"], depth["frame"]) == (2, 1)
     assert depth["outputs"] == ["Ambient.out", "AmbientRef.out"]
     assert set(bound) == set(depth["outputs"])
@@ -180,8 +196,8 @@ def test_every_ref_has_a_substituted_hold():
     chip_smoke.py holds each AO output it keeps with them substituted
     (the shaded outputs read ForwardLighting's own raster)."""
     assert set(chip_smoke.MID_SUBSTITUTED_BOUND) == set(chip_smoke.MID_REFS)
-    for name, (settings, _) in chip_smoke.MID_REFS.items():
-        ao = {o for o in settings["outputs"]
+    for name in chip_smoke.MID_REFS:
+        ao = {o for o in settings_of(name)["outputs"]
               if o.startswith(("AmbientOcclusion", "Ambient."))
               or o in ("AmbientRef.out", "AmbientTAA.colorOut")}
         assert set(chip_smoke.MID_SUBSTITUTED_BOUND[name]) == ao, name
@@ -196,7 +212,7 @@ def test_substituted_rasters_stored_beside_their_refs(name):
     included), finite float32; each substituted hold bounds outputs of
     the reference by a positive MSE far below the reference's own bound
     (where it has one)."""
-    settings, bound = chip_smoke.MID_REFS[name]
+    settings, bound = settings_of(name), chip_smoke.MID_REFS[name]
     sub_bound = chip_smoke.MID_SUBSTITUTED_BOUND[name]
     path = chip_smoke.mid_ref_file(name).with_suffix(".rasters.npz")
     with np.load(path) as f:
@@ -229,8 +245,8 @@ def test_anim_ref_records_config5_animation():
     settings; its stored G-buffer differs between frames (the camera and
     the node move), and its depth2-free graph ran only the G-buffer and
     ForwardLighting rasters."""
-    anim = chip_smoke.MID_REFS["SVAO_anim"][0]
-    base = chip_smoke.MID_REFS["SVAO_small"][0]
+    anim = settings_of("SVAO_anim")
+    base = settings_of("SVAO_small")
     assert anim["animation"] == chip_smoke.CONFIG5_ANIMATION
     assert (anim["scene"], anim["frames"], anim["frame"]) == (
         "EmeraldSquare", 3, 2)

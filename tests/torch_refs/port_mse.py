@@ -6,8 +6,9 @@ set from (twice the measured MSE, rounded up to one digit).
     python tests/torch_refs/port_mse.py NAME [NAME ...] [--device cpu]
 
 renders each reference NAME of chip_smoke.MID_REFS through the port on
---device (the CPU by default; cuda on the card) and prints each output's
-MSE against tests/torch_refs/NAME.*.npz; for a name with a substituted
+--device (the CPU by default; cuda on the card), with the settings its
+file records, and prints each output's MSE against
+tests/torch_refs/NAME.*.npz; for a name with a substituted
 hold (chip_smoke.MID_SUBSTITUTED_BOUND) once more with the JAX package's
 raster channels stored beside the reference in place of the port's.
 Imports no JAX. Not run by the tests.
@@ -32,11 +33,10 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     out = {}
     for name in args.names:
-        settings = C.MID_REFS[name][0]
-        ref = C.mid_ref(name)
+        settings, ref = C.mid_ref(name)
         runs = [("", None)]
         if name in C.MID_SUBSTITUTED_BOUND:
-            runs.append((":substituted", C.mid_rasters(name)))
+            runs.append((":substituted", C.mid_rasters(name, settings)))
         for tag, substitute in runs:
             t0 = time.perf_counter()
             kept, _ = C.mid_frame(settings, substitute=substitute,
