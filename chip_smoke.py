@@ -19,12 +19,13 @@ may run inside a frame.
    helper;
 4. the SVAO path once, as bench.py drives it, at SunTemple@full 1920x1080
    (G-buffer, linearize, packed view normals, SVAO phase 1, the nested SD
-   trace graph, phase 2): K1-K5 each launch, AO finite in [0, 1] with
-   some occlusion, the G-buffer covers the frame, the stencil and the SD
-   map are not empty;
-5. each of those five calls against its plain version (K1 with its
+   trace graph, phase 2): K1-K5 each launch, K12 once, AO finite in
+   [0, 1] with some occlusion, the G-buffer covers the frame, the stencil
+   and the SD map are not empty;
+5. each of those six kernels against its plain version (K1 with its
    per-triangle cull against the version without it, tri_id within 1e-4 of
-   the pixels, bit-exact expected; the others bit-exact); K5's key
+   the pixels, bit-exact expected; the others bit-exact, K12 at every
+   call: NaN at the same texels, every other texel's bits equal); K5's key
    function on the INT_MIN hash; K4's wrapper runs its kernel and nothing
    else (torch.profiler over K4_WRAPPER_REPS calls); the SVAO path once
    more with stochMaxCount 8 (K5 with the cap, held);
@@ -32,13 +33,16 @@ may run inside a frame.
    the bound of tests/test_svao.py;
 8. scripts/SVAO_small.py through rtsdm_tpu_torch.mogwai at SunTemple@full
    1920x1080, 3 frames on a paused clock: per frame K1 and K2 twice, K3-K5
-   as on the SVAO path, K8 once a light, K10 at least 6 times (TAA's two
-   Catmull-Rom); the four outputs 1080x1920 and finite, AO in [0, 1];
-9. the graph's last frame: K8 held on 128 spread 8x32 tiles (hits against
-   the version without its per-ray cull, tested pairs against the cull's
-   replay; the launch over every tile the same on those tiles; the same
-   hits as with boxes that cull nothing); K10 held at every call and on a
-   synthetic motion field at the TAA shape, near and far out of bounds;
+   and K12 as on the SVAO path, K8 once a light, K10 at least 6 times
+   (TAA's two Catmull-Rom); the four outputs 1080x1920 and finite, AO in
+   [0, 1];
+9. the graph's last frame: K12 held as in 5 (K4's pairs on the guard
+   band's [16, 302, 512] planes); K8 held on 128 spread 8x32 tiles (hits
+   against the version without its per-ray cull, tested pairs against the
+   cull's replay; the launch over every tile the same on those tiles; the
+   same hits as with boxes that cull nothing); K10 held at every call and
+   on a synthetic motion field at the TAA shape, near and far out of
+   bounds;
 11. BASELINE config 2 (SVAO_small.py with stochasticDepthImpl Raster,
    Arcade@full 1280x720), 3 frames: K9 once a frame, K5 never; every call
    of the last frame of K1-K4, K8 and K10 held bit-exact
@@ -73,13 +77,14 @@ may run inside a frame.
    rendered with the JAX package's raster channels (<ref>.rasters.npz) in
    place of the port's, its AO outputs within MID_SUBSTITUTED_BOUND;
 18. BASELINE config 4 (scripts/SVAO_quarter.py, Bistro@full 1920x1080),
-   3 frames: K5 once a frame, K7 never, K3 twice, K4 once, one TAA;
-   outputs finite, AO in [0, 1]; held as in 11 (K5 and K8 on spread tiles);
+   3 frames: K5 once a frame, K7 never, K3 twice, K4 and K12 once, one
+   TAA; outputs finite, AO in [0, 1]; held as in 11 (K5 and K8 on spread
+   tiles);
 19. BASELINE config 3 (SVAO_small.py at stochMapDivisor 1, SD guard band
    512, SunTemple@full 1920x1080), 3 frames: K5 once a frame, K4 never,
-   K11 once a ring direction; held as in 11 (K11 too); one more frame
-   under torch.profiler: no host-to-device copy inside SVAO and no miss of
-   its table caches (frame_copies);
+   K11 and K12 once a ring direction; held as in 11 (K11 and K12 too);
+   one more frame under torch.profiler: no host-to-device copy inside SVAO
+   and no miss of its table caches (frame_copies);
 20. scripts/SVAO.py with SVAO's primaryDepthMode DualDepth (K1 once
    floored, phase 1's K3 on two plane sets) and secondaryDepthMode
    SingleDepth (no SD trace, no K4), one frame each, held as in 11;
@@ -93,8 +98,8 @@ may run inside a frame.
 24. BASELINE config 5 (SVAO_small.py on EmeraldSquare@full, 1,036,922
    triangles, 1280x720), animated as bench_configs.py:51-66, 3 frames:
    K1 and K2 twice (K2 interpolating last frame's positions, (nci, nflat)
-   = (11, 4)), K3 twice, K4 and K5 once, K8 once a light, K10 at least 6
-   times; outputs finite, AO in [0, 1]; the motion vectors show the
+   = (11, 4)), K3 twice, K4, K5 and K12 once, K8 once a light, K10 at
+   least 6 times; outputs finite, AO in [0, 1]; the motion vectors show the
    camera's motion and the moving node's own; held as in 11;
 24b. config 5's animation on EmeraldSquare's small tier at 480x270, frames
    0-2, against its mid-size reference, plainly and substituted;
@@ -206,7 +211,8 @@ class Kernel:
 
 
 def kernels_of_path():
-    from rtsdm_tpu_torch.ops import fetch_cuda, raster_cuda, rt_cuda
+    from rtsdm_tpu_torch.ops import (fetch_cuda, raster_cuda, resolve_cuda,
+                                     rt_cuda)
     from rtsdm_tpu_torch.passes import svao_shift
     return [
         Kernel("raster", ["rtsdm_raster_blocks"],
@@ -237,11 +243,17 @@ def kernels_of_path():
                [(rt_cuda, "sd_trace_blocks_plain")],
                "rtsdm_tpu_torch/csrc/sd_trace.cu",
                "rtsdm_tpu/ops/rt_pallas.py:791"),
+        Kernel("svao_resolve", ["rtsdm_svao_resolve"],
+               resolve_cuda.svao_resolve, [(svao_shift, "svao_resolve")],
+               [(svao_shift, "svao_resolve_plain")],
+               "rtsdm_tpu_torch/csrc/svao_resolve.cu",
+               "none: rtsdm_tpu/passes/svao_shift.py:svao_phase2_shift's "
+               "direction loop is XLA"),
     ]
 
 
 def kernels_of_graph():
-    """The SVAO path's five kernels plus K8 and K10, which the graph's
+    """The SVAO path's six kernels plus K8 and K10, which the graph's
     RayShadow, EnvMapPass, ForwardLighting and TAA passes launch."""
     from rtsdm_tpu_torch.ops import rt_cuda, warp_cuda
     from rtsdm_tpu_torch.passes import temporal
@@ -436,6 +448,10 @@ def drive_main_path(scene, kernels):
         check(k.launches > 0, f"{k.name}: its kernel never launched on the "
                               "main path")
         check(k.calls, f"{k.name}: no recorded call")
+    # divisor 4: K12 resolves the ring on K4's planes in one launch
+    check(counts["svao_resolve"] == 1, f"K12 launched "
+                                       f"{counts['svao_resolve']} times on "
+                                       "the main path, expected 1")
     sd_map = kernels_by_name(kernels)["fetch_sd_packed"].calls[0][0][0]
     check_frame(g, out, WIDTH, HEIGHT, sd_map)
     return counts
@@ -773,11 +789,46 @@ def compare_sd_trace(k):
         nbytes(args[:4], args[9:11], got), tests * TRACE_FLOPS_PER_TEST)
 
 
+def same_bits(got, want) -> bool:
+    """NaN at the same elements (the depth at infinity gives one on both
+    sides), every other element equal bit for bit."""
+    import torch
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(torch.int32)[~nan], want.view(torch.int32)[~nan]))
+
+
+def hold_svao_resolve(k, where: str):
+    """K12: every recorded call against the plain loop, bit-exact
+    (same_bits)."""
+    import torch
+    check(k.calls, f"K12 made no call on the {where}")
+    for args, kwargs in k.calls:
+        (got,), (want,) = _pair_svao_resolve(args, kwargs)
+        check(got.shape == want.shape, f"K12 {tuple(got.shape)} vs plain "
+                                       f"{tuple(want.shape)}")
+        mism = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        log(f"K12 svao_resolve on the {where} {tuple(got.shape)}, SD values "
+            f"{tuple(args[5].shape)} {args[5].dtype}: {mism} texels differ "
+            f"in their bits, {int(torch.isnan(want).sum())} NaN in the "
+            "plain loop's (bound: NaN at the same texels, the rest "
+            "bit-exact)")
+        check(same_bits(got, want), f"K12 is not bit-exact on the {where}")
+
+
+def compare_svao_resolve(k):
+    """K12 held at every call of the path; its row at the first call
+    (k12_row)."""
+    hold_svao_resolve(k, "main path")
+    return dict(k12_row("svao_path", k), mismatches=0, exact=True)
+
+
 COMPARE = {"raster": compare_raster,
            "fetch_attributes": compare_fetch_attributes,
            "fetch_all_directions": compare_fetch_directions,
            "fetch_sd_packed": compare_fetch_sd_packed,
-           "sd_trace": compare_sd_trace}
+           "sd_trace": compare_sd_trace,
+           "svao_resolve": compare_svao_resolve}
 
 
 # device symbol of each kernel (csrc/*.cu), as the profiler names it
@@ -791,7 +842,8 @@ KERNEL_SYMBOLS = {"raster": "raster_blocks_kernel",
                   "fetch_taps_same_class": "fetch_taps_same_class_kernel",
                   "raster_stochastic": "raster_sd_kernel",
                   "sd_trace_resident": "sd_trace_resident_kernel",
-                  "fetch_sd_strided": "fetch_sd_strided_kernel"}
+                  "fetch_sd_strided": "fetch_sd_strided_kernel",
+                  "svao_resolve": "svao_resolve_kernel"}
 
 
 # ---------------------------------------------------------------------------
@@ -882,6 +934,7 @@ def drive_graph(kernels, path_counts):
             "fetch_all_directions": path_counts["fetch_all_directions"],
             "fetch_sd_packed": path_counts["fetch_sd_packed"],
             "sd_trace": path_counts["sd_trace"],
+            "svao_resolve": path_counts["svao_resolve"],
             "any_hit": n_lights}
     totals = collections.Counter()
     modes = collections.Counter()
@@ -1397,29 +1450,32 @@ def config_want(label, n_lights):
                 "fetch_all_directions": 2, "fetch_sd_packed": 0,
                 "sd_trace": 0, "raster_stochastic": 0,
                 "sd_trace_resident": 0, "fetch_taps_same_class": 0,
-                "any_hit": 0}
+                "any_hit": 0, "svao_resolve": 0}
     if label in ("config3", "config4", "config5"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 and phase 2
         # fetch once each; the SD trace streams (K5: SunTemple's 323,202,
         # Bistro's 681,562 and EmeraldSquare's 1,036,922 triangles are
         # above 65,536); phase 2 reads the packed SD map through K4 at
         # divisor 4 (configs 4 and 5) and through K11 at divisor 1 (config
-        # 3), one launch a ring direction
+        # 3), one launch a ring direction; K12 resolves the ring in one
+        # launch on K4's planes, once a direction after K11
         div1 = label == "config3"
         return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
                 "fetch_all_directions": 2,
                 "fetch_sd_packed": int(not div1),
-                "fetch_sd_strided": 8 * div1, "sd_trace": 1,
+                "fetch_sd_strided": 8 * div1,
+                "svao_resolve": 8 if div1 else 1, "sd_trace": 1,
                 "raster_stochastic": 0, "sd_trace_resident": 0,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
     if label in ("config2", "svao_full"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 fetches both
         # ring halves, phase 2 reads the packed SD map; config 2 rasters
         # its SD map (K9), SVAO.py traces it resident (K7: Arcade's 38,610
-        # triangles are at most 65,536); K5 never
+        # triangles are at most 65,536); K5 never; K12 once
         sd9 = int(label == "config2")
         return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
                 "fetch_all_directions": 2, "fetch_sd_packed": 1,
+                "svao_resolve": 1,
                 "sd_trace": 0, "raster_stochastic": sd9,
                 "sd_trace_resident": 1 - sd9,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
@@ -1428,7 +1484,8 @@ def config_want(label, n_lights):
     return {"raster": 2, FLOOR: 1, "fetch_attributes": 2,
             "fetch_all_directions": 0, "fetch_sd_packed": 0, "sd_trace": 0,
             "raster_stochastic": 0, "sd_trace_resident": 0,
-            "fetch_taps_same_class": 1, "any_hit": n_lights}
+            "fetch_taps_same_class": 1, "any_hit": n_lights,
+            "svao_resolve": 0}
 
 
 def drive_config(label, kernels, per_frame=None):
@@ -1531,6 +1588,16 @@ def _pair_fetch_sd_strided(args, kwargs):
             (F.fetch_sd_strided_plain(*args, **kwargs),))
 
 
+def _pair_svao_resolve(args, kwargs):
+    """K12 against its plain version, phase 2's direction loop, on the
+    call's K3, K4 or K11 outputs and (at divisors 1 and 2) the delta the
+    last direction's call returned."""
+    from rtsdm_tpu_torch.ops import resolve_cuda
+    from rtsdm_tpu_torch.passes import svao_shift
+    return ((resolve_cuda.svao_resolve(*args, **kwargs),),
+            (svao_shift.svao_resolve_plain(*args, **kwargs),))
+
+
 def _pair_any_hit(args, kwargs, tiles=ANY_HIT_TILES):
     """On the spread tile subset (hold_any_hit)."""
     return hold_any_hit(args, tiles)
@@ -1596,6 +1663,7 @@ CONFIG_PAIRS = {"raster": _pair_raster,
                 "fetch_all_directions": _pair_fetch_directions,
                 "fetch_sd_packed": _pair_fetch_sd_packed,
                 "fetch_sd_strided": _pair_fetch_sd_strided,
+                "svao_resolve": _pair_svao_resolve,
                 "any_hit": _pair_any_hit,
                 "warp_resample": _pair_warp,
                 "sd_trace_resident": _pair_sd_trace_resident,
@@ -1632,10 +1700,10 @@ def check_config_calls(label, kernels):
     K7 in SVAO.py, K5 in configs 3 and 4),
     against its plain version on the card: bit-exact (--fmad=false, the
     plain versions' operation order; K8 and K5 on a spread subset of whole
-    tiles, as in compare_any_hit). A K1 call with the arguments of an
-    earlier one (config 5's G-buffer and ForwardLighting raster the same
-    scene from the same camera) is held against that call's plain output,
-    which the plain version would give again."""
+    tiles, as in compare_any_hit; K12 by same_bits). A K1 call with the
+    arguments of an earlier one (config 5's G-buffer and ForwardLighting
+    raster the same scene from the same camera) is held against that
+    call's plain output, which the plain version would give again."""
     import torch
     by_name = kernels_by_name(kernels)
     held = {}
@@ -1658,9 +1726,10 @@ def check_config_calls(label, kernels):
                                           f"{tuple(g.shape)} vs plain "
                                           f"{tuple(w.shape)}")
                 mism = int((g != w).sum())
-                check(torch.equal(g, w), f"{label}: {name} at "
-                                         f"{tuple(g.shape)} is not "
-                                         f"bit-exact ({mism} mismatches)")
+                same = same_bits(g, w) if name == "svao_resolve" \
+                    else torch.equal(g, w)
+                check(same, f"{label}: {name} at {tuple(g.shape)} is not "
+                            f"bit-exact ({mism} mismatches)")
         held[name] = len(calls)
     log(f"{label}: the last frame's calls held bit-exact against their plain "
         f"versions: {held}")
@@ -2158,6 +2227,39 @@ def k11_timing(label, k):
                       nbytes(out) + texels * depth_k * 4, 0.0)
 
 
+def k12_row(label, k):
+    """K12's row at the last frame's first call (held bit-exact by
+    check_config_calls): its times (timings; the plain version is the
+    direction loop K12 replaced) and its bound: the setup planes it reads,
+    K3's planes of the call's directions, the SD values, the stencil and
+    delta (read where the call adds to one, written) each read or written
+    once."""
+    from rtsdm_tpu_torch.ops import resolve_cuda as RV
+    from rtsdm_tpu_torch.passes import svao_shift
+    from rtsdm_tpu_torch.utils.sampling import AO_KERNEL_VAO
+    check(k.calls, f"{label}: K12 made no call")
+    args, kwargs = k.calls[0]
+    cfg, bq, _, radii, fetched, sd, stencil_q = args[:7]
+    delta_in, d = (tuple(args[12:]) + (None, None))[:2]
+    out = RV.svao_resolve(*args, **kwargs)
+    read = RV.PLANES + (() if cfg.kernel == AO_KERNEL_VAO
+                         else RV.HBAO_PLANES)
+    planes = [bq[key] if comp is None else bq[key][comp]
+              for _, key, comp in read]
+    dirs = fetched if d is None else fetched[d]
+    t = timings(f"{label} K12 {tuple(out.shape)}, "
+                f"{len(radii) if d is None else 1} direction(s), SD values "
+                f"{tuple(sd.shape)} {sd.dtype}",
+                lambda: RV.svao_resolve(*args, **kwargs),
+                KERNEL_SYMBOLS["svao_resolve"], 50,
+                plain=lambda: svao_shift.svao_resolve_plain(*args, **kwargs))
+    return with_bound(dict(t, max_abs_err=0.0, shape=list(out.shape),
+                           directions=len(radii) if d is None else 1,
+                           sd_shape=list(sd.shape)),
+                      nbytes(planes, dirs, sd, stencil_q, delta_in, out),
+                      0.0)
+
+
 def h2d_copies_by_span(events) -> collections.Counter:
     """The host-to-device copies among a torch.profiler session's events
     (prof.events()), counted by the innermost program span ("rtsdm/" + its
@@ -2211,9 +2313,10 @@ def run_new_configs():
     SD guard band 512, SunTemple@full 1920x1080) through the harness:
     CONFIG_FRAMES frames with the launches of config_want, the last
     frame's calls bit-exact against their plain versions (K5 and K8 on a
-    spread subset of tiles), K5's row (and K8's at config 4, K11's at
-    config 3), at config 3 a warm frame's host-to-device copies by span
-    (none may lie in SVAO). Returns (kernel rows, {label: launches})."""
+    spread subset of tiles), K5's and K12's rows (and K8's at config 4,
+    K11's at config 3), at config 3 a warm frame's host-to-device copies
+    by span (none may lie in SVAO). Returns (kernel rows, {label:
+    launches})."""
     report = {}
     rows = []
     for label in ("config4", "config3"):
@@ -2230,6 +2333,8 @@ def run_new_configs():
         if label == "config3":
             rows.append(dict(k11_timing(label, by_name["fetch_sd_strided"]),
                              name="fetch_sd_strided"))
+        rows.append(dict(k12_row(label, by_name["svao_resolve"]),
+                         name="svao_resolve"))
         rows.append(dict(sd_trace_timing(label, by_name["sd_trace"]),
                          name="sd_trace"))
         if label == "config4":
@@ -3090,7 +3195,7 @@ def run_config5() -> tuple:
     vectors' mean magnitude far above frame 0's (the camera moved), and
     the node's own motion (node_motion). The last frame's calls held
     bit-exact against their plain versions (K5 and K8 on spread tile
-    subsets); the rows of K2-K5, K8 and K10. Returns (kernel rows,
+    subsets); the rows of K2-K5, K8, K10 and K12. Returns (kernel rows,
     {launches})."""
     label = "config5"
     kernels = kernels_of_configs()
@@ -3112,6 +3217,8 @@ def run_config5() -> tuple:
     rows.append(dict(sd_trace_timing(label, by_name["sd_trace"]),
                      name="sd_trace"))
     rows.append(dict(k8_bound_at(label, by_name["any_hit"]), name="any_hit"))
+    rows.append(dict(k12_row(label, by_name["svao_resolve"]),
+                     name="svao_resolve"))
     rows += compare_warp(by_name["warp_resample"], modes)
     report = dict(launches=totals, warp_launches_by_mode=modes)
     for r in rows:
@@ -3436,6 +3543,7 @@ def main(argv=None) -> int:
     graph_kernels = kernels_of_graph()
     graph_counts, warp_modes = drive_graph(graph_kernels, counts)
     by_name = kernels_by_name(graph_kernels)
+    hold_svao_resolve(by_name["svao_resolve"], "graph's last frame")
     rows.append(dict(compare_any_hit(by_name["any_hit"]), name="any_hit",
                      launches=graph_counts["any_hit"]))
     rows += compare_warp(by_name["warp_resample"], warp_modes)

@@ -41,7 +41,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 # C entry points of each kernel source: name -> argument types. Every entry
-# launches on the given stream (last argument) and returns cudaGetLastError().
+# but rtsdm_svao_resolve_layout launches on the given stream (last argument)
+# and returns cudaGetLastError().
 KERNEL_SIGNATURES = {
     "raster.cu": {
         "rtsdm_raster_blocks": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -69,6 +70,12 @@ KERNEL_SIGNATURES = {
     "raster_sd.cu": {
         "rtsdm_raster_stochastic": [_P] * 7 + [_I] * 6 + [_F, _P, _I, _P,
                                                           _P, _P],
+    },
+    "svao_resolve.cu": {
+        # a pointer to ops/resolve_cuda.ResolveArgs, vao, packed, stream
+        "rtsdm_svao_resolve": [_P, _I, _I, _P],
+        # launches nothing: ResolveArgs' size and field offsets
+        "rtsdm_svao_resolve_layout": [_P, _I],
     },
 }
 

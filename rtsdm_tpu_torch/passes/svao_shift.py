@@ -7,7 +7,10 @@ ring's screen directions and the dither rotation are per-class constants.
 The depth fetches of both phases go through K3 (ops/fetch_cuda.
 fetch_all_directions) and the SD fetch of phase 2 through K4
 (fetch_sd_packed) at stochMapDivisor 4 and K11 (fetch_sd_strided) at 1
-and 2, with the ring tables of cfg's kernel (VAO or HBAO).
+and 2, with the ring tables of cfg's kernel (VAO or HBAO). Phase 2's
+direction loop is K12 (ops/resolve_cuda.svao_resolve): one launch for the
+whole ring on K4's planes, one a direction after each K11 fetch; its
+plain version is svao_resolve_plain.
 Both phases take the primary depth mode (SingleDepth or DualDepth, a
 second layer `depth2`), phase 1 the secondary one (StochasticDepth, or
 any other: no SD ray intervals), and cfg.dual_ao the bright/dark pair of
@@ -26,6 +29,7 @@ from ..ops import ao as A
 from ..ops import ao_shift as S
 from ..ops.fetch_cuda import (fetch_all_directions, fetch_sd_packed,
                               fetch_sd_strided, offs_tuple, unpack_sd16)
+from ..ops.resolve_cuda import svao_resolve
 from ..utils.device import device_constant
 from ..utils.math import true_div
 from ..utils.sampling import AO_KERNEL_VAO, jitter_grid
@@ -426,6 +430,42 @@ def _sd_eval_deint(cfg, bq, sd_p, s, jqx, jqy, xg_q, yg_q, divisor: int,
     return acc
 
 
+def svao_resolve_plain(cfg, bq, levels, radii, fetched, sd, stencil_q,
+                       depth_range, near_z, k: int, divisor: int,
+                       sd_jitter: bool, delta_q=None, d=None):
+    """Plain PyTorch version of K12 (ops/resolve_cuda.svao_resolve), with
+    its arguments: calcAO2's direction loop in deinterleaved space over
+    ring direction d (every direction when d is None), each stenciled
+    direction's vis - old_vis added to delta_q (zeros when None) in
+    direction order. sd: K4's packed [nd, 16, ceil(k/2), qh, qw] int32 of
+    every direction, or direction d's [16, k, qh, qw] float slots."""
+    qh, qw = stencil_q.shape[1:]
+    dev = stencil_q.device
+    xg_q, yg_q = _class_grids(qh, qw, dev)
+    jit_q = jitter_grid(qh, qw, sd_jitter, device=dev)
+    jqx, jqy = jit_q[..., 0], jit_q[..., 1]
+    low_w, low_h = cfg.low_resolution
+    nd = cfg.num_directions
+    vao = cfg.kernel == AO_KERNEL_VAO
+    packed = sd.dtype == torch.int32
+    if delta_q is None:
+        delta_q = torch.zeros((16, qh, qw), device=dev)
+    for i in (range(nd) if d is None else (d,)):
+        bit = ((stencil_q >> i) & 1).to(torch.bool)
+        alpha = (i / nd) * 2.0 * 3.141
+        s = _sample_dir_q(cfg, bq, xg_q, yg_q, levels, float(radii[i]),
+                          alpha, fetched[i])
+        old_vis = s["vis"]
+        vis = torch.where(s["in_screen"], s["vis"], 1.0 if vao else 0.0)
+        vis_sd = _sd_eval_deint(cfg, bq, sd if d is not None else sd[i], s,
+                                jqx, jqy, xg_q, yg_q, divisor, low_w, low_h,
+                                depth_range, near_z, k, packed)
+        vis = torch.minimum(vis, vis_sd) if vao \
+            else torch.maximum(vis, vis_sd)
+        delta_q = delta_q + torch.where(bit, vis - old_vis, 0.0)
+    return delta_q
+
+
 def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
                       sd_jitter: bool = True, divisor: int = 4, *,
                       depth2=None, primary: str = "SingleDepth"):
@@ -446,14 +486,9 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
     qh, qw = hp // 4, wp // 4
     g = cfg.sd_guard
     depth_range = cam.far_z - cam.near_z
-    low_w, low_h = cfg.low_resolution
-    dev = depth.device
     stencil_q = S.deinterleave(torch.nn.functional.pad(
         stencil, (0, wp - w, 0, hp - h)))
     bq = _deint_b(b)
-    xg_q, yg_q = _class_grids(qh, qw, dev)
-    jit_q = jitter_grid(qh, qw, sd_jitter, device=dev)
-    jqx, jqy = jit_q[..., 0], jit_q[..., 1]
     k_sd = sd_map.shape[-1]
 
     rq = bq["radius_px"]
@@ -461,23 +496,17 @@ def svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
                                    radii)[0]
     sd_pre = (fetch_sd_packed(sd_map, g, rq, levels, offs, radii, pad)
               if divisor == 4 else None)
-    delta_q = torch.zeros((16, qh, qw), device=dev)
-    for i in range(nd):
-        bit = ((stencil_q >> i) & 1).to(torch.bool)
-        alpha = (i / nd) * 2.0 * 3.141
-        s = _sample_dir_q(cfg, bq, xg_q, yg_q, levels, float(radii[i]),
-                          alpha, fetched[i])
-        old_vis = s["vis"]
-        vao = cfg.kernel == AO_KERNEL_VAO
-        vis = torch.where(s["in_screen"], s["vis"], 1.0 if vao else 0.0)
-        sd_p = sd_pre[i] if sd_pre is not None else fetch_sd_strided(
-            sd_map, g, rq, levels, offs, radii, i, divisor)
-        vis_sd = _sd_eval_deint(cfg, bq, sd_p, s, jqx, jqy, xg_q, yg_q,
-                                divisor, low_w, low_h, depth_range,
-                                cam.near_z, k_sd, sd_pre is not None)
-        vis = torch.minimum(vis, vis_sd) if vao \
-            else torch.maximum(vis, vis_sd)
-        delta_q = delta_q + torch.where(bit, vis - old_vis, 0.0)
+    resolve = (cfg, bq, levels, radii, fetched)
+    setting = (stencil_q, depth_range, cam.near_z, k_sd, divisor, sd_jitter)
+    if sd_pre is not None:
+        delta_q = svao_resolve(*resolve, sd_pre, *setting)
+    else:
+        # one direction's fetch alive at a time, summed in direction order
+        delta_q = None
+        for i in range(nd):
+            sd_i = fetch_sd_strided(sd_map, g, rq, levels, offs, radii, i,
+                                    divisor)
+            delta_q = svao_resolve(*resolve, sd_i, *setting, delta_q, i)
     scale = (2.0 if cfg.kernel == AO_KERNEL_VAO else 1.0) / nd
     delta = S.interleave(delta_q, hp, wp)[:h, :w] * scale
     if cfg.dual_ao:

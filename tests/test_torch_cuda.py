@@ -314,6 +314,126 @@ def test_sd_strided_fetch_kernel_matches_plain_on_gpu(cuda_device, divisor,
             assert torch.equal(got, want)
 
 
+def _phase2_frame(dev, kernel, divisor, guard, k, rng, h=45, w=70, nd=8):
+    """Phase 2's inputs at a size that is neither a multiple of 4 nor of a
+    block: depths from near the eye (the radius clamps at ssMaxRadius, so
+    most ring samples leave the screen) to far (below a pixel: level 0),
+    a few at 0 and at infinity, normals in every direction (some in the
+    view plane), a stencil with empty texels, a DualDepth layer behind."""
+    from rtsdm_tpu_torch.ops import ao as A
+    from rtsdm_tpu_torch.scene.camera import Camera
+    cam = Camera.create(aspect=w / h, near_z=0.1, far_z=100.0, device=dev)
+    cfg = A.VAOConfig(radius=0.6, thickness=0.25, ss_max_radius=40.0,
+                      num_directions=nd, kernel=kernel, resolution=(w, h),
+                      low_resolution=(-(-w // divisor), -(-h // divisor)),
+                      sd_guard=guard)
+    depth = rng.uniform(0.12, 30.0, (h, w)).astype(np.float32)
+    depth[rng.random((h, w)) < 0.1] = 90.0
+    depth[0, :3] = (0.0, np.inf, 1e-3)
+    n = rng.normal(size=(h, w, 3)).astype(np.float32)
+    n[rng.random((h, w)) < 0.05, 2] = 0.0
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    stencil = rng.integers(0, 256, (h, w)).astype(np.int32)
+    stencil[rng.random((h, w)) < 0.2] = 0
+    sd_w, sd_h = cfg.low_resolution
+    sd_map = rng.uniform(0.0, 1.0, (sd_h + 2 * guard, sd_w + 2 * guard, k))
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    return (cam, cfg, t(depth), t(n), t(stencil),
+            t(sd_map.astype(np.float32)), t(depth + 0.75))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 4, 8])
+@pytest.mark.parametrize("primary", ["SingleDepth", "DualDepth"])
+@pytest.mark.parametrize("kernel", ["VAO", "HBAO"])
+@pytest.mark.parametrize("divisor", [1, 2, 4])
+def test_svao_resolve_kernel_matches_plain_loop_on_gpu(
+        cuda_device, monkeypatch, divisor, kernel, primary, k):
+    """K12 against svao_resolve_plain (phase 2's direction loop) at every
+    call of svao_phase2_shift, on the same K3, K4 and K11 outputs: VAO and
+    HBAO; divisors 1 and 2 (K11's float slots, one launch a direction, each
+    adding to the last's delta) and 4 (K4's pairs, one launch for the
+    ring); Single and DualDepth, the SD jitter on and off; k = 1, 3 (a
+    pair's high half unused), 4 and 8. Every texel equal bit for bit, NaNs
+    (the depth at infinity) at the same texels. (No texel samples its own
+    pixel: a ring offset is at least a pixel long.)"""
+    from rtsdm_tpu_torch import _build
+    from rtsdm_tpu_torch.passes import svao_shift as PH
+    from rtsdm_tpu_torch.utils.sampling import AO_KERNEL_HBAO, AO_KERNEL_VAO
+    guard = 48 // divisor
+    rng = np.random.default_rng(
+        [97, divisor, guard, k, int(kernel == "VAO"),
+         int(primary == "DualDepth")])
+    cam, cfg, depth, normal_v, stencil, sd_map, depth2 = _phase2_frame(
+        cuda_device, AO_KERNEL_VAO if kernel == "VAO" else AO_KERNEL_HBAO,
+        divisor, guard, k, rng)
+    held = []
+    kernel_call = PH.svao_resolve
+
+    def both(*args, **kwargs):
+        got = kernel_call(*args, **kwargs)
+        want = PH.svao_resolve_plain(*args, **kwargs)
+        held.append((got, want))
+        return got
+
+    monkeypatch.setattr(PH, "svao_resolve", both)
+    _build.LAUNCHES.clear()
+    # the SD jitter on under SingleDepth, off (0.5) under DualDepth
+    PH.svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map,
+                         primary == "SingleDepth", divisor, depth2=depth2,
+                         primary=primary)
+    per_ring = divisor == 4
+    assert len(held) == (1 if per_ring else cfg.num_directions)
+    assert _build.LAUNCHES["rtsdm_svao_resolve"] == len(held)
+    assert _build.LAUNCHES["rtsdm_fetch_sd_packed"] == int(per_ring)
+    for got, want in held:
+        assert got.shape == want.shape == (16, 12, 18)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert torch.equal(got.view(torch.int32)[~nan],
+                           want.view(torch.int32)[~nan])
+    assert bool((held[-1][1] != 0).any())
+
+
+@pytest.mark.cuda
+def test_svao_resolve_kernel_splits_a_long_ring_on_gpu(cuda_device):
+    """A ring of 20 directions at divisor 4 (a launch's arguments hold 16):
+    one wrapper call, two launches, the second adding to the first's delta;
+    equal bit for bit to the plain loop over the ring."""
+    from rtsdm_tpu_torch import _build
+    from rtsdm_tpu_torch.ops import resolve_cuda as RV
+    from rtsdm_tpu_torch.passes import svao_shift as PH
+    from rtsdm_tpu_torch.utils.sampling import AO_KERNEL_VAO
+    rng = np.random.default_rng(98)
+    cam, cfg, depth, normal_v, _, sd_map, _ = _phase2_frame(
+        cuda_device, AO_KERNEL_VAO, 4, 12, 4, rng, nd=20)
+    stencil = torch.as_tensor(rng.integers(0, 2**20, depth.shape)
+                              .astype(np.int32), device=cuda_device)
+    held = []
+
+    def both(*args, **kwargs):
+        _build.LAUNCHES.clear()
+        got = RV.svao_resolve(*args, **kwargs)
+        held.append((_build.LAUNCHES["rtsdm_svao_resolve"], got,
+                     PH.svao_resolve_plain(*args, **kwargs)))
+        return got
+
+    PH.svao_resolve, saved = both, PH.svao_resolve
+    try:
+        PH.svao_phase2_shift(cam, cfg, depth, normal_v, stencil, sd_map)
+    finally:
+        PH.svao_resolve = saved
+    [(launches, got, want)] = held
+    assert launches == 2
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan],
+                       want.view(torch.int32)[~nan])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("nci,nflat", [(8, 4), (3, 0), (2, 1)])
 def test_attribute_fetch_kernel_matches_plain_on_gpu(cuda_device, nci,

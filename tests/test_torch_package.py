@@ -19,11 +19,14 @@ torch.set_num_threads(1)
 
 import rtsdm_tpu_torch
 from rtsdm_tpu_torch import _build
+from rtsdm_tpu_torch.ops import ao as A
 from rtsdm_tpu_torch.ops import ao_shift as S
 from rtsdm_tpu_torch.ops import fetch_cuda as F
 from rtsdm_tpu_torch.ops import raster_cuda as RC
+from rtsdm_tpu_torch.ops import resolve_cuda as RV
 from rtsdm_tpu_torch.ops import rt_cuda as RT
 from rtsdm_tpu_torch.ops import warp_cuda as W
+from rtsdm_tpu_torch.passes import svao_shift as PH
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -31,7 +34,7 @@ WRAPPERS = (RC.raster_blocks, RC.fetch_attributes, F.fetch_all_directions,
             F.fetch_sd_packed, RT.sd_trace_blocks, W.warp_resample,
             RT.any_hit_blocks, F.fetch_taps_same_class,
             RC.raster_stochastic_blocks, RT.sd_trace_resident_blocks,
-            F.fetch_sd_strided)
+            F.fetch_sd_strided, RV.svao_resolve)
 
 
 def test_port_never_imports_jax():
@@ -69,14 +72,14 @@ def test_build_targets_hopper_without_fma():
     assert _build.BUILD_DIR == ROOT / "build" / "rtsdm_tpu_torch"
     assert {p.name for p in _build.CSRC_DIR.glob("*.cu")} == {
         "raster.cu", "fetch.cu", "sd_trace.cu", "warp.cu", "any_hit.cu",
-        "raster_sd.cu"}
+        "raster_sd.cu", "svao_resolve.cu"}
     # the scene helper is built by the port's own loader, into build/
     lib = _build.scenekit_library()
     assert Path(lib._name).parent == _build.BUILD_DIR
 
 
 def _tiny_inputs():
-    """Minimal valid CPU arguments for each of the eleven wrappers."""
+    """Minimal valid CPU arguments for each of the twelve wrappers."""
     rng = np.random.default_rng(11)
     chunks = torch.zeros((1, RC.COEF_ROWS, RC.TC))
     lists = torch.zeros((1, 1), dtype=torch.int32)
@@ -100,6 +103,12 @@ def _tiny_inputs():
                          .astype(np.float32))
     tri = torch.zeros((1, RT.TC, RT.PACK_W))
     rays = torch.zeros((7, RT.RB))
+    svao_cfg = A.VAOConfig(num_directions=2, resolution=(8, 8),
+                           low_resolution=(8, 8))
+    bq = {k: torch.ones((16, 2, 2)) for k in ("radius_px", "radius",
+                                              "pos_len")}
+    bq.update({k: tuple(torch.ones((16, 2, 2)) for _ in range(3))
+               for k in ("a", "no")}, sx=torch.ones(()), sy=torch.ones(()))
     return {
         "raster_blocks": (chunks, torch.zeros((1, 4, RC.TC)), lists, counts,
                           1, 1),
@@ -125,6 +134,11 @@ def _tiny_inputs():
         "sd_trace_resident_blocks": (tri, torch.zeros((6, 1)),
                                      torch.zeros(3), rays, 2),
         "fetch_sd_strided": (sd, pad, radius, levels, offs, radii, 1, 1),
+        "svao_resolve": (svao_cfg, bq, levels, radii,
+                         torch.ones((2, 16, 2, 2)), torch.ones((16, 2, 2, 2)),
+                         torch.ones((16, 2, 2), dtype=torch.int32),
+                         torch.ones(()), torch.zeros(()), 2, 1, True, None,
+                         0),
     }
 
 
@@ -142,7 +156,8 @@ def test_cpu_tensors_take_plain_versions(monkeypatch):
                       (F, "fetch_taps_same_class_plain"),
                       (RC, "raster_stochastic_blocks_plain"),
                       (RT, "sd_trace_resident_blocks_plain"),
-                      (F, "fetch_sd_strided_plain")):
+                      (F, "fetch_sd_strided_plain"),
+                      (PH, "svao_resolve_plain")):
         fn = getattr(mod, name)
 
         def rec(*a, _fn=fn, _name=name, **kw):

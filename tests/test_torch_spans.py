@@ -205,6 +205,38 @@ def test_the_divisor_1_sd_fetch_has_its_kernel_span(tmp_path):
         f"{phase2}/kernel.fetch_sd_strided"]["count"] == nd
 
 
+@pytest.mark.parametrize("divisor", [4, 1])
+def test_the_phase2_resolve_has_its_kernel_span(tmp_path, divisor):
+    """Phase 2's direction loop is K12's wrapper: a traced frame holds its
+    span, kernel.svao_resolve, inside renderFrame/SVAO/phase2 once at
+    stochMapDivisor 4 (K4 fetches the whole ring) and once a ring
+    direction at divisor 1 (after each K11 fetch), beside the fetches'
+    spans, never inside them."""
+    from torch.profiler import ProfilerActivity, profile
+    m = _animated_svao_small()
+    svao = m.active_graph.get_pass("SVAO")
+    if divisor == 1:
+        svao.cfg.update(stochMapDivisor=1, stochMapGuardBand=16)
+    m.profiler.enabled = True
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        m.renderFrame()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    names = [e["name"][len(PREFIX):]
+             for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation" and e.get("ph") == "X"
+             and e.get("name", "").startswith(PREFIX)]
+    phase2 = "renderFrame/SVAO/phase2"
+    want = 1 if divisor == 4 else svao.cfg["sampleCount"]
+    assert [n for n in names if n.endswith("kernel.svao_resolve")] \
+        == [f"{phase2}/kernel.svao_resolve"] * want
+    fetch = "fetch_sd_packed" if divisor == 4 else "fetch_sd_strided"
+    assert names.count(f"{phase2}/kernel.{fetch}") == (
+        1 if divisor == 4 else want)
+    assert _paths(m.profiler.capture())[
+        f"{phase2}/kernel.svao_resolve"]["count"] == want
+
+
 def _clear_table_caches():
     from rtsdm_tpu_torch.ops import ao as A
     from rtsdm_tpu_torch.passes import svao_shift as PH
