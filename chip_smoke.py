@@ -85,6 +85,13 @@ may run inside a frame.
    K11 and K12 once a ring direction; held as in 11 (K11 and K12 too);
    one more frame under torch.profiler: no host-to-device copy inside SVAO
    and no miss of its table caches (frame_copies);
+19b. config 2's graph at config 3's frame (SVAO_small.py with
+   stochasticDepthImpl Raster, stochMapDivisor 1, SD guard band 0, Halton
+   jitter, SunTemple@full 1920x1080; the benchmark's cell
+   suntemple_1080p_rastersd.still), 3 frames: K9 once a frame, K5 and K4
+   never, K11 (at guard 0) and K12 once a ring direction; held as in 11
+   (K11 and K12 at every call), and K9 as in 11 at the frame's 2048x1208
+   grid;
 20. scripts/SVAO.py with SVAO's primaryDepthMode DualDepth (K1 once
    floored, phase 1's K3 on two plane sets) and secondaryDepthMode
    SingleDepth (no SD trace, no K4), one frame each, held as in 11;
@@ -111,7 +118,7 @@ may run inside a frame.
    the binning runs under torch.cuda.set_sync_debug_mode("error") and the
    count culled equals the one computed on the CPU.
 
-Kernel rows: at the calls of phases 5, 9, 11-15, 18, 19 and 24 each kernel
+Kernel rows: at the calls of phases 5, 9, 11-15, 18, 19, 19b and 24 each kernel
 is timed one way (timings: CUDA events around the wrapper, its kernel's
 device time by torch.profiler, the plain version's time) beside its bound
 (the larger of bytes over 3.35 TB/s and fp32 operations over 67 TFLOP/s,
@@ -1320,6 +1327,13 @@ RASTER_SD = {"SVAO": {"stochasticDepthImpl": "Raster"}}
 # BASELINE config 3 (bench_configs.py:24-27): the SD map at full
 # resolution with a 512-pixel guard band
 DIVISOR_1 = {"SVAO": {"stochMapDivisor": 1, "stochMapGuardBand": 512}}
+# config 2's raster SD map at config 3's frame, divisor 1 and Halton jitter,
+# as the benchmark's cell suntemple_1080p_rastersd.still sets it: the map
+# has no SD guard band
+RASTER_SD_DIV1 = {"SVAO": {"stochasticDepthImpl": "Raster",
+                           "stochMapDivisor": 1, "stochMapGuardBand": 0},
+                  "GBufferRaster": {"samplePattern": "Halton",
+                                    "sampleCount": 8}}
 # label: (script, scene, width, height, pass overrides, marked outputs)
 CONFIGS = {
     "config2": (GRAPH_SCRIPT, "Arcade@full", 1280, 720, RASTER_SD,
@@ -1332,6 +1346,8 @@ CONFIGS = {
                   SVAO_FULL_OUTPUTS),
     "config3": (GRAPH_SCRIPT, "SunTemple@full", 1920, 1080, DIVISOR_1,
                 GRAPH_OUTPUTS),
+    "config2_suntemple": (GRAPH_SCRIPT, "SunTemple@full", 1920, 1080,
+                          RASTER_SD_DIV1, GRAPH_OUTPUTS),
     "config4": (QUARTER_SCRIPT, "Bistro@full", 1920, 1080, {},
                 ("ShadedTAA.colorOut", "AmbientOcclusion.out")),
     "svao_depth": (SVAO_DEPTH_SCRIPT, "Arcade@full", 1280, 720, {},
@@ -1346,6 +1362,7 @@ ANIMATED = ("config5",)
 AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
              "config1_suntemple": "Ambient.out", "svao_full": "AmbientRef.out",
              "config3": "AmbientOcclusion.out",
+             "config2_suntemple": "AmbientOcclusion.out",
              "config4": "AmbientOcclusion.out", "svao_depth": "Ambient.out",
              "config5": "AmbientOcclusion.out"}
 # AOGuidedBlur's fusion (config 4) weighs bright and dark by two ratios
@@ -1354,7 +1371,7 @@ AO_OUTPUT = {"config2": "AmbientOcclusion.out", "config1": "Ambient.out",
 AO_ROUNDING = {"config4": 2.0 ** -22}
 # K10's Catmull-Rom launches a frame: one per TAA pass of the graph
 TAA_PASSES = {"config2": 2, "svao_full": 2, "config3": 2, "config4": 1,
-              "config5": 2}
+              "config5": 2, "config2_suntemple": 2}
 # K10's launches a frame at least (TAA, the env map, the texture pages)
 WARP_AT_LEAST = {"config5": 6}
 # K2's (interpolated components, flat entries): positions, normals,
@@ -1466,6 +1483,16 @@ def config_want(label, n_lights):
                 "fetch_sd_strided": 8 * div1,
                 "svao_resolve": 8 if div1 else 1, "sd_trace": 1,
                 "raster_stochastic": 0, "sd_trace_resident": 0,
+                "fetch_taps_same_class": 0, "any_hit": n_lights}
+    if label == "config2_suntemple":
+        # G-buffer and ForwardLighting raster; K9 rasters the SD map once
+        # on the unguarded 2048x1208 grid; phase 2 reads it through K11,
+        # once a ring direction at guard 0, and K12 resolves after each;
+        # no SD trace, no K4
+        return {"raster": 2, FLOOR: 0, "fetch_attributes": 2,
+                "fetch_all_directions": 2, "fetch_sd_packed": 0,
+                "fetch_sd_strided": 8, "svao_resolve": 8, "sd_trace": 0,
+                "raster_stochastic": 1, "sd_trace_resident": 0,
                 "fetch_taps_same_class": 0, "any_hit": n_lights}
     if label in ("config2", "svao_full"):
         # G-buffer and ForwardLighting raster; SVAO phase 1 fetches both
@@ -2315,11 +2342,15 @@ def run_new_configs():
     frame's calls bit-exact against their plain versions (K5 and K8 on a
     spread subset of tiles), K5's and K12's rows (and K8's at config 4,
     K11's at config 3), at config 3 a warm frame's host-to-device copies
-    by span (none may lie in SVAO). Returns (kernel rows, {label:
+    by span (none may lie in SVAO); then (phase 19b) config 2's raster SD
+    map at config 3's frame (the benchmark's suntemple_1080p_rastersd.
+    still): K9 once a frame on the unguarded 2048x1208 grid, K11 and K12 at
+    guard 0 once a ring direction, held as config 3's, and K9's row
+    (compare_raster_stochastic). Returns (kernel rows, {label:
     launches})."""
     report = {}
     rows = []
-    for label in ("config4", "config3"):
+    for label in ("config4", "config3", "config2_suntemple"):
         kernels = kernels_of_configs()
         by_name = kernels_by_name(kernels)
         m, totals, modes = drive_config(label, kernels)
@@ -2330,13 +2361,21 @@ def run_new_configs():
                 "svao_shift.py:578-580, no Pallas kernel): K4 serves "
                 "divisor 4 only, so it never launches here")
         check_config_calls(label, kernels)
+        if label == "config2_suntemple":
+            k11 = by_name["fetch_sd_strided"].calls
+            check(k11 and all(a[1] == 0 for a, _ in k11),
+                  f"{label}: K11 not at guard 0: "
+                  f"{sorted({a[1] for a, _ in k11})}")
+            rows.append(dict(compare_raster_stochastic(
+                by_name["raster_stochastic"]), name="raster_stochastic"))
         if label == "config3":
             rows.append(dict(k11_timing(label, by_name["fetch_sd_strided"]),
                              name="fetch_sd_strided"))
-        rows.append(dict(k12_row(label, by_name["svao_resolve"]),
-                         name="svao_resolve"))
-        rows.append(dict(sd_trace_timing(label, by_name["sd_trace"]),
-                         name="sd_trace"))
+        if label != "config2_suntemple":
+            rows.append(dict(k12_row(label, by_name["svao_resolve"]),
+                             name="svao_resolve"))
+            rows.append(dict(sd_trace_timing(label, by_name["sd_trace"]),
+                             name="sd_trace"))
         if label == "config4":
             rows.append(dict(k8_bound_at(label, by_name["any_hit"]),
                              name="any_hit"))
@@ -3556,7 +3595,8 @@ def main(argv=None) -> int:
     config_rows, configs = run_configs()
     k7_row, configs["svao_full"] = run_svao_full()
     rows += config_rows + [k7_row]
-    # BASELINE configs 4 and 3 (phases 18-19), SVAO's depth modes (20)
+    # BASELINE configs 4 and 3 (phases 18-19), config 2 at config 3's
+    # frame (19b), SVAO's depth modes (20)
     new_rows, new_configs = run_new_configs()
     rows += new_rows
     configs.update(new_configs)
@@ -3598,7 +3638,8 @@ def main(argv=None) -> int:
         r.update(source=k.source, replaces=k.replaces)
         r["launches_per_frame"] = {
             lb: config_launches(configs[lb], r["name"]) / CONFIG_FRAMES
-            for lb in ("config3", "config4", "svao_depth", "config5")}
+            for lb in ("config3", "config4", "svao_depth", "config5",
+                       "config2_suntemple")}
         r["launches_per_frame"].update({
             f"svao_full_{md}": config_launches(reference_modes[md],
                                                r["name"])

@@ -5,8 +5,10 @@ behind the camera are handled by sign logic) rasterized to a visibility
 buffer (tri_id + perspective-correct barycentrics); attributes are fetched
 afterwards. The raster itself is the sort-middle algorithm of
 ops/raster_cuda.py at every triangle count: its CUDA kernel for CUDA
-tensors, its plain version for CPU tensors; raster_stochastic, the k-slot
-stochastic-depth raster, walks the same chunk lists.
+tensors, its plain version for CPU tensors; the k-slot stochastic-depth
+raster (K9; counterpart of raster_pallas.raster_stochastic_pallas) walks the
+same chunk lists: stochastic_planes, raster_stochastic_slots and
+stochastic_depths, in that order.
 """
 from __future__ import annotations
 
@@ -166,28 +168,39 @@ def rasterize(view_proj, positions, *, width: int, height: int,
             "eye_culled": eye_culled}
 
 
-def raster_stochastic(view_proj, positions, far, *, width: int, height: int,
-                      k: int, alpha: float, first_depth=None, ray_min=None,
-                      ray_max=None, cull: str = "back"):
-    """k-slot stochastic raster (K9; counterpart of raster_pallas.
-    raster_stochastic_pallas). first_depth / ray_min / ray_max: optional
-    [H,W] linear first-layer depth and ray interval (None: no floor, no
-    interval). Returns LINEAR view depths [H, W, k], `far` where a slot
-    stayed empty."""
-    (chunks, tri_boxes, lists, counts, nby, nbx), _ = _binned_chunks(
-        view_proj, positions, width, height, 0.0, 0.0, cull)
-    dev = chunks.device
-    hp, wp = nby * raster_cuda.TILE_RH, nbx * raster_cuda.TILE_RW
+def stochastic_planes(width: int, height: int, first_depth, ray_min,
+                      ray_max, device):
+    """K9's per-pixel inputs (first, ray_min, ray_max) padded to whole 8x32
+    tiles: the padding takes no fragment (first 3e38, ray_max 0); an input
+    that is None admits every fragment (first -3e38, ray_min 0, ray_max
+    3e38)."""
+    hp = -(-height // raster_cuda.TILE_RH) * raster_cuda.TILE_RH
+    wp = -(-width // raster_cuda.TILE_RW) * raster_cuda.TILE_RW
 
     def per_pixel(a, fill, default):
         if a is None:
-            return torch.full((hp, wp), default, device=dev)
+            return torch.full((hp, wp), default, device=device)
         return pad_tile(a.to(torch.float32), fill)[0].contiguous()
 
-    slots = raster_cuda.raster_stochastic_blocks(
-        chunks, tri_boxes, lists, counts, nby, nbx,
-        per_pixel(first_depth, 3e38, -3e38), per_pixel(ray_min, 0.0, 0.0),
-        per_pixel(ray_max, 0.0, 3e38), k, alpha)
+    return (per_pixel(first_depth, 3e38, -3e38), per_pixel(ray_min, 0.0, 0.0),
+            per_pixel(ray_max, 0.0, 3e38))
+
+
+def raster_stochastic_slots(view_proj, positions, planes, *, width: int,
+                            height: int, k: int, alpha: float,
+                            cull: str = "back"):
+    """K9 over the [width, height] grid's chunk lists: [k, hp, wp] slot
+    minima of linear view depth (raster_cuda.SD_EMPTY where empty) of the
+    padded per-pixel inputs `planes` (stochastic_planes)."""
+    (chunks, tri_boxes, lists, counts, nby, nbx), _ = _binned_chunks(
+        view_proj, positions, width, height, 0.0, 0.0, cull)
+    return raster_cuda.raster_stochastic_blocks(
+        chunks, tri_boxes, lists, counts, nby, nbx, *planes, k, alpha)
+
+
+def stochastic_depths(slots, width: int, height: int, far):
+    """[k, hp, wp] K9 slots -> [height, width, k] linear depths, `far`
+    where a slot stayed empty."""
     t = slots[:, :height, :width].permute(1, 2, 0)
     return torch.where(t >= 3e37, far, t)
 

@@ -11,7 +11,8 @@ StochasticDepthMap — the raster baseline (reference StochasticDepthMap/
 StochasticDepth.ps.slang): a k-slot raster over the SD grid in which each
 fragment behind the first depth layer writes into a hash-chosen
 stratified subset of the slots. The raster is K9
-(ops/raster.raster_stochastic), at every triangle count.
+(ops/raster.raster_stochastic_slots), at every triangle count; the host's
+setup and finish around it are the span sd_raster.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import torch
 
 from ..core.profiler import profile_scope
 from ..ops import rt_cuda as rt
-from ..ops.raster import raster_stochastic
+from ..ops.raster import (raster_stochastic_slots, stochastic_depths,
+                          stochastic_planes)
 from ..rendergraph.render_pass import PassReflection, RenderPass, register_pass
 from ..utils.device import device_constant
 from ..utils.math import dot3
@@ -251,24 +253,29 @@ class StochasticDepthMap(RenderPass):
             sd_h, sd_w = -(-ctx.height // d), -(-ctx.width // d)
         k = int(self.cfg["SampleCount"])
 
-        lin_full = cam.linearize_depth(inputs["depthMap"])
-        div0 = lin_full.shape[1] // max(sd_w, 1)
-        if div0 in (1, 2, 4) and lin_full.shape[1] == sd_w * div0 \
-                and lin_full.shape[0] == sd_h * div0:
-            first_lin = _downsample_linear(lin_full, div0, sd_w, sd_h)
-        else:
-            first_lin = _bilinear_sample(
-                lin_full, _uv_grid(sd_h, sd_w, device=lin_full.device))
-
         interval = bool(self.cfg["RayInterval"])
-        depths = raster_stochastic(
-            cam.view_proj_no_jitter, ctx.scene.positions, cam.far_z,
-            width=sd_w, height=sd_h, k=k, alpha=float(self.cfg["Alpha"]),
-            first_depth=first_lin,
-            ray_min=inputs.get("rayMin") if interval else None,
-            ray_max=ray_max if interval else None,
+        # the host's setup and finish of the raster: beside the binning
+        # (geometry.raster_bins) and K9's wrapper, never around them
+        with profile_scope("sd_raster"):
+            lin_full = cam.linearize_depth(inputs["depthMap"])
+            div0 = lin_full.shape[1] // max(sd_w, 1)
+            if div0 in (1, 2, 4) and lin_full.shape[1] == sd_w * div0 \
+                    and lin_full.shape[0] == sd_h * div0:
+                first_lin = _downsample_linear(lin_full, div0, sd_w, sd_h)
+            else:
+                first_lin = _bilinear_sample(
+                    lin_full, _uv_grid(sd_h, sd_w, device=lin_full.device))
+            planes = stochastic_planes(
+                sd_w, sd_h, first_lin,
+                inputs.get("rayMin") if interval else None,
+                ray_max if interval else None, lin_full.device)
+        slots = raster_stochastic_slots(
+            cam.view_proj_no_jitter, ctx.scene.positions, planes, width=sd_w,
+            height=sd_h, k=k, alpha=float(self.cfg["Alpha"]),
             cull=self.cfg["CullMode"].lower())
-        if self.cfg["linearize"]:
-            depths = torch.clamp((depths - cam.near_z)
-                                 / (cam.far_z - cam.near_z), 0.0, 1.0)
+        with profile_scope("sd_raster"):
+            depths = stochastic_depths(slots, sd_w, sd_h, cam.far_z)
+            if self.cfg["linearize"]:
+                depths = torch.clamp((depths - cam.near_z)
+                                     / (cam.far_z - cam.near_z), 0.0, 1.0)
         return {"stochasticDepth": depths}, None

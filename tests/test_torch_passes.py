@@ -374,8 +374,8 @@ def test_svao_raster_set_after_construction_renders_raster_sd():
     def no_trace(*a, **kw):
         raise AssertionError("the ray-traced SD ran")
 
-    real = SDT.raster_stochastic
-    with mock.patch.object(SDT, "raster_stochastic", rec), \
+    real = SDT.raster_stochastic_slots
+    with mock.patch.object(SDT, "raster_stochastic_slots", rec), \
             mock.patch.object(rt_cuda, "sd_trace_blocks", no_trace), \
             mock.patch.object(rt_cuda, "sd_trace_resident_blocks", no_trace):
         out = m.renderFrame()

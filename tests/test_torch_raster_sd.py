@@ -1,8 +1,9 @@
 """BASELINE config 2's raster stochastic depth map in rtsdm_tpu_torch
 against rtsdm_tpu on the CPU: the stratified coverage tables and mask, the
-fragment hash, K9's plain version, the StochasticDepthMap pass, and
+fragment hash, K9's plain version, the StochasticDepthMap pass,
 scripts/SVAO_small.py with stochasticDepthImpl 'Raster' through the port's
-harness.
+harness, and SVAO with the raster map at stochMapDivisor 1 (no SD guard
+band) against the JAX package's render stored in tests/torch_refs/.
 
 References. The port follows the Pallas tier (raster_stochastic_pallas, run
 here in interpret mode) at every triangle count, as K1 follows
@@ -33,7 +34,10 @@ Tolerances, measured on these inputs:
     to 1.5e-8: the hash barely moves the AO, and the port's difference comes
     from the G-buffer upstream (the reference's XLA:CPU raster fuses
     multiply-adds; the port's raster rounds as the Pallas kernel does),
-    which moves the stencil on 30 of 16,384 pixels.
+    which moves the stencil on 30 of 16,384 pixels;
+  * SVAO at divisor 1 (CornellBox 64x48): the SD map at the pass's bounds,
+    the stencil bit-exact and the AO within 1e-5, the divisor-4 SVAO
+    tests' bound (measured 5.0e-6).
 """
 import hashlib
 import sys
@@ -48,9 +52,11 @@ import torch
 # them from oversubscribing the cores (several times the CPU time otherwise)
 torch.set_num_threads(1)
 
+import jax
 import jax.numpy as jnp
 
 sys.path.insert(0, str(Path(__file__).parent))
+sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
 from test_pallas_interpret import interpret_mode  # noqa: E402
 from test_torch_cuda import (ADV_H, ADV_W, adversarial_floor,  # noqa: E402
                              adversarial_scene)
@@ -171,10 +177,13 @@ def k9_case():
 def test_raster_stochastic_matches_pallas_interpret(k9_case, alpha):
     c = k9_case
     cam = c["st"].camera
-    got = R.raster_stochastic(
-        cam.view_proj_no_jitter, c["st"].positions, cam.far_z, width=c["w"],
-        height=c["h"], k=4, alpha=alpha,
-        **{n: torch.as_tensor(v) for n, v in c["ins"].items()}).numpy()
+    ins = {n: torch.as_tensor(v) for n, v in c["ins"].items()}
+    planes = R.stochastic_planes(c["w"], c["h"], ins["first_depth"],
+                                 ins["ray_min"], ins["ray_max"], "cpu")
+    slots = R.raster_stochastic_slots(
+        cam.view_proj_no_jitter, c["st"].positions, planes, width=c["w"],
+        height=c["h"], k=4, alpha=alpha)
+    got = R.stochastic_depths(slots, c["w"], c["h"], cam.far_z).numpy()
     ref = c["ref"][alpha]
     assert got.shape == ref.shape == (c["h"], c["w"], 4)
     filled_r, filled_g = ref < c["far"], got < c["far"]
@@ -358,7 +367,7 @@ def raster_sd_frame():
     m = Renderer(cfg["width"], cfg["height"], device="cpu")
     _setup(m, run_script, cfg)
     ran = []
-    real = SDT.raster_stochastic
+    real = SDT.raster_stochastic_slots
 
     def rec(*a, **kw):
         ran.append("raster")
@@ -368,7 +377,7 @@ def raster_sd_frame():
         raise AssertionError("the ray-traced SD ran")
 
     _build.LAUNCHES.clear()
-    with mock.patch.object(SDT, "raster_stochastic", rec), \
+    with mock.patch.object(SDT, "raster_stochastic_slots", rec), \
             mock.patch.object(RT, "sd_trace_blocks", no_trace), \
             mock.patch.object(RT, "sd_trace_resident_blocks", no_trace):
         for f in range(2):
@@ -412,3 +421,123 @@ def test_svao_raster_sd_graph_matches_reference_harness(raster_sd_frame):
     assert float(((img - ref) ** 2).mean()) <= MSE_BOUND
     golden = np.load(REF).astype(np.float32)
     assert float(((ref - golden) ** 2).mean()) <= 1e-6
+
+
+# --- SVAO with the raster SD map at stochMapDivisor 1 (the raster baseline
+# at full resolution: no SD guard band, phase 2's K11 and K12 at guard 0) --
+
+DIV1_W, DIV1_H = 64, 48
+DIV1_PROPS = {"secondaryDepthMode": "StochasticDepth",
+              "stochasticDepthImpl": "Raster", "stochMapDivisor": 1,
+              "radius": 0.5, "sampleCount": 8, "stochSamples": 4}
+
+
+DIV1_REF = ROOT / "tests" / "torch_refs" / "raster_sd_div1.CornellBox.64x48.npz"
+
+
+def _jax_raster_div1():
+    """SVAO (stochasticDepthImpl 'Raster', stochMapDivisor 1) of the JAX
+    package on CornellBox 64x48: its G-buffer's depth, linear depth and
+    packed view normals, and SVAO.execute's AO, stencil and SD map, jitted,
+    the SD raster through the Pallas kernel in interpret mode (hazard m).
+    At divisor 1 phase 2 reads the SD map's float depths (the JAX
+    package's fetch_sd_direction, the port's K11): hazard r's 16-bit
+    packing belongs to divisor 4 alone. About 100 s on the CPU, nearly all
+    of it XLA compiling the divisor-1 phase 2."""
+    from rtsdm_tpu.passes.svao import SVAO as SVAO_J
+    from rtsdm_tpu.utils import math as MJ
+    w, h = DIV1_W, DIV1_H
+    sj = PJ.load_scene("CornellBox", aspect=w / h)
+    cam = sj.camera
+    # CornellBox's few dozen triangles never fill a tile of the JAX
+    # package's XLA raster (hazard f)
+    g = GJ.raster_gbuffer(sj, w, h)
+    normals = MJ.encode_normal_2x16(MJ.normalize(
+        MJ.transform_vector(cam.view_mat, g["faceNormalW"])))
+    ins = {"gbufferDepth": g["depth"], "depth": cam.linearize_depth(g["depth"]),
+           "normals": normals}
+    pj = SVAO_J(DIV1_PROPS)
+    pj.set_scene(sj)
+    ctx = RCJ(width=w, height=h, scene=sj, dictionary={"guardBand": 0})
+    with interpret_mode(rpx), mock.patch.object(SDJ, "_raster_stochastic",
+                                                pallas_tier):
+        out, sd = jax.jit(lambda i: (pj.execute(ctx, i)[0],
+                                     ctx.dictionary["SD_MAP"]))(ins)
+    return {**{k: np.asarray(v) for k, v in ins.items()},
+            "ao": np.asarray(out["ao"]), "stencil": np.asarray(out["stencil"]),
+            "sd_map": np.asarray(sd)}
+
+
+@pytest.fixture(scope="module")
+def raster_div1():
+    """The port's SVAO.execute on the inputs of DIV1_REF, the JAX package's
+    render of _jax_raster_div1 (written by running this file:
+    JAX_PLATFORMS=cpu python tests/test_torch_raster_sd.py; held to a
+    fresh render by
+    test_svao_raster_div1_reference_is_the_jax_render), with the SD map it
+    publishes."""
+    from rtsdm_tpu_torch.passes.svao import SVAO
+    with np.load(DIV1_REF) as f:
+        want = {k: f[k] for k in f.files}
+    st = carry(PJ.load_scene("CornellBox", aspect=DIV1_W / DIV1_H))
+    pt = SVAO(DIV1_PROPS)
+    pt.set_scene(st)
+    ctx = RenderContext(width=DIV1_W, height=DIV1_H, scene=st,
+                        dictionary={"guardBand": 0})
+    got, _ = pt.execute(ctx, {
+        k: torch.as_tensor(want[k].view(np.int32) if k == "normals"
+                           else want[k])
+        for k in ("gbufferDepth", "depth", "normals")})
+    got = {k: v.numpy() for k, v in got.items()}
+    got["sd_map"] = ctx.dictionary["SD_MAP"].numpy()
+    return dict(pass_t=pt, got=got, want=want)
+
+
+def test_svao_raster_div1_sd_map_matches_reference(raster_div1):
+    """The SD map has no guard band ([48, 64, 4], as the frame) and agrees
+    with the JAX package's: at most 1% of the filled slots (8 of the 848)
+    filled on one side only, depths where both hold one to 1e-6 (measured:
+    0 one-sided, 1.1e-8 apart). XLA:CPU fuses the interpreted kernel's
+    plane evaluations into multiply-adds, so a fragment on a triangle's
+    edge may fall on either side of it; a K9 that dropped a tenth of its
+    fragments would leave about 85 slots empty."""
+    pt = raster_div1["pass_t"]
+    assert pt._extra_guard() == 0
+    assert pt._sd_graph.passes["StochasticDepthMap"].pass_type == \
+        "StochasticDepthMap"
+    got = raster_div1["got"]["sd_map"]
+    want = raster_div1["want"]["sd_map"]
+    assert got.shape == want.shape == (DIV1_H, DIV1_W, 4)
+    hit_r, hit_g = want < 1.0, got < 1.0
+    assert hit_r.mean() > 0.02
+    assert (hit_r != hit_g).sum() <= 1e-2 * hit_r.sum()
+    both = hit_r & hit_g
+    np.testing.assert_allclose(got[both], want[both], atol=1e-6, rtol=0)
+
+
+def test_svao_raster_div1_ao_matches_reference(raster_div1):
+    """The stencil bit-exact and the AO within 1e-5 of the JAX package's,
+    the bound of the divisor-4 SVAO tests (tests/test_torch_svao.py;
+    measured 5.0e-6)."""
+    got, want = raster_div1["got"], raster_div1["want"]
+    np.testing.assert_array_equal(got["stencil"],
+                                  want["stencil"].astype(np.int32))
+    assert (want["stencil"] != 0).any()
+    assert got["ao"].shape == want["ao"].shape == (DIV1_H, DIV1_W)
+    assert np.isfinite(got["ao"]).all()
+    np.testing.assert_allclose(got["ao"], want["ao"], atol=1e-5, rtol=0)
+
+
+@pytest.mark.slow
+def test_svao_raster_div1_reference_is_the_jax_render():
+    """DIV1_REF holds what the JAX package renders now (about 100 s)."""
+    fresh = _jax_raster_div1()
+    with np.load(DIV1_REF) as f:
+        assert sorted(f.files) == sorted(fresh)
+        for k in f.files:
+            np.testing.assert_array_equal(f[k], fresh[k], err_msg=k)
+
+
+if __name__ == "__main__":
+    np.savez_compressed(DIV1_REF, **_jax_raster_div1())
+    print(DIV1_REF)

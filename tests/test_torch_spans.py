@@ -205,6 +205,42 @@ def test_the_divisor_1_sd_fetch_has_its_kernel_span(tmp_path):
         f"{phase2}/kernel.fetch_sd_strided"]["count"] == nd
 
 
+def test_the_raster_sd_pass_has_its_setup_span_beside_k9s(tmp_path):
+    """With the raster SD map (stochasticDepthImpl 'Raster', here at
+    stochMapDivisor 1) the SD pass's host setup and finish are the span
+    sd_raster, opened twice a frame directly under StochasticDepthMap,
+    beside the binning (geometry.raster_bins) and K9's wrapper span
+    (kernel.raster_stochastic_blocks), which it never encloses."""
+    from torch.profiler import ProfilerActivity, profile
+    m = _animated_svao_small()
+    m.active_graph.get_pass("SVAO").cfg.update(stochasticDepthImpl="Raster",
+                                               stochMapDivisor=1)
+    m.profiler.enabled = True
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        m.renderFrame()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = [(e["name"][len(PREFIX):], float(e["ts"]),
+              float(e["ts"]) + float(e["dur"]))
+             for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation" and e.get("ph") == "X"
+             and e.get("name", "").startswith(PREFIX)]
+    sd = "renderFrame/SVAO/sd_map/StochasticDepthMap"
+    names = [n for n, _, _ in spans]
+    assert names.count(f"{sd}/sd_raster") == 2
+    assert names.count(f"{sd}/geometry.raster_bins") == 1
+    assert names.count(f"{sd}/kernel.raster_stochastic_blocks") == 1
+    assert not [n for n in names if "sd_raster/" in n]
+    assert not [n for n in names if n.endswith("sd_rays")]
+    setup = [(s, e) for n, s, e in spans if n == f"{sd}/sd_raster"]
+    for n, s, e in spans:
+        if n.startswith(f"{sd}/") and n != f"{sd}/sd_raster":
+            assert not any(ps <= s and e <= pe for ps, pe in setup), n
+    paths = _paths(m.profiler.capture())
+    assert paths[f"{sd}/sd_raster"]["count"] == 2
+    assert paths[f"{sd}/sd_raster"]["children"] == []
+
+
 @pytest.mark.parametrize("divisor", [4, 1])
 def test_the_phase2_resolve_has_its_kernel_span(tmp_path, divisor):
     """Phase 2's direction loop is K12's wrapper: a traced frame holds its
